@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's blind receiver once on one CUDA card and check it.
+"""Drive the PyTorch/CUDA port's two receivers once on one CUDA card and check them.
 
 Run from the repository root, with one card visible: ``python3 chip_smoke.py``.
 
@@ -8,39 +8,63 @@ result line):
 
 1. device: a CUDA card must be present (no CPU fallback); prints its name
    and ``nvidia-smi``'s name and power limit;
-2. build: compiles the four kernels (B1-B4) from ``qampy_tpu_torch/csrc``;
-3. kernels: each kernel against its plain PyTorch version on the card, at
-   the main path's shapes, with the stated tolerance;
-4. main path: ``workload.make_tx(2**20)`` through ``RxChain.planes`` on the
-   card with the bench configuration; SER gate <= 1e-5, launch counts
-   B1=2, B2=1, B3=1, B4=1 for that one call, and agreement with the plain
-   chain on the CPU on a small capture;
-5. tracking: ``tracking_planes`` with the chain's own taps equals the full
-   output exactly;
-6. times (CUDA events after warm-up): the chain and the tracking entry with
-   their Msym/s as a caller sees them (back-to-back calls, host dispatch
-   included), then the device time of each stage and of each kernel beside
-   its plain version (calls queued behind a spacer kernel, host hidden).
+2. build: compiles the kernels (B1-B6 and B2's frame entry) from
+   ``qampy_tpu_torch/csrc``;
+3. blind kernels: B1-B4 against their plain PyTorch versions on the card, at
+   the blind path's shapes, with the stated tolerance;
+4. blind main path: ``workload.make_tx(2**20)`` through ``RxChain.planes``
+   with the bench configuration; SER gate <= 1e-5, launch counts B1=2, B2=1,
+   B3=1, B4=1 for that one call, and agreement with the plain chain on the
+   CPU on a small capture;
+5. blind tracking: ``tracking_planes`` with the chain's own taps equals the
+   full output exactly;
+6. blind times (CUDA events after warm-up): the chain and the tracking entry
+   with their Msym/s as a caller sees them (back-to-back calls, host
+   dispatch included), then the device time of each stage and of each
+   kernel beside its plain version (calls queued behind a spacer kernel,
+   host hidden);
+7. pilot kernels: ``workload.make_pilot_tx(244)`` built on the card; B2's
+   frame entry (every one of the 240 frames), B5, B4 and B6 against their
+   plain versions at the pilot path's shapes (480 rows of 2^16 symbols);
+8. pilot main path: one dispatch of the LS pilot chain over frames 0-239
+   through ``PilotRxChain.planes``; BER <= 1e-5 with sync_corr >= 120,
+   launch counts B2 frames=1, B5=1, B4=1 and no other kernel, and the
+   synchronising calls seen in that dispatch;
+9. pilot variants: the ``return_phase=True`` chain over 8 frames (B6 once,
+   B5 never, payload within 1e-4 of the serving chain's), tracking bit-exact,
+   and the card's chain against the plain CPU chain on a small capture;
+10. pilot times: the dispatch and the tracking entry in payload Msym/s, the
+   device time of each stage, and each new kernel beside its plain version.
 
-The line before the last is ``{"kernels": [...]}``; the last line is the
-device record ``{"ok": true, "device": {...}}``.
+Every time is printed with the card's name and power limit. The line before
+the last is ``{"kernels": [...]}``, one record per kernel and path that
+launched it, with that path's launch count and the error and times measured
+at that path's shapes; the last line is the device record
+``{"ok": true, "device": {...}}``.
 """
 import json
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
 
+from qampy_tpu_torch.core.metrics import decision_idx
 from qampy_tpu_torch.ops import _build
 from qampy_tpu_torch.ops import phase as phops
 from qampy_tpu_torch.ops.chain import decimated_derotation_inputs, make_rx_chain
-from qampy_tpu_torch.ops.equaliser_cuda import (apply_filter_cuda, apply_filter_plain,
+from qampy_tpu_torch.ops.equaliser_cuda import (apply_filter_cuda, apply_filter_frames_cuda,
+                                                apply_filter_frames_plain, apply_filter_plain,
                                                 train_block_cuda, train_block_plain)
-from qampy_tpu_torch.ops.phase_cuda import (bps_search_cuda, bps_search_plain, interp_rotate,
-                                            interp_rotate_cuda, interp_rotate_plain)
-from qampy_tpu_torch.workload import GATE_TRIM, decide, make_tx, ser_gate
+from qampy_tpu_torch.ops.phase_cuda import (bps_search_cuda, bps_search_plain, cpe_coeffs,
+                                            cpe_coeffs_cuda, cpe_coeffs_plain, interp_rotate,
+                                            interp_rotate_cuda, interp_rotate_plain, rotate_cuda,
+                                            rotate_plain)
+from qampy_tpu_torch.ops.pilot_chain import make_pilot_rx_chain
+from qampy_tpu_torch.workload import (GATE_TRIM, ber_gate, decide, make_pilot_tx, make_tx,
+                                      ser_gate)
 
 NSYM = 2 ** 20
 CFG = dict(M=64, Ntaps=17, os=2, methods=("mcma", "mddma"), mu=1.9e-3, bps_angles=64,
@@ -56,6 +80,16 @@ TIES_MAX = 1e-3          # B3: share of near-tied positions allowed to differ
 TIE_REL = 1e-5           # B3: best two window sums within this are a near-tie
 SMALL_AGREE = 0.999      # decided symbols shared with the plain chain on a small capture
 SPACER_CYCLES = 200_000_000   # ~0.1 s at the H100's ~1.98 GHz boost clock
+# the pilot serving chain (bench.py:425-435, 700): 240 frames per dispatch
+PILOT_TX_FRAMES, PILOT_FRAMES, PILOT_FRAME, PILOT_SEQ, PILOT_RAT = 244, 240, 2 ** 16, 1024, 32
+PILOT_CFG = dict(os=2, nmodes=2, sync_Ntaps=17, sync_mu=5e-3, sync_Niter=10, Ntaps=45,
+                 cpe_avg=3, block_size=256, eq_trainer="ls")
+PHASE_FRAMES = 8         # depth of the return_phase=True chain
+TOL_CPE_A = 1e-5         # B5 a: the same float32 formula; atan2 may differ by an ulp,
+TOL_CPE_B = 1e-6         # which moves a (a few rad) by ~1e-6 and the slopes b by ~1e-7
+TOL_PAYLOAD = 1e-4       # return_phase on/off, the reference's bound (test_pilot_chain.py:543)
+# the paths in the order they run; each is counted on its own (see counted())
+PATHS = ("blind", "pilot", "pilot return_phase")
 # kernel: (wrapper name, CUDA source, the TPU kernel it replaces)
 KERNELS = {
     "B1": ("train_block", "qampy_tpu_torch/csrc/equaliser.cu",
@@ -65,7 +99,14 @@ KERNELS = {
     "B3": ("bps_search", "qampy_tpu_torch/csrc/phase.cu", "qampy_tpu/ops/phase_pallas.py:206"),
     "B4": ("interp_rotate", "qampy_tpu_torch/csrc/phase.cu",
            "qampy_tpu/ops/phase_pallas.py:695"),
+    "B2 frames": ("apply_filter_frames", "qampy_tpu_torch/csrc/equaliser.cu",
+                  "qampy_tpu/ops/equaliser_pallas.py:539"),
+    "B5": ("cpe_coeffs", "qampy_tpu_torch/csrc/phase.cu", "qampy_tpu/ops/phase_pallas.py:808"),
+    "B6": ("rotate", "qampy_tpu_torch/csrc/phase.cu", "qampy_tpu/ops/phase_pallas.py:616"),
 }
+COUNTERS = {"B1": train_block_cuda, "B2": apply_filter_cuda, "B3": bps_search_cuda,
+            "B4": interp_rotate_cuda, "B2 frames": apply_filter_frames_cuda,
+            "B5": cpe_coeffs_cuda, "B6": rotate_cuda}
 
 
 class SmokeFailure(Exception):
@@ -116,6 +157,25 @@ def device_ms(fn, reps):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_busy(fn, reps):
+    """Device busy time of ``fn`` per call in ms, its kernels per call, and the device events.
+
+    From ``torch.profiler``: the sum of the durations of everything that ran
+    on the card (kernels, copies, fills) over ``reps`` calls. Unlike
+    :func:`device_ms` it holds for stages of many small ops, whose enqueue
+    would outlast any spacer, and it counts no idle gap.
+    """
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(e.time_range.elapsed_us() for e in dev) / 1e3 / reps, len(dev) / reps, dev
 
 
 def card_line():
@@ -206,6 +266,254 @@ def check_kernels(P, chain, card):
     return rec
 
 
+def counted(fn):
+    """Run ``fn`` with every launch count set to 0 before it; return (result, counts)."""
+    for k in COUNTERS.values():
+        k.launches = 0
+    res = fn()
+    torch.cuda.synchronize()
+    return res, {name: k.launches for name, k in COUNTERS.items()}
+
+
+def syncs_in(fn):
+    """How many synchronising calls ``fn`` makes, as the CUDA sync debug mode reports them."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return [str(w.message).splitlines()[0] for w in seen
+            if "Synchronization debug mode is a prototype" not in str(w.message)]
+
+
+def pilot_stages(chain, pr, pi):
+    """The pilot chain's stages run one by one: a dict of every stage's inputs and outputs."""
+    P = chain._planes(pr, pi)
+    wxs, best_w = chain.sync_search(P)
+    mode_order, shift, _, _ = chain.align(P, wxs, best_w)
+    eqsh = chain._eq_shift(shift)
+    taps = chain.ls_taps(P, eqsh, mode_order).index_select(1, torch.argsort(mode_order))
+    out = chain.frame_filter(P, eqsh, taps)
+    rows = out.shape[1] * out.shape[2]
+    symr, symi = out[0].reshape(rows, -1), out[1].reshape(rows, -1)
+    cargs = (symr, symi, chain.pil_r, chain.pil_i, chain.seq_len, chain.ins_rat, chain.n_head,
+             chain.npts, chain.cpe_dx, chain.cpe_avg, chain.nbt)
+    return dict(P=P, wxs=wxs, best_w=best_w, mode_order=mode_order, eqsh=eqsh, taps=taps,
+                rows=rows, symr=symr, symi=symi, cargs=cargs)
+
+
+def check_pilot_kernels(chain, st, card):
+    """Phase 7: B2's frame entry, B5, B4 and B6 against their plain versions at the pilot shapes.
+
+    The inputs are the pilot path's own (``st``, from :func:`pilot_stages`):
+    the capture, the state the chain acquires on it, the filter output and
+    the CPE coefficients built from it. Returns records keyed by (kernel,
+    path): the serving path's shapes for "pilot" and the first
+    ``PHASE_FRAMES`` frames for "pilot return_phase".
+    """
+    rec = {}
+    P, eqsh, taps = st["P"], st["eqsh"], st["taps"]
+    F, n, nr = chain.frame_len, chain.nmodes, PHASE_FRAMES
+
+    # B2, frame entry: every frame of the dispatch against the reference's
+    # form, nmodes^2 virtual input planes and block-diagonal taps through the
+    # plain filter, one frame at a time
+    offs = chain.frame_offsets(P, eqsh)
+    got = apply_filter_frames_cuda(P, chain.os, taps, offs, F)
+    wv = torch.zeros((n, n * n, chain.Ntaps), dtype=taps.dtype, device=P.device)
+    for i in range(n):
+        wv[i, i * n:(i + 1) * n] = taps[i]
+    d_f, rms = [], 0.0
+    for f, row in enumerate(offs.t().tolist()):
+        sl = [P[:, o:o + chain.fr_len] for o in row]
+        ref = apply_filter_plain(torch.cat([s[:n] for s in sl] + [s[n:] for s in sl]),
+                                 chain.os, wv)
+        d_f.append(float((got[:, :, f] - ref.reshape(2, n, F)).abs().max()))
+        rms = max(rms, float(ref.pow(2).mean().sqrt()))
+    print("B2 frames apply_filter_frames: %s max|d| %.3e over all %d frames, %.3e over the "
+          "first %d, against the virtual-input form (tol %.0e x rms %.3f)"
+          % (tuple(got.shape), max(d_f), len(d_f), max(d_f[:nr]), nr, TOL_FILTER_REL, rms))
+    require(max(d_f) <= TOL_FILTER_REL * rms, "B2's frame entry disagrees with the plain form")
+    for path, o, d in (("pilot", offs, max(d_f)),
+                       ("pilot return_phase", offs[:, :nr].contiguous(), max(d_f[:nr]))):
+        fargs = (P, chain.os, taps, o, F)
+        rec["B2 frames", path] = dict(
+            err=d, ms=device_ms(lambda: apply_filter_frames_cuda(*fargs), 20),
+            plain_ms=device_ms(lambda: apply_filter_frames_plain(*fargs), 3),
+            shape="%d frames" % o.shape[1])
+
+    # B5 on all 480 rows of the filter output
+    rows, symr, symi, cargs = st["rows"], st["symr"], st["symi"], st["cargs"]
+    a_p, b_p = cpe_coeffs_plain(*cargs)
+    a_k, b_k = cpe_coeffs_cuda(*cargs)
+    d_a, d_b = float((a_k - a_p).abs().max()), float((b_k - b_p).abs().max())
+    print("B5 cpe_coeffs: %d rows x %d pilots -> %s, max|da| %.3e (tol %.0e), max|db| %.3e "
+          "(tol %.0e), |a| up to %.2f rad" % (rows, chain.nblk, tuple(a_k.shape), d_a, TOL_CPE_A,
+                                              d_b, TOL_CPE_B, float(a_p.abs().max())))
+    require(d_a <= TOL_CPE_A and d_b <= TOL_CPE_B, "B5 disagrees with its plain version")
+    rec["B5", "pilot"] = dict(err=max(d_a, d_b), ms=device_ms(lambda: cpe_coeffs_cuda(*cargs), 50),
+                              plain_ms=device_ms(lambda: cpe_coeffs_plain(*cargs), 10),
+                              shape="%d rows" % rows)
+
+    # B4 (sign -1, dx 32) with those coefficients
+    rargs = (symr, symi, a_k, b_k, chain.cpe_dx, -1)
+    r_p, i_p = interp_rotate_plain(*rargs)
+    r_k, i_k = interp_rotate_cuda(*rargs)
+    d_r = max(float((r_k - r_p).abs().max()), float((i_k - i_p).abs().max()))
+    print("B4 interp_rotate (pilot CPE): %s max|d| %.3e (tol %.0e)"
+          % (tuple(r_k.shape), d_r, TOL_ROTATE))
+    require(d_r <= TOL_ROTATE, "B4 disagrees with its plain version on the pilot path")
+    rec["B4", "pilot"] = dict(err=d_r, ms=device_ms(lambda: interp_rotate_cuda(*rargs), 50),
+                              plain_ms=device_ms(lambda: interp_rotate_plain(*rargs), 10),
+                              shape="%d rows" % rows)
+
+    # B6 with the plain CPE trace: on all 480 rows, and on the rows of the
+    # return_phase chain's first frames, which that path derotates
+    out = torch.stack([symr, symi]).reshape(2, n, -1, F)
+    sub = out[:, :, :nr].reshape(2, n * nr, F)
+    for what, (zr, zi) in (("%d rows" % rows, (symr, symi)),
+                           ("%d rows" % (n * nr), (sub[0].contiguous(), sub[1].contiguous()))):
+        sargs = (zr, zi, chain.cpe_trace(zr, zi), -1)
+        r_p, i_p = rotate_plain(*sargs)
+        r_k, i_k = rotate_cuda(*sargs)
+        d_s = max(float((r_k - r_p).abs().max()), float((i_k - i_p).abs().max()))
+        print("B6 rotate: %s max|d| %.3e (tol %.0e), |phase| up to %.2f rad"
+              % (tuple(r_k.shape), d_s, TOL_ROTATE, float(sargs[2].abs().max())))
+        require(d_s <= TOL_ROTATE, "B6 disagrees with its plain version")
+    rec["B6", "pilot return_phase"] = dict(
+        err=d_s, ms=device_ms(lambda: rotate_cuda(*sargs), 50),
+        plain_ms=device_ms(lambda: rotate_plain(*sargs), 10), shape=what)
+    for (k, path), v in rec.items():
+        print("time %s (%s path, device, %s): kernel %.4f ms, plain %.4f ms [%s]"
+              % (k, path, v["shape"], v["ms"], v["plain_ms"], card))
+    return rec
+
+
+def pilot_phases(dev, card):
+    """Phases 7-10: the pilot serving chain. Returns (kernel records, launches per path)."""
+    t0 = time.perf_counter()
+    tx = make_pilot_tx(PILOT_TX_FRAMES, frame_len=PILOT_FRAME, seq_len=PILOT_SEQ,
+                       ins_rat=PILOT_RAT, device=dev)
+    torch.cuda.synchronize()
+    pr, pi = tx.planes[:2], tx.planes[2:]
+    print("pilot tx: %d frames of SignalWithPilots(64, %d, %d, %d) x 2 pol, planes %s, "
+          "%.2f s on the card" % (PILOT_TX_FRAMES, PILOT_FRAME, PILOT_SEQ, PILOT_RAT,
+                                  tuple(tx.planes.shape), time.perf_counter() - t0))
+
+    def build(frames, return_phase):
+        return make_pilot_rx_chain(tx.pilot_seq, tx.ph_pilots, PILOT_FRAME, PILOT_RAT,
+                                   frames=range(frames), return_phase=return_phase,
+                                   **PILOT_CFG, device=dev)
+    chain = build(PILOT_FRAMES, False)
+    st = pilot_stages(chain, pr, pi)
+    rec = check_pilot_kernels(chain, st, card)
+
+    # phase 8: the main path, counted, gated, and its synchronising calls
+    ((dr, di), info), launches = counted(lambda: chain.planes(pr, pi))
+    print("pilot main path launches: %s" % launches)
+    require(launches == {"B1": 0, "B2": 0, "B3": 0, "B4": 1, "B2 frames": 1, "B5": 1, "B6": 0},
+            "the pilot path did not launch each kernel as expected")
+    nd = tx.idx_tx.shape[-1]
+    require(tuple(dr.shape) == (2, PILOT_FRAMES * nd) and dr.shape == di.shape,
+            "payload shape %s" % (tuple(dr.shape),))
+    require(bool(torch.isfinite(dr).all() and torch.isfinite(di).all()), "non-finite payload")
+    gate = ber_gate(dr, di, tx, info["sync_corr"])
+    print("pilot main path: BER %.3e SER %.3e over 2 x %d x %d payload symbols, sync_corr %.1f, "
+          "shift %s, mode_order %s" % (gate["ber"], gate["ser"], PILOT_FRAMES, nd,
+                                       gate["sync_corr"], info["shift"].tolist(),
+                                       info["mode_order"].tolist()))
+    require(gate["ok"], "pilot BER gate failed (BER <= 1e-5 and sync_corr >= 120)")
+    syncs = syncs_in(lambda: chain.planes(pr, pi))
+    print("pilot dispatch: %d synchronising calls under torch.cuda.set_sync_debug_mode('warn')%s"
+          % (len(syncs), "".join("\n  " + s for s in syncs)))
+
+    # phase 9: return_phase=True at a smaller depth, tracking, card vs CPU
+    phase_chain = build(PHASE_FRAMES, True)
+    ((pdr, pdi), pinfo), launches_rp = counted(lambda: phase_chain.planes(pr, pi))
+    print("return_phase=True chain (%d frames) launches: %s" % (PHASE_FRAMES, launches_rp))
+    require(launches_rp == {"B1": 0, "B2": 0, "B3": 0, "B4": 0, "B2 frames": 1, "B5": 0,
+                            "B6": 1}, "the return_phase path did not launch B6 alone")
+    d_pay = max(float((pdr - dr[:, :PHASE_FRAMES * nd]).abs().max()),
+                float((pdi - di[:, :PHASE_FRAMES * nd]).abs().max()))
+    print("return_phase=True payload vs serving payload: max|d| %.3e (tol %.0e), phase %s"
+          % (d_pay, TOL_PAYLOAD, tuple(pinfo["phase"].shape)))
+    require(d_pay <= TOL_PAYLOAD, "the return_phase payload differs from the serving payload")
+    (tr, ti), _ = chain.tracking_planes(pr, pi, info["taps"], info["shift"], info["mode_order"])
+    exact = bool(torch.equal(tr, dr) and torch.equal(ti, di))
+    print("pilot tracking_planes == planes payload: %s" % exact)
+    require(exact, "pilot tracking output differs from the full chain")
+
+    small = make_pilot_tx(6, frame_len=2 ** 14, seq_len=512, device="cpu")
+    scfg = dict(PILOT_CFG, Ntaps=17, frames=(0, 1, 2), return_phase=False)
+    runs = []
+    for d in ("cpu", dev):
+        sch = make_pilot_rx_chain(small.pilot_seq, small.ph_pilots, 2 ** 14, PILOT_RAT, **scfg,
+                                  device=d)
+        (sr, si), sinfo = sch.planes(small.planes[:2].to(d), small.planes[2:].to(d))
+        runs.append((torch.complex(sr, si).cpu(), {k: v.cpu() for k, v in sinfo.items()}))
+    coded = torch.as_tensor(small.coded)
+    agree = float((decision_idx(runs[0][0], coded) == decision_idx(runs[1][0], coded))
+                  .double().mean())
+    same_state = all(torch.equal(runs[0][1][k], runs[1][1][k]) for k in ("shift", "mode_order"))
+    print("small pilot capture (2^14 frame, 512 sequence, 3 frames, 17 taps): card vs plain "
+          "CPU chain agree on %.6f of decisions (min %.3f); shift/mode_order equal: %s; "
+          "max|d| %.3e" % (agree, SMALL_AGREE, same_state,
+                           float((runs[0][0] - runs[1][0]).abs().max())))
+    require(agree >= SMALL_AGREE and same_state, "the card's pilot chain disagrees with the CPU's")
+
+    # phase 10: times
+    npay = 2 * PILOT_FRAMES * nd
+    t_full = cuda_ms(lambda: chain.planes(pr, pi), 10)
+    t_trk = cuda_ms(lambda: chain.tracking_planes(pr, pi, info["taps"], info["shift"],
+                                                  info["mode_order"]), 10)
+    h0 = time.perf_counter()
+    for _ in range(5):
+        chain.planes(pr, pi)
+    torch.cuda.synchronize()
+    t_host = (time.perf_counter() - h0) / 5 * 1e3
+    busy, nk, events = device_busy(lambda: chain.planes(pr, pi), 3)
+    busy_trk, nk_trk, _ = device_busy(lambda: chain.tracking_planes(
+        pr, pi, info["taps"], info["shift"], info["mode_order"]), 3)
+    print("time pilot chain.planes (%d frames): %.4f ms, %.1f payload Msym/s (host clock "
+          "%.4f ms); device busy %.4f ms in %d device ops per call, busy share %.3f [%s]"
+          % (PILOT_FRAMES, t_full, npay / t_full / 1e3, t_host, busy, nk, busy / t_full, card))
+    print("time pilot chain.tracking_planes (%d frames): %.4f ms, %.1f payload Msym/s; device "
+          "busy %.4f ms in %d device ops per call, busy share %.3f [%s]"
+          % (PILOT_FRAMES, t_trk, npay / t_trk / 1e3, busy_trk, nk_trk, busy_trk / t_trk, card))
+    by_name = {}
+    for e in events:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / 3
+    for name_k, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        print("time pilot dispatch device op %.4f ms per call: %s [%s]" % (ms, name_k[:90], card))
+    P, wxs, best_w, mode_order, eqsh, taps, symr, symi, cargs = (st[k] for k in (
+        "P", "wxs", "best_w", "mode_order", "eqsh", "taps", "symr", "symi", "cargs"))
+    a, b = cpe_coeffs(*cargs)
+    outr, outi = interp_rotate(symr, symi, a, b, chain.cpe_dx, -1)
+    stages = {
+        "sync search (%d windows, batched CMA)" % chain.W: lambda: chain.sync_search(P),
+        "alignment (filter, FOE, xcorr, assignment)": lambda: chain.align(P, wxs, best_w),
+        "LS solve": lambda: chain.ls_taps(P, eqsh, mode_order),
+        "frame filter (B2 frames)": lambda: chain.frame_filter(P, eqsh, taps),
+        "CPE coefficients (B5)": lambda: cpe_coeffs(*cargs),
+        "derotation (B4)": lambda: interp_rotate(symr, symi, a, b, chain.cpe_dx, -1),
+        "payload extraction": lambda: chain.payload(outr, outi),
+    }
+    total = 0.0
+    for k, fn in stages.items():
+        st_busy, st_nk, _ = device_busy(fn, 3)
+        st_wall = cuda_ms(fn, 5)
+        total += st_busy
+        print("time pilot stage %s: device busy %.4f ms in %d device ops (%.1f%% of the "
+              "dispatch's busy time), stream time alone %.4f ms [%s]"
+              % (k, st_busy, st_nk, 100 * st_busy / busy, st_wall, card))
+    print("time pilot stages' device busy sum: %.4f ms vs the dispatch's %.4f ms busy, %.4f ms "
+          "stream time [%s]" % (total, busy, t_full, card))
+    return rec, {"pilot": launches, "pilot return_phase": launches_rp}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on a card",
@@ -235,15 +543,9 @@ def main():
     rec = check_kernels(P, chain, card)
 
     # phase 4: the main path, counted
-    counters = {"B1": train_block_cuda, "B2": apply_filter_cuda, "B3": bps_search_cuda,
-                "B4": interp_rotate_cuda}
-    for fn in counters.values():
-        fn.launches = 0
-    outr, outi = chain.planes(P)
-    torch.cuda.synchronize()
-    launches = {k: fn.launches for k, fn in counters.items()}
+    (outr, outi), launches = counted(lambda: chain.planes(P))
     print("main path launches: %s" % launches)
-    require(launches == {"B1": 2, "B2": 1, "B3": 1, "B4": 1},
+    require(launches == {"B1": 2, "B2": 1, "B3": 1, "B4": 1, "B2 frames": 0, "B5": 0, "B6": 0},
             "the main path did not launch each kernel as expected")
     Lout = (P.shape[-1] - CFG["Ntaps"]) // CFG["os"] + 1
     require(tuple(outr.shape) == (2, Lout) and tuple(outi.shape) == (2, Lout),
@@ -308,10 +610,18 @@ def main():
     print("time stages' device sum: %.4f ms vs chain stream time %.4f ms: %.4f ms host-bound "
           "gaps [%s]" % (sum(stages.values()), t_full, t_full - sum(stages.values()), card))
 
-    kernels = [{"name": name_k, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": launches[k], "max_abs_err": rec[k]["err"], "ms": rec[k]["ms"],
-                "plain_ms": rec[k]["plain_ms"]}
-               for k, (name_k, source, replaces) in KERNELS.items()]
+    prec, path_launches = pilot_phases(dev, card)
+    rec = {(k, "blind"): dict(v, shape="blind path") for k, v in rec.items()}
+    rec.update(prec)
+    path_launches["blind"] = launches
+    print("launches per path: %s" % path_launches)
+    # one record per kernel and path that launched it: that path's count and
+    # the error and times measured at that path's shapes
+    kernels = [{"name": KERNELS[k][0], "path": path, "route": "cuda", "source": KERNELS[k][1],
+                "replaces": KERNELS[k][2], "launches": path_launches[path][k],
+                "max_abs_err": rec[k, path]["err"], "ms": rec[k, path]["ms"],
+                "plain_ms": rec[k, path]["plain_ms"], "shape": rec[k, path]["shape"]}
+               for path in PATHS for k in KERNELS if path_launches[path][k]]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,6 +1,6 @@
 """Carry parameters and signals across from the JAX package.
 
-Both take plain numpy arrays (what ``np.asarray`` gives for a JAX array),
+Each takes plain numpy arrays (what ``np.asarray`` gives for a JAX array),
 so this module imports no JAX.
 """
 from __future__ import annotations
@@ -26,3 +26,22 @@ def planes_from_complex(E, device):
     """A complex (nmodes, L) signal as the stacked float32 [Re rows; Im rows] planes."""
     E = np.asarray(E)
     return torch.as_tensor(np.concatenate([E.real, E.imag]).astype(np.float32), device=device)
+
+
+def pilot_state_from_jax(taps, shift, mode_order, device):
+    """The pilot chain's acquired state, ``info`` of the JAX package's chain, as the port's.
+
+    taps: complex (nmodes, nmodes, Ntaps); shift and mode_order: integer
+    (nmodes,) arrays. Returns (taps complex64, shift int64, mode_order
+    int64) tensors on ``device``, ready for ``PilotRxChain.tracking_planes``.
+    """
+    shift, mode_order = np.asarray(shift), np.asarray(mode_order)
+    if shift.ndim != 1 or mode_order.shape != shift.shape:
+        raise ValueError("expected (nmodes,) shift and mode_order, got %s and %s"
+                         % (shift.shape, mode_order.shape))
+    if not (np.issubdtype(shift.dtype, np.integer)
+            and np.issubdtype(mode_order.dtype, np.integer)):
+        raise ValueError("shift and mode_order must be integer arrays")
+    return (taps_from_jax(taps, device),
+            torch.as_tensor(shift.astype(np.int64), device=device),
+            torch.as_tensor(mode_order.astype(np.int64), device=device))

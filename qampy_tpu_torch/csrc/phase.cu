@@ -25,6 +25,29 @@
 //     sincosf is the precise one: the unwrapped phase grows to many radians
 //     over a long capture, where the fast intrinsics lose accuracy. This
 //     file must never be built with --use_fast_math.
+//
+// B5  qtt_cpe_coeffs: the pilot CPE's phase math for one row (mode, frame) of
+//     filtered symbols: the pilots z_j sit at off + j*stride; ph_j =
+//     atan2(Im, Re) of conj(pil_j) z_j; a 2*pi unwrap as ph_j - 2*pi*s_j, s the
+//     prefix sum of the jump counts floor(d_j/(2*pi) + 0.5) of d_j = ph_j -
+//     ph_{j-1} (d_0 = 0); a cpe_avg-point moving average pavg; then per block
+//     k of dx symbols, with la = k - n_head: a = pavg[la] and b = (pavg[la+1]
+//     - pavg[la])/dx inside, a = pavg[0] or pavg[npts-1] and b = 0 outside.
+//     Replaces qampy_tpu/ops/phase_pallas.py cpe_coeffs_pallas
+//     (_cpe_coeffs_kernel, its in-kernel use_atan2 form: CUDA has atan2f,
+//     which Mosaic lacked). Bound: latency (a few thousand values per row, a
+//     scan across them). Design: one CTA of 1024 threads per row; the
+//     pilots are read strided straight from the filter output; a thread
+//     owns up to four neighbouring lanes; the jump counts are scanned in
+//     int32 (exact) by warp shuffles and then across the 32 warps. Every
+//     product and sum is rounded on its own (no FMA contraction), so the
+//     result equals the plain version's.
+//
+// B6  qtt_rotate: out = E exp(sign j ph) for a given per-sample phase.
+//     Replaces qampy_tpu/ops/phase_pallas.py rotate_planes_pallas
+//     (_rotate_kernel). Bound: device memory (read three planes, write two).
+//     Design: one thread per sample, the arithmetic of B4 (precise sincosf,
+//     round-to-nearest products).
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -32,6 +55,8 @@ namespace {
 
 constexpr int kBpsTile = 128;     // decimated samples per CTA, one per thread
 constexpr int kRotThreads = 256;
+constexpr int kCpeThreads = 1024;
+constexpr int kCpeMaxLanes = 4;   // lanes per thread of B5: rows of up to 4096 pilots
 
 __global__ void bps_kernel(const float* __restrict__ er, const float* __restrict__ ei,
                            long long L, const float* __restrict__ cos_t,
@@ -89,6 +114,20 @@ __global__ void bps_kernel(const float* __restrict__ er, const float* __restrict
     out[row + j] = best;
 }
 
+// (x + j y) exp(sign j ph), each product and sum rounded on its own
+__device__ __forceinline__ void rotate_one(float x, float y, float ph, int sign, float* o_r,
+                                           float* o_i) {
+    float s, c;
+    sincosf(ph, &s, &c);
+    if (sign > 0) {   // E exp(+j ph)
+        *o_r = __fsub_rn(__fmul_rn(x, c), __fmul_rn(y, s));
+        *o_i = __fadd_rn(__fmul_rn(x, s), __fmul_rn(y, c));
+    } else {          // E exp(-j ph)
+        *o_r = __fadd_rn(__fmul_rn(x, c), __fmul_rn(y, s));
+        *o_i = __fsub_rn(__fmul_rn(y, c), __fmul_rn(x, s));
+    }
+}
+
 __global__ void interp_rotate_kernel(const float* __restrict__ er, const float* __restrict__ ei,
                                      const float* __restrict__ a, const float* __restrict__ b,
                                      long long L, long long nb, int dx, int sign,
@@ -99,15 +138,100 @@ __global__ void interp_rotate_kernel(const float* __restrict__ er, const float* 
     const long long k = i / dx;
     const float frac = (float)(i - k * dx);
     const float ph = __fadd_rn(a[m * nb + k], __fmul_rn(b[m * nb + k], frac));
-    float s, c;
-    sincosf(ph, &s, &c);
-    const float x = er[m * L + i], y = ei[m * L + i];
-    if (sign > 0) {   // E exp(+j ph)
-        outr[m * L + i] = __fsub_rn(__fmul_rn(x, c), __fmul_rn(y, s));
-        outi[m * L + i] = __fadd_rn(__fmul_rn(x, s), __fmul_rn(y, c));
-    } else {          // E exp(-j ph)
-        outr[m * L + i] = __fadd_rn(__fmul_rn(x, c), __fmul_rn(y, s));
-        outi[m * L + i] = __fsub_rn(__fmul_rn(y, c), __fmul_rn(x, s));
+    rotate_one(er[m * L + i], ei[m * L + i], ph, sign, outr + m * L + i, outi + m * L + i);
+}
+
+__global__ void rotate_kernel(const float* __restrict__ er, const float* __restrict__ ei,
+                              const float* __restrict__ ph, long long n, int sign,
+                              float* __restrict__ outr, float* __restrict__ outi) {
+    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    rotate_one(er[i], ei[i], ph[i], sign, outr + i, outi + i);
+}
+
+__global__ void cpe_coeffs_kernel(const float* __restrict__ symr, const float* __restrict__ symi,
+                                  long long ld, int off, int stride,
+                                  const float* __restrict__ pil_r,
+                                  const float* __restrict__ pil_i, int rows_per_pilot,
+                                  int npil, int n_head, int npts, int dx, int cpe_avg, int nbt,
+                                  int lanes, float two_pi, float inv_two_pi,
+                                  float* __restrict__ a_out, float* __restrict__ b_out) {
+    extern __shared__ float sm[];
+    float* ph_s = sm;                 // (npil,) pilot phases
+    float* u_s = ph_s + npil;         // (npil,) unwrapped phases
+    float* pavg_s = u_s + npil;       // (npts,) moving average
+    __shared__ int warp_sum[32];
+    const long long row = blockIdx.x;
+    const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+    const float* zr = symr + row * ld + off;
+    const float* zi = symi + row * ld + off;
+    const float* pr = pil_r + (row / rows_per_pilot) * npil;
+    const float* pi = pil_i + (row / rows_per_pilot) * npil;
+
+    for (int j = t; j < npil; j += blockDim.x) {
+        const float xr = zr[(long long)j * stride], xi = zi[(long long)j * stride];
+        const float y = __fsub_rn(__fmul_rn(pr[j], xi), __fmul_rn(pi[j], xr));
+        const float x = __fadd_rn(__fmul_rn(pr[j], xr), __fmul_rn(pi[j], xi));
+        ph_s[j] = atan2f(y, x);
+    }
+    __syncthreads();
+
+    // jump counts of this thread's lanes t*lanes .. t*lanes+lanes-1, prefix-summed
+    int incl_q[kCpeMaxLanes];
+    int own = 0;
+#pragma unroll
+    for (int q = 0; q < kCpeMaxLanes; ++q) {
+        if (q >= lanes) break;
+        const int j = t * lanes + q;
+        int m = 0;
+        if (j > 0 && j < npil) {
+            const float d = __fsub_rn(ph_s[j], ph_s[j - 1]);
+            m = (int)floorf(__fadd_rn(__fmul_rn(d, inv_two_pi), 0.5f));
+        }
+        own += m;
+        incl_q[q] = own;
+    }
+    // exclusive prefix of `own` over the block: warp scan, then over the warps
+    int incl = own;
+    for (int o = 1; o < 32; o <<= 1) {
+        const int v = __shfl_up_sync(0xffffffffu, incl, o);
+        if (lane >= o) incl += v;
+    }
+    if (lane == 31) warp_sum[warp] = incl;
+    __syncthreads();
+    if (warp == 0) {
+        int v = lane < (int)(blockDim.x >> 5) ? warp_sum[lane] : 0;
+        for (int o = 1; o < 32; o <<= 1) {
+            const int w = __shfl_up_sync(0xffffffffu, v, o);
+            if (lane >= o) v += w;
+        }
+        warp_sum[lane] = v;
+    }
+    __syncthreads();
+    const int before = incl - own + (warp > 0 ? warp_sum[warp - 1] : 0);
+#pragma unroll
+    for (int q = 0; q < kCpeMaxLanes; ++q) {
+        if (q >= lanes) break;
+        const int j = t * lanes + q;
+        if (j < npil)
+            u_s[j] = __fsub_rn(ph_s[j], __fmul_rn(two_pi, (float)(before + incl_q[q])));
+    }
+    __syncthreads();
+
+    for (int l = t; l < npts; l += blockDim.x) {
+        float acc = u_s[l + cpe_avg - 1];
+        for (int k = 1; k < cpe_avg; ++k) acc = __fadd_rn(acc, u_s[l + cpe_avg - 1 - k]);
+        pavg_s[l] = __fdiv_rn(acc, (float)cpe_avg);
+    }
+    __syncthreads();
+
+    const float first = pavg_s[0], last = pavg_s[npts - 1];
+    for (int k = t; k < nbt; k += blockDim.x) {
+        const int la = k - n_head;
+        const bool mid = la >= 0 && la < npts - 1;
+        a_out[row * nbt + k] = la < 0 ? first : (mid ? pavg_s[la] : last);
+        b_out[row * nbt + k] =
+            mid ? __fdiv_rn(__fsub_rn(pavg_s[la + 1], pavg_s[la]), (float)dx) : 0.f;
     }
 }
 
@@ -141,6 +265,37 @@ int qtt_interp_rotate(const float* er, const float* ei, const float* a, const fl
     const dim3 grid((unsigned)((L + kRotThreads - 1) / kRotThreads), (unsigned)nmodes);
     interp_rotate_kernel<<<grid, kRotThreads, 0, (cudaStream_t)stream>>>(er, ei, a, b, L, nb,
                                                                          dx, sign, outr, outi);
+    return (int)cudaGetLastError();
+}
+
+int qtt_rotate(const float* er, const float* ei, const float* ph, long long n, int sign,
+               float* outr, float* outi, void* stream) {
+    const unsigned grid = (unsigned)((n + kRotThreads - 1) / kRotThreads);
+    rotate_kernel<<<grid, kRotThreads, 0, (cudaStream_t)stream>>>(er, ei, ph, n, sign, outr,
+                                                                  outi);
+    return (int)cudaGetLastError();
+}
+
+// Largest pilot count one B5 row takes (the wrapper checks it).
+int qtt_cpe_max_pilots() { return kCpeThreads * kCpeMaxLanes; }
+
+// symr/symi: (rows, ld) filtered symbols; pil_r/pil_i: (rows/rows_per_pilot, npil);
+// a_out/b_out: (rows, nbt).
+int qtt_cpe_coeffs(const float* symr, const float* symi, int rows, long long ld, int off,
+                   int stride, const float* pil_r, const float* pil_i, int rows_per_pilot,
+                   int npil, int n_head, int npts, int dx, int cpe_avg, int nbt, float two_pi,
+                   float inv_two_pi, float* a_out, float* b_out, void* stream) {
+    const int lanes = (npil + kCpeThreads - 1) / kCpeThreads;
+    const size_t smem = sizeof(float) * (2 * (size_t)npil + npts);
+    if (smem > 48 * 1024) {
+        const int rc = (int)cudaFuncSetAttribute(
+            (const void*)cpe_coeffs_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            (int)smem);
+        if (rc) return rc;
+    }
+    cpe_coeffs_kernel<<<rows, kCpeThreads, smem, (cudaStream_t)stream>>>(
+        symr, symi, ld, off, stride, pil_r, pil_i, rows_per_pilot, npil, n_head, npts, dx,
+        cpe_avg, nbt, lanes, two_pi, inv_two_pi, a_out, b_out);
     return (int)cudaGetLastError();
 }
 

@@ -35,6 +35,11 @@ SIGNATURES = {
     "qtt_bps_smem": (_LL, [_I, _I]),
     "qtt_bps_idx": (_I, [_P, _P, _I, _LL, _P, _P, _I, _I, _F, _F, _P, _P]),
     "qtt_interp_rotate": (_I, [_P, _P, _P, _P, _I, _LL, _LL, _I, _I, _P, _P, _P]),
+    "qtt_apply_filter_frames": (_I, [_P, _I, _LL, _P, _P, _I, _I, _I, _I, _LL, _P, _P]),
+    "qtt_rotate": (_I, [_P, _P, _P, _LL, _I, _P, _P, _P]),
+    "qtt_cpe_max_pilots": (_I, []),
+    "qtt_cpe_coeffs": (_I, [_P, _P, _I, _LL, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
+                            _F, _P, _P, _P]),
     "qtt_error_string": (ctypes.c_char_p, [_I]),
 }
 

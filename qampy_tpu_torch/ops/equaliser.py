@@ -7,9 +7,10 @@ here in plain PyTorch on float32 [Re rows; Im rows] planes: they are the
 plain versions that the CUDA kernels in ``ops/equaliser_cuda.py`` are held
 against, and what the chain runs on CPU tensors.
 
-The block trainer implements the blind ``mcma`` and the decision-directed
-``mddma`` on a square grid (the reference chain's pair). Other methods and
-grid kinds raise ``NotImplementedError``: they are ROADMAP items A7 and A4.
+The block trainer implements the blind ``mcma`` and ``cma`` and the
+decision-directed ``mddma`` on a square grid (the blind chain's pair, and
+the pilot chain's frame-search training). Other methods and grid kinds
+raise ``NotImplementedError``: they are ROADMAP items A7 and A4.
 """
 from __future__ import annotations
 
@@ -29,8 +30,8 @@ NONDECISION_BASED = ("cma", "cma2", "mcma", "rde", "mrde", "cma_real", "sgncma_r
 REAL_VALUED = ("cma_real", "dd_real", "dd_data_real", "sgncma_real")
 #: Data-aided equalisation methods (:96)
 DATA_AIDED = ("dd_data_real", "sbd_data")
-#: Methods the block trainer (plain and CUDA) implements in this port
-BLOCK_METHODS = ("mcma", "mddma")
+#: Methods the plain block trainer implements in this port (kernel B1: mcma, mddma)
+BLOCK_METHODS = ("mcma", "mddma", "cma")
 
 
 # ---------------------------------------------------------------------------
@@ -120,9 +121,10 @@ def orthogonalizetaps(wx):
 class ErrSpec(NamedTuple):
     """Host constants of a block-trainer error function.
 
-    ``method`` is "mcma" or "mddma". For mcma ``consts`` is the per-output
-    radius constant as ((Rr, Ri), ...); for mddma it is the square grid
-    (d0, lo, n) of the analytic decision.
+    ``method`` is "mcma", "cma" or "mddma". For mcma ``consts`` is the
+    per-output radius constant as ((Rr, Ri), ...), for cma the per-output
+    radius (R, ...); for mddma it is the square grid (d0, lo, n) of the
+    analytic decision.
     """
     method: str
     consts: tuple
@@ -132,7 +134,7 @@ def err_spec(method, symbols):
     """Build the :class:`ErrSpec` of ``method`` from a host symbols array.
 
     ``symbols`` is the (nout, k) array of ``_reshape_symbols``: row m holds
-    output m's constant (mcma) or constellation (mddma).
+    output m's constant (mcma, cma) or constellation (mddma).
     """
     if method not in BLOCK_METHODS:
         raise NotImplementedError(
@@ -142,6 +144,8 @@ def err_spec(method, symbols):
     if method == "mcma":
         return ErrSpec(method, tuple((float(r.real), float(r.imag))
                                      for r in symbols[:, 0]))
+    if method == "cma":
+        return ErrSpec(method, tuple(float(r.real) for r in symbols[:, 0]))
     return ErrSpec(method, square_grid(detect_grid(symbols[0]), "mddma"))
 
 
@@ -156,14 +160,24 @@ def mcma_rows(spec, nout):
 def block_errfn(spec, nout, device):
     """The error function (zr, zi) -> (er, ei) of the block trainer.
 
-    zr/zi: (nout, S) filter output. mcma: (R - z^2) z per axis; mddma:
-    (d^2 - z^2) z per axis with d the nearest grid level
-    (equaliser_pallas.py:182-185, 281-284).
+    zr/zi: (..., nout, S) filter output. mcma: (R - z^2) z per axis; cma:
+    (R - |z|^2) z (equaliser.py:244-249); mddma: (d^2 - z^2) z per axis with
+    d the nearest grid level (equaliser_pallas.py:182-185, 281-284).
     """
     if spec.method == "mcma":
         c = torch.tensor(mcma_rows(spec, nout), dtype=torch.float32, device=device)
         cr, ci = c[:, 0:1], c[:, 1:2]
         return lambda zr, zi: ((cr - zr * zr) * zr, (ci - zi * zi) * zi)
+    if spec.method == "cma":
+        rs = spec.consts[:nout]
+        # one radius for every output stays a Python scalar: no host-to-device copy
+        r = rs[0] if len(set(rs)) == 1 else torch.tensor(
+            rs, dtype=torch.float32, device=device)[:, None]
+
+        def cma(zr, zi):
+            d = r - (zr * zr + zi * zi)
+            return d * zr, d * zi
+        return cma
     d0, lo, n = spec.consts
 
     def fn(zr, zi):
@@ -176,15 +190,15 @@ def block_errfn(spec, nout, device):
 def training_windows(P, Ts, os, ntaps):
     """The training windows X[k, s] = E[m, s*os + t], k = m*ntaps + t, as planes.
 
-    P: (2*nmodes, L) float32. Returns (Xr, Xi), each (nmodes*ntaps, Ts).
+    P: (..., 2*nmodes, L) float32. Returns (Xr, Xi), each (..., nmodes*ntaps, Ts).
     """
-    nmodes = P.shape[0] // 2
+    nmodes = P.shape[-2] // 2
     if P.shape[-1] < (Ts - 1) * os + ntaps:
         raise ValueError("capture of %d samples is shorter than the %d training "
                          "windows need" % (P.shape[-1], (Ts - 1) * os + ntaps))
-    U = P.unfold(-1, ntaps, os)[:, :Ts]                  # (2*nmodes, Ts, ntaps)
-    X = U.permute(0, 2, 1).reshape(2, nmodes * ntaps, Ts)
-    return X[0].contiguous(), X[1].contiguous()
+    U = P.unfold(-1, ntaps, os)[..., :Ts, :]             # (..., 2*nmodes, Ts, ntaps)
+    X = U.transpose(-1, -2).reshape(*P.shape[:-2], 2, nmodes * ntaps, Ts)
+    return X[..., 0, :, :].contiguous(), X[..., 1, :, :].contiguous()
 
 
 def train_block_planes(P, TrSyms, Niter, os, mu, wx, spec, adaptive=False,
@@ -197,45 +211,56 @@ def train_block_planes(P, TrSyms, Niter, os, mu, wx, spec, adaptive=False,
     aggregated rule 1/mu += e_prev^2 over the sign-flip samples, skipping
     sample 0 of each pass. Taps, mu and the last error carry across blocks.
 
-    P: (2*nmodes, L) float32; wx: (nout, nmodes, ntaps) complex64.
-    Returns (err (nout, Niter*Ts) complex64, taps, mu (nout,) float32).
+    P: (..., 2*nmodes, L) float32, any leading batch axes (the pilot chain's
+    frame search trains its candidate windows as one batch, where the
+    reference vmaps); wx: (nout, nmodes, ntaps) complex64, shared by the batch.
+    Returns (err (..., nout, Niter*Ts) complex64, taps (..., nout, nmodes,
+    ntaps), mu (..., nout) float32).
     """
     nout, nmodes, ntaps = wx.shape
+    batch = P.shape[:-2]
     S = min(int(block_size), int(TrSyms))
     nblocks = int(TrSyms) // S
     Ts = nblocks * S
     Xr, Xi = training_windows(P, Ts, os, ntaps)
     errfn = block_errfn(spec, nout, P.device)
-    wr = wx.real.reshape(nout, nmodes * ntaps).float().clone()
-    wi = wx.imag.reshape(nout, nmodes * ntaps).float().clone()
-    mu_c = torch.full((nout,), mu, dtype=torch.float32, device=P.device)
-    prev_r = torch.zeros(nout, 1, dtype=torch.float32, device=P.device)
+    K = nmodes * ntaps
+    wr = wx.real.reshape(nout, K).float().expand(*batch, nout, K).clone()
+    wi = wx.imag.reshape(nout, K).float().expand(*batch, nout, K).clone()
+    mu_c = torch.full((*batch, nout), mu, dtype=torch.float32, device=P.device)
+    prev_r = torch.zeros(*batch, nout, 1, dtype=torch.float32, device=P.device)
     prev_i = torch.zeros_like(prev_r)
-    sidx = torch.arange(S, device=P.device)[None, :]
+    sidx = torch.arange(S, device=P.device)
     errs_r, errs_i = [], []
     for b in range(int(Niter) * nblocks):
         blk = b % nblocks
-        xr = Xr[:, blk * S:(blk + 1) * S]
-        xi = Xi[:, blk * S:(blk + 1) * S]
+        xr = Xr[..., blk * S:(blk + 1) * S]
+        xi = Xi[..., blk * S:(blk + 1) * S]
         zr = wr @ xr - wi @ xi
         zi = wr @ xi + wi @ xr
         er, ei = errfn(zr, zi)
         errs_r.append(er)
         errs_i.append(ei)
-        ger = er * mu_c[:, None]
-        gei = ei * mu_c[:, None]
-        wr = wr + (ger @ xr.T + gei @ xi.T)
-        wi = wi + (gei @ xr.T - ger @ xi.T)
+        ger = er * mu_c[..., None]
+        gei = ei * mu_c[..., None]
+        xrt, xit = xr.transpose(-1, -2), xi.transpose(-1, -2)
+        wr = wr + (ger @ xrt + gei @ xit)
+        wi = wi + (gei @ xrt - ger @ xit)
         if adaptive:
-            pr = torch.cat([prev_r, er[:, :S - 1]], dim=1)
-            pi = torch.cat([prev_i, ei[:, :S - 1]], dim=1)
+            pr = torch.cat([prev_r, er[..., :S - 1]], dim=-1)
+            pi = torch.cat([prev_i, ei[..., :S - 1]], dim=-1)
             flip = ~((er * pr > 0) & (ei * pi > 0)) & (sidx + blk * S > 0)
             e2 = pr * pr + pi * pi
-            mu_c = 1.0 / (1.0 / mu_c + torch.where(flip, e2, 0.0).sum(dim=1))
-            prev_r, prev_i = er[:, S - 1:], ei[:, S - 1:]
-    err = torch.complex(torch.cat(errs_r, dim=1), torch.cat(errs_i, dim=1))
-    w = torch.complex(wr, wi).reshape(nout, nmodes, ntaps)
+            mu_c = 1.0 / (1.0 / mu_c + torch.where(flip, e2, 0.0).sum(dim=-1))
+            prev_r, prev_i = er[..., S - 1:], ei[..., S - 1:]
+    err = torch.complex(torch.cat(errs_r, dim=-1), torch.cat(errs_i, dim=-1))
+    w = torch.complex(wr, wi).reshape(*batch, nout, nmodes, ntaps)
     return err, w, mu_c
+
+
+def _cal_training_symbol_len(os, ntaps, L):
+    """Default training length (reference equaliser.py:654)."""
+    return int(L // os // ntaps - 1) * int(ntaps)
 
 
 def train_equaliser_block(E, TrSyms, Niter, os, mu, wx, symbols, method,
@@ -272,6 +297,27 @@ def apply_filter_planes(P, os, wx):
     outr = (torch.einsum("mlt,jmt->jl", Ur, wr) - torch.einsum("mlt,jmt->jl", Ui, wi))
     outi = (torch.einsum("mlt,jmt->jl", Ur, wi) + torch.einsum("mlt,jmt->jl", Ui, wr))
     return torch.cat([outr, outi], dim=0)
+
+
+def apply_filter_frames_planes(P, os, wx, offs, frame_len):
+    """Plain frame-batched filter: out[i, f, k] = sum_{m,t} E[m, offs[i,f] + k*os + t] w[i,m,t].
+
+    The sum the reference pilot chain forms per frame with nmodes^2 stacked
+    virtual inputs and block-diagonal taps (pilot_chain.py:698-715), over
+    all frames at once. P: (2*nmodes, L) float32; wx: (nout, nmodes, ntaps)
+    complex64; offs: (nout, nframes) int64 window starts, each window of
+    (frame_len - 1)*os + ntaps samples inside the capture. Returns
+    (2, nout, nframes, frame_len) float32, [Re; Im].
+    """
+    nout, nmodes, ntaps = wx.shape
+    fr_len = (frame_len - 1) * os + ntaps
+    idx = offs[..., None] + torch.arange(fr_len, device=P.device)
+    U = P[:, idx].unfold(-1, ntaps, os)          # (2*nmodes, nout, nframes, F, ntaps)
+    Ur, Ui = U[:nmodes], U[nmodes:]
+    wr, wi = wx.real.float(), wx.imag.float()
+    outr = (torch.einsum("mifkt,imt->ifk", Ur, wr) - torch.einsum("mifkt,imt->ifk", Ui, wi))
+    outi = (torch.einsum("mifkt,imt->ifk", Ur, wi) + torch.einsum("mifkt,imt->ifk", Ui, wr))
+    return torch.stack([outr, outi])
 
 
 def apply_filter_to_signal(E, os, wx):

@@ -7,14 +7,17 @@ dispatches on the device of the input: the plain version for a CPU tensor,
 the kernel for a CUDA tensor. ``*_cuda.launches`` counts kernel launches.
 
 B1 replaces ``qampy_tpu/ops/equaliser_pallas.py:train_equaliser_block_pallas``
-and B2 ``apply_filter_pallas_planes``; the source note in the .cu file says
-what bounds each on the card and how its design answers that.
+and B2 ``apply_filter_pallas_planes``, in two entries: the whole-capture
+filter of the blind chain and the frame-batched filter of the pilot chain
+(``apply_filter_frames``). The source note in the .cu file says what bounds
+each on the card and how its design answers that.
 """
 from __future__ import annotations
 
 import torch
 
 from qampy_tpu_torch.ops import _build
+from qampy_tpu_torch.ops.equaliser import apply_filter_frames_planes as apply_filter_frames_plain
 from qampy_tpu_torch.ops.equaliser import apply_filter_planes, mcma_rows
 from qampy_tpu_torch.ops.equaliser import train_block_planes as train_block_plain
 
@@ -48,6 +51,13 @@ def check_dec(os, ntaps, nout, dec):
 # B1: block-LMS trainer
 # ---------------------------------------------------------------------------
 
+def method_code(method):
+    """The trainer kernel's code of ``method``; the kernel takes mcma and mddma."""
+    if method not in _METHOD_CODE:
+        raise NotImplementedError("trainer kernel method %r is ROADMAP item A7" % method)
+    return _METHOD_CODE[method]
+
+
 def train_block_cuda(P, TrSyms, Niter, os, mu, wx, spec, adaptive=False, block_size=32):
     """Launch kernel B1; same contract as :func:`train_block_plain`.
 
@@ -76,8 +86,7 @@ def train_block_cuda(P, TrSyms, Niter, os, mu, wx, spec, adaptive=False, block_s
     if L < (Ts - 1) * os + ntaps:
         raise ValueError("capture of %d samples is shorter than the %d training "
                          "windows need" % (L, (Ts - 1) * os + ntaps))
-    if spec.method not in _METHOD_CODE:
-        raise NotImplementedError("trainer kernel method %r is ROADMAP item A7" % spec.method)
+    code = method_code(spec.method)
     lib = _build.library()
     smem = lib.qtt_train_block_smem(nmodes, nout, ntaps, os, S)
     if smem > _SMEM_LIMIT:
@@ -97,7 +106,7 @@ def train_block_cuda(P, TrSyms, Niter, os, mu, wx, spec, adaptive=False, block_s
     err_i = torch.empty_like(err_r)
     rc = lib.qtt_train_block(P.data_ptr(), nmodes, L, wr.data_ptr(), wi.data_ptr(),
                              mu_t.data_ptr(), err_r.data_ptr(), err_i.data_ptr(), nout,
-                             ntaps, os, S, nblocks, int(Niter), _METHOD_CODE[spec.method],
+                             ntaps, os, S, nblocks, int(Niter), code,
                              *c, d0, lo, nm1, int(bool(adaptive)), _build.stream_of(P))
     _build.check(rc, "train_block_cuda")
     train_block_cuda.launches += 1
@@ -174,3 +183,50 @@ def apply_filter(P, os, wx, dec=None):
         check_dec(os, wx.shape[-1], wx.shape[0], dec)
     fn = apply_filter_plain if P.device.type == "cpu" else apply_filter_cuda
     return fn(P, os, wx, dec)
+
+
+# ---------------------------------------------------------------------------
+# B2, frame entry: the filter over many frame windows in one launch
+# ---------------------------------------------------------------------------
+
+def apply_filter_frames_cuda(P, os, wx, offs, frame_len):
+    """Launch the frame entry of kernel B2; same contract as :func:`apply_filter_frames_plain`.
+
+    offs: (nout, nframes) int64 window starts on the card (they are read
+    there, never on the host). Returns (2, nout, nframes, frame_len).
+    """
+    _build.require_cuda("apply_filter_frames_cuda", P, dtype=torch.float32)
+    _build.require_cuda("apply_filter_frames_cuda", offs, dtype=torch.int64)
+    _build.require_cuda("apply_filter_frames_cuda", wx, dtype=torch.complex64,
+                        contiguous=False)
+    if len({P.device, wx.device, offs.device}) > 1:
+        raise ValueError("apply_filter_frames_cuda: tensors lie on different devices")
+    nout, nmodes, ntaps = wx.shape
+    if P.dim() != 2 or P.shape[0] != 2 * nmodes:
+        raise ValueError("planes of shape %s do not match taps %s"
+                         % (tuple(P.shape), tuple(wx.shape)))
+    if offs.dim() != 2 or offs.shape[0] != nout:
+        raise ValueError("offsets of shape %s: expected (%d, nframes)" % (tuple(offs.shape), nout))
+    nframes = offs.shape[1]
+    if nout * nframes > 65535:
+        raise ValueError("the frame filter takes at most 65535 (mode, frame) rows per launch")
+    lib = _build.library()
+    if lib.qtt_apply_filter_smem(nmodes, 1, ntaps, os) > _SMEM_LIMIT:
+        raise ValueError("filter too long for one CTA's shared memory")
+    w = torch.stack([wx.real, wx.imag]).contiguous()   # (2, nout, nmodes, ntaps)
+    out = torch.empty((2, nout, nframes, frame_len), dtype=torch.float32, device=P.device)
+    rc = lib.qtt_apply_filter_frames(P.data_ptr(), nmodes, P.shape[-1], w.data_ptr(),
+                                     offs.data_ptr(), nout, nframes, ntaps, int(os),
+                                     int(frame_len), out.data_ptr(), _build.stream_of(P))
+    _build.check(rc, "apply_filter_frames_cuda")
+    apply_filter_frames_cuda.launches += 1
+    return out
+
+
+apply_filter_frames_cuda.launches = 0
+
+
+def apply_filter_frames(P, os, wx, offs, frame_len):
+    """Frame-batched MIMO filter: the plain version on CPU tensors, kernel B2 on CUDA."""
+    fn = apply_filter_frames_plain if P.device.type == "cpu" else apply_filter_frames_cuda
+    return fn(P, os, wx, offs, frame_len)

@@ -1,15 +1,18 @@
-"""Kernels B3 (blind phase search) and B4 (interp-rotate) with their wrappers.
+"""Kernels B3-B6 of carrier recovery with their wrappers.
 
 As in ``ops/equaliser_cuda.py``: ``*_cuda`` launches the CUDA kernel of
 ``csrc/phase.cu`` (and raises on anything but contiguous CUDA tensors),
 ``*_plain`` is its plain PyTorch version, and the bare name dispatches on
 the device of the input. ``*_cuda.launches`` counts kernel launches.
 
-B3 replaces ``qampy_tpu/ops/phase_pallas.py:bps_idx_pallas`` and B4
-``interp_rotate_planes_pallas``.
+B3 (blind phase search) replaces ``qampy_tpu/ops/phase_pallas.py:bps_idx_pallas``,
+B4 (interp-rotate) ``interp_rotate_planes_pallas``, B5 (the pilot CPE's
+phase coefficients) ``cpe_coeffs_pallas`` and B6 (rotation by a given
+phase) ``rotate_planes_pallas``.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from qampy_tpu_torch.ops import _build
@@ -63,9 +66,20 @@ def bps_search(er, ei, cos_t, sin_t, grid, N):
 # B4: piecewise-linear phase derotation
 # ---------------------------------------------------------------------------
 
-def _check_interp(er, ei, a, b, dx, sign):
+def _check_sign(sign):
     if sign not in (1, -1):
         raise ValueError("sign must be +1 or -1, got %r" % (sign,))
+
+
+def _rotate_planes(er, ei, c, s, sign):
+    """(er + j ei) exp(sign j ph) from c = cos(ph), s = sin(ph)."""
+    if sign > 0:
+        return er * c - ei * s, er * s + ei * c
+    return er * c + ei * s, ei * c - er * s
+
+
+def _check_interp(er, ei, a, b, dx, sign):
+    _check_sign(sign)
     if er.dim() != 2 or er.shape != ei.shape or a.shape != b.shape:
         raise ValueError("interp_rotate takes (nmodes, L) planes and (nmodes, L//dx) coefficients")
     if er.shape[-1] % dx or a.shape != (er.shape[0], er.shape[-1] // dx):
@@ -78,10 +92,7 @@ def interp_rotate_plain(er, ei, a, b, dx, sign=-1):
     _check_interp(er, ei, a, b, dx, sign)
     frac = (torch.arange(er.shape[-1], device=er.device) % dx).to(torch.float32)
     ph = a.repeat_interleave(dx, dim=-1) + b.repeat_interleave(dx, dim=-1) * frac
-    c, s = torch.cos(ph), torch.sin(ph)
-    if sign > 0:
-        return er * c - ei * s, er * s + ei * c
-    return er * c + ei * s, ei * c - er * s
+    return _rotate_planes(er, ei, torch.cos(ph), torch.sin(ph), sign)
 
 
 def interp_rotate_cuda(er, ei, a, b, dx, sign=-1):
@@ -106,3 +117,148 @@ def interp_rotate(er, ei, a, b, dx, sign=-1):
     """Interp-rotate: the plain version on CPU tensors, kernel B4 on CUDA."""
     fn = interp_rotate_plain if er.device.type == "cpu" else interp_rotate_cuda
     return fn(er, ei, a, b, dx, sign)
+
+
+# ---------------------------------------------------------------------------
+# B5: the pilot CPE's per-block phase coefficients
+# ---------------------------------------------------------------------------
+
+#: 2*pi and 1/(2*pi) rounded to float32, as the reference kernel holds them
+TWO_PI = float(np.float32(2 * np.pi))
+INV_TWO_PI = float(np.float32(1 / (2 * np.pi)))
+
+
+def moving_average(u, c, npts):
+    """pavg[..., l] = (u[l+c-1] + ... + u[l]) / c for l < npts, summed in that order (float32).
+
+    The reference kernel's form. The reference's plain CPE forms the same
+    average as a difference of cumulative sums, which in float32 loses
+    ~1e-4 rad over a 2016-pilot frame; this one is exact to an ulp.
+    """
+    acc = u[..., c - 1: c - 1 + npts]
+    for k in range(1, c):
+        acc = acc + u[..., c - 1 - k: c - 1 - k + npts]
+    return acc / c
+
+
+def _check_cpe(symr, symi, pil_r, pil_i, off, stride, n_head, npts, cpe_avg, nbt):
+    if symr.dim() != 2 or symr.shape != symi.shape:
+        raise ValueError("cpe_coeffs takes two (rows, frame_len) planes of one shape")
+    if pil_r.dim() != 2 or pil_r.shape != pil_i.shape or symr.shape[0] % pil_r.shape[0]:
+        raise ValueError("pilots of shape %s do not divide %d rows"
+                         % (tuple(pil_r.shape), symr.shape[0]))
+    npil = pil_r.shape[1]
+    if off + (npil - 1) * stride >= symr.shape[1]:
+        raise ValueError("%d pilots at offset %d, stride %d overrun rows of %d symbols"
+                         % (npil, off, stride, symr.shape[1]))
+    if cpe_avg < 1 or npts < 2 or npts + cpe_avg - 1 > npil:
+        raise ValueError("a %d-point average over %d pilots gives fewer than %d points"
+                         % (cpe_avg, npil, npts))
+    if n_head < 0 or nbt < 1:
+        raise ValueError("n_head must be >= 0 and nbt >= 1")
+    return npil
+
+
+def cpe_coeffs_plain(symr, symi, pil_r, pil_i, off, stride, n_head, npts, dx, cpe_avg, nbt):
+    """Plain pilot-CPE phase coefficients, the formula of the reference kernel.
+
+    symr/symi: (rows, frame_len) filtered symbols, rows ordered (mode,
+    frame); the received pilots are z_j = sym[:, off + j*stride]. pil_r/pil_i:
+    (nmodes, npil) known pilots, row r of the symbols takes pilot row
+    r // (rows // nmodes). Per row (phase_pallas.py:749-805, use_atan2 form):
+    ph_j = atan2 of conj(pil_j) z_j; u = ph - 2*pi*cumsum(floor(d/(2*pi) +
+    0.5)), d_j = ph_j - ph_{j-1}, d_0 = 0; pavg[l] = (u[l+c-1] + ... + u[l])/c
+    for l < npts; then for each block k < nbt, la = k - n_head:
+    a = pavg[0] (la < 0), pavg[la] (0 <= la < npts-1) or pavg[npts-1], and
+    b = (pavg[la+1] - pavg[la])/dx inside, 0 outside. Returns (a, b), each
+    (rows, nbt) float32.
+    """
+    npil = _check_cpe(symr, symi, pil_r, pil_i, off, stride, n_head, npts, cpe_avg, nbt)
+    rows = symr.shape[0]
+    zr = symr[:, off: off + (npil - 1) * stride + 1: stride]
+    zi = symi[:, off: off + (npil - 1) * stride + 1: stride]
+    pr = pil_r.repeat_interleave(rows // pil_r.shape[0], dim=0)
+    pi = pil_i.repeat_interleave(rows // pil_r.shape[0], dim=0)
+    ph = torch.atan2(pr * zi - pi * zr, pr * zr + pi * zi)
+    d = ph[:, 1:] - ph[:, :-1]
+    m = torch.floor(d * INV_TWO_PI + 0.5).to(torch.int32)
+    s = torch.cumsum(torch.nn.functional.pad(m, (1, 0)), dim=-1, dtype=torch.int32)
+    u = ph - TWO_PI * s.to(torch.float32)
+    pavg = moving_average(u, int(cpe_avg), npts)
+    la = torch.arange(nbt, device=symr.device) - n_head
+    mid = (la >= 0) & (la < npts - 1)
+    j = la.clamp(0, npts - 2)
+    inner = pavg[:, j]
+    a = torch.where(la < 0, pavg[:, :1], torch.where(mid, inner, pavg[:, npts - 1:npts]))
+    b = torch.where(mid, (pavg[:, j + 1] - inner) / dx, 0.0)
+    return a, b
+
+
+def cpe_coeffs_cuda(symr, symi, pil_r, pil_i, off, stride, n_head, npts, dx, cpe_avg, nbt):
+    """Launch kernel B5; same contract as :func:`cpe_coeffs_plain`."""
+    _build.require_cuda("cpe_coeffs_cuda", symr, symi, pil_r, pil_i, dtype=torch.float32)
+    npil = _check_cpe(symr, symi, pil_r, pil_i, off, stride, n_head, npts, cpe_avg, nbt)
+    lib = _build.library()
+    if npil > lib.qtt_cpe_max_pilots():
+        raise ValueError("kernel B5 takes at most %d pilots per row, got %d"
+                         % (lib.qtt_cpe_max_pilots(), npil))
+    rows = symr.shape[0]
+    a = torch.empty((rows, nbt), dtype=torch.float32, device=symr.device)
+    b = torch.empty_like(a)
+    rc = lib.qtt_cpe_coeffs(symr.data_ptr(), symi.data_ptr(), rows, symr.shape[1], int(off),
+                            int(stride), pil_r.data_ptr(), pil_i.data_ptr(),
+                            rows // pil_r.shape[0], npil, int(n_head), int(npts), int(dx),
+                            int(cpe_avg), int(nbt), TWO_PI, INV_TWO_PI, a.data_ptr(),
+                            b.data_ptr(), _build.stream_of(symr))
+    _build.check(rc, "cpe_coeffs_cuda")
+    cpe_coeffs_cuda.launches += 1
+    return a, b
+
+
+cpe_coeffs_cuda.launches = 0
+
+
+def cpe_coeffs(symr, symi, pil_r, pil_i, off, stride, n_head, npts, dx, cpe_avg, nbt):
+    """Pilot-CPE phase coefficients: the plain version on CPU tensors, kernel B5 on CUDA."""
+    fn = cpe_coeffs_plain if symr.device.type == "cpu" else cpe_coeffs_cuda
+    return fn(symr, symi, pil_r, pil_i, off, stride, n_head, npts, dx, cpe_avg, nbt)
+
+
+# ---------------------------------------------------------------------------
+# B6: rotation by a given per-sample phase
+# ---------------------------------------------------------------------------
+
+def _check_rotate(er, ei, ph, sign):
+    _check_sign(sign)
+    if er.shape != ei.shape or er.shape != ph.shape:
+        raise ValueError("rotate takes planes and a phase of one shape, got %s, %s, %s"
+                         % (tuple(er.shape), tuple(ei.shape), tuple(ph.shape)))
+
+
+def rotate_plain(er, ei, ph, sign=-1):
+    """Plain rotation: (er + j ei) exp(sign j ph), planes in and out."""
+    _check_rotate(er, ei, ph, sign)
+    return _rotate_planes(er, ei, torch.cos(ph), torch.sin(ph), sign)
+
+
+def rotate_cuda(er, ei, ph, sign=-1):
+    """Launch kernel B6; same contract as :func:`rotate_plain`."""
+    _build.require_cuda("rotate_cuda", er, ei, ph, dtype=torch.float32)
+    _check_rotate(er, ei, ph, sign)
+    outr = torch.empty_like(er)
+    outi = torch.empty_like(ei)
+    rc = _build.library().qtt_rotate(er.data_ptr(), ei.data_ptr(), ph.data_ptr(), er.numel(),
+                                     int(sign), outr.data_ptr(), outi.data_ptr(),
+                                     _build.stream_of(er))
+    _build.check(rc, "rotate_cuda")
+    rotate_cuda.launches += 1
+    return outr, outi
+
+
+rotate_cuda.launches = 0
+
+
+def rotate(er, ei, ph, sign=-1):
+    """Rotation by a given phase: the plain version on CPU tensors, kernel B6 on CUDA."""
+    fn = rotate_plain if er.device.type == "cpu" else rotate_cuda
+    return fn(er, ei, ph, sign)

@@ -1,18 +1,42 @@
-"""The blind receiver's benchmark workload without JAX (counterpart of two pieces of ``bench.py``).
+"""The benchmark workloads without JAX (counterpart of four pieces of ``bench.py``).
 
-``make_tx`` synthesises the dual-pol capture host-side in numpy
-(bench.py:24-87); ``ser_gate`` is the bench's correctness gate in torch
-(bench.py:127-154).
+Blind receiver: ``make_tx`` synthesises the dual-pol capture host-side in
+numpy (bench.py:24-87); ``ser_gate`` is the bench's correctness gate in
+torch (bench.py:127-154). Pilot receiver: ``make_pilot_tx`` states the
+pilot capture of ``bench.pilot_maketx`` (bench.py:318-397) in torch on any
+device; ``ber_gate`` is the bench's BER gate (bench.py:459-497).
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from qampy_tpu_torch.core import impairments
+from qampy_tpu_torch.core.metrics import decision_idx
+from qampy_tpu_torch.signals import cal_pilot_idx, generate_mapping
 from qampy_tpu_torch.theory import cal_scaling_factor_qam, cal_symbols_qam
 
 #: the gate's edge trim: dec*N of the decimated search must stay inside it
 GATE_TRIM = 200
+#: the pilot bench's gates: BER (reference tolerance, test_pilot_signal.py:103-118)
+#: and the weakest pilot correlation peak a frame sync is trusted at (bench.py:497)
+BER_LIMIT = 1e-5
+SYNC_CORR_MIN = 120
+
+
+def rrc_response(L, os, fb, beta=0.1):
+    """Root-raised-cosine amplitude response on the FFT grid of L samples at os*fb, peak 1."""
+    f = np.fft.fftfreq(L) * (os * fb)
+    T = 1 / fb
+    af = np.abs(f)
+    rc = np.zeros(L)
+    rc[af <= (1 - beta) / (2 * T)] = T
+    mask = (af > (1 - beta) / (2 * T)) & (af <= (1 + beta) / (2 * T))
+    rc[mask] = T / 2 * (1 + np.cos(np.pi * T / beta * (af[mask] - (1 - beta) / (2 * T))))
+    h = np.sqrt(rc)
+    return h / h.max()
 
 
 def make_tx(Nsym=2 ** 20, M=64, fb=25e9, seed=1, snr=35):
@@ -32,16 +56,7 @@ def make_tx(Nsym=2 ** 20, M=64, fb=25e9, seed=1, snr=35):
     L = Nsym * os
     up = np.zeros((2, L), dtype=np.complex64)
     up[:, ::os] = syms
-    f = np.fft.fftfreq(L) * (os * fb)
-    T = 1 / fb
-    beta = 0.1
-    af = np.abs(f)
-    rc = np.zeros(L)
-    rc[af <= (1 - beta) / (2 * T)] = T
-    mask = (af > (1 - beta) / (2 * T)) & (af <= (1 + beta) / (2 * T))
-    rc[mask] = T / 2 * (1 + np.cos(np.pi * T / beta * (af[mask] - (1 - beta) / (2 * T))))
-    h = np.sqrt(rc)
-    h /= h.max()
+    h = rrc_response(L, os, fb)
     sig = np.fft.ifft(np.fft.fft(up, axis=-1) * h, axis=-1).astype(np.complex64)
     sig /= np.sqrt(np.mean(np.abs(sig) ** 2, axis=-1, keepdims=True))
     # phase noise (Wiener, 20 kHz combined linewidth)
@@ -98,3 +113,88 @@ def ser_gate(out, ref, const):
                 for rm in range(ref.shape[0]) for off in (3, 4, 5) for dec in decs]
         sers.append(torch.min(torch.stack(cand)))
     return float(torch.mean(torch.stack(sers)))
+
+
+class PilotTx(NamedTuple):
+    """A pilot capture and what the receiver and the gate need to know of it."""
+    planes: torch.Tensor      # (2*nmodes, L) float32 [Re; Im] capture at 2 samples/symbol
+    pilot_seq: np.ndarray     # (nmodes, seq_len) complex64 pilot sequence
+    ph_pilots: np.ndarray     # (nmodes, nblk) complex64 phase pilots
+    idx_tx: torch.Tensor      # (nmodes, payload symbols per frame) int64 coded indices
+    bits: np.ndarray          # (M, log2 M) bool bits of each coded index
+    coded: np.ndarray         # (M,) complex64 constellation by coded index
+
+
+def make_pilot_tx(nframes, M=64, frame_len=2 ** 16, seq_len=1024, ins_rat=32, snr=35,
+                  lwdth=20e3, dgd=20e-12, theta=np.pi / 4.3, seed=3, fb=24e9, device="cpu"):
+    """The pilot capture of ``bench.pilot_maketx`` (its 'qam' branch), made in torch on ``device``.
+
+    Per mode one frame of ``SignalWithPilots(M, frame_len, seq_len,
+    ins_rat)``: a QPSK Gray-coded pilot sequence and phase pilots, M-QAM
+    Gray-coded payload, tiled ``nframes`` times; then 2x root-raised-cosine
+    shaping at beta 0.1 as in :func:`make_tx`, a roll by the frame's pilot
+    count (``roll_frame_sync``), Wiener phase noise of linewidth ``lwdth``,
+    the SNR and first-order PMD, in the reference's order. All draws come
+    from one ``torch.Generator`` seeded with ``seed`` on ``device``; the
+    capture is not the JAX package's array but one of the same statistics.
+    """
+    nmodes, os = 2, 2
+    dev = torch.device(device)
+    g = torch.Generator(device=dev).manual_seed(int(seed))
+    _, idx_dat, idx_pil = cal_pilot_idx(frame_len, seq_len, ins_rat)
+    npil, ndat = int(idx_pil.sum()), int(idx_dat.sum())
+    coded_p, _, _ = generate_mapping(4, np.sqrt(cal_scaling_factor_qam(4)))
+    coded, _, bits = generate_mapping(M, np.sqrt(cal_scaling_factor_qam(M)))
+    pil = torch.as_tensor(coded_p, device=dev)[
+        torch.randint(0, 4, (nmodes, npil), generator=g, device=dev)]
+    idx_tx = torch.randint(0, M, (nmodes, ndat), generator=g, device=dev)
+    frame = torch.empty((nmodes, frame_len), dtype=torch.complex64, device=dev)
+    frame[:, torch.as_tensor(np.nonzero(idx_pil)[0], device=dev)] = pil
+    frame[:, torch.as_tensor(np.nonzero(idx_dat)[0], device=dev)] = \
+        torch.as_tensor(coded, device=dev)[idx_tx]
+    N = frame_len * int(nframes)
+    up = torch.zeros((nmodes, N * os), dtype=torch.complex64, device=dev)
+    up[:, ::os] = frame.repeat(1, int(nframes))
+    del frame
+    h = torch.as_tensor(rrc_response(N * os, os, fb).astype(np.float32), device=dev)
+    sig = torch.fft.ifft(torch.fft.fft(up, dim=-1) * h, dim=-1)
+    del up, h
+    sig = sig / torch.sqrt(torch.mean(sig.abs() ** 2, dim=-1, keepdim=True))
+    sig = impairments.roll_frame_sync(sig, npil)
+    sig = impairments.simulate_transmission(sig, fb, os * fb, g, snr=snr, lwdth=lwdth,
+                                            dgd=dgd, theta=theta)
+    planes = torch.cat([sig.real, sig.imag]).contiguous()
+    pil_h = pil.cpu().numpy()
+    return PilotTx(planes, pil_h[:, :seq_len], pil_h[:, seq_len:], idx_tx, bits, coded)
+
+
+def ber_gate(dr, di, tx, sync_corr, chunk=2 ** 22):
+    """The pilot bench's gate (bench.py:459-497) on a dispatch's payload planes.
+
+    dr/di: (nmodes, nframes * payload symbols) float32 from the pilot
+    chain; tx: the :class:`PilotTx` of the capture. Each symbol is decided
+    to the nearest coded symbol (:func:`decision_idx`) and compared with
+    the transmitted index of its frame position; bit errors come from the
+    (M, M) Hamming-distance table of the coded indices' bits. Decides in
+    chunks of about ``chunk`` symbols. Returns a dict of ``ber``, ``ser``,
+    ``sync_corr`` and ``ok`` (BER <= 1e-5 and sync_corr >= 120).
+    """
+    dev = dr.device
+    coded = torch.as_tensor(tx.coded, device=dev)
+    ham = torch.as_tensor((tx.bits[:, None, :] != tx.bits[None, :, :]).sum(-1), device=dev)
+    nmodes, nd = tx.idx_tx.shape
+    nf = dr.shape[-1] // nd
+    step = max(1, chunk // nd)
+    bit_err = sym_err = 0
+    for m in range(nmodes):
+        for f0 in range(0, nf, step):
+            sl = slice(f0 * nd, min(nf, f0 + step) * nd)
+            rx = decision_idx(torch.complex(dr[m, sl], di[m, sl]), coded).reshape(-1, nd).long()
+            it = tx.idx_tx[m].expand_as(rx)
+            bit_err += int(ham[rx, it].sum())
+            sym_err += int((rx != it).sum())
+    nsym = nmodes * nf * nd
+    ber = bit_err / (nsym * tx.bits.shape[1])
+    corr = float(sync_corr)
+    return {"ber": ber, "ser": sym_err / nsym, "sync_corr": corr,
+            "ok": ber <= BER_LIMIT and corr >= SYNC_CORR_MIN}

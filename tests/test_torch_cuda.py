@@ -1,4 +1,4 @@
-"""The CUDA kernels B1-B4 against their plain PyTorch versions, on the card.
+"""The CUDA kernels B1-B6 against their plain PyTorch versions, on the card.
 
 These tests need a CUDA card and the CUDA toolkit: without a card they
 skip. The module imports no JAX, so it runs on a machine that has none:
@@ -14,11 +14,15 @@ import torch
 from qampy_tpu_torch.ops import equaliser as teq
 from qampy_tpu_torch.ops import phase as tph
 from qampy_tpu_torch.ops.chain import make_rx_chain
-from qampy_tpu_torch.ops.equaliser_cuda import (apply_filter_cuda, apply_filter_plain,
+from qampy_tpu_torch.ops.equaliser_cuda import (apply_filter_cuda, apply_filter_frames_cuda,
+                                                apply_filter_frames_plain, apply_filter_plain,
                                                 train_block_cuda, train_block_plain)
-from qampy_tpu_torch.ops.phase_cuda import (bps_search_cuda, bps_search_plain,
-                                            interp_rotate_cuda, interp_rotate_plain)
-from qampy_tpu_torch.workload import GATE_TRIM, decide, make_tx, ser_gate
+from qampy_tpu_torch.ops.phase_cuda import (bps_search_cuda, bps_search_plain, cpe_coeffs_cuda,
+                                            cpe_coeffs_plain, interp_rotate_cuda,
+                                            interp_rotate_plain, rotate_cuda, rotate_plain)
+from qampy_tpu_torch.ops.pilot_chain import make_pilot_rx_chain
+from qampy_tpu_torch.workload import (GATE_TRIM, ber_gate, decide, make_pilot_tx, make_tx,
+                                      ser_gate)
 
 pytestmark = pytest.mark.gpu
 
@@ -159,3 +163,76 @@ def test_chain_on_card_matches_plain_chain(dev, capture):
     # a near-tied phase index may resolve either way and move a few symbols
     # by one angle step: the decisions, not the values, must agree
     assert float((decide(got, const) == decide(ref, const)).double().mean()) >= 0.999
+
+
+def _pilot_rows(dev, rows, frame_len, seq_len, R, seed):
+    """Rows whose pilots carry a random-walk phase over a few radians (wrapping past +-pi)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    npil = (frame_len - seq_len) // R
+    pil = torch.polar(torch.ones(2, npil, device=dev),
+                      (torch.randint(0, 4, (2, npil), generator=g, device=dev) + 0.5) * np.pi / 2)
+    walk = torch.cumsum(0.05 * torch.randn(rows, npil, generator=g, device=dev), -1)
+    sym = torch.complex(torch.randn(rows, frame_len, generator=g, device=dev),
+                        torch.randn(rows, frame_len, generator=g, device=dev))
+    sym[:, seq_len::R] = pil.repeat_interleave(rows // 2, 0) * torch.polar(torch.ones_like(walk),
+                                                                          walk)
+    return (sym.real.contiguous(), sym.imag.contiguous(), pil.real.contiguous(),
+            pil.imag.contiguous())
+
+
+@pytest.mark.parametrize("frame_len, seq_len, rows", [(2 ** 16, 1024, 480), (2 ** 14, 512, 6),
+                                                      (2 ** 17, 1024, 4)])
+def test_b5_cpe_coeffs(dev, frame_len, seq_len, rows):
+    R = 32
+    symr, symi, pr, pi = _pilot_rows(dev, rows, frame_len, seq_len, R, rows)
+    npil = (frame_len - seq_len) // R
+    args = (symr, symi, pr, pi, seq_len, R, seq_len // R + 1, npil - 2, R, 3, frame_len // R)
+    a_p, b_p = cpe_coeffs_plain(*args)
+    a_k, b_k = cpe_coeffs_cuda(*args)
+    # the same float32 formula; atan2 may differ by an ulp between the two
+    assert float((a_k - a_p).abs().max()) <= 1e-5
+    assert float((b_k - b_p).abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("sign", [1, -1])
+def test_b6_rotate(dev, sign):
+    g = torch.Generator(device=dev).manual_seed(11)
+    er, ei = (torch.randn(480, 2 ** 16, generator=g, device=dev) for _ in range(2))
+    ph = torch.cumsum(0.01 * torch.randn(480, 2 ** 16, generator=g, device=dev), -1)
+    rp, ip = rotate_plain(er, ei, ph, sign)
+    rk, ik = rotate_cuda(er, ei, ph, sign)
+    assert float((rk - rp).abs().max()) <= 1e-5
+    assert float((ik - ip).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("ntaps", [17, 45])
+def test_b2_frame_entry(dev, ntaps):
+    g = torch.Generator(device=dev).manual_seed(ntaps)
+    F = 2 ** 14
+    P = torch.randn(4, 2 * F * 7, generator=g, device=dev)
+    w = torch.complex(torch.randn(2, 2, ntaps, generator=g, device=dev),
+                      torch.randn(2, 2, ntaps, generator=g, device=dev)) / 8
+    offs = torch.arange(6, device=dev)[None] * 2 * F + torch.tensor([[35], [7]], device=dev)
+    ref = apply_filter_frames_plain(P, 2, w, offs, F)
+    got = apply_filter_frames_cuda(P, 2, w, offs, F)
+    assert got.shape == ref.shape == (2, 2, 6, F)
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.pow(2).mean().sqrt())
+
+
+@pytest.mark.parametrize("return_phase", [False, True])
+def test_pilot_chain_launches_and_gate(dev, return_phase):
+    tx = make_pilot_tx(6, frame_len=2 ** 14, seq_len=512, device=dev)
+    chain = make_pilot_rx_chain(tx.pilot_seq, tx.ph_pilots, 2 ** 14, 32, os=2, nmodes=2,
+                                Ntaps=17, cpe_avg=3, frames=(0, 1, 2), block_size=256,
+                                return_phase=return_phase, eq_trainer="ls", device=dev)
+    counters = (train_block_cuda, apply_filter_cuda, bps_search_cuda, interp_rotate_cuda,
+                apply_filter_frames_cuda, cpe_coeffs_cuda, rotate_cuda)
+    for fn in counters:
+        fn.launches = 0
+    (dr, di), info = chain.planes(tx.planes[:2], tx.planes[2:])
+    want = [0, 0, 0, 0, 1, 0, 1] if return_phase else [0, 0, 0, 1, 1, 1, 0]
+    assert [fn.launches for fn in counters] == want
+    assert ber_gate(dr, di, tx, info["sync_corr"])["ok"]
+    (tr, ti), _ = chain.tracking_planes(tx.planes[:2], tx.planes[2:], info["taps"],
+                                        info["shift"], info["mode_order"])
+    assert torch.equal(tr, dr) and torch.equal(ti, di)

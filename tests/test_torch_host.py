@@ -11,20 +11,28 @@ import pytest
 import torch
 
 import bench
+import jax.numpy as jnp
+from qampy_tpu import signals as jsig
 from qampy_tpu import theory as jth
 from qampy_tpu import utils as jut
+from qampy_tpu.core import impairments as jimp
+from qampy_tpu.core import metrics as jmet
 from qampy_tpu.ops import equaliser as jeq
 from qampy_tpu.ops import phase as jph
 from qampy_tpu.ops.equaliser_pallas import pallas_filter_group
-from qampy_tpu_torch import convert, workload
+from qampy_tpu_torch import convert, signals, workload
 from qampy_tpu_torch import theory as tth
 from qampy_tpu_torch import utils as tut
+from qampy_tpu_torch.core import impairments as timp
+from qampy_tpu_torch.core.metrics import decision_idx
 from qampy_tpu_torch.ops import equaliser as teq
 from qampy_tpu_torch.ops import phase as tph
 from qampy_tpu_torch.ops.chain import make_rx_chain
-from qampy_tpu_torch.ops.equaliser_cuda import (apply_filter, apply_filter_cuda, filter_group,
-                                                train_block_cuda)
-from qampy_tpu_torch.ops.phase_cuda import bps_search_cuda, interp_rotate_cuda
+from qampy_tpu_torch.ops.equaliser_cuda import (apply_filter, apply_filter_cuda,
+                                                apply_filter_frames_cuda, filter_group,
+                                                method_code, train_block_cuda)
+from qampy_tpu_torch.ops.phase_cuda import (bps_search_cuda, cpe_coeffs_cuda, interp_rotate_cuda,
+                                            rotate_cuda)
 
 ORDERS = [4, 8, 16, 32, 64, 128, 256]
 
@@ -134,8 +142,45 @@ class TestEqualiserHost:
 
     @pytest.mark.parametrize("method", ["cma", "rde", "sbd", "dd", "sca", "cma_real"])
     def test_unported_methods_raise(self, method):
+        # the trainer kernel takes mcma and mddma; the plain trainer also cma
         with pytest.raises(NotImplementedError, match="A7"):
-            teq.err_spec(method, np.ones((2, 4), np.complex64))
+            method_code(method)
+        if method not in teq.BLOCK_METHODS:
+            with pytest.raises(NotImplementedError, match="A7"):
+                teq.err_spec(method, np.ones((2, 4), np.complex64))
+
+    def test_cma_error_against_reference(self):
+        """The plain trainer's cma stage against the reference's XLA block trainer."""
+        rng = np.random.default_rng(8)
+        E = (rng.standard_normal((2, 4096)) + 1j * rng.standard_normal((2, 4096))).astype(
+            np.complex64) / np.sqrt(2)
+        w0 = jeq._init_taps(17, 2, 2, np.complex64)
+        s = jeq._reshape_symbols(None, "cma", 4, np.complex64, 2)
+        err, w, mu = (np.asarray(x) for x in jeq.train_equaliser_block(
+            E, 1003, 10, 2, 5e-3, w0, s, "cma", adaptive=True, block_size=256))
+        e_t, w_t, mu_t = teq.train_equaliser_block(torch.as_tensor(E), 1003, 10, 2, 5e-3,
+                                                   torch.as_tensor(w0), s, "cma",
+                                                   adaptive=True, block_size=256)
+        assert e_t.shape == err.shape == (2, 7680)
+        assert np.abs(w_t.numpy() - w).max() <= 1e-4
+        np.testing.assert_allclose(mu_t.numpy(), mu, rtol=1e-5)
+
+    def test_batched_trainer_equals_one_by_one(self):
+        rng = np.random.default_rng(9)
+        P = torch.as_tensor(rng.standard_normal((3, 4, 2048)).astype(np.float32))
+        w0 = torch.as_tensor(teq._init_taps(17, 2, 2, np.complex64))
+        spec = teq.err_spec("cma", teq._reshape_symbols(None, "cma", 4, np.complex64, 2))
+        err, w, mu = teq.train_block_planes(P, 1003, 2, 2, 5e-3, w0, spec, True, 256)
+        assert err.shape == (3, 2, 1536) and w.shape == (3, 2, 2, 17) and mu.shape == (3, 2)
+        for b in range(3):
+            e1, w1, m1 = teq.train_block_planes(P[b], 1003, 2, 2, 5e-3, w0, spec, True, 256)
+            assert np.abs((w[b] - w1).numpy()).max() <= 1e-6
+            assert np.abs((err[b] - e1).numpy()).max() <= 1e-6
+            np.testing.assert_allclose(mu[b].numpy(), m1.numpy(), rtol=1e-6)
+
+    @pytest.mark.parametrize("args", [(2, 17, 2048), (2, 45, 2092), (2, 17, 1040), (4, 11, 999)])
+    def test_training_symbol_len(self, args):
+        assert teq._cal_training_symbol_len(*args) == jeq._cal_training_symbol_len(*args)
 
     @pytest.mark.parametrize("os_, ntaps, nout", [(2, 17, 2), (2, 17, 1), (2, 11, 2), (4, 33, 2),
                                                   (3, 17, 2), (1, 9, 4)])
@@ -194,6 +239,8 @@ class TestConvert:
 class TestPortBoundaries:
     def test_import_leaves_jax_out(self):
         code = ("import sys, qampy_tpu_torch, qampy_tpu_torch.ops.chain, "
+                "qampy_tpu_torch.ops.pilot_chain, qampy_tpu_torch.signals, "
+                "qampy_tpu_torch.core.impairments, qampy_tpu_torch.core.metrics, "
                 "qampy_tpu_torch.workload, qampy_tpu_torch.convert; "
                 "bad = [m for m in sys.modules if m.split('.')[0] in "
                 "('jax', 'jaxlib', 'qampy_tpu', 'triton')]; print(bad); "
@@ -202,13 +249,17 @@ class TestPortBoundaries:
                              timeout=120)
         assert res.returncode == 0, res.stdout + res.stderr
 
-    @pytest.mark.parametrize("which", ["B1", "B2", "B3", "B4"])
+    @pytest.mark.parametrize("which", ["B1", "B2", "B3", "B4", "B2 frames", "B5", "B6"])
     def test_cuda_wrappers_refuse_cpu_tensors(self, which):
         P = torch.zeros(4, 4096)
         w = torch.zeros(2, 2, 17, dtype=torch.complex64)
         g = tph.detect_grid(_alphabets()[64])
         t = torch.zeros(64)
+        pil = torch.zeros(2, 60)
         calls = {
+            "B2 frames": lambda: apply_filter_frames_cuda(P, 2, w, torch.zeros(2, 3).long(), 512),
+            "B5": lambda: cpe_coeffs_cuda(P, P, pil, pil, 64, 32, 3, 58, 32, 3, 128),
+            "B6": lambda: rotate_cuda(P[:2], P[2:], P[:2]),
             "B1": lambda: train_block_cuda(P, 1024, 1, 2, 1e-3, w,
                                            teq.ErrSpec("mcma", ((1.0, 1.0),) * 2), True, 256),
             "B2": lambda: apply_filter_cuda(P, 2, w, 16),
@@ -244,3 +295,101 @@ class TestPortBoundaries:
         ch = make_rx_chain(TrSyms=256)
         with pytest.raises(ValueError, match="planes"):
             ch.planes(torch.zeros(4, 2048, dtype=torch.complex64))
+
+
+class TestPilotHost:
+    @pytest.mark.parametrize("layout", [(2 ** 16, 1024, 32), (2 ** 14, 512, 32), (100, 10, 0),
+                                        (96, 16, 8)])
+    def test_cal_pilot_idx(self, layout):
+        for got, ref in zip(signals.cal_pilot_idx(*layout),
+                            jsig.SignalWithPilots._cal_pilot_idx(*layout)):
+            np.testing.assert_array_equal(got, ref)
+        with pytest.raises(ValueError):
+            signals.cal_pilot_idx(100, 10, 7)
+
+    @pytest.mark.parametrize("M", [4, 16, 32, 64, 128, 256])
+    def test_generate_mapping(self, M):
+        scale = np.sqrt(tth.cal_scaling_factor_qam(M))
+        got = signals.generate_mapping(M, scale)
+        ref = jsig.SignalQAMGrayCoded._generate_mapping(M, scale)
+        for g_, r_ in zip(got, ref[:3]):
+            assert g_.dtype == r_.dtype
+            np.testing.assert_array_equal(g_, r_)
+
+    def test_decision_idx(self):
+        rng = np.random.default_rng(12)
+        coded = signals.generate_mapping(64, np.sqrt(tth.cal_scaling_factor_qam(64)))[0]
+        E = (coded[rng.integers(0, 64, (2, 3000))]
+             + 0.1 * (rng.standard_normal((2, 3000)) + 1j * rng.standard_normal((2, 3000)))
+             ).astype(np.complex64)
+        ref = np.asarray(jmet.decision_idx(jnp.asarray(E), jnp.asarray(coded)))
+        got = decision_idx(torch.as_tensor(E), torch.as_tensor(coded)).numpy()
+        assert got.dtype == np.int32
+        np.testing.assert_array_equal(got, ref)
+
+    def test_pmd_and_modal_delay_against_reference(self):
+        rng = np.random.default_rng(13)
+        E = (rng.standard_normal((2, 4096)) + 1j * rng.standard_normal((2, 4096))).astype(
+            np.complex64)
+        ref = np.asarray(jimp.apply_PMD_to_field(E, np.pi / 4.3, 20e-12, 48e9))
+        got = timp.apply_PMD_to_field(torch.as_tensor(E), np.pi / 4.3, 20e-12, 48e9).numpy()
+        assert got.dtype == np.complex64
+        assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
+        np.testing.assert_array_equal(
+            timp.add_modal_delay(torch.as_tensor(E), [0, 333]).numpy(),
+            np.asarray(jimp.add_modal_delay(E, [0, 333])))
+
+    def test_noise_statistics(self):
+        """Phase-noise steps and the SNR follow the reference's definitions (other draws)."""
+        g = torch.Generator().manual_seed(1)
+        L, fs, df = 2 ** 18, 48e9, 20e3
+        ph = timp.phase_noise((2, L), df, fs, g)
+        var = torch.diff(ph.double(), dim=-1).var().item()
+        assert var == pytest.approx(2 * np.pi * df / fs, rel=0.02)
+        sig = torch.ones(2, L, dtype=torch.complex64)
+        noisy = timp.change_snr(sig, 20, 24e9, fs, g)
+        # os-aware: the noise power is os * 10^(-snr/10) of the signal's
+        assert torch.mean((noisy - sig).abs() ** 2).item() == pytest.approx(2 * 1e-2, rel=0.02)
+        rolled = timp.roll_frame_sync(torch.arange(10)[None], 3)
+        assert rolled[0, :4].tolist() == [7, 8, 9, 0]
+
+
+class TestPilotWorkload:
+    def test_make_pilot_tx_layout(self):
+        tx = workload.make_pilot_tx(2, frame_len=2 ** 12, seq_len=256, ins_rat=32, seed=4)
+        _, idx_dat, idx_pil = signals.cal_pilot_idx(2 ** 12, 256, 32)
+        assert tx.planes.shape == (4, 2 * 2 * 2 ** 12) and tx.planes.dtype == torch.float32
+        assert tx.pilot_seq.shape == (2, 256) and tx.ph_pilots.shape == (2, idx_pil.sum() - 256)
+        assert tx.idx_tx.shape == (2, idx_dat.sum()) and int(tx.idx_tx.max()) < 64
+        assert tx.bits.shape == (64, 6) and tx.coded.shape == (64,)
+        # QPSK pilots of unit power; a capture of unit power per mode
+        assert np.allclose(np.abs(tx.pilot_seq), 1, atol=1e-6)
+        p = (tx.planes[:2] ** 2 + tx.planes[2:] ** 2).mean(-1)
+        assert torch.allclose(p, torch.ones(2), rtol=0.05)
+        again = workload.make_pilot_tx(2, frame_len=2 ** 12, seq_len=256, ins_rat=32, seed=4)
+        assert torch.equal(again.planes, tx.planes)
+
+    def test_ber_gate_counts_bits(self):
+        rng = np.random.default_rng(14)
+        coded, _, bits = signals.generate_mapping(64, np.sqrt(tth.cal_scaling_factor_qam(64)))
+        idx = torch.as_tensor(rng.integers(0, 64, (2, 500)))
+        tx = workload.PilotTx(None, None, None, idx, bits, coded)
+        rx = idx.repeat(1, 3).clone()
+        rx[0, 7] = idx[0, 7] ^ 5          # two bits wrong in frame 0 of mode 0
+        rx[1, 1200] = idx[1, 200] ^ 32    # one bit wrong in frame 2 of mode 1
+        z = torch.as_tensor(coded)[rx]
+        res = workload.ber_gate(z.real, z.imag, tx, 130.0, chunk=700)
+        assert res["ber"] == pytest.approx(3 / (2 * 1500 * 6))
+        assert res["ser"] == pytest.approx(2 / 3000) and not res["ok"]
+        assert workload.ber_gate(z.real[:, :500], z.imag[:, :500], tx, 119.0)["ok"] is False
+        z0 = torch.as_tensor(coded)[idx]
+        assert workload.ber_gate(z0.real, z0.imag, tx, 120.0)["ok"] is True
+
+    def test_pilot_state_from_jax(self):
+        w = jeq._init_taps(45, 2, 2, np.complex64) * (1 - 1j)
+        t, sh, mo = convert.pilot_state_from_jax(w, np.array([3032, 3020], np.int32),
+                                                 np.array([1, 0], np.int32), "cpu")
+        assert t.dtype == torch.complex64 and sh.dtype == mo.dtype == torch.int64
+        assert sh.tolist() == [3032, 3020] and mo.tolist() == [1, 0]
+        with pytest.raises(ValueError):
+            convert.pilot_state_from_jax(w, np.array([1.5, 2.0]), np.array([0, 1]), "cpu")
