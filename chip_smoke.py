@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's two receivers once on one CUDA card and check them.
+"""Drive the PyTorch/CUDA port's receivers once on one CUDA card and check them.
 
 Run from the repository root, with one card visible: ``python3 chip_smoke.py``.
 
@@ -8,7 +8,7 @@ result line):
 
 1. device: a CUDA card must be present (no CPU fallback); prints its name
    and ``nvidia-smi``'s name and power limit;
-2. build: compiles the kernels (B1-B6 and B2's frame entry) from
+2. build: compiles the kernels (B1-B8 and B2's frame entry) from
    ``qampy_tpu_torch/csrc``;
 3. blind kernels: B1-B4 against their plain PyTorch versions on the card, at
    the blind path's shapes, with the stated tolerance;
@@ -23,17 +23,26 @@ result line):
    dispatch included), then the device time of each stage and of each
    kernel beside its plain version (calls queued behind a spacer kernel,
    host hidden);
-7. pilot kernels: ``workload.make_pilot_tx(244)`` built on the card; B2's
+7. per-sample kernels: on the same capture and taps, B2 without its side
+   output, B3 at the twostage coarse (16 angles, N=60) and single (64, N=14)
+   shapes, B8 and B7 against their plain versions at 2 x 2^20 samples;
+8. blind twostage and blind single: the bench's attempts 3 and 4
+   (``bps_mode="twostage"``/``"single"``, bps_N=14) through ``RxChain.planes``
+   on the same capture; SER <= 1e-5 (twostage) and <= 1e-4 (single), launch
+   counts B1=2, B2=1, B3=1, B8=1 (twostage only), B7=1, tracking bit-exact,
+   decisions shared with the plain CPU chain on a small capture, and times
+   (chain, tracking, each stage);
+9. pilot kernels: ``workload.make_pilot_tx(244)`` built on the card; B2's
    frame entry (every one of the 240 frames), B5, B4 and B6 against their
    plain versions at the pilot path's shapes (480 rows of 2^16 symbols);
-8. pilot main path: one dispatch of the LS pilot chain over frames 0-239
+10. pilot main path: one dispatch of the LS pilot chain over frames 0-239
    through ``PilotRxChain.planes``; BER <= 1e-5 with sync_corr >= 120,
    launch counts B2 frames=1, B5=1, B4=1 and no other kernel, and the
    synchronising calls seen in that dispatch;
-9. pilot variants: the ``return_phase=True`` chain over 8 frames (B6 once,
+11. pilot variants: the ``return_phase=True`` chain over 8 frames (B6 once,
    B5 never, payload within 1e-4 of the serving chain's), tracking bit-exact,
    and the card's chain against the plain CPU chain on a small capture;
-10. pilot times: the dispatch and the tracking entry in payload Msym/s, the
+12. pilot times: the dispatch and the tracking entry in payload Msym/s, the
    device time of each stage, and each new kernel beside its plain version.
 
 Every time is printed with the card's name and power limit. The line before
@@ -58,18 +67,23 @@ from qampy_tpu_torch.ops.chain import decimated_derotation_inputs, make_rx_chain
 from qampy_tpu_torch.ops.equaliser_cuda import (apply_filter_cuda, apply_filter_frames_cuda,
                                                 apply_filter_frames_plain, apply_filter_plain,
                                                 train_block_cuda, train_block_plain)
-from qampy_tpu_torch.ops.phase_cuda import (bps_search_cuda, bps_search_plain, cpe_coeffs,
+from qampy_tpu_torch.ops.phase_cuda import (bps_fine, bps_fine_cuda, bps_fine_plain,
+                                            bps_search_cuda, bps_search_plain, cpe_coeffs,
                                             cpe_coeffs_cuda, cpe_coeffs_plain, interp_rotate,
-                                            interp_rotate_cuda, interp_rotate_plain, rotate_cuda,
-                                            rotate_plain)
+                                            interp_rotate_cuda, interp_rotate_plain,
+                                            quarter_unwrap, rotate_cuda, rotate_plain,
+                                            unwrap_derotate_cuda, unwrap_derotate_plain)
 from qampy_tpu_torch.ops.pilot_chain import make_pilot_rx_chain
 from qampy_tpu_torch.workload import (GATE_TRIM, ber_gate, decide, make_pilot_tx, make_tx,
-                                      ser_gate)
+                                      ser_gate, shared_decisions)
 
 NSYM = 2 ** 20
 CFG = dict(M=64, Ntaps=17, os=2, methods=("mcma", "mddma"), mu=1.9e-3, bps_angles=64,
            bps_N=12, block_size=256, TrSyms=2 ** 14, bps_mode="decimated16")
 SER_LIMIT = 1e-5
+# the bench's blind attempts 3 and 4 (bench.py:656-657, 182-185) and their gates
+SAMPLE_CFG = dict(CFG, bps_N=14)
+SAMPLE_GATES = {"twostage": 1e-5, "single": 1e-4}
 # kernel vs plain tolerances: float32 on both sides, summed in other orders
 TOL_TAPS = 1e-4          # B1 taps after 64 dependent blocks
 TOL_MU_REL = 1e-5        # B1 final step size
@@ -89,7 +103,7 @@ TOL_CPE_A = 1e-5         # B5 a: the same float32 formula; atan2 may differ by a
 TOL_CPE_B = 1e-6         # which moves a (a few rad) by ~1e-6 and the slopes b by ~1e-7
 TOL_PAYLOAD = 1e-4       # return_phase on/off, the reference's bound (test_pilot_chain.py:543)
 # the paths in the order they run; each is counted on its own (see counted())
-PATHS = ("blind", "pilot", "pilot return_phase")
+PATHS = ("blind", "blind twostage", "blind single", "pilot", "pilot return_phase")
 # kernel: (wrapper name, CUDA source, the TPU kernel it replaces)
 KERNELS = {
     "B1": ("train_block", "qampy_tpu_torch/csrc/equaliser.cu",
@@ -103,10 +117,14 @@ KERNELS = {
                   "qampy_tpu/ops/equaliser_pallas.py:539"),
     "B5": ("cpe_coeffs", "qampy_tpu_torch/csrc/phase.cu", "qampy_tpu/ops/phase_pallas.py:808"),
     "B6": ("rotate", "qampy_tpu_torch/csrc/phase.cu", "qampy_tpu/ops/phase_pallas.py:616"),
+    "B7": ("unwrap_derotate", "qampy_tpu_torch/csrc/phase.cu",
+           "qampy_tpu/ops/phase_pallas.py:370"),
+    "B8": ("bps_fine", "qampy_tpu_torch/csrc/phase.cu", "qampy_tpu/ops/phase_pallas.py:529"),
 }
 COUNTERS = {"B1": train_block_cuda, "B2": apply_filter_cuda, "B3": bps_search_cuda,
             "B4": interp_rotate_cuda, "B2 frames": apply_filter_frames_cuda,
-            "B5": cpe_coeffs_cuda, "B6": rotate_cuda}
+            "B5": cpe_coeffs_cuda, "B6": rotate_cuda, "B7": unwrap_derotate_cuda,
+            "B8": bps_fine_cuda}
 
 
 class SmokeFailure(Exception):
@@ -275,6 +293,186 @@ def counted(fn):
     return res, {name: k.launches for name, k in COUNTERS.items()}
 
 
+def expected(counts):
+    """A path's expected launch counts: ``counts``, and 0 for every other kernel."""
+    return {k: counts.get(k, 0) for k in COUNTERS}
+
+
+def rotation_bound(er, ei, u):
+    """2 |z| (ulp32(|u|) + 2^-23): how far two float32 rotations of z by u may lie apart.
+
+    Each rounds the phase (up to an ulp of |u|) and takes sin and cos to
+    about an ulp, below 2^-23 (tests/test_torch_kernels.py:185).
+    """
+    a = u.abs()
+    ulp = torch.nextafter(a, torch.full_like(a, float("inf"))) - a
+    return 2 * torch.sqrt(er * er + ei * ei) * (ulp + 2.0 ** -23)
+
+
+def check_sample_kernels(P, w, card):
+    """Phase 7: B2 (no side output), B3, B8 and B7 at the per-sample paths' shapes.
+
+    P: the blind capture; w: taps trained on it. Returns records keyed by
+    (kernel, path) for "blind twostage" and "blind single".
+    """
+    rec = {}
+    os_ = CFG["os"]
+    out_p = apply_filter_plain(P, os_, w)
+    out_k = apply_filter_cuda(P, os_, w)
+    rms = float(out_p.pow(2).mean().sqrt())
+    d_out = float((out_k - out_p).abs().max())
+    print("B2 apply_filter (no side output): %s max|d| %.3e (tol %.0e x rms %.3f)"
+          % (tuple(out_k.shape), d_out, TOL_FILTER_REL, rms))
+    require(out_k.shape == out_p.shape and d_out <= TOL_FILTER_REL * rms,
+            "B2 without side output disagrees with its plain version")
+    b2 = dict(err=d_out, ms=device_ms(lambda: apply_filter_cuda(P, os_, w), 50),
+              plain_ms=device_ms(lambda: apply_filter_plain(P, os_, w), 10),
+              shape="2 x 2^21 samples in, no side output")
+    no = out_k.shape[0] // 2
+    er, ei = out_k[:no], out_k[no:]
+    L = er.shape[-1]
+    for mode in ("twostage", "single"):
+        path = "blind " + mode
+        chain = make_rx_chain(**dict(SAMPLE_CFG, bps_mode=mode), device=P.device)
+        rec["B2", path] = b2
+        A, N = chain.bps_cos.shape[0], chain.search_N
+        args = (er, ei, chain.bps_cos, chain.bps_sin, chain.grid, N)
+        idx_p = bps_search_plain(*args)
+        idx_k = bps_search_cuda(*args)
+        ties = phops.bps_near_ties(*args, TIE_REL)
+        differ = idx_k != idx_p
+        tie_share = float(ties.double().mean())
+        off_tie = bool((differ & ~ties).any())
+        print("B3 bps_search (%s: A=%d, N=%d): %s, %d positions differ, %s off near-ties; "
+              "near-tie share %.2e (max %.0e)" % (path, A, N, tuple(idx_k.shape),
+                                                  int(differ.sum()),
+                                                  "some" if off_tie else "none", tie_share,
+                                                  TIES_MAX))
+        require(not off_tie and tie_share <= TIES_MAX,
+                "B3 disagrees with its plain version off near-ties at A=%d, N=%d" % (A, N))
+        rec["B3", path] = dict(err=float((idx_k - idx_p).abs()[~ties].max()),
+                               ms=device_ms(lambda: bps_search_cuda(*args), 20),
+                               plain_ms=device_ms(lambda: bps_search_plain(*args), 5),
+                               shape="A=%d N=%d, 2 x %d samples" % (A, N, L))
+        ph = chain.lo_a + chain.step_a * idx_k.to(torch.float32)
+        if mode == "twostage":
+            fargs = (er, ei, ph, chain.fine_cos, chain.fine_sin, chain.grid, chain.bps_N,
+                     chain.fine_d0, chain.fine_step)
+            f_p = bps_fine_plain(*fargs)
+            f_k = bps_fine_cuda(*fargs)
+            ties = phops.bps_fine_near_ties(*fargs[:7], TIE_REL)
+            differ = f_k != f_p
+            tie_share = float(ties.double().mean())
+            off_tie = bool((differ & ~ties).any())
+            print("B8 bps_fine (B=%d, N=%d): %s, %d phases differ, %s off near-ties; near-tie "
+                  "share %.2e (max %.0e); max|d| %.3e" % (
+                      chain.fine_cos.shape[0], chain.bps_N, tuple(f_k.shape),
+                      int(differ.sum()), "some" if off_tie else "none", tie_share, TIES_MAX,
+                      float((f_k - f_p).abs().max())))
+            require(not off_tie and tie_share <= TIES_MAX,
+                    "B8 disagrees with its plain version off near-ties")
+            rec["B8", path] = dict(err=float((f_k - f_p).abs()[~ties].max()),
+                                   ms=device_ms(lambda: bps_fine_cuda(*fargs), 20),
+                                   plain_ms=device_ms(lambda: bps_fine_plain(*fargs), 5),
+                                   shape="B=8 N=%d, 2 x %d samples" % (chain.bps_N, L))
+            ph = f_k
+        r_p, i_p = unwrap_derotate_plain(er, ei, ph)
+        r_k, i_k = unwrap_derotate_cuda(er, ei, ph)
+        dist = torch.sqrt((r_k - r_p) ** 2 + (i_k - i_p) ** 2)
+        bound = rotation_bound(er, ei, quarter_unwrap(ph))
+        d_rot = max(float((r_k - r_p).abs().max()), float((i_k - i_p).abs().max()))
+        print("B7 unwrap_derotate (%s phase): %s max|d| %.3e, worst share of the bound "
+              "2|z|(ulp32(|u|) + 2^-23) %.3f, |u| up to %.2f rad"
+              % (mode, tuple(r_k.shape), d_rot, float((dist / bound).max()),
+                 float(quarter_unwrap(ph).abs().max())))
+        require(bool((dist <= bound).all()), "B7 disagrees with its plain version")
+        uargs = (er, ei, ph)
+        rec["B7", path] = dict(err=d_rot, ms=device_ms(lambda: unwrap_derotate_cuda(*uargs), 50),
+                               plain_ms=device_ms(lambda: unwrap_derotate_plain(*uargs), 10),
+                               shape="2 x %d samples" % L)
+    for (k, path), v in rec.items():
+        print("time %s (%s path, device, %s): kernel %.4f ms, plain %.4f ms [%s]"
+              % (k, path, v["shape"], v["ms"], v["plain_ms"], card))
+    return rec
+
+
+def sample_path(mode, P, ref, const, card):
+    """Phase 8 for one mode: the per-sample blind chain counted, gated, compared and timed.
+
+    Returns that path's launch counts.
+    """
+    dev = P.device
+    gate = SAMPLE_GATES[mode]
+    cfg = dict(SAMPLE_CFG, bps_mode=mode)
+    chain = make_rx_chain(**cfg, device=dev)
+    (outr, outi), launches = counted(lambda: chain.planes(P))
+    print("blind %s launches: %s" % (mode, launches))
+    want = {"B1": 2, "B2": 1, "B3": 1, "B7": 1}
+    if mode == "twostage":
+        want["B8"] = 1
+    require(launches == expected(want), "the %s path did not launch each kernel as expected"
+            % mode)
+    Lout = (P.shape[-1] - SAMPLE_CFG["Ntaps"]) // SAMPLE_CFG["os"] + 1
+    require(tuple(outr.shape) == (2, Lout) and outr.shape == outi.shape,
+            "%s output shape %s" % (mode, tuple(outr.shape)))
+    require(bool(torch.isfinite(outr).all() and torch.isfinite(outi).all()),
+            "non-finite %s output" % mode)
+    ser = ser_gate(torch.complex(outr, outi), ref, const)
+    print("blind %s SER %.3e (gate %.0e; against 1e-5: %s) on %d x 2 symbols"
+          % (mode, ser, gate, "pass" if ser <= 1e-5 else "fail", NSYM))
+    require(ser <= gate, "%s SER gate failed" % mode)
+
+    (fr, fi), w = chain.planes_with_taps(P)
+    tr, ti = chain.tracking_planes(P, w)
+    exact = bool(torch.equal(tr, fr) and torch.equal(ti, fi))
+    print("blind %s tracking_planes == planes_with_taps output: %s" % (mode, exact))
+    require(exact, "%s tracking output differs from the full chain" % mode)
+
+    Es, syms_s, _ = make_tx(2 ** 15, seed=2)
+    o_cpu = make_rx_chain(**cfg, device="cpu").forward(torch.as_tensor(Es))
+    o_gpu = chain.forward(torch.as_tensor(Es, device=dev)).cpu()
+    trim = slice(GATE_TRIM, -GATE_TRIM)
+    agree = shared_decisions(o_cpu[:, trim], o_gpu[:, trim], const)
+    ser_s = [ser_gate(o, torch.as_tensor(syms_s), const) for o in (o_cpu, o_gpu)]
+    print("blind %s small capture (2^15 x 2 symbols): card vs plain CPU chain share %.6f of "
+          "decisions, each mode at its best quarter turn (min %.3f); SER cpu %.2e, card %.2e"
+          % (mode, agree, SMALL_AGREE, ser_s[0], ser_s[1]))
+    require(agree >= SMALL_AGREE and max(ser_s) <= gate,
+            "the card's %s chain disagrees with the plain chain" % mode)
+
+    nsym_tot = NSYM * 2
+    t_full = cuda_ms(lambda: chain.planes(P), 10)
+    t_trk = cuda_ms(lambda: chain.tracking_planes(P, w), 20)
+    print("time blind %s chain.planes: %.4f ms, %.1f Msym/s [%s]"
+          % (mode, t_full, nsym_tot / t_full / 1e3, card))
+    print("time blind %s chain.tracking_planes: %.4f ms, %.1f Msym/s [%s]"
+          % (mode, t_trk, nsym_tot / t_trk / 1e3, card))
+    eqp, _ = chain.equalise(P, w)
+    no = eqp.shape[0] // 2
+    idx = chain.phase_search(eqp)
+    ph1 = chain.lo_a + chain.step_a * idx.to(torch.float32)
+    ph = chain.carrier_phase(eqp)
+    stages = {
+        "train (2x B1 + guard)": device_ms(lambda: chain.train_taps(P), 10),
+        "filter (B2)": device_ms(lambda: chain.equalise(P, w), 20),
+        "bps (B3, A=%d, N=%d)" % (chain.bps_cos.shape[0], chain.search_N):
+            device_ms(lambda: chain.phase_search(eqp), 20),
+        "index to phase (plain)": device_ms(
+            lambda: chain.lo_a + chain.step_a * idx.to(torch.float32), 20),
+    }
+    if mode == "twostage":
+        stages["fine bps (B8)"] = device_ms(lambda: bps_fine(
+            eqp[:no], eqp[no:], ph1, chain.fine_cos, chain.fine_sin, chain.grid, chain.bps_N,
+            chain.fine_d0, chain.fine_step), 20)
+    stages["unwrap-derotate (B7)"] = device_ms(lambda: chain.unwrap_derotate(eqp, ph), 20)
+    for k, v in stages.items():
+        print("time blind %s stage %s: %.4f ms device (%.1f%% of the chain's stream time) [%s]"
+              % (mode, k, v, 100 * v / t_full, card))
+    print("time blind %s stages' device sum: %.4f ms vs chain stream time %.4f ms [%s]"
+          % (mode, sum(stages.values()), t_full, card))
+    return launches
+
+
 def syncs_in(fn):
     """How many synchronising calls ``fn`` makes, as the CUDA sync debug mode reports them."""
     torch.cuda.synchronize()
@@ -306,7 +504,7 @@ def pilot_stages(chain, pr, pi):
 
 
 def check_pilot_kernels(chain, st, card):
-    """Phase 7: B2's frame entry, B5, B4 and B6 against their plain versions at the pilot shapes.
+    """Phase 9: B2's frame entry, B5, B4 and B6 against their plain versions at the pilot shapes.
 
     The inputs are the pilot path's own (``st``, from :func:`pilot_stages`):
     the capture, the state the chain acquires on it, the filter output and
@@ -393,7 +591,7 @@ def check_pilot_kernels(chain, st, card):
 
 
 def pilot_phases(dev, card):
-    """Phases 7-10: the pilot serving chain. Returns (kernel records, launches per path)."""
+    """Phases 9-12: the pilot serving chain. Returns (kernel records, launches per path)."""
     t0 = time.perf_counter()
     tx = make_pilot_tx(PILOT_TX_FRAMES, frame_len=PILOT_FRAME, seq_len=PILOT_SEQ,
                        ins_rat=PILOT_RAT, device=dev)
@@ -411,10 +609,10 @@ def pilot_phases(dev, card):
     st = pilot_stages(chain, pr, pi)
     rec = check_pilot_kernels(chain, st, card)
 
-    # phase 8: the main path, counted, gated, and its synchronising calls
+    # phase 10: the main path, counted, gated, and its synchronising calls
     ((dr, di), info), launches = counted(lambda: chain.planes(pr, pi))
     print("pilot main path launches: %s" % launches)
-    require(launches == {"B1": 0, "B2": 0, "B3": 0, "B4": 1, "B2 frames": 1, "B5": 1, "B6": 0},
+    require(launches == expected({"B4": 1, "B2 frames": 1, "B5": 1}),
             "the pilot path did not launch each kernel as expected")
     nd = tx.idx_tx.shape[-1]
     require(tuple(dr.shape) == (2, PILOT_FRAMES * nd) and dr.shape == di.shape,
@@ -430,12 +628,12 @@ def pilot_phases(dev, card):
     print("pilot dispatch: %d synchronising calls under torch.cuda.set_sync_debug_mode('warn')%s"
           % (len(syncs), "".join("\n  " + s for s in syncs)))
 
-    # phase 9: return_phase=True at a smaller depth, tracking, card vs CPU
+    # phase 11: return_phase=True at a smaller depth, tracking, card vs CPU
     phase_chain = build(PHASE_FRAMES, True)
     ((pdr, pdi), pinfo), launches_rp = counted(lambda: phase_chain.planes(pr, pi))
     print("return_phase=True chain (%d frames) launches: %s" % (PHASE_FRAMES, launches_rp))
-    require(launches_rp == {"B1": 0, "B2": 0, "B3": 0, "B4": 0, "B2 frames": 1, "B5": 0,
-                            "B6": 1}, "the return_phase path did not launch B6 alone")
+    require(launches_rp == expected({"B2 frames": 1, "B6": 1}),
+            "the return_phase path did not launch B6 alone")
     d_pay = max(float((pdr - dr[:, :PHASE_FRAMES * nd]).abs().max()),
                 float((pdi - di[:, :PHASE_FRAMES * nd]).abs().max()))
     print("return_phase=True payload vs serving payload: max|d| %.3e (tol %.0e), phase %s"
@@ -464,7 +662,7 @@ def pilot_phases(dev, card):
                            float((runs[0][0] - runs[1][0]).abs().max())))
     require(agree >= SMALL_AGREE and same_state, "the card's pilot chain disagrees with the CPU's")
 
-    # phase 10: times
+    # phase 12: times
     npay = 2 * PILOT_FRAMES * nd
     t_full = cuda_ms(lambda: chain.planes(pr, pi), 10)
     t_trk = cuda_ms(lambda: chain.tracking_planes(pr, pi, info["taps"], info["shift"],
@@ -545,7 +743,7 @@ def main():
     # phase 4: the main path, counted
     (outr, outi), launches = counted(lambda: chain.planes(P))
     print("main path launches: %s" % launches)
-    require(launches == {"B1": 2, "B2": 1, "B3": 1, "B4": 1, "B2 frames": 0, "B5": 0, "B6": 0},
+    require(launches == expected({"B1": 2, "B2": 1, "B3": 1, "B4": 1}),
             "the main path did not launch each kernel as expected")
     Lout = (P.shape[-1] - CFG["Ntaps"]) // CFG["os"] + 1
     require(tuple(outr.shape) == (2, Lout) and tuple(outi.shape) == (2, Lout),
@@ -610,10 +808,18 @@ def main():
     print("time stages' device sum: %.4f ms vs chain stream time %.4f ms: %.4f ms host-bound "
           "gaps [%s]" % (sum(stages.values()), t_full, t_full - sum(stages.values()), card))
 
-    prec, path_launches = pilot_phases(dev, card)
+    # phases 7 and 8: the per-sample modes on the same capture; B1 runs there
+    # at the blind path's shapes (the same training)
     rec = {(k, "blind"): dict(v, shape="blind path") for k, v in rec.items()}
+    rec.update(check_sample_kernels(P, w, card))
+    path_launches = {"blind": launches}
+    for mode in ("twostage", "single"):
+        path_launches["blind " + mode] = sample_path(mode, P, ref, const, card)
+        rec["B1", "blind " + mode] = rec["B1", "blind"]
+
+    prec, pilot_launches = pilot_phases(dev, card)
     rec.update(prec)
-    path_launches["blind"] = launches
+    path_launches.update(pilot_launches)
     print("launches per path: %s" % path_launches)
     # one record per kernel and path that launched it: that path's count and
     # the error and times measured at that path's shapes

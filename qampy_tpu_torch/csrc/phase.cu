@@ -48,15 +48,82 @@
 //     (_rotate_kernel). Bound: device memory (read three planes, write two).
 //     Design: one thread per sample, the arithmetic of B4 (precise sincosf,
 //     round-to-nearest products).
+//
+// B7  qtt_unwrap_derotate: the pi/2 unwrap u_i = ph_i - (pi/2) M_i, M the
+//     inclusive prefix sum of the jump counts m_i = floor(d_i (2/pi) + 0.5)
+//     of d_i = ph_i - ph_{i-1} (d_0 = 0), then out = E exp(+j u).
+//     Replaces qampy_tpu/ops/phase_pallas.py unwrap_derotate_pallas
+//     (_unwrap_derotate_kernel), which carries (previous phase, count) from
+//     tile to tile of its sequential grid. Bound: device memory (read three
+//     planes, write two; the phase is read twice). Here a row of 2^20
+//     samples has to be split over many CTAs, so the scan takes three
+//     launches: (1) each tile of kUnwrapTile samples sums its counts (d at a
+//     tile's first sample reads ph_{i-1} from device memory, so a tile's
+//     counts depend on the data alone); (2) one CTA per row turns the tile
+//     totals into exclusive offsets; (3) each tile recounts, scans its counts
+//     in the block, adds its offset and derotates. Counts are int32, so any
+//     summation order gives the same M and u equals the plain version's bit
+//     for bit; d (2/pi) + 0.5 and (pi/2) M are rounded op by op (no FMA
+//     contraction, which would flip a count within an ulp of an odd multiple
+//     of pi/4 and turn the rest of the row by a quarter), and the rotation is
+//     B4's (precise sincosf).
+//
+// B8  qtt_bps_fine: the fine stage of the two-stage phase search. Sample i
+//     tries B angles ph1_i + delta_b, built from cos/sin(ph1_i) and the
+//     host tables cd/sd = cos/sin(delta_b)/d0 by the angle-addition form;
+//     then B3's squared grid distance, 2N window sums and argmin (first
+//     minimum wins) at [N, L-N), 0 elsewhere; the output is the phase
+//     (ph1_i + d0f) + ddf * idx_i. Replaces qampy_tpu/ops/phase_pallas.py
+//     bps_fine_pallas (_bps_fine_kernel). Bound: arithmetic and
+//     shared-memory traffic (a sincosf per sample, ~30 operations per
+//     (sample, offset) for the angle and distance, 2N adds per (sample,
+//     offset) for the windows). Design: B3's, one CTA per (mode, tile of
+//     kFineTile samples) staging the tile and its 2N-1 neighbours, but each
+//     staged sample carries its own angle, so the staging thread takes one
+//     sincosf and fills its column of the (B x W) distance table. Every
+//     product and sum is rounded on its own, as in the plain version.
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
 constexpr int kBpsTile = 128;     // decimated samples per CTA, one per thread
+constexpr int kFineTile = 256;    // B8 samples per CTA, one per thread
 constexpr int kRotThreads = 256;
 constexpr int kCpeThreads = 1024;
 constexpr int kCpeMaxLanes = 4;   // lanes per thread of B5: rows of up to 4096 pilots
+constexpr int kUnwrapThreads = 256;
+constexpr int kUnwrapItems = 8;   // consecutive samples per thread of B7
+constexpr int kUnwrapTile = kUnwrapThreads * kUnwrapItems;
+constexpr int kScanThreads = 1024;
+
+// Exclusive prefix sum of v over the block's threads (blockDim.x a multiple
+// of 32); *total, if given, receives the block's sum. Every thread of the
+// block must call it; warp_sum is 32 ints of shared memory, free again on return.
+__device__ int block_exclusive_scan(int v, int* warp_sum, int* total) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int nwarps = blockDim.x >> 5;
+    int incl = v;
+    for (int o = 1; o < 32; o <<= 1) {
+        const int t = __shfl_up_sync(0xffffffffu, incl, o);
+        if (lane >= o) incl += t;
+    }
+    if (lane == 31) warp_sum[warp] = incl;
+    __syncthreads();
+    if (warp == 0) {
+        int w = lane < nwarps ? warp_sum[lane] : 0;
+        for (int o = 1; o < 32; o <<= 1) {
+            const int t = __shfl_up_sync(0xffffffffu, w, o);
+            if (lane >= o) w += t;
+        }
+        warp_sum[lane] = w;
+    }
+    __syncthreads();
+    const int before = incl - v + (warp > 0 ? warp_sum[warp - 1] : 0);
+    if (total) *total = warp_sum[nwarps - 1];
+    __syncthreads();
+    return before;
+}
 
 __global__ void bps_kernel(const float* __restrict__ er, const float* __restrict__ ei,
                            long long L, const float* __restrict__ cos_t,
@@ -162,7 +229,7 @@ __global__ void cpe_coeffs_kernel(const float* __restrict__ symr, const float* _
     float* pavg_s = u_s + npil;       // (npts,) moving average
     __shared__ int warp_sum[32];
     const long long row = blockIdx.x;
-    const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+    const int t = threadIdx.x;
     const float* zr = symr + row * ld + off;
     const float* zi = symi + row * ld + off;
     const float* pr = pil_r + (row / rows_per_pilot) * npil;
@@ -192,23 +259,7 @@ __global__ void cpe_coeffs_kernel(const float* __restrict__ symr, const float* _
         incl_q[q] = own;
     }
     // exclusive prefix of `own` over the block: warp scan, then over the warps
-    int incl = own;
-    for (int o = 1; o < 32; o <<= 1) {
-        const int v = __shfl_up_sync(0xffffffffu, incl, o);
-        if (lane >= o) incl += v;
-    }
-    if (lane == 31) warp_sum[warp] = incl;
-    __syncthreads();
-    if (warp == 0) {
-        int v = lane < (int)(blockDim.x >> 5) ? warp_sum[lane] : 0;
-        for (int o = 1; o < 32; o <<= 1) {
-            const int w = __shfl_up_sync(0xffffffffu, v, o);
-            if (lane >= o) v += w;
-        }
-        warp_sum[lane] = v;
-    }
-    __syncthreads();
-    const int before = incl - own + (warp > 0 ? warp_sum[warp - 1] : 0);
+    const int before = block_exclusive_scan(own, warp_sum, nullptr);
 #pragma unroll
     for (int q = 0; q < kCpeMaxLanes; ++q) {
         if (q >= lanes) break;
@@ -233,6 +284,133 @@ __global__ void cpe_coeffs_kernel(const float* __restrict__ symr, const float* _
         b_out[row * nbt + k] =
             mid ? __fdiv_rn(__fsub_rn(pavg_s[la + 1], pavg_s[la]), (float)dx) : 0.f;
     }
+}
+
+// B7: the pi/2 jump count of sample i of a row (0 at i = 0)
+__device__ __forceinline__ int quarter_jump(const float* __restrict__ p, long long i,
+                                            float inv_half_pi) {
+    if (i == 0) return 0;
+    const float d = __fsub_rn(p[i], p[i - 1]);
+    return (int)floorf(__fadd_rn(__fmul_rn(d, inv_half_pi), 0.5f));
+}
+
+// B7 launch 1: tiles[row, tile] = the sum of the tile's jump counts
+__global__ void unwrap_count_kernel(const float* __restrict__ ph, long long L, float inv_half_pi,
+                                    int ntiles, int* __restrict__ tiles) {
+    __shared__ int warp_sum[32];
+    const float* p = ph + (long long)blockIdx.y * L;
+    const long long i0 =
+        (long long)blockIdx.x * kUnwrapTile + (long long)threadIdx.x * kUnwrapItems;
+    int own = 0;
+    for (int q = 0; q < kUnwrapItems; ++q)
+        if (i0 + q < L) own += quarter_jump(p, i0 + q, inv_half_pi);
+    int total;
+    block_exclusive_scan(own, warp_sum, &total);
+    if (threadIdx.x == 0) tiles[(long long)blockIdx.y * ntiles + blockIdx.x] = total;
+}
+
+// B7 launch 2: one CTA per row turns its tile totals into exclusive offsets, in place
+__global__ void unwrap_scan_kernel(int ntiles, int* __restrict__ tiles) {
+    __shared__ int warp_sum[32];
+    int* t = tiles + (long long)blockIdx.x * ntiles;
+    const int per = (ntiles + blockDim.x - 1) / blockDim.x;
+    const int first = threadIdx.x * per;
+    int own = 0;
+    for (int q = 0; q < per; ++q)
+        if (first + q < ntiles) own += t[first + q];
+    int run = block_exclusive_scan(own, warp_sum, nullptr);
+    for (int q = 0; q < per; ++q) {
+        if (first + q < ntiles) {
+            const int v = t[first + q];
+            t[first + q] = run;
+            run += v;
+        }
+    }
+}
+
+// B7 launch 3: recount, scan in the tile, add the tile's offset, derotate
+__global__ void unwrap_apply_kernel(const float* __restrict__ er, const float* __restrict__ ei,
+                                    const float* __restrict__ ph, long long L, float half_pi,
+                                    float inv_half_pi, int ntiles, const int* __restrict__ tiles,
+                                    float* __restrict__ outr, float* __restrict__ outi) {
+    __shared__ int warp_sum[32];
+    const long long row = (long long)blockIdx.y * L;
+    const float* p = ph + row;
+    const long long i0 =
+        (long long)blockIdx.x * kUnwrapTile + (long long)threadIdx.x * kUnwrapItems;
+    int m[kUnwrapItems];
+    int own = 0;
+#pragma unroll
+    for (int q = 0; q < kUnwrapItems; ++q) {
+        m[q] = i0 + q < L ? quarter_jump(p, i0 + q, inv_half_pi) : 0;
+        own += m[q];
+    }
+    int M = tiles[(long long)blockIdx.y * ntiles + blockIdx.x] +
+            block_exclusive_scan(own, warp_sum, nullptr);
+#pragma unroll
+    for (int q = 0; q < kUnwrapItems; ++q) {
+        const long long i = i0 + q;
+        if (i >= L) break;
+        M += m[q];
+        const float u = __fsub_rn(p[i], __fmul_rn(half_pi, (float)M));
+        rotate_one(er[row + i], ei[row + i], u, 1, outr + row + i, outi + row + i);
+    }
+}
+
+__global__ void bps_fine_kernel(const float* __restrict__ er, const float* __restrict__ ei,
+                                const float* __restrict__ ph1, long long L,
+                                const float* __restrict__ cd, const float* __restrict__ sd, int B,
+                                int N, float c0, float nm1, float d0f, float ddf,
+                                float* __restrict__ out) {
+    extern __shared__ float sm[];
+    const int N2 = 2 * N;
+    const int W = kFineTile + N2 - 1;
+    float* dist = sm;                 // (B, W)
+    float* cdt = dist + B * W;        // (B,)
+    float* sdt = cdt + B;             // (B,)
+    const long long row = (long long)blockIdx.y * L;
+    const long long j0 = (long long)blockIdx.x * kFineTile;
+    const long long g0 = j0 - N + 1;  // first sample of the tile's windows
+
+    for (int b = threadIdx.x; b < B; b += blockDim.x) {
+        cdt[b] = cd[b];
+        sdt[b] = sd[b];
+    }
+    __syncthreads();
+    for (int u = threadIdx.x; u < W; u += blockDim.x) {
+        const long long g = g0 + u;
+        const bool in = g >= 0 && g < L;
+        const float x = in ? er[row + g] : 0.f, y = in ? ei[row + g] : 0.f;
+        float s1, c1;
+        sincosf(in ? ph1[row + g] : 0.f, &s1, &c1);
+        for (int b = 0; b < B; ++b) {
+            const float ca = __fsub_rn(__fmul_rn(c1, cdt[b]), __fmul_rn(s1, sdt[b]));
+            const float sa = __fadd_rn(__fmul_rn(s1, cdt[b]), __fmul_rn(c1, sdt[b]));
+            const float ur = __fsub_rn(__fsub_rn(__fmul_rn(x, ca), __fmul_rn(y, sa)), c0);
+            const float ui = __fsub_rn(__fadd_rn(__fmul_rn(x, sa), __fmul_rn(y, ca)), c0);
+            const float fr = ur - fminf(fmaxf(floorf(ur + 0.5f), 0.f), nm1);
+            const float fi = ui - fminf(fmaxf(floorf(ui + 0.5f), 0.f), nm1);
+            dist[b * W + u] = __fadd_rn(__fmul_rn(fr, fr), __fmul_rn(fi, fi));
+        }
+    }
+    __syncthreads();
+
+    const long long j = j0 + threadIdx.x;
+    if (j >= L) return;
+    int best = 0;
+    if (j >= N && j < L - N) {
+        float bs = INFINITY;
+        for (int b = 0; b < B; ++b) {
+            const float* d = dist + b * W + threadIdx.x;
+            float acc = 0.f;
+            for (int n = 0; n < N2; ++n) acc += d[n];
+            if (acc < bs) {
+                bs = acc;
+                best = b;
+            }
+        }
+    }
+    out[row + j] = __fadd_rn(__fadd_rn(ph1[row + j], d0f), __fmul_rn(ddf, (float)best));
 }
 
 }  // namespace
@@ -296,6 +474,49 @@ int qtt_cpe_coeffs(const float* symr, const float* symi, int rows, long long ld,
     cpe_coeffs_kernel<<<rows, kCpeThreads, smem, (cudaStream_t)stream>>>(
         symr, symi, ld, off, stride, pil_r, pil_i, rows_per_pilot, npil, n_head, npts, dx,
         cpe_avg, nbt, lanes, two_pi, inv_two_pi, a_out, b_out);
+    return (int)cudaGetLastError();
+}
+
+// Tiles per row of B7: the wrapper's scratch is (rows, qtt_unwrap_tiles(L)) int32.
+int qtt_unwrap_tiles(long long L) { return (int)((L + kUnwrapTile - 1) / kUnwrapTile); }
+
+// er/ei/ph/outr/outi: (rows, L); tiles: (rows, qtt_unwrap_tiles(L)) int32 scratch.
+int qtt_unwrap_derotate(const float* er, const float* ei, const float* ph, int rows, long long L,
+                        float half_pi, float inv_half_pi, int* tiles, float* outr, float* outi,
+                        void* stream) {
+    if (rows == 0 || L == 0) return 0;
+    const int ntiles = qtt_unwrap_tiles(L);
+    const dim3 grid((unsigned)ntiles, (unsigned)rows);
+    cudaStream_t s = (cudaStream_t)stream;
+    unwrap_count_kernel<<<grid, kUnwrapThreads, 0, s>>>(ph, L, inv_half_pi, ntiles, tiles);
+    int rc = (int)cudaGetLastError();
+    if (rc) return rc;
+    unwrap_scan_kernel<<<rows, kScanThreads, 0, s>>>(ntiles, tiles);
+    rc = (int)cudaGetLastError();
+    if (rc) return rc;
+    unwrap_apply_kernel<<<grid, kUnwrapThreads, 0, s>>>(er, ei, ph, L, half_pi, inv_half_pi,
+                                                        ntiles, tiles, outr, outi);
+    return (int)cudaGetLastError();
+}
+
+long long qtt_bps_fine_smem(int B, int N) {
+    const long long W = kFineTile + 2LL * N - 1;
+    return 4 * (B * W + 2LL * B);
+}
+
+int qtt_bps_fine(const float* er, const float* ei, const float* ph1, int nmodes, long long L,
+                 const float* cd, const float* sd, int B, int N, float c0, float nm1, float d0f,
+                 float ddf, float* out, void* stream) {
+    const size_t smem = (size_t)qtt_bps_fine_smem(B, N);
+    if (smem > 48 * 1024) {
+        const int rc = (int)cudaFuncSetAttribute(
+            (const void*)bps_fine_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            (int)smem);
+        if (rc) return rc;
+    }
+    const dim3 grid((unsigned)((L + kFineTile - 1) / kFineTile), (unsigned)nmodes);
+    bps_fine_kernel<<<grid, kFineTile, smem, (cudaStream_t)stream>>>(
+        er, ei, ph1, L, cd, sd, B, N, c0, nm1, d0f, ddf, out);
     return (int)cudaGetLastError();
 }
 

@@ -40,6 +40,10 @@ SIGNATURES = {
     "qtt_cpe_max_pilots": (_I, []),
     "qtt_cpe_coeffs": (_I, [_P, _P, _I, _LL, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
                             _F, _P, _P, _P]),
+    "qtt_unwrap_tiles": (_I, [_LL]),
+    "qtt_unwrap_derotate": (_I, [_P, _P, _P, _I, _LL, _F, _F, _P, _P, _P, _P]),
+    "qtt_bps_fine_smem": (_LL, [_I, _I]),
+    "qtt_bps_fine": (_I, [_P, _P, _P, _I, _LL, _P, _P, _I, _I, _F, _F, _F, _F, _P, _P]),
     "qtt_error_string": (ctypes.c_char_p, [_I]),
 }
 

@@ -1,27 +1,39 @@
-"""The blind RX chain in ``decimated[K]`` mode (counterpart of ``qampy_tpu/ops/chain.py``).
+"""The blind RX chain (counterpart of ``qampy_tpu/ops/chain.py``).
 
 ``make_rx_chain`` returns an :class:`RxChain` module running the reference's
-blind receiver on float32 [Re rows; Im rows] planes:
+blind receiver on float32 [Re rows; Im rows] planes. Every mode starts with
 
 1. two adaptive block-LMS trainings on the TrSyms prefix (MCMA, then MDDMA),
    with the CMA singularity guard between them (kernel B1);
-2. the strided MIMO filter over the whole capture with its stride-``dec``
-   side output (kernel B2);
-3. the blind phase search on the decimated samples (kernel B3);
-4. the decimated pi/2 unwrap and the per-block (a, b) phase coefficients
-   (plain tensor ops, :func:`decimated_derotation_inputs`);
-5. the full-rate piecewise-linear derotation (kernel B4).
+2. the strided MIMO filter over the whole capture (kernel B2);
 
-On CPU tensors each kernel runs its plain PyTorch version; on CUDA tensors
-the kernels run, with no fallback. Only the ``decimated[K]`` mode on a
-square grid with the ``mcma``/``mddma`` pair is ported: anything else
-raises ``NotImplementedError`` naming the ROADMAP item that brings it.
+and then recovers the carrier phase in one of three ways:
+
+- ``decimated[K]``: the blind phase search on the filter's stride-K side
+  output (B3), the decimated pi/2 unwrap and per-block (a, b) coefficients
+  (plain tensor ops, :func:`decimated_derotation_inputs`), and the
+  full-rate piecewise-linear derotation (B4);
+- ``single`` (the reference's default): the search over all bps_angles on
+  every sample (B3), its phase -pi/4 + (pi/2/A) idx, then the pi/2 unwrap
+  and derotation (B7);
+- ``twostage``/``twostage32``: a coarse search over max(A/4, 16) (or
+  max(A/2, 16)) angles with half-window 60 (B3), the fine search over 8
+  per-sample offsets with half-window bps_N (B8), then B7.
+
+A ``decimated[K]`` whose K does not divide the filter's phase group falls
+back to ``single`` with the reference's warning. On CPU tensors each kernel
+runs its plain PyTorch version; on CUDA tensors the kernels run, with no
+fallback. Only square grids with the ``mcma``/``mddma`` pair are ported:
+anything else raises ``NotImplementedError`` naming the ROADMAP item that
+brings it.
 
 Two divergences from the reference, both toward float32: the filter sums
 in float32 (the reference chain contracts in bf16) and the BPS windows are
 summed in float32 (the reference chain defaults to ``bps_win="bf16"``).
 """
 from __future__ import annotations
+
+import warnings
 
 import numpy as np
 import torch
@@ -31,8 +43,13 @@ from torch import nn
 from qampy_tpu_torch.ops import equaliser as eqops
 from qampy_tpu_torch.ops import phase as phops
 from qampy_tpu_torch.ops.equaliser_cuda import apply_filter, check_dec, train_block
-from qampy_tpu_torch.ops.phase_cuda import bps_search, interp_rotate
+from qampy_tpu_torch.ops.phase_cuda import bps_search, bps_twostage, interp_rotate, unwrap_derotate
 from qampy_tpu_torch.theory import cal_scaling_factor_qam, cal_symbols_qam
+
+#: the coarse stage's half-window of the two-stage search (reference chain.py:410-416)
+TWOSTAGE_N1 = 60
+#: per-sample offsets of the fine stage (reference chain.py:414)
+TWOSTAGE_B = 8
 
 __all__ = ["RxChain", "make_rx_chain", "decimated_derotation_inputs", "cma_singularity_guard"]
 
@@ -75,28 +92,24 @@ def cma_singularity_guard(w):
 
 
 class RxChain(nn.Module):
-    """Blind dual-pol receiver, ``decimated[K]`` carrier recovery.
+    """Blind dual-pol receiver in one of the carrier-recovery modes of the module docstring.
 
     Build it with :func:`make_rx_chain`. Entries, as in the reference:
     ``forward(E)`` (complex in and out), ``planes(P)`` ((outr, outi) from
     stacked float32 planes), ``with_taps``/``planes_with_taps`` (also return
     the frozen taps) and ``tracking``/``tracking_planes`` (demodulate with
-    given taps, skipping both trainings).
+    given taps, skipping both trainings). ``mode`` is "decimated" (with
+    stride ``dec``), "single" or "twostage"; ``bps_cos``/``bps_sin`` hold
+    the angle tables of the one B3 search a call runs (the coarse grid in
+    twostage, whose fine offsets are ``fine_cos``/``fine_sin``).
     """
 
     def __init__(self, M=64, Ntaps=17, os=2, methods=("mcma", "mddma"), mu=1.9e-3,
-                 bps_angles=64, bps_N=12, block_size=256, TrSyms=None,
-                 bps_mode="decimated16", symbols=None):
+                 bps_angles=64, bps_N=14, block_size=256, TrSyms=None,
+                 bps_mode="single", symbols=None):
         super().__init__()
         if symbols is not None:
-            raise NotImplementedError("custom symbol alphabets are ROADMAP item A4")
-        if not bps_mode.startswith("decimated"):
-            raise NotImplementedError(
-                "bps_mode=%r: only 'decimated[K]' is ported; 'single' and 'twostage' "
-                "are ROADMAP item A4 (kernels B7, B8)" % (bps_mode,))
-        self.dec = int(bps_mode[len("decimated"):] or 8)
-        if self.dec < 1:
-            raise ValueError("bps_mode=%r: the decimation stride must be positive" % (bps_mode,))
+            raise NotImplementedError("custom symbol alphabets are ROADMAP item A4b")
         if len(methods) != 2:
             raise ValueError("the chain trains two stages, got methods=%r" % (methods,))
         dtype = np.complex64
@@ -106,20 +119,46 @@ class RxChain(nn.Module):
         self.grid = phops.detect_grid(const)
         phops.square_grid(self.grid, "rx chain")
         self.Ntaps, self.os, self.mu = int(Ntaps), int(os), float(mu)
-        try:
-            check_dec(self.os, self.Ntaps, 2, self.dec)
-        except ValueError as e:
-            raise NotImplementedError(
-                "%s; the reference falls back to the single-grid search there, "
-                "which is ROADMAP item A4" % e) from None
         self.bps_N, self.block_size, self.TrSyms = int(bps_N), int(block_size), TrSyms
-        angles = np.linspace(-np.pi / 4, np.pi / 4, bps_angles, endpoint=False,
-                             dtype=np.float32)
-        self.step_a, self.lo_a = float(np.pi / 2 / bps_angles), float(-np.pi / 4)
+        self.mode, self.dec = self._resolve_mode(bps_mode)
+        A = bps_angles
+        if self.mode == "twostage":
+            A = max(bps_angles // (2 if bps_mode.endswith("32") else 4), 16)
+        self.search_N = TWOSTAGE_N1 if self.mode == "twostage" else self.bps_N
+        angles = np.linspace(-np.pi / 4, np.pi / 4, A, endpoint=False, dtype=np.float32)
+        self.step_a, self.lo_a = float(np.pi / 2 / A), float(-np.pi / 4)
         cos_h, sin_h = phops.bps_tables(angles, self.grid)
         self.register_buffer("w0", torch.as_tensor(eqops._init_taps(Ntaps, 2, 2, dtype)))
         self.register_buffer("bps_cos", torch.as_tensor(cos_h))
         self.register_buffer("bps_sin", torch.as_tensor(sin_h))
+        if self.mode == "twostage":
+            cd, sd, self.fine_d0, self.fine_step = phops.fine_tables(A, TWOSTAGE_B, self.grid)
+            self.register_buffer("fine_cos", torch.as_tensor(cd))
+            self.register_buffer("fine_sin", torch.as_tensor(sd))
+
+    def _resolve_mode(self, bps_mode):
+        """(mode, decimation stride or None) of a ``bps_mode`` name (reference chain.py:280-292)."""
+        if bps_mode == "twostage-dec":
+            raise NotImplementedError(
+                "bps_mode='twostage-dec' is on ROADMAP's 'Not to port' list (a measured "
+                "dead end of the reference)")
+        if bps_mode.startswith("twostage"):
+            return "twostage", None
+        if bps_mode == "single":
+            return "single", None
+        if not bps_mode.startswith("decimated"):
+            raise ValueError("unknown bps_mode %r: 'single', 'twostage', 'twostage32' or "
+                             "'decimated[K]'" % (bps_mode,))
+        dec = int(bps_mode[len("decimated"):] or 8)
+        if dec < 1:
+            raise ValueError("bps_mode=%r: the decimation stride must be positive" % (bps_mode,))
+        try:
+            check_dec(self.os, self.Ntaps, 2, dec)
+        except ValueError as e:
+            warnings.warn("bps_mode=%r needs a phase group divisible by the stride (%s); "
+                          "falling back to the single-grid BPS" % (bps_mode, e), stacklevel=4)
+            return "single", None
+        return "decimated", dec
 
     # -- stages -------------------------------------------------------------
 
@@ -137,14 +176,18 @@ class RxChain(nn.Module):
         return w2
 
     def equalise(self, P, w):
-        """Filter the capture: (full-rate planes, stride-dec planes)."""
+        """Filter the capture: (full-rate planes, stride-dec planes, or None outside decimated)."""
+        if self.dec is None:
+            return apply_filter(P, self.os, w), None
         return apply_filter(P, self.os, w, self.dec)
 
-    def phase_search(self, decp):
-        """Best-angle indices (nmodes, Ld) on the decimated planes."""
-        no = decp.shape[0] // 2
-        return bps_search(decp[:no], decp[no:], self.bps_cos, self.bps_sin, self.grid,
-                          self.bps_N)
+    def phase_search(self, x):
+        """B3's best-angle indices (nmodes, L) on planes ``x`` (the decimated ones in decimated).
+
+        Over the chain's angle table with half-window ``search_N``.
+        """
+        no = x.shape[0] // 2
+        return bps_search(x[:no], x[no:], self.bps_cos, self.bps_sin, self.grid, self.search_N)
 
     def derotate(self, eqp, idxd):
         """Unwrap the decimated phase and derotate the full-rate planes: (outr, outi)."""
@@ -155,6 +198,24 @@ class RxChain(nn.Module):
         outr, outi = interp_rotate(er, ei, a, b, self.dec, sign=1)
         return outr[:, :Lout], outi[:, :Lout]
 
+    def carrier_phase(self, eqp):
+        """The per-sample phase (nmodes, L) of the single and twostage modes, before the unwrap.
+
+        single: lo + step idx of B3's indices (reference chain.py:441);
+        twostage: B3 on the coarse grid, then B8 (chain.py:412-418).
+        """
+        if self.mode == "single":
+            return self.lo_a + self.step_a * self.phase_search(eqp).to(torch.float32)
+        no = eqp.shape[0] // 2
+        return bps_twostage(eqp[:no], eqp[no:], self.bps_cos, self.bps_sin, self.search_N,
+                            self.fine_cos, self.fine_sin, self.grid, self.bps_N, self.fine_d0,
+                            self.fine_step)
+
+    def unwrap_derotate(self, eqp, ph):
+        """pi/2-unwrap the per-sample phase, derotate the full-rate planes (B7): (outr, outi)."""
+        no = eqp.shape[0] // 2
+        return unwrap_derotate(eqp[:no], eqp[no:], ph)
+
     def _fwd(self, P, w=None):
         if P.is_complex() or P.dim() != 2 or P.shape[0] % 2:
             raise ValueError("expected stacked float32 [Re rows; Im rows] planes, got %s %s"
@@ -162,7 +223,9 @@ class RxChain(nn.Module):
         P = P.to(torch.float32).contiguous()
         w2 = self.train_taps(P) if w is None else w
         eqp, decp = self.equalise(P, w2)
-        return self.derotate(eqp, self.phase_search(decp)), w2
+        if self.mode == "decimated":
+            return self.derotate(eqp, self.phase_search(decp)), w2
+        return self.unwrap_derotate(eqp, self.carrier_phase(eqp)), w2
 
     # -- entries --------------------------------------------------------------
 
@@ -199,8 +262,8 @@ class RxChain(nn.Module):
 
 
 def make_rx_chain(M=64, Ntaps=17, os=2, methods=("mcma", "mddma"), mu=1.9e-3,
-                  bps_angles=64, bps_N=12, block_size=256, TrSyms=None,
-                  bps_mode="decimated16", symbols=None, device="cpu"):
+                  bps_angles=64, bps_N=14, block_size=256, TrSyms=None,
+                  bps_mode="single", symbols=None, device="cpu"):
     """Build the blind RX chain on ``device`` (see :class:`RxChain`).
 
     Parameters follow the reference's ``make_rx_chain``; its backend

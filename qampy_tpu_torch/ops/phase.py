@@ -4,8 +4,9 @@ Counterpart of ``qampy_tpu/ops/phase.py``: the numpy grid classification
 (phase.py:30-128) that picks the analytic nearest-point decision, and the
 plain form of the BPS index search (``bps_idx``/``_select_angle_index``,
 phase.py:283-333) that the CUDA kernel in ``ops/phase_cuda.py`` is held
-against. Only square grids are implemented; cross, rectangular and general
-alphabets are ROADMAP item A4.
+against, with the two-stage search's fine offsets and distances
+(phase_pallas.py:447-478, 551-593). Only square grids are implemented;
+cross, rectangular and general alphabets are ROADMAP item A4b.
 """
 from __future__ import annotations
 
@@ -102,7 +103,7 @@ def square_grid(grid, what):
     if kind != "sq":
         raise NotImplementedError(
             "%s: only square-grid constellations are ported; grid kind %r "
-            "(cross, rectangular or general alphabet) is ROADMAP item A4"
+            "(cross, rectangular or general alphabet) is ROADMAP item A4b"
             % (what, kind))
     return p
 
@@ -127,14 +128,21 @@ def bps_distances(er, ei, cos_t, sin_t, grid):
     :func:`bps_tables`. Returns (..., L, A). Per axis the nearest level is
     floor(u + 0.5) clamped to [0, n-1] (phase_pallas.py:109-119).
     """
+    return _rotated_distances(er, ei, cos_t, sin_t, grid)
+
+
+def _rotated_distances(er, ei, ca, sa, grid):
+    """Squared distance to the grid of (er + j ei) rotated by the pre-scaled (ca, sa).
+
+    ca/sa broadcast against (..., L, 1): one angle table for all samples, or
+    one per sample. Every product and sum is rounded on its own.
+    """
     d0, lo, n = square_grid(grid, "bps")
     c0 = lo / d0
     er = er.unsqueeze(-1)
     ei = ei.unsqueeze(-1)
-    xr = er * cos_t - ei * sin_t
-    xi = er * sin_t + ei * cos_t
-    ur = xr - c0
-    ui = xi - c0
+    ur = (er * ca - ei * sa) - c0
+    ui = (er * sa + ei * ca) - c0
     fr = ur - torch.clamp(torch.floor(ur + 0.5), 0.0, n - 1.0)
     fi = ui - torch.clamp(torch.floor(ui + 0.5), 0.0, n - 1.0)
     return fr * fr + fi * fi
@@ -166,6 +174,46 @@ def bps_idx_planes(er, ei, cos_t, sin_t, grid, N):
     return _select_angle_index(bps_distances(er, ei, cos_t, sin_t, grid), 2 * N)
 
 
+def fine_tables(Mtestangles, B, grid):
+    """The fine stage's offsets of the two-stage BPS (phase_pallas.py:551-554, 585-593).
+
+    B offsets delta_b = bvals_b / (B * Mtestangles) * pi/2, bvals =
+    linspace(-B/2, B/2, B), span one step of the Mtestangles coarse grid.
+    Returns (cos_h, sin_h, d0f, ddf): cos/sin(delta_b) / d0 as host float32
+    (computed in float64, as the reference does), and the affine map of the
+    offset index, delta_b = d0f + ddf * b, as float32 values.
+    """
+    scale = 1.0 / square_grid(grid, "bps_fine")[0]
+    bvals = np.linspace(-B / 2, B / 2, B)
+    deltas = bvals / (B * Mtestangles) * np.pi / 2
+    ddf = deltas[1] - deltas[0] if B > 1 else 0.0
+    return ((np.cos(deltas) * scale).astype(np.float32),
+            (np.sin(deltas) * scale).astype(np.float32),
+            float(np.float32(deltas[0])), float(np.float32(ddf)))
+
+
+def bps_fine_distances(er, ei, ph1, cd, sd, grid):
+    """Squared distances (units of d0^2) at the per-sample angles ph1 + delta_b.
+
+    er/ei/ph1: (..., L) float32; cd/sd: (B,) tables from :func:`fine_tables`.
+    The angle comes from the angle-addition form, each product rounded on
+    its own: c = cos(ph1) cd - sin(ph1) sd, s = sin(ph1) cd + cos(ph1) sd
+    (phase_pallas.py:467-470). Returns (..., L, B).
+    """
+    c1 = torch.cos(ph1).unsqueeze(-1)
+    s1 = torch.sin(ph1).unsqueeze(-1)
+    return _rotated_distances(er, ei, c1 * cd - s1 * sd, s1 * cd + c1 * sd, grid)
+
+
+def _window_near_ties(dist, N, rel):
+    """Positions [N, L-N) whose two best 2N-window sums (float64) lie within ``rel``."""
+    win = dist.double()[..., 1:, :].unfold(-2, 2 * N, 1).sum(-1)
+    best2 = torch.topk(win, 2, dim=-1, largest=False).values
+    mask = torch.zeros(dist.shape[:-1], dtype=torch.bool, device=dist.device)
+    mask[..., N: dist.shape[-2] - N] = best2[..., 1] - best2[..., 0] <= rel * best2[..., 0]
+    return mask
+
+
 def bps_near_ties(er, ei, cos_t, sin_t, grid, N, rel=1e-5):
     """Positions whose two best window sums lie within ``rel`` of each other.
 
@@ -174,12 +222,16 @@ def bps_near_ties(er, ei, cos_t, sin_t, grid, N, rel=1e-5):
     so a comparison of two BPS searches excuses exactly these positions.
     Returns a bool mask of the shape of ``er``.
     """
-    d = bps_distances(er, ei, cos_t, sin_t, grid).double()
-    win = d[..., 1:, :].unfold(-2, 2 * N, 1).sum(-1)
-    best2 = torch.topk(win, 2, dim=-1, largest=False).values
-    mask = torch.zeros(er.shape, dtype=torch.bool, device=er.device)
-    mask[..., N: er.shape[-1] - N] = best2[..., 1] - best2[..., 0] <= rel * best2[..., 0]
-    return mask
+    return _window_near_ties(bps_distances(er, ei, cos_t, sin_t, grid), N, rel)
+
+
+def bps_fine_near_ties(er, ei, ph1, cd, sd, grid, N, rel=1e-5):
+    """:func:`bps_near_ties` for the fine stage's per-sample angles ph1 + delta_b.
+
+    An ulp of cos/sin(ph1) moves the distances by ~1e-7 relative, so it can
+    flip the argmin only at these positions.
+    """
+    return _window_near_ties(bps_fine_distances(er, ei, ph1, cd, sd, grid), N, rel)
 
 
 def bps_idx(E, testangles, symbols, N, grid=None):

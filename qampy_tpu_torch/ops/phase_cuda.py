@@ -1,4 +1,4 @@
-"""Kernels B3-B6 of carrier recovery with their wrappers.
+"""Kernels B3-B8 of carrier recovery with their wrappers.
 
 As in ``ops/equaliser_cuda.py``: ``*_cuda`` launches the CUDA kernel of
 ``csrc/phase.cu`` (and raises on anything but contiguous CUDA tensors),
@@ -7,8 +7,10 @@ the device of the input. ``*_cuda.launches`` counts kernel launches.
 
 B3 (blind phase search) replaces ``qampy_tpu/ops/phase_pallas.py:bps_idx_pallas``,
 B4 (interp-rotate) ``interp_rotate_planes_pallas``, B5 (the pilot CPE's
-phase coefficients) ``cpe_coeffs_pallas`` and B6 (rotation by a given
-phase) ``rotate_planes_pallas``.
+phase coefficients) ``cpe_coeffs_pallas``, B6 (rotation by a given
+phase) ``rotate_planes_pallas``, B7 (pi/2 unwrap and derotation)
+``unwrap_derotate_pallas`` and B8 (the two-stage search's fine stage)
+``bps_fine_pallas``.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import numpy as np
 import torch
 
 from qampy_tpu_torch.ops import _build
+from qampy_tpu_torch.ops import phase as phops
 from qampy_tpu_torch.ops.phase import bps_idx_planes as bps_search_plain
 from qampy_tpu_torch.ops.phase import square_grid
 
@@ -262,3 +265,134 @@ def rotate(er, ei, ph, sign=-1):
     """Rotation by a given phase: the plain version on CPU tensors, kernel B6 on CUDA."""
     fn = rotate_plain if er.device.type == "cpu" else rotate_cuda
     return fn(er, ei, ph, sign)
+
+
+# ---------------------------------------------------------------------------
+# B7: pi/2 unwrap and derotation
+# ---------------------------------------------------------------------------
+
+#: pi/2 and 2/pi rounded to float32, as the reference kernel holds them
+HALF_PI = float(np.float32(np.pi / 2))
+INV_HALF_PI = float(np.float32(2 / np.pi))
+
+
+def quarter_unwrap(ph):
+    """u = ph - (pi/2) M: the pi/2 unwrap of a (rows, L) float32 phase.
+
+    M is the inclusive prefix sum in int32 of the jump counts m_i =
+    floor(d_i (2/pi) + 0.5), d_i = ph_i - ph_{i-1}, d_0 = 0
+    (phase_pallas.py:340-356). Every product and sum is rounded on its own;
+    the reference under XLA on the CPU fuses d (2/pi) + 0.5 into one FMA,
+    which can count a jump differently within an ulp of an odd multiple of
+    pi/4. The integer prefix sum is exact in any order.
+    """
+    m = torch.floor((ph[..., 1:] - ph[..., :-1]) * INV_HALF_PI + 0.5).to(torch.int32)
+    M = torch.cumsum(torch.nn.functional.pad(m, (1, 0)), dim=-1, dtype=torch.int32)
+    return ph - HALF_PI * M.to(torch.float32)
+
+
+def _check_unwrap(er, ei, ph):
+    if er.dim() != 2 or er.shape != ei.shape or er.shape != ph.shape:
+        raise ValueError("unwrap_derotate takes (rows, L) planes and phase of one shape, got "
+                         "%s, %s, %s" % (tuple(er.shape), tuple(ei.shape), tuple(ph.shape)))
+
+
+def unwrap_derotate_plain(er, ei, ph):
+    """Plain unwrap + derotation: (er + j ei) exp(+j u), u = :func:`quarter_unwrap` (ph)."""
+    _check_unwrap(er, ei, ph)
+    return rotate_plain(er, ei, quarter_unwrap(ph), 1)
+
+
+def unwrap_derotate_cuda(er, ei, ph):
+    """Launch kernel B7; same contract as :func:`unwrap_derotate_plain`.
+
+    The row scan takes three CUDA launches (tile counts, their scan, apply);
+    the counter counts one per call.
+    """
+    _build.require_cuda("unwrap_derotate_cuda", er, ei, ph, dtype=torch.float32)
+    _check_unwrap(er, ei, ph)
+    lib = _build.library()
+    rows, L = er.shape
+    tiles = torch.empty((rows, max(lib.qtt_unwrap_tiles(L), 1)), dtype=torch.int32,
+                        device=er.device)
+    outr = torch.empty_like(er)
+    outi = torch.empty_like(ei)
+    rc = lib.qtt_unwrap_derotate(er.data_ptr(), ei.data_ptr(), ph.data_ptr(), rows, L,
+                                 HALF_PI, INV_HALF_PI, tiles.data_ptr(), outr.data_ptr(),
+                                 outi.data_ptr(), _build.stream_of(er))
+    _build.check(rc, "unwrap_derotate_cuda")
+    unwrap_derotate_cuda.launches += 1
+    return outr, outi
+
+
+unwrap_derotate_cuda.launches = 0
+
+
+def unwrap_derotate(er, ei, ph):
+    """Unwrap + derotation: the plain version on CPU tensors, kernel B7 on CUDA."""
+    fn = unwrap_derotate_plain if er.device.type == "cpu" else unwrap_derotate_cuda
+    return fn(er, ei, ph)
+
+
+# ---------------------------------------------------------------------------
+# B8: the fine stage of the two-stage phase search
+# ---------------------------------------------------------------------------
+
+def _check_fine(er, ei, ph1, cd, sd):
+    if er.dim() != 2 or er.shape != ei.shape or er.shape != ph1.shape:
+        raise ValueError("bps_fine takes (nmodes, L) planes and coarse phase of one shape")
+    if cd.dim() != 1 or cd.shape != sd.shape:
+        raise ValueError("bps_fine takes two (B,) offset tables")
+
+
+def bps_fine_plain(er, ei, ph1, cd, sd, grid, N, d0f, ddf):
+    """Plain fine BPS stage: the per-sample phase (ph1 + d0f) + ddf * idx.
+
+    er/ei/ph1: (nmodes, L) float32; cd/sd, d0f, ddf from
+    ``ops.phase.fine_tables``. idx is the argmin over the B offsets of the
+    2N-window sums of :func:`ops.phase.bps_fine_distances` at [N, L-N) and
+    0 elsewhere, where the phase is ph1 + d0f (phase_pallas.py:587-593).
+    """
+    _check_fine(er, ei, ph1, cd, sd)
+    idx = phops._select_angle_index(phops.bps_fine_distances(er, ei, ph1, cd, sd, grid), 2 * N)
+    return (ph1 + d0f) + ddf * idx.to(torch.float32)
+
+
+def bps_fine_cuda(er, ei, ph1, cd, sd, grid, N, d0f, ddf):
+    """Launch kernel B8; same contract as :func:`bps_fine_plain`."""
+    _build.require_cuda("bps_fine_cuda", er, ei, ph1, cd, sd, dtype=torch.float32)
+    _check_fine(er, ei, ph1, cd, sd)
+    d0, lo, n = square_grid(grid, "bps_fine_cuda")
+    lib = _build.library()
+    B = cd.shape[0]
+    if lib.qtt_bps_fine_smem(B, N) > _SMEM_LIMIT:
+        raise ValueError("%d offsets with N=%d exceed one CTA's shared memory" % (B, N))
+    nmodes, L = er.shape
+    out = torch.empty_like(ph1)
+    rc = lib.qtt_bps_fine(er.data_ptr(), ei.data_ptr(), ph1.data_ptr(), nmodes, L,
+                          cd.data_ptr(), sd.data_ptr(), B, int(N), lo / d0, float(n - 1),
+                          float(d0f), float(ddf), out.data_ptr(), _build.stream_of(er))
+    _build.check(rc, "bps_fine_cuda")
+    bps_fine_cuda.launches += 1
+    return out
+
+
+bps_fine_cuda.launches = 0
+
+
+def bps_fine(er, ei, ph1, cd, sd, grid, N, d0f, ddf):
+    """Fine BPS stage: the plain version on CPU tensors, kernel B8 on CUDA."""
+    fn = bps_fine_plain if er.device.type == "cpu" else bps_fine_cuda
+    return fn(er, ei, ph1, cd, sd, grid, N, d0f, ddf)
+
+
+def bps_twostage(er, ei, cos1, sin1, N1, cd, sd, grid, N, d0f, ddf):
+    """Two-stage BPS phase (``bps_phase_twostage_pallas``, phase_pallas.py:483-526).
+
+    B3 on the coarse tables cos1/sin1 (A1 angles over [-pi/4, pi/4)) with
+    half-window N1, its phase ph1 = -pi/4 + (pi/2/A1) idx1, then B8 around
+    ph1 with half-window N. Returns the per-sample phase, before the unwrap.
+    """
+    step1 = np.pi / 2 / cos1.shape[0]
+    ph1 = -np.pi / 4 + step1 * bps_search(er, ei, cos1, sin1, grid, N1).to(torch.float32)
+    return bps_fine(er, ei, ph1, cd, sd, grid, N, d0f, ddf)

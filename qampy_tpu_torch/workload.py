@@ -90,6 +90,25 @@ def decide(z, const):
     return torch.complex(q(z.real), q(z.imag))
 
 
+def shared_decisions(a, b, const):
+    """Share of the decisions of ``a`` and ``b`` (nmodes, L) that agree, per mode at its best turn.
+
+    Mode m of ``b`` is turned by the multiple of pi/2 that agrees best with
+    mode m of ``a``; the shares are averaged over the modes. A blind
+    receiver has no absolute phase: in the per-sample modes the phase step
+    from the search's zero-filled edge into its first estimate can land on
+    exactly pi/4, where the unwrap's count depends on the last ulp, and two
+    correct receivers then differ by a quarter turn for the rest of the row.
+    The gate minimises over quarter turns; so does this.
+    """
+    da = decide(a, const)
+    best = []
+    for m in range(a.shape[0]):
+        best.append(max(float((da[m] == decide(b[m] * (1j ** r), const)).double().mean())
+                        for r in range(4)))
+    return float(np.mean(best))
+
+
 def ser_gate(out, ref, const):
     """Symbol error rate of the recovered symbols, as the bench gates it.
 

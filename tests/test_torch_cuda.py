@@ -1,4 +1,4 @@
-"""The CUDA kernels B1-B6 against their plain PyTorch versions, on the card.
+"""The CUDA kernels B1-B8 against their plain PyTorch versions, on the card.
 
 These tests need a CUDA card and the CUDA toolkit: without a card they
 skip. The module imports no JAX, so it runs on a machine that has none:
@@ -17,12 +17,14 @@ from qampy_tpu_torch.ops.chain import make_rx_chain
 from qampy_tpu_torch.ops.equaliser_cuda import (apply_filter_cuda, apply_filter_frames_cuda,
                                                 apply_filter_frames_plain, apply_filter_plain,
                                                 train_block_cuda, train_block_plain)
-from qampy_tpu_torch.ops.phase_cuda import (bps_search_cuda, bps_search_plain, cpe_coeffs_cuda,
-                                            cpe_coeffs_plain, interp_rotate_cuda,
-                                            interp_rotate_plain, rotate_cuda, rotate_plain)
+from qampy_tpu_torch.ops.phase_cuda import (bps_fine_cuda, bps_fine_plain, bps_search_cuda,
+                                            bps_search_plain, cpe_coeffs_cuda, cpe_coeffs_plain,
+                                            interp_rotate_cuda, interp_rotate_plain,
+                                            quarter_unwrap, rotate_cuda, rotate_plain,
+                                            unwrap_derotate_cuda, unwrap_derotate_plain)
 from qampy_tpu_torch.ops.pilot_chain import make_pilot_rx_chain
 from qampy_tpu_torch.workload import (GATE_TRIM, ber_gate, decide, make_pilot_tx, make_tx,
-                                      ser_gate)
+                                      ser_gate, shared_decisions)
 
 pytestmark = pytest.mark.gpu
 
@@ -109,17 +111,21 @@ def test_b2_checks_inputs(dev, capture):
         apply_filter_cuda(capture[3][:, ::2], 2, w)
 
 
-@pytest.mark.parametrize("A, N", [(64, 12), (32, 8), (64, 40)])
-def test_b3_bps_search(dev, A, N):
-    rng = np.random.default_rng(A + N)
-    const = make_rx_chain().grid
-    L = 2 ** 16
-    levels = const[1] + const[0] * np.arange(const[2])
+def _qam_planes(dev, seed, L=2 ** 16):
+    """64-QAM planes on the card with a random-walk carrier phase and noise: (grid, er, ei)."""
+    rng = np.random.default_rng(seed)
+    grid = make_rx_chain().grid
+    levels = grid[1] + grid[0] * np.arange(grid[2])
     syms = rng.choice(levels, (2, L)) + 1j * rng.choice(levels, (2, L))
     z = syms * np.exp(1j * np.cumsum(rng.normal(scale=0.01, size=(2, L)), -1))
     z = (z + 0.05 * (rng.standard_normal((2, L)) + 1j * rng.standard_normal((2, L))))
-    er = torch.as_tensor(z.real.astype(np.float32), device=dev)
-    ei = torch.as_tensor(z.imag.astype(np.float32), device=dev)
+    return (grid, torch.as_tensor(z.real.astype(np.float32), device=dev),
+            torch.as_tensor(z.imag.astype(np.float32), device=dev))
+
+
+@pytest.mark.parametrize("A, N", [(64, 12), (32, 8), (64, 40), (16, 60), (64, 14)])
+def test_b3_bps_search(dev, A, N):
+    const, er, ei = _qam_planes(dev, A + N)
     ang = np.linspace(-np.pi / 4, np.pi / 4, A, endpoint=False, dtype=np.float32)
     cos_t, sin_t = (torch.as_tensor(t, device=dev) for t in tph.bps_tables(ang, const))
     ref = bps_search_plain(er, ei, cos_t, sin_t, const, N)
@@ -163,6 +169,71 @@ def test_chain_on_card_matches_plain_chain(dev, capture):
     # a near-tied phase index may resolve either way and move a few symbols
     # by one angle step: the decisions, not the values, must agree
     assert float((decide(got, const) == decide(ref, const)).double().mean()) >= 0.999
+
+
+@pytest.mark.parametrize("rows, L", [(2, 2 ** 20 + 2 ** 19 + 77), (3, 1000), (2, 1)])
+def test_b7_unwrap_derotate(dev, rows, L):
+    """Rows longer than 2^20 samples, shorter than one tile, and of one sample."""
+    g = torch.Generator(device=dev).manual_seed(L)
+    er, ei = (torch.randn(rows, L, generator=g, device=dev) for _ in range(2))
+    theta = torch.cumsum(0.2 * torch.randn(rows, L, generator=g, device=dev), -1)
+    ph = torch.remainder(theta + np.pi / 4, np.pi / 2) - np.pi / 4
+    rp, ip = unwrap_derotate_plain(er, ei, ph)
+    rk, ik = unwrap_derotate_cuda(er, ei, ph)
+    u = quarter_unwrap(ph).abs()
+    # both within |z| (ulp32(|u|) + 2^-23) of the exact rotation by the same u
+    ulp = torch.nextafter(u, torch.full_like(u, np.inf)) - u
+    bound = 2 * torch.sqrt(er ** 2 + ei ** 2) * (ulp + 2.0 ** -23)
+    assert bool((torch.sqrt((rk - rp) ** 2 + (ik - ip) ** 2) <= bound).all())
+
+
+@pytest.mark.parametrize("N", [14, 60])
+def test_b8_bps_fine(dev, N):
+    grid, er, ei = _qam_planes(dev, N)
+    ang = np.linspace(-np.pi / 4, np.pi / 4, 16, endpoint=False, dtype=np.float32)
+    cos1, sin1 = (torch.as_tensor(t, device=dev) for t in tph.bps_tables(ang, grid))
+    ph1 = -np.pi / 4 + np.pi / 32 * bps_search_cuda(er, ei, cos1, sin1, grid, 60).float()
+    cd, sd, d0f, ddf = tph.fine_tables(16, 8, grid)
+    cd, sd = torch.as_tensor(cd, device=dev), torch.as_tensor(sd, device=dev)
+    ref = bps_fine_plain(er, ei, ph1, cd, sd, grid, N, d0f, ddf)
+    got = bps_fine_cuda(er, ei, ph1, cd, sd, grid, N, d0f, ddf)
+    ties = tph.bps_fine_near_ties(er, ei, ph1, cd, sd, grid, N)
+    assert not bool(((got != ref) & ~ties).any())
+    assert float(ties.double().mean()) <= 1e-3
+
+
+def test_b7_b8_check_inputs(dev):
+    grid, er, ei = _qam_planes(dev, 3, L=4096)
+    cd, sd, d0f, ddf = tph.fine_tables(16, 8, grid)
+    cd, sd = torch.as_tensor(cd, device=dev), torch.as_tensor(sd, device=dev)
+    wide = torch.cat([er, ei], dim=-1)
+    with pytest.raises(ValueError, match="contiguous"):
+        unwrap_derotate_cuda(wide[:, ::2], wide[:, 1::2], wide[:, ::2])
+    with pytest.raises(ValueError, match="contiguous"):
+        bps_fine_cuda(wide[:, ::2], ei, er, cd, sd, grid, 14, d0f, ddf)
+    with pytest.raises(TypeError):
+        unwrap_derotate_cuda(er.double(), ei.double(), er.double())
+    with pytest.raises(ValueError, match="shape"):
+        unwrap_derotate_cuda(er, ei, er[:1])
+
+
+@pytest.mark.parametrize("mode", ["single", "twostage"])
+def test_per_sample_chain_on_card(dev, capture, mode):
+    E, syms, const, P = capture
+    cfg = dict(CFG, bps_N=14, bps_mode=mode)
+    counters = (train_block_cuda, apply_filter_cuda, bps_search_cuda, interp_rotate_cuda,
+                bps_fine_cuda, unwrap_derotate_cuda)
+    for fn in counters:
+        fn.launches = 0
+    chain = make_rx_chain(**cfg, device=dev)
+    (outr, outi), w = chain.planes_with_taps(P)
+    assert [fn.launches for fn in counters] == [2, 1, 1, 0, int(mode == "twostage"), 1]
+    tr, ti = chain.tracking_planes(P, w)
+    assert torch.equal(tr, outr) and torch.equal(ti, outi)
+    out = torch.complex(outr, outi)
+    assert ser_gate(out, torch.as_tensor(syms, device=dev), const) <= 1e-5
+    ref = make_rx_chain(**cfg).forward(torch.as_tensor(E))[:, GATE_TRIM:-GATE_TRIM]
+    assert shared_decisions(out.cpu()[:, GATE_TRIM:-GATE_TRIM], ref, const) >= 0.999
 
 
 def _pilot_rows(dev, rows, frame_len, seq_len, R, seed):

@@ -31,8 +31,9 @@ from qampy_tpu_torch.ops.chain import make_rx_chain
 from qampy_tpu_torch.ops.equaliser_cuda import (apply_filter, apply_filter_cuda,
                                                 apply_filter_frames_cuda, filter_group,
                                                 method_code, train_block_cuda)
-from qampy_tpu_torch.ops.phase_cuda import (bps_search_cuda, cpe_coeffs_cuda, interp_rotate_cuda,
-                                            rotate_cuda)
+from qampy_tpu_torch.ops.phase_cuda import (bps_fine_cuda, bps_search_cuda, cpe_coeffs_cuda,
+                                            interp_rotate_cuda, rotate_cuda,
+                                            unwrap_derotate_cuda)
 
 ORDERS = [4, 8, 16, 32, 64, 128, 256]
 
@@ -212,6 +213,16 @@ class TestWorkload:
         got = workload.ser_gate(torch.as_tensor(out), torch.as_tensor(ref), const)
         assert got == pytest.approx((7 / (L - 400) + 0) / 2)
 
+    def test_shared_decisions_undo_a_quarter_turn_per_mode(self):
+        rng = np.random.default_rng(15)
+        const = tth.cal_symbols_qam(64) / np.sqrt(tth.cal_scaling_factor_qam(64))
+        a = torch.as_tensor(const[rng.integers(0, 64, size=(2, 1000))].astype(np.complex64))
+        b = a.clone()
+        b[1] *= 1j
+        assert workload.shared_decisions(a, b, const) == 1.0
+        b[0, :100] = 0.0
+        assert workload.shared_decisions(a, b, const) == pytest.approx(1 - 0.1 / 2, abs=0.01)
+
     def test_chain_trim_holds_the_decimated_edge(self):
         # dec*N edge samples carry no full window and so no phase estimate:
         # the bench's N=12 keeps them inside the gate's trim, its default 14 not
@@ -249,7 +260,8 @@ class TestPortBoundaries:
                              timeout=120)
         assert res.returncode == 0, res.stdout + res.stderr
 
-    @pytest.mark.parametrize("which", ["B1", "B2", "B3", "B4", "B2 frames", "B5", "B6"])
+    @pytest.mark.parametrize("which", ["B1", "B2", "B3", "B4", "B2 frames", "B5", "B6", "B7",
+                                       "B8"])
     def test_cuda_wrappers_refuse_cpu_tensors(self, which):
         P = torch.zeros(4, 4096)
         w = torch.zeros(2, 2, 17, dtype=torch.complex64)
@@ -265,13 +277,14 @@ class TestPortBoundaries:
             "B2": lambda: apply_filter_cuda(P, 2, w, 16),
             "B3": lambda: bps_search_cuda(P[:2], P[2:], t, t, g, 12),
             "B4": lambda: interp_rotate_cuda(P[:2], P[2:], P[:2, :256], P[2:, :256], 16, 1),
+            "B7": lambda: unwrap_derotate_cuda(P[:2], P[2:], P[:2]),
+            "B8": lambda: bps_fine_cuda(P[:2], P[2:], P[:2], t[:8], t[:8], g, 14, -0.05, 0.01),
         }
         with pytest.raises(ValueError, match="CUDA"):
             calls[which]()
 
     @pytest.mark.parametrize("kwargs, item", [
-        (dict(bps_mode="single"), "A4"), (dict(bps_mode="twostage"), "A4"),
-        (dict(bps_mode="twostage-dec"), "A4"), (dict(bps_mode="decimated64"), "A4"),
+        (dict(bps_mode="twostage-dec"), "Not to port"),
         (dict(methods=("cma", "rde")), "A7"), (dict(methods=("mcma", "sbd")), "A7"),
         (dict(M=32), "A4"), (dict(M=128), "A4"), (dict(symbols=np.ones(16)), "A4")])
     def test_unported_configurations_raise(self, kwargs, item):
@@ -279,11 +292,17 @@ class TestPortBoundaries:
             make_rx_chain(**kwargs)
 
     def test_chain_is_a_module(self):
-        ch = make_rx_chain(TrSyms=256)
-        assert ch.eval() is ch and not ch.training
-        assert {n for n, _ in ch.named_buffers()} == {"w0", "bps_cos", "bps_sin"}
+        tables = {"w0", "bps_cos", "bps_sin"}
+        for mode, buffers, A in (("single", tables, 64), ("decimated16", tables, 64),
+                                 ("twostage", tables | {"fine_cos", "fine_sin"}, 16)):
+            ch = make_rx_chain(TrSyms=256, bps_mode=mode)
+            assert ch.eval() is ch and not ch.training
+            assert {n for n, _ in ch.named_buffers()} == buffers
+            assert ch.bps_cos.shape == (A,)
         with pytest.raises(ValueError, match="positive"):
             make_rx_chain(bps_mode="decimated0")
+        with pytest.raises(ValueError, match="unknown bps_mode"):
+            make_rx_chain(bps_mode="double")
 
     def test_filter_side_stride_must_divide_group(self):
         P = torch.zeros(4, 1024)
