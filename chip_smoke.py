@@ -8,7 +8,7 @@ result line):
 
 1. device: a CUDA card must be present (no CPU fallback); prints its name
    and ``nvidia-smi``'s name and power limit;
-2. build: compiles the kernels (B1-B8 and B2's frame entry) from
+2. build: compiles the kernels (B1-B9 and B2's frame entry) from
    ``qampy_tpu_torch/csrc``;
 3. blind kernels: B1-B4 against their plain PyTorch versions on the card, at
    the blind path's shapes, with the stated tolerance;
@@ -43,11 +43,34 @@ result line):
    B5 never, payload within 1e-4 of the serving chain's), tracking bit-exact,
    and the card's chain against the plain CPU chain on a small capture;
 12. pilot times: the dispatch and the tracking entry in payload Msym/s, the
-   device time of each stage, and each new kernel beside its plain version.
+   device time of each stage, and each new kernel beside its plain version;
+13. per-symbol trainer: B9 against its plain version on ``make_tx(2**13)``
+   (17 taps, TrSyms 4096) for cma, mcma and rde with and without the
+   adaptive step from the centre-tap start, rde from converged taps, and
+   three passes over 1024 symbols (bounds: taps 1e-5, mu 1e-4 relative,
+   error trace 1e-4; tightened from 1e-4, 1e-4, 1e-3 after every case
+   measured bit-equal on the H100);
+14. block trainer methods: B1's cma, rde, sbd and dd against the plain block
+   trainer on the blind capture (2^14 symbols, blocks of 256);
+15. equaliser path: ``workload.make_tx(2**18)`` through
+   ``dual_mode_equalisation(E, 2, (1e-3, 1e-3), 64, Ntaps=17, methods=("mcma",
+   "rde"), adaptive_stepsize=(True, True))`` over the whole capture with
+   ``backend="cuda"`` (launch counts B9=2, B2=1) and with
+   ``backend="cuda_block"``, ``block_size=256`` (B1=2, B2=1), each followed
+   by the single-grid carrier recovery and the SER gate <= 1e-4; B9, B1 and
+   B2 against their plain versions at that path's shapes (B9's plain
+   version over the first 4096 symbols, whose errors the full launch must
+   repeat bit for bit), and the times of the calls, the stages and the
+   kernels.
+
+Beside every kernel's time stand its bound (the larger of its bytes over
+the card's 3.35 TB/s and its operations over the card's 67 TFLOP/s in
+float32, both counted from this run's shapes) and, where one PyTorch call
+computes the same function (the filters: ``conv1d``), that call's time.
 
 Every time is printed with the card's name and power limit. The line before
 the last is ``{"kernels": [...]}``, one record per kernel and path that
-launched it, with that path's launch count and the error and times measured
+launched it, with that path's launch count and the error, times and bound
 at that path's shapes; the last line is the device record
 ``{"ok": true, "device": {...}}``.
 """
@@ -59,14 +82,17 @@ import warnings
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from qampy_tpu_torch.core.metrics import decision_idx
 from qampy_tpu_torch.ops import _build
+from qampy_tpu_torch.ops import equaliser as eqops
 from qampy_tpu_torch.ops import phase as phops
 from qampy_tpu_torch.ops.chain import decimated_derotation_inputs, make_rx_chain
 from qampy_tpu_torch.ops.equaliser_cuda import (apply_filter_cuda, apply_filter_frames_cuda,
                                                 apply_filter_frames_plain, apply_filter_plain,
-                                                train_block_cuda, train_block_plain)
+                                                train_block_cuda, train_block_plain,
+                                                train_seq_cuda, train_seq_plain)
 from qampy_tpu_torch.ops.phase_cuda import (bps_fine, bps_fine_cuda, bps_fine_plain,
                                             bps_search_cuda, bps_search_plain, cpe_coeffs,
                                             cpe_coeffs_cuda, cpe_coeffs_plain, interp_rotate,
@@ -102,8 +128,40 @@ PHASE_FRAMES = 8         # depth of the return_phase=True chain
 TOL_CPE_A = 1e-5         # B5 a: the same float32 formula; atan2 may differ by an ulp,
 TOL_CPE_B = 1e-6         # which moves a (a few rad) by ~1e-6 and the slopes b by ~1e-7
 TOL_PAYLOAD = 1e-4       # return_phase on/off, the reference's bound (test_pilot_chain.py:543)
+# the granular equaliser (examples/64_qam_equalisation.py): 2^18 symbols, trained over
+# the whole capture, then the single-grid carrier recovery and the bench's gate for it
+EQ_NSYM = 2 ** 18
+EQ_CFG = dict(Ntaps=17, methods=("mcma", "rde"), adaptive_stepsize=(True, True))
+EQ_MU = (1e-3, 1e-3)
+EQ_BLOCK = 256
+EQ_SER_LIMIT = 1e-4
+RDE_BLOCKS = 8           # blocks over which B1's rde is held against its plain version
+# B9 against its plain version: both round every product and sum alike and differ
+# at most in the order of z's sum, and the recurrence contracts. Measured on the
+# H100: every case bit-equal (the plain sum happens to pair the terms as the warp
+# butterfly does). The bounds leave room for another order: 1e-5 in the taps and
+# 1e-4 in the error, and one differing sign test of the adaptive step, which moves
+# mu by mu^2 |e|^2, about 1e-4 of it
+SEQ_NSYM, SEQ_TRS = 2 ** 13, 4096
+TOL_SEQ_TAPS = 1e-5
+TOL_SEQ_MU_REL = 1e-4
+TOL_SEQ_ERR = 1e-4
+# the card's published peaks (H100 SXM): device memory and float32 outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS_PER_S = 67e12
+# operations per element of each function, counted from its definition: a complex
+# multiply-add as 8, sin and cos as one each, a floor, clamp, abs or compare as one
+OPS_FILTER_TAP = 8       # one complex tap on one output sample
+OPS_TRAIN_TAP = 16       # a tap's share of z and of the update, per training sample
+OPS_TRAIN_ERR = 10       # the error and the step-size rule, per training sample
+OPS_BPS_ANGLE = 26       # rotate 6, decide 12, distance 5, running window 2, compare 1
+OPS_ROTATE = 8           # sin, cos and the rotation
+OPS_INTERP = 2           # a + b j
+OPS_UNWRAP = 6           # difference, quarter-turn count, prefix sum
+OPS_CPE_PILOT = 20       # conjugate product, atan2, unwrap, average, coefficients
 # the paths in the order they run; each is counted on its own (see counted())
-PATHS = ("blind", "blind twostage", "blind single", "pilot", "pilot return_phase")
+PATHS = ("blind", "blind twostage", "blind single", "pilot", "pilot return_phase",
+         "equaliser seq", "equaliser block")
 # kernel: (wrapper name, CUDA source, the TPU kernel it replaces)
 KERNELS = {
     "B1": ("train_block", "qampy_tpu_torch/csrc/equaliser.cu",
@@ -120,11 +178,13 @@ KERNELS = {
     "B7": ("unwrap_derotate", "qampy_tpu_torch/csrc/phase.cu",
            "qampy_tpu/ops/phase_pallas.py:370"),
     "B8": ("bps_fine", "qampy_tpu_torch/csrc/phase.cu", "qampy_tpu/ops/phase_pallas.py:529"),
+    "B9": ("train_seq", "qampy_tpu_torch/csrc/equaliser.cu",
+           "qampy_tpu/ops/equaliser_pallas.py:69"),
 }
 COUNTERS = {"B1": train_block_cuda, "B2": apply_filter_cuda, "B3": bps_search_cuda,
             "B4": interp_rotate_cuda, "B2 frames": apply_filter_frames_cuda,
             "B5": cpe_coeffs_cuda, "B6": rotate_cuda, "B7": unwrap_derotate_cuda,
-            "B8": bps_fine_cuda}
+            "B8": bps_fine_cuda, "B9": train_seq_cuda}
 
 
 class SmokeFailure(Exception):
@@ -203,6 +263,53 @@ def card_line():
     return res.stdout.strip().splitlines()[0]
 
 
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(moved, ops):
+    """The least time in ms the card could take: ``moved`` bytes or ``ops`` float32 operations."""
+    t_b, t_o = moved / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOPS_PER_S * 1e3
+    return dict(bound_ms=max(t_b, t_o), bound_by="bytes" if t_b >= t_o else "operations",
+                library_ms=None)
+
+
+def trainer_bound(nmodes, nout, ntaps, os_, nsyms, niter):
+    """Bound of a trainer (B1, B9): the capture prefix in, taps in and out, the error trace out.
+
+    The trainers are chains of dependent steps on one SM, so their time is
+    set by latency and lies far above this bound.
+    """
+    K = nmodes * ntaps
+    moved = 4 * (2 * nmodes * (nsyms * os_ + ntaps - 1) + 2 * nout * nsyms * niter + 4 * nout * K)
+    return bound(moved, niter * nsyms * nout * (OPS_TRAIN_TAP * K + OPS_TRAIN_ERR))
+
+
+def filter_bound(P, w, *outs):
+    """Bound of the filter (B2): planes and taps in, output planes out."""
+    nout, nmodes, ntaps = w.shape
+    return bound(nbytes(P, w, *outs), OPS_FILTER_TAP * nmodes * ntaps * nout * outs[0].shape[-1])
+
+
+def conv_taps(w):
+    """The real (2*nout, 2*nmodes, ntaps) tap matrix [[wr, -wi], [wi, wr]] of complex taps."""
+    wr, wi = w.real, w.imag
+    return torch.cat([torch.cat([wr, -wi], dim=1), torch.cat([wi, wr], dim=1)]).contiguous()
+
+
+def filter_library(P, os_, w, want, reps=20):
+    """Time of ``conv1d(stride=os)`` on the planes, the one PyTorch call that is this filter.
+
+    Checked against ``want`` (the kernel's output planes) before it is timed.
+    """
+    W = conv_taps(w)
+    got = F.conv1d(P[None], W, stride=os_)[0]
+    rms = float(want.pow(2).mean().sqrt())
+    require(float((got - want).abs().max()) <= 10 * TOL_FILTER_REL * rms,
+            "the library convolution is not the filter")
+    return device_ms(lambda: F.conv1d(P[None], W, stride=os_), reps)
+
+
 def check_kernels(P, chain, card):
     """Phase 3: each kernel against its plain version at the main path's shapes."""
     rec = {}
@@ -224,7 +331,7 @@ def check_kernels(P, chain, card):
     require(d_taps <= TOL_TAPS and d_mu <= TOL_MU_REL and d_err <= TOL_ERR,
             "B1 disagrees with its plain version")
     rec["B1"] = dict(
-        err=d_taps,
+        **trainer_bound(2, 2, CFG["Ntaps"], os_, trs, 1), err=d_taps,
         ms=device_ms(lambda: train_block_cuda(P, trs, 1, os_, mu, w0, s1, True, S), 20),
         plain_ms=device_ms(lambda: train_block_plain(P, trs, 1, os_, mu, w0, s1, True, S), 3))
 
@@ -240,9 +347,10 @@ def check_kernels(P, chain, card):
     require(out_k.shape == out_p.shape and dec_k.shape == dec_p.shape,
             "B2 output shapes differ")
     require(max(d_out, d_dec) <= TOL_FILTER_REL * rms, "B2 disagrees with its plain version")
-    rec["B2"] = dict(err=max(d_out, d_dec),
+    rec["B2"] = dict(**filter_bound(P, w, out_k, dec_k), err=max(d_out, d_dec),
                      ms=device_ms(lambda: apply_filter_cuda(P, os_, w, chain.dec), 50),
                      plain_ms=device_ms(lambda: apply_filter_plain(P, os_, w, chain.dec), 10))
+    rec["B2"]["library_ms"] = filter_library(P, os_, w, out_k)
 
     # B3: the phase search on the decimated planes
     no = dec_k.shape[0] // 2
@@ -262,7 +370,9 @@ def check_kernels(P, chain, card):
              tie_share, TIES_MAX, d_idx))
     require(not off_tie and tie_share <= TIES_MAX,
             "B3 disagrees with its plain version off near-ties")
-    rec["B3"] = dict(err=float(d_idx), ms=device_ms(lambda: bps_search_cuda(*args), 50),
+    rec["B3"] = dict(**bound(nbytes(er, ei, idx_k),
+                             OPS_BPS_ANGLE * chain.bps_cos.shape[0] * er.numel()),
+                     err=float(d_idx), ms=device_ms(lambda: bps_search_cuda(*args), 50),
                      plain_ms=device_ms(lambda: bps_search_plain(*args), 10))
 
     # B4: the derotation with the coefficients the chain builds from B3
@@ -276,12 +386,21 @@ def check_kernels(P, chain, card):
     print("B4 interp_rotate: %s max|d| %.3e (tol %.0e), |phase| up to %.2f rad"
           % (tuple(r_k.shape), d_rot, TOL_ROTATE, float(a.abs().max())))
     require(d_rot <= TOL_ROTATE, "B4 disagrees with its plain version")
-    rec["B4"] = dict(err=d_rot, ms=device_ms(lambda: interp_rotate_cuda(*rargs), 50),
+    rec["B4"] = dict(**bound(nbytes(er_p, ei_p, a, b, r_k, i_k),
+                             (OPS_INTERP + OPS_ROTATE) * er_p.numel()),
+                     err=d_rot, ms=device_ms(lambda: interp_rotate_cuda(*rargs), 50),
                      plain_ms=device_ms(lambda: interp_rotate_plain(*rargs), 10))
-    for k, v in rec.items():
-        print("time %s (device): kernel %.4f ms, plain %.4f ms [%s]"
-              % (k, v["ms"], v["plain_ms"], card))
+    print_times({(k, "blind"): dict(v, shape="blind path") for k, v in rec.items()}, card)
     return rec
+
+
+def print_times(rec, card):
+    """One line per record: the kernel's time beside its bound, plain version and library call."""
+    for (k, path), v in rec.items():
+        lib = "none" if v["library_ms"] is None else "%.4f ms" % v["library_ms"]
+        print("time %s (%s path, device, %s): kernel %.4f ms, bound %.5f ms by %s, plain %.4f ms, "
+              "library call %s [%s]" % (k, path, v["shape"], v["ms"], v["bound_ms"],
+                                        v["bound_by"], v["plain_ms"], lib, card))
 
 
 def counted(fn):
@@ -325,9 +444,11 @@ def check_sample_kernels(P, w, card):
           % (tuple(out_k.shape), d_out, TOL_FILTER_REL, rms))
     require(out_k.shape == out_p.shape and d_out <= TOL_FILTER_REL * rms,
             "B2 without side output disagrees with its plain version")
-    b2 = dict(err=d_out, ms=device_ms(lambda: apply_filter_cuda(P, os_, w), 50),
+    b2 = dict(**filter_bound(P, w, out_k), err=d_out,
+              ms=device_ms(lambda: apply_filter_cuda(P, os_, w), 50),
               plain_ms=device_ms(lambda: apply_filter_plain(P, os_, w), 10),
               shape="2 x 2^21 samples in, no side output")
+    b2["library_ms"] = filter_library(P, os_, w, out_k)
     no = out_k.shape[0] // 2
     er, ei = out_k[:no], out_k[no:]
     L = er.shape[-1]
@@ -350,7 +471,8 @@ def check_sample_kernels(P, w, card):
                                                   TIES_MAX))
         require(not off_tie and tie_share <= TIES_MAX,
                 "B3 disagrees with its plain version off near-ties at A=%d, N=%d" % (A, N))
-        rec["B3", path] = dict(err=float((idx_k - idx_p).abs()[~ties].max()),
+        rec["B3", path] = dict(**bound(nbytes(er, ei, idx_k), OPS_BPS_ANGLE * A * er.numel()),
+                               err=float((idx_k - idx_p).abs()[~ties].max()),
                                ms=device_ms(lambda: bps_search_cuda(*args), 20),
                                plain_ms=device_ms(lambda: bps_search_plain(*args), 5),
                                shape="A=%d N=%d, 2 x %d samples" % (A, N, L))
@@ -371,7 +493,10 @@ def check_sample_kernels(P, w, card):
                       float((f_k - f_p).abs().max())))
             require(not off_tie and tie_share <= TIES_MAX,
                     "B8 disagrees with its plain version off near-ties")
-            rec["B8", path] = dict(err=float((f_k - f_p).abs()[~ties].max()),
+            rec["B8", path] = dict(**bound(nbytes(er, ei, ph, f_k),
+                                           (OPS_BPS_ANGLE * chain.fine_cos.shape[0] + OPS_ROTATE)
+                                           * er.numel()),
+                                   err=float((f_k - f_p).abs()[~ties].max()),
                                    ms=device_ms(lambda: bps_fine_cuda(*fargs), 20),
                                    plain_ms=device_ms(lambda: bps_fine_plain(*fargs), 5),
                                    shape="B=8 N=%d, 2 x %d samples" % (chain.bps_N, L))
@@ -379,20 +504,20 @@ def check_sample_kernels(P, w, card):
         r_p, i_p = unwrap_derotate_plain(er, ei, ph)
         r_k, i_k = unwrap_derotate_cuda(er, ei, ph)
         dist = torch.sqrt((r_k - r_p) ** 2 + (i_k - i_p) ** 2)
-        bound = rotation_bound(er, ei, quarter_unwrap(ph))
+        rot_bound = rotation_bound(er, ei, quarter_unwrap(ph))
         d_rot = max(float((r_k - r_p).abs().max()), float((i_k - i_p).abs().max()))
         print("B7 unwrap_derotate (%s phase): %s max|d| %.3e, worst share of the bound "
               "2|z|(ulp32(|u|) + 2^-23) %.3f, |u| up to %.2f rad"
-              % (mode, tuple(r_k.shape), d_rot, float((dist / bound).max()),
+              % (mode, tuple(r_k.shape), d_rot, float((dist / rot_bound).max()),
                  float(quarter_unwrap(ph).abs().max())))
-        require(bool((dist <= bound).all()), "B7 disagrees with its plain version")
+        require(bool((dist <= rot_bound).all()), "B7 disagrees with its plain version")
         uargs = (er, ei, ph)
-        rec["B7", path] = dict(err=d_rot, ms=device_ms(lambda: unwrap_derotate_cuda(*uargs), 50),
+        rec["B7", path] = dict(**bound(nbytes(er, ei, ph, r_k, i_k),
+                                       (OPS_UNWRAP + OPS_ROTATE) * er.numel()),
+                               err=d_rot, ms=device_ms(lambda: unwrap_derotate_cuda(*uargs), 50),
                                plain_ms=device_ms(lambda: unwrap_derotate_plain(*uargs), 10),
                                shape="2 x %d samples" % L)
-    for (k, path), v in rec.items():
-        print("time %s (%s path, device, %s): kernel %.4f ms, plain %.4f ms [%s]"
-              % (k, path, v["shape"], v["ms"], v["plain_ms"], card))
+    print_times(rec, card)
     return rec
 
 
@@ -538,10 +663,17 @@ def check_pilot_kernels(chain, st, card):
     for path, o, d in (("pilot", offs, max(d_f)),
                        ("pilot return_phase", offs[:, :nr].contiguous(), max(d_f[:nr]))):
         fargs = (P, chain.os, taps, o, F)
+        nf = o.shape[1]
+        # each input read once: the span of the capture that the frames' windows cover
+        span = int(o.max() - o.min()) + chain.fr_len
         rec["B2 frames", path] = dict(
+            **bound(4 * 2 * n * span + nbytes(taps, o) + 4 * 2 * n * nf * F,
+                    OPS_FILTER_TAP * n * chain.Ntaps * n * nf * F),
             err=d, ms=device_ms(lambda: apply_filter_frames_cuda(*fargs), 20),
             plain_ms=device_ms(lambda: apply_filter_frames_plain(*fargs), 3),
-            shape="%d frames" % o.shape[1])
+            shape="%d frames" % nf)
+        rec["B2 frames", path]["library_ms"] = frames_library(
+            P, chain.os, taps, o, chain.fr_len, got[:, :, :nf])
 
     # B5 on all 480 rows of the filter output
     rows, symr, symi, cargs = st["rows"], st["symr"], st["symi"], st["cargs"]
@@ -552,7 +684,11 @@ def check_pilot_kernels(chain, st, card):
           "(tol %.0e), |a| up to %.2f rad" % (rows, chain.nblk, tuple(a_k.shape), d_a, TOL_CPE_A,
                                               d_b, TOL_CPE_B, float(a_p.abs().max())))
     require(d_a <= TOL_CPE_A and d_b <= TOL_CPE_B, "B5 disagrees with its plain version")
-    rec["B5", "pilot"] = dict(err=max(d_a, d_b), ms=device_ms(lambda: cpe_coeffs_cuda(*cargs), 50),
+    # of the filter output it reads the pilot samples only
+    rec["B5", "pilot"] = dict(**bound(2 * 4 * rows * chain.nblk + nbytes(chain.pil_r, chain.pil_i,
+                                                                         a_k, b_k),
+                                      OPS_CPE_PILOT * rows * chain.nblk),
+                              err=max(d_a, d_b), ms=device_ms(lambda: cpe_coeffs_cuda(*cargs), 50),
                               plain_ms=device_ms(lambda: cpe_coeffs_plain(*cargs), 10),
                               shape="%d rows" % rows)
 
@@ -564,7 +700,9 @@ def check_pilot_kernels(chain, st, card):
     print("B4 interp_rotate (pilot CPE): %s max|d| %.3e (tol %.0e)"
           % (tuple(r_k.shape), d_r, TOL_ROTATE))
     require(d_r <= TOL_ROTATE, "B4 disagrees with its plain version on the pilot path")
-    rec["B4", "pilot"] = dict(err=d_r, ms=device_ms(lambda: interp_rotate_cuda(*rargs), 50),
+    rec["B4", "pilot"] = dict(**bound(nbytes(symr, symi, a_k, b_k, r_k, i_k),
+                                      (OPS_INTERP + OPS_ROTATE) * symr.numel()),
+                              err=d_r, ms=device_ms(lambda: interp_rotate_cuda(*rargs), 50),
                               plain_ms=device_ms(lambda: interp_rotate_plain(*rargs), 10),
                               shape="%d rows" % rows)
 
@@ -582,19 +720,247 @@ def check_pilot_kernels(chain, st, card):
               % (tuple(r_k.shape), d_s, TOL_ROTATE, float(sargs[2].abs().max())))
         require(d_s <= TOL_ROTATE, "B6 disagrees with its plain version")
     rec["B6", "pilot return_phase"] = dict(
+        **bound(nbytes(zr, zi, sargs[2], r_k, i_k), OPS_ROTATE * zr.numel()),
         err=d_s, ms=device_ms(lambda: rotate_cuda(*sargs), 50),
         plain_ms=device_ms(lambda: rotate_plain(*sargs), 10), shape=what)
-    for (k, path), v in rec.items():
-        print("time %s (%s path, device, %s): kernel %.4f ms, plain %.4f ms [%s]"
-              % (k, path, v["shape"], v["ms"], v["plain_ms"], card))
+    print_times(rec, card)
     return rec
+
+
+def frames_library(P, os_, taps, offs, fr_len, want):
+    """Time of one grouped ``conv1d(stride=os)`` that is the frame-batched filter.
+
+    Each output mode's windows are gathered first (not timed): input
+    (nframes, nout * 2 * nmodes, fr_len), one group per output mode with its
+    [[wr, -wi], [wi, wr]] taps. Checked against ``want``, the kernel's
+    (2, nout, nframes, frame_len) output, before it is timed.
+    """
+    nout, nmodes, _ = taps.shape
+    nf = offs.shape[1]
+    idx = offs[..., None] + torch.arange(fr_len, device=P.device)
+    X = P[:, idx].permute(2, 1, 0, 3).reshape(nf, nout * 2 * nmodes, fr_len).contiguous()
+    W = torch.cat([conv_taps(taps[i:i + 1]) for i in range(nout)])   # (nout * 2, 2 * nmodes, t)
+    got = F.conv1d(X, W, stride=os_, groups=nout).reshape(nf, nout, 2, -1).permute(2, 1, 0, 3)
+    rms = float(want.pow(2).mean().sqrt())
+    require(float((got - want).abs().max()) <= 10 * TOL_FILTER_REL * rms,
+            "the library convolution is not the frame filter")
+    del got
+    return device_ms(lambda: F.conv1d(X, W, stride=os_, groups=nout), 5)
+
+
+def check_seq_kernel(dev, card):
+    """Phase 13: B9 against its plain version, at the equaliser path's widths.
+
+    ``make_tx(2**13)``, 17 taps, 2 samples per symbol, 64-QAM constants; the
+    plain version is a Python loop of a few dozen small launches per symbol,
+    so the length is cut to 4096 symbols. Returns (the worst differences, the
+    kernel's and the plain version's time at that length).
+    """
+    E, _, _ = make_tx(SEQ_NSYM)
+    P = torch.as_tensor(np.concatenate([E.real, E.imag]).astype(np.float32), device=dev)
+    w0 = torch.as_tensor(eqops._init_taps(EQ_CFG["Ntaps"], 2, 2, np.complex64), device=dev)
+    syms = {m: eqops._reshape_symbols(None, m, 64, np.complex64, 2) for m in ("cma", "mcma", "rde")}
+    _, w_conv, _ = train_seq_cuda(P, SEQ_TRS, 1, 2, 1e-3, w0, syms["mcma"], "mcma", True)
+    cases = [(m, ad, "centre tap", w0, SEQ_TRS, 1) for m in ("cma", "mcma", "rde")
+             for ad in (False, True)]
+    cases += [("rde", True, "converged taps", w_conv, SEQ_TRS, 1),
+              ("cma", True, "centre tap", w0, 1024, 3)]
+    worst = dict(taps=0.0, mu=0.0, err=0.0)
+    t_k = t_p = 0.0
+    for method, adaptive, start, w, trs, niter in cases:
+        args = (P, trs, niter, 2, 1e-3, w, syms[method], method, adaptive)
+        (e_p, w_p, mu_p), ms_p = timed(lambda: train_seq_plain(*args))
+        (e_k, w_k, mu_k), ms_k = timed(lambda: train_seq_cuda(*args))
+        d = dict(taps=float((w_k - w_p).abs().max()),
+                 mu=float(((mu_k - mu_p) / mu_p).abs().max()),
+                 err=float((e_k - e_p).abs().max()))
+        print("B9 train_seq %s%s from the %s, %d x %d symbols: taps max|d| %.3e (tol %.0e), mu "
+              "rel %.3e (tol %.0e), err max|d| %.3e (tol %.0e); kernel %.3f ms, plain %.1f ms"
+              % (method, " adaptive" if adaptive else "", start, niter, trs, d["taps"],
+                 TOL_SEQ_TAPS, d["mu"], TOL_SEQ_MU_REL, d["err"], TOL_SEQ_ERR, ms_k, ms_p))
+        require(e_k.shape == e_p.shape == (2, niter * trs), "B9 error trace shape")
+        require(d["taps"] <= TOL_SEQ_TAPS and d["mu"] <= TOL_SEQ_MU_REL
+                and d["err"] <= TOL_SEQ_ERR, "B9 disagrees with its plain version")
+        worst = {k: max(worst[k], d[k]) for k in worst}
+        if (method, adaptive, start) == ("mcma", True, "centre tap"):
+            t_k, t_p = ms_k, ms_p
+    print("B9 worst over %d cases: taps %.3e, mu rel %.3e, err %.3e [%s]"
+          % (len(cases), worst["taps"], worst["mu"], worst["err"], card))
+    return worst, t_k, t_p
+
+
+def timed(fn):
+    """(result, ms) of one call of ``fn`` on the card's stream, after it has finished."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    res = fn()
+    end.record()
+    end.synchronize()
+    return res, start.elapsed_time(end)
+
+
+def check_block_methods(P, chain, card):
+    """Phase 14: B1's cma, rde, sbd and dd against the plain block trainer (sgncma is cma).
+
+    On the blind capture at the blind path's training shape; cma starts
+    from the centre taps, the others from the taps of an mcma stage. rde
+    runs RDE_BLOCKS blocks only: its ring decision makes the recurrence
+    expand a rounding difference until a sample changes ring, and two
+    float32 runs then part for good (two plain runs started 2e-7 apart do
+    so after 10-20 blocks).
+    """
+    os_, mu, S, trs = CFG["os"], CFG["mu"], CFG["block_size"], CFG["TrSyms"]
+    _, w1, _ = train_block_cuda(P, trs, 1, os_, mu, chain.w0, chain.specs[0], True, S)
+    for method in ("cma", "rde", "sbd", "dd"):
+        spec = eqops.err_spec(method, eqops._reshape_symbols(None, method, CFG["M"],
+                                                             np.complex64, 2))
+        n = RDE_BLOCKS * S if method == "rde" else trs
+        args = (P, n, 1, os_, mu, chain.w0 if method == "cma" else w1, spec, True, S)
+        e_p, w_p, mu_p = train_block_plain(*args)
+        e_k, w_k, mu_k = train_block_cuda(*args)
+        d_taps = float((w_k - w_p).abs().max())
+        d_mu = float(((mu_k - mu_p) / mu_p).abs().max())
+        d_err = float((e_k - e_p).abs().max())
+        print("B1 train_block %s, %d blocks: taps max|d| %.3e (tol %.0e), mu rel %.3e (tol %.0e), "
+              "err max|d| %.3e (tol %.0e); kernel %.4f ms [%s]"
+              % (method, n // S, d_taps, TOL_TAPS, d_mu, TOL_MU_REL, d_err, TOL_ERR,
+                 device_ms(lambda: train_block_cuda(*args), 10), card))
+        require(d_taps <= TOL_TAPS and d_mu <= TOL_MU_REL and d_err <= TOL_ERR,
+                "B1 %s disagrees with its plain version" % method)
+
+
+def equaliser_phases(dev, card, seq_check):
+    """Phase 15: the granular equaliser at 2^18 symbols through B9 and through B1.
+
+    Returns (kernel records keyed by (kernel, path), launches per path).
+    """
+    worst, t_k4096, t_p4096 = seq_check
+    t0 = time.perf_counter()
+    E_h, syms_h, const = make_tx(EQ_NSYM)
+    E = torch.as_tensor(E_h, device=dev)
+    ref = torch.as_tensor(syms_h, device=dev)
+    P = eqops.planes(E).contiguous()
+    ntaps, (m1, m2) = EQ_CFG["Ntaps"], EQ_CFG["methods"]
+    trs = eqops._cal_training_symbol_len(2, ntaps, E.shape[-1])
+    print("equaliser tx: %d symbols x 2 pol, capture %s, %d training symbols per stage, %.2f s "
+          "on the host" % (EQ_NSYM, tuple(E.shape), trs, time.perf_counter() - t0))
+    cr = make_rx_chain(M=64, bps_angles=64, bps_N=14, bps_mode="single")
+    require(cr.w0.device.type == "cuda", "make_rx_chain() did not build on the card")
+    rec, path_launches, taps = {}, {}, {}
+    nsym_tot = 2 * EQ_NSYM
+    for path, kw, want in (("equaliser seq", dict(backend="cuda"), {"B9": 2, "B2": 1}),
+                           ("equaliser block", dict(backend="cuda_block", block_size=EQ_BLOCK),
+                            {"B1": 2, "B2": 1})):
+        def call():
+            return eqops.dual_mode_equalisation(E, 2, EQ_MU, 64, **EQ_CFG, **kw)
+        (out, w, errs), launches = counted(call)
+        print("%s launches: %s" % (path, launches))
+        require(launches == expected(want), "the %s path did not launch each kernel as expected"
+                % path)
+        Lout = (E.shape[-1] - ntaps) // 2 + 1
+        require(tuple(out.shape) == (2, Lout) and out.is_cuda and w.shape == (2, 2, ntaps),
+                "%s output shape %s" % (path, tuple(out.shape)))
+        require(bool(torch.isfinite(torch.view_as_real(out)).all()), "non-finite %s output" % path)
+        eqp = eqops.planes(out).contiguous()
+        outr, outi = cr.unwrap_derotate(eqp, cr.carrier_phase(eqp))
+        ser = ser_gate(torch.complex(outr, outi), ref, const)
+        t_call = cuda_ms(call, 3)
+        print("%s: SER %.3e after the single-grid carrier recovery (gate %.0e) on %d x 2 symbols; "
+              "dual_mode_equalisation %.4f ms, %.2f Msym/s [%s]"
+              % (path, ser, EQ_SER_LIMIT, EQ_NSYM, t_call, nsym_tot / t_call / 1e3, card))
+        require(ser <= EQ_SER_LIMIT, "%s SER gate failed" % path)
+        path_launches[path], taps[path] = launches, (w, errs)
+
+    # B9 at the path's shapes: per stage and method, and the first 4096 errors
+    # of the full launch against the 4096-symbol launch held against the plain version
+    w0 = torch.as_tensor(eqops._init_taps(ntaps, 2, 2, np.complex64), device=dev)
+    s1, s2 = (eqops._reshape_symbols(None, m, 64, np.complex64, 2) for m in (m1, m2))
+    a1 = (P, trs, 1, 2, EQ_MU[0], w0, s1, m1, True)
+    e_full, w1, _ = train_seq_cuda(*a1)
+    head = (P, SEQ_TRS, 1, 2, EQ_MU[0], w0, s1, m1, True)
+    e_head, w_head, mu_head = train_seq_cuda(*head)
+    e_plain, w_plain, mu_plain = train_seq_plain(*head)
+    same = bool(torch.equal(e_full[:, :SEQ_TRS], e_head))
+    d_head = float((w_head - w_plain).abs().max())
+    print("B9 at the path's shape (%d symbols): first %d errors equal the %d-symbol launch's bit "
+          "for bit: %s; that launch against the plain version: taps max|d| %.3e, err max|d| %.3e; "
+          "stage-1 errors equal the path's: %s"
+          % (trs, SEQ_TRS, SEQ_TRS, same, d_head, float((e_head - e_plain).abs().max()),
+             bool(torch.equal(e_full, taps["equaliser seq"][1][0]))))
+    require(same and d_head <= TOL_SEQ_TAPS
+            and float((e_head - e_plain).abs().max()) <= TOL_SEQ_ERR
+            and float(((mu_head - mu_plain) / mu_plain).abs().max()) <= TOL_SEQ_MU_REL,
+            "B9 at the path's shape disagrees")
+    a2 = (P, trs, 1, 2, EQ_MU[1], w1, s2, m2, True)
+    t_b9 = {m1: device_ms(lambda: train_seq_cuda(*a1), 3),
+            m2: device_ms(lambda: train_seq_cuda(*a2), 3)}
+    for m, t in t_b9.items():
+        print("time B9 train_seq %s adaptive, %d symbols: %.4f ms, %.1f ns per symbol [%s]"
+              % (m, trs, t, t / trs * 1e6, card))
+    rec["B9", "equaliser seq"] = dict(
+        **trainer_bound(2, 2, ntaps, 2, trs, 1), err=max(worst["taps"], d_head),
+        ms=t_b9[m1], plain_ms=t_p4096, ms_at_plain_shape=t_k4096,
+        shape="%d symbols, %s; plain_ms and ms_at_plain_shape at %d symbols"
+              % (trs, m1, SEQ_TRS))
+
+    # B1 at the same length, against the plain block trainer
+    specs = [eqops.err_spec(m, s) for m, s in ((m1, s1), (m2, s2))]
+    b1 = (P, trs, 1, 2, EQ_MU[0], w0, specs[0], True, EQ_BLOCK)
+    e_p, w_p, mu_p = train_block_plain(*b1)
+    e_k, w_k, mu_k = train_block_cuda(*b1)
+    # the rde stage over its first blocks only (see check_block_methods)
+    b2nd = (P, RDE_BLOCKS * EQ_BLOCK, 1, 2, EQ_MU[1], w_k, specs[1], True, EQ_BLOCK)
+    e2_p, w2_p, mu2_p = train_block_plain(*b2nd)
+    e2_k, w2_k, mu2_k = train_block_cuda(*b2nd)
+    d_taps = max(float((w_k - w_p).abs().max()), float((w2_k - w2_p).abs().max()))
+    d_mu = max(float(((mu_k - mu_p) / mu_p).abs().max()),
+               float(((mu2_k - mu2_p) / mu2_p).abs().max()))
+    d_err = max(float((e_k - e_p).abs().max()), float((e2_k - e2_p).abs().max()))
+    print("B1 train_block at the path's shape (%s over %d blocks of %d, then %s over %d): taps "
+          "max|d| %.3e (tol %.0e), mu rel %.3e (tol %.0e), err max|d| %.3e (tol %.0e)"
+          % (m1, trs // EQ_BLOCK, EQ_BLOCK, m2, RDE_BLOCKS, d_taps, TOL_TAPS, d_mu,
+             TOL_SEQ_MU_REL, d_err, TOL_SEQ_ERR))
+    # over 1023 dependent blocks one differing sign test moves mu by mu^2 |e|^2
+    require(d_taps <= TOL_TAPS and d_mu <= TOL_SEQ_MU_REL and d_err <= TOL_SEQ_ERR,
+            "B1 at the equaliser path's shape disagrees with its plain version")
+    ts = (trs // EQ_BLOCK) * EQ_BLOCK
+    rec["B1", "equaliser block"] = dict(
+        **trainer_bound(2, 2, ntaps, 2, ts, 1), err=d_taps,
+        ms=device_ms(lambda: train_block_cuda(*b1), 5),
+        plain_ms=device_ms(lambda: train_block_plain(*b1), 1),
+        shape="%d blocks of %d, %s" % (trs // EQ_BLOCK, EQ_BLOCK, m1))
+    print("time B1 train_block %s adaptive, %d symbols in blocks of %d: %.4f ms; %s: %.4f ms [%s]"
+          % (m1, ts, EQ_BLOCK, rec["B1", "equaliser block"]["ms"], m2,
+             device_ms(lambda: train_block_cuda(P, trs, 1, 2, EQ_MU[1], w_k, specs[1], True,
+                                                EQ_BLOCK), 5), card))
+
+    # B2 at the path's shape, with each path's taps
+    for path in ("equaliser seq", "equaliser block"):
+        w = taps[path][0]
+        out_p = apply_filter_plain(P, 2, w)
+        out_k = apply_filter_cuda(P, 2, w)
+        rms = float(out_p.pow(2).mean().sqrt())
+        d_out = float((out_k - out_p).abs().max())
+        print("B2 apply_filter (%s): %s max|d| %.3e (tol %.0e x rms %.3f)"
+              % (path, tuple(out_k.shape), d_out, TOL_FILTER_REL, rms))
+        require(out_k.shape == out_p.shape and d_out <= TOL_FILTER_REL * rms,
+                "B2 disagrees with its plain version on the %s path" % path)
+        rec["B2", path] = dict(**filter_bound(P, w, out_k), err=d_out,
+                               ms=device_ms(lambda: apply_filter_cuda(P, 2, w), 50),
+                               plain_ms=device_ms(lambda: apply_filter_plain(P, 2, w), 10),
+                               shape="2 x 2^19 samples in, no side output")
+        rec["B2", path]["library_ms"] = filter_library(P, 2, w, out_k)
+    print_times(rec, card)
+    return rec, path_launches
 
 
 def pilot_phases(dev, card):
     """Phases 9-12: the pilot serving chain. Returns (kernel records, launches per path)."""
     t0 = time.perf_counter()
     tx = make_pilot_tx(PILOT_TX_FRAMES, frame_len=PILOT_FRAME, seq_len=PILOT_SEQ,
-                       ins_rat=PILOT_RAT, device=dev)
+                       ins_rat=PILOT_RAT)   # no device named: the card
     torch.cuda.synchronize()
     pr, pi = tx.planes[:2], tx.planes[2:]
     print("pilot tx: %d frames of SignalWithPilots(64, %d, %d, %d) x 2 pol, planes %s, "
@@ -604,7 +970,7 @@ def pilot_phases(dev, card):
     def build(frames, return_phase):
         return make_pilot_rx_chain(tx.pilot_seq, tx.ph_pilots, PILOT_FRAME, PILOT_RAT,
                                    frames=range(frames), return_phase=return_phase,
-                                   **PILOT_CFG, device=dev)
+                                   **PILOT_CFG)
     chain = build(PILOT_FRAMES, False)
     st = pilot_stages(chain, pr, pi)
     rec = check_pilot_kernels(chain, st, card)
@@ -736,7 +1102,7 @@ def main():
     ref = torch.as_tensor(syms, device=dev)
     print("tx: %d symbols x 2 pol, planes %s, %.2f s on the host"
           % (NSYM, tuple(P.shape), time.perf_counter() - t0))
-    chain = make_rx_chain(**CFG, device=dev)
+    chain = make_rx_chain(**CFG)          # no device named: the card
 
     rec = check_kernels(P, chain, card)
 
@@ -820,13 +1186,21 @@ def main():
     prec, pilot_launches = pilot_phases(dev, card)
     rec.update(prec)
     path_launches.update(pilot_launches)
+
+    # phases 13-15: the granular equaliser
+    seq_check = check_seq_kernel(dev, card)
+    check_block_methods(P, chain, card)
+    del P
+    erec, eq_launches = equaliser_phases(dev, card, seq_check)
+    rec.update(erec)
+    path_launches.update(eq_launches)
     print("launches per path: %s" % path_launches)
     # one record per kernel and path that launched it: that path's count and
     # the error and times measured at that path's shapes
     kernels = [{"name": KERNELS[k][0], "path": path, "route": "cuda", "source": KERNELS[k][1],
                 "replaces": KERNELS[k][2], "launches": path_launches[path][k],
-                "max_abs_err": rec[k, path]["err"], "ms": rec[k, path]["ms"],
-                "plain_ms": rec[k, path]["plain_ms"], "shape": rec[k, path]["shape"]}
+                "max_abs_err": rec[k, path]["err"],
+                **{key: val for key, val in rec[k, path].items() if key != "err"}}
                for path in PATHS for k in KERNELS if path_launches[path][k]]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -22,8 +22,27 @@ def taps_from_jax(wxy_np, device):
     return torch.as_tensor(w.astype(np.complex64), device=device)
 
 
+def symbols_from_jax(symbols_np, device):
+    """The per-method ``symbols`` rows of the JAX package's ``_reshape_symbols`` as a tensor.
+
+    symbols_np: (nout, k) array, complex for the complex methods (constants,
+    codebooks or constellations per output mode), real for the real-valued
+    ones. Returns a complex64 or float32 tensor on ``device``, the form the
+    port's trainers take.
+    """
+    s = np.asarray(symbols_np)
+    if s.ndim != 2:
+        raise ValueError("expected (nout, k) rows of symbols, got shape %s" % (s.shape,))
+    return torch.as_tensor(s.astype(np.complex64 if np.iscomplexobj(s) else np.float32),
+                           device=device)
+
+
 def planes_from_complex(E, device):
-    """A complex (nmodes, L) signal as the stacked float32 [Re rows; Im rows] planes."""
+    """A complex (nmodes, L) signal as the stacked float32 [Re rows; Im rows] planes.
+
+    This is also the real-valued stacking of a capture that the real-valued
+    equaliser methods train on (the reference's ``_convert_sig_to_real``).
+    """
     E = np.asarray(E)
     return torch.as_tensor(np.concatenate([E.real, E.imag]).astype(np.float32), device=device)
 

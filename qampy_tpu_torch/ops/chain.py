@@ -23,9 +23,9 @@ and then recovers the carrier phase in one of three ways:
 A ``decimated[K]`` whose K does not divide the filter's phase group falls
 back to ``single`` with the reference's warning. On CPU tensors each kernel
 runs its plain PyTorch version; on CUDA tensors the kernels run, with no
-fallback. Only square grids with the ``mcma``/``mddma`` pair are ported:
-anything else raises ``NotImplementedError`` naming the ROADMAP item that
-brings it.
+fallback. The two trainings take the methods of kernel B1 (cma, sgncma,
+mcma, rde, sbd, mddma, dd) on a square grid; anything else raises
+``NotImplementedError``, for a grid naming the ROADMAP item that brings it.
 
 Two divergences from the reference, both toward float32: the filter sums
 in float32 (the reference chain contracts in bf16) and the BPS windows are
@@ -45,6 +45,7 @@ from qampy_tpu_torch.ops import phase as phops
 from qampy_tpu_torch.ops.equaliser_cuda import apply_filter, check_dec, train_block
 from qampy_tpu_torch.ops.phase_cuda import bps_search, bps_twostage, interp_rotate, unwrap_derotate
 from qampy_tpu_torch.theory import cal_scaling_factor_qam, cal_symbols_qam
+from qampy_tpu_torch.utils import resolve_device
 
 #: the coarse stage's half-window of the two-stage search (reference chain.py:410-416)
 TWOSTAGE_N1 = 60
@@ -263,8 +264,11 @@ class RxChain(nn.Module):
 
 def make_rx_chain(M=64, Ntaps=17, os=2, methods=("mcma", "mddma"), mu=1.9e-3,
                   bps_angles=64, bps_N=14, block_size=256, TrSyms=None,
-                  bps_mode="single", symbols=None, device="cpu"):
+                  bps_mode="single", symbols=None, device=None):
     """Build the blind RX chain on ``device`` (see :class:`RxChain`).
+
+    ``device=None`` is the card, and raises on a machine without one; pass
+    ``device="cpu"`` for the CPU.
 
     Parameters follow the reference's ``make_rx_chain``; its backend
     switches (``pallas``, ``bps_tile``, ``bps_win``, ``fuse_derot``) have
@@ -272,4 +276,4 @@ def make_rx_chain(M=64, Ntaps=17, os=2, methods=("mcma", "mddma"), mu=1.9e-3,
     """
     return RxChain(M=M, Ntaps=Ntaps, os=os, methods=methods, mu=mu,
                    bps_angles=bps_angles, bps_N=bps_N, block_size=block_size,
-                   TrSyms=TrSyms, bps_mode=bps_mode, symbols=symbols).to(device)
+                   TrSyms=TrSyms, bps_mode=bps_mode, symbols=symbols).to(resolve_device(device))

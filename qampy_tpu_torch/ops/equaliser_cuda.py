@@ -1,4 +1,4 @@
-"""Kernels B1 (block-LMS trainer) and B2 (strided MIMO filter) with their wrappers.
+"""Kernels B1 (block-LMS trainer), B2 (strided MIMO filter) and B9 (per-symbol LMS trainer).
 
 Each kernel has three functions here: ``*_cuda`` launches the CUDA kernel
 of ``csrc/equaliser.cu`` (and raises on anything but contiguous CUDA
@@ -6,23 +6,28 @@ tensors), ``*_plain`` is its plain PyTorch version, and the bare name
 dispatches on the device of the input: the plain version for a CPU tensor,
 the kernel for a CUDA tensor. ``*_cuda.launches`` counts kernel launches.
 
-B1 replaces ``qampy_tpu/ops/equaliser_pallas.py:train_equaliser_block_pallas``
-and B2 ``apply_filter_pallas_planes``, in two entries: the whole-capture
-filter of the blind chain and the frame-batched filter of the pilot chain
-(``apply_filter_frames``). The source note in the .cu file says what bounds
-each on the card and how its design answers that.
+B1 replaces ``qampy_tpu/ops/equaliser_pallas.py:train_equaliser_block_pallas``,
+B9 ``train_equaliser_pallas`` and B2 ``apply_filter_pallas_planes``, in two
+entries: the whole-capture filter of the blind chain and the frame-batched
+filter of the pilot chain (``apply_filter_frames``). The source note in the
+.cu file says what bounds each on the card and how its design answers that.
 """
 from __future__ import annotations
 
 import torch
 
 from qampy_tpu_torch.ops import _build
+from qampy_tpu_torch.ops.equaliser import (BLOCK_METHODS, SEQ_KERNEL_METHODS,
+                                           apply_filter_planes, planes_errfn, spec_rows,
+                                           train_seq_planes)
 from qampy_tpu_torch.ops.equaliser import apply_filter_frames_planes as apply_filter_frames_plain
-from qampy_tpu_torch.ops.equaliser import apply_filter_planes, mcma_rows
 from qampy_tpu_torch.ops.equaliser import train_block_planes as train_block_plain
 
-_METHOD_CODE = {"mcma": 0, "mddma": 1}
+# csrc/equaliser.cu: Method
+_METHOD_CODE = {"mcma": 0, "mddma": 1, "cma": 2, "sgncma": 2, "rde": 3, "sbd": 4, "dd": 5}
 _MAX_OUT = 2                     # csrc/equaliser.cu kMaxOut
+_MAX_CODES = 64                  # csrc/equaliser.cu kMaxCodes: longest [codes, partitions] row
+_MAX_SEQ_K = 128                 # csrc/equaliser.cu kSeqTapsPerLane * 32: nmodes * ntaps of B9
 _SMEM_LIMIT = 227 * 1024         # shared memory one CTA may use on Hopper
 
 
@@ -51,11 +56,21 @@ def check_dec(os, ntaps, nout, dec):
 # B1: block-LMS trainer
 # ---------------------------------------------------------------------------
 
-def method_code(method):
-    """The trainer kernel's code of ``method``; the kernel takes mcma and mddma."""
-    if method not in _METHOD_CODE:
-        raise NotImplementedError("trainer kernel method %r is ROADMAP item A7" % method)
+def method_code(method, takes=BLOCK_METHODS):
+    """The trainer kernels' code of ``method``, which must be one of ``takes``."""
+    if method not in takes:
+        raise NotImplementedError("trainer kernel method %r: the kernel takes %s"
+                                  % (method, takes))
     return _METHOD_CODE[method]
+
+
+def _codebook(rows, device):
+    """(tensor (nout, k) float32 on ``device``, k) of per-output [codes, partitions] rows."""
+    t = torch.tensor(rows, dtype=torch.float32, device=device)
+    if t.shape[-1] > _MAX_CODES:
+        raise ValueError("rde codebook row of %d entries, the kernel holds %d"
+                         % (t.shape[-1], _MAX_CODES))
+    return t, t.shape[-1]
 
 
 def train_block_cuda(P, TrSyms, Niter, os, mu, wx, spec, adaptive=False, block_size=32):
@@ -91,11 +106,16 @@ def train_block_cuda(P, TrSyms, Niter, os, mu, wx, spec, adaptive=False, block_s
     smem = lib.qtt_train_block_smem(nmodes, nout, ntaps, os, S)
     if smem > _SMEM_LIMIT:
         raise ValueError("trainer needs %d bytes of shared memory" % smem)
+    c = [0.0] * 4
+    d0 = lo = nm1 = 0.0
+    codes, ncodes = None, 0
     if spec.method == "mcma":
-        c = [x for pair in mcma_rows(spec, nout) for x in pair] + [0.0] * (4 - 2 * nout)
-        d0 = lo = nm1 = 0.0
+        c = [x for pair in spec_rows(spec, nout) for x in pair] + [0.0] * (4 - 2 * nout)
+    elif spec.method == "cma":
+        c = [x for r in spec_rows(spec, nout) for x in (r, 0.0)] + [0.0] * (4 - 2 * nout)
+    elif spec.method == "rde":
+        codes, ncodes = _codebook(spec_rows(spec, nout), P.device)
     else:
-        c = [0.0] * 4
         d0, lo, n = spec.consts
         nm1 = float(n - 1)
     K = nmodes * ntaps
@@ -107,7 +127,8 @@ def train_block_cuda(P, TrSyms, Niter, os, mu, wx, spec, adaptive=False, block_s
     rc = lib.qtt_train_block(P.data_ptr(), nmodes, L, wr.data_ptr(), wi.data_ptr(),
                              mu_t.data_ptr(), err_r.data_ptr(), err_i.data_ptr(), nout,
                              ntaps, os, S, nblocks, int(Niter), code,
-                             *c, d0, lo, nm1, int(bool(adaptive)), _build.stream_of(P))
+                             *c, d0, lo, nm1, None if codes is None else codes.data_ptr(),
+                             ncodes, int(bool(adaptive)), _build.stream_of(P))
     _build.check(rc, "train_block_cuda")
     train_block_cuda.launches += 1
     return (torch.complex(err_r, err_i), torch.complex(wr, wi).reshape(nout, nmodes, ntaps),
@@ -121,6 +142,86 @@ def train_block(P, TrSyms, Niter, os, mu, wx, spec, adaptive=False, block_size=3
     """Block-LMS training: the plain version on CPU tensors, kernel B1 on CUDA."""
     fn = train_block_plain if P.device.type == "cpu" else train_block_cuda
     return fn(P, TrSyms, Niter, os, mu, wx, spec, adaptive, block_size)
+
+
+# ---------------------------------------------------------------------------
+# B9: per-symbol LMS trainer
+# ---------------------------------------------------------------------------
+
+def _seq_symbols(symbols, method, nout, device):
+    """The (nout, k) complex64 rows of ``symbols`` on ``device``, checked against ``method``."""
+    method_code(method, SEQ_KERNEL_METHODS)
+    syms = torch.as_tensor(symbols, device=device).to(torch.complex64)
+    if syms.dim() != 2 or syms.shape[0] != nout:
+        raise ValueError("symbols of shape %s for %d output modes" % (tuple(syms.shape), nout))
+    return syms
+
+
+def train_seq_plain(P, TrSyms, Niter, os, mu, wx, symbols, method, adaptive=False):
+    """Plain version of kernel B9: ``train_seq_planes`` for the kernel's methods.
+
+    P: (2*nmodes, L) float32 planes; wx: (nout, nmodes, ntaps) complex64;
+    symbols: (nout, k) per-mode rows (host array or tensor). Returns (err
+    (nout, Niter*TrSyms) complex64, taps, mu (nout,) float32).
+    """
+    syms = _seq_symbols(symbols, method, wx.shape[0], P.device)
+    return train_seq_planes(P, TrSyms, Niter, os, mu, wx.to(torch.complex64),
+                            planes_errfn(method, syms), adaptive)
+
+
+def train_seq_cuda(P, TrSyms, Niter, os, mu, wx, symbols, method, adaptive=False):
+    """Launch kernel B9; same contract as :func:`train_seq_plain`.
+
+    Unlike the reference's kernel, which returns zeros for it
+    (equaliser_pallas.py:17-18, 163), the error trace is the real one, as
+    ``train_equaliser_seq`` returns it.
+    """
+    _build.require_cuda("train_seq_cuda", P, dtype=torch.float32)
+    _build.require_cuda("train_seq_cuda", wx, dtype=torch.complex64, contiguous=False)
+    if wx.device != P.device:
+        raise ValueError("train_seq_cuda: taps and planes lie on different devices")
+    nout, nmodes, ntaps = wx.shape
+    if P.dim() != 2 or P.shape[0] != 2 * nmodes:
+        raise ValueError("planes of shape %s do not match taps %s"
+                         % (tuple(P.shape), tuple(wx.shape)))
+    K = nmodes * ntaps
+    if K > _MAX_SEQ_K:
+        raise ValueError("the per-symbol trainer kernel holds %d taps per output mode, got "
+                         "%d x %d" % (_MAX_SEQ_K, nmodes, ntaps))
+    TrSyms, Niter, os = int(TrSyms), int(Niter), int(os)
+    L = P.shape[-1]
+    if TrSyms < 1 or L < (TrSyms - 1) * os + ntaps:
+        raise ValueError("capture of %d samples is shorter than the %d training "
+                         "windows need" % (L, (TrSyms - 1) * os + ntaps))
+    syms = _seq_symbols(symbols, method, nout, P.device)
+    # (2, nout, k) float32: the real parts, then the imaginary parts
+    sym_planes = torch.stack([syms.real, syms.imag]).contiguous()
+    k = syms.shape[-1]
+    if k > _MAX_CODES:
+        raise ValueError("symbols row of %d entries, the kernel holds %d" % (k, _MAX_CODES))
+    wr = wx.real.reshape(nout, K).clone(memory_format=torch.contiguous_format)
+    wi = wx.imag.reshape(nout, K).clone(memory_format=torch.contiguous_format)
+    mu_t = torch.full((nout,), mu, dtype=torch.float32, device=P.device)
+    err_r = torch.empty((nout, Niter * TrSyms), dtype=torch.float32, device=P.device)
+    err_i = torch.empty_like(err_r)
+    rc = _build.library().qtt_train_seq(
+        P.data_ptr(), nmodes, L, wr.data_ptr(), wi.data_ptr(), mu_t.data_ptr(),
+        err_r.data_ptr(), err_i.data_ptr(), sym_planes.data_ptr(), k, nout, ntaps, os, TrSyms,
+        Niter, method_code(method, SEQ_KERNEL_METHODS), int(bool(adaptive)),
+        _build.stream_of(P))
+    _build.check(rc, "train_seq_cuda")
+    train_seq_cuda.launches += 1
+    return (torch.complex(err_r, err_i), torch.complex(wr, wi).reshape(nout, nmodes, ntaps),
+            mu_t)
+
+
+train_seq_cuda.launches = 0
+
+
+def train_seq(P, TrSyms, Niter, os, mu, wx, symbols, method, adaptive=False):
+    """Per-symbol LMS training: the plain version on CPU tensors, kernel B9 on CUDA."""
+    fn = train_seq_plain if P.device.type == "cpu" else train_seq_cuda
+    return fn(P, TrSyms, Niter, os, mu, wx, symbols, method, adaptive)
 
 
 # ---------------------------------------------------------------------------

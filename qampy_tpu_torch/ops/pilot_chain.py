@@ -43,6 +43,7 @@ from qampy_tpu_torch.ops import equaliser as eqops
 from qampy_tpu_torch.ops.equaliser_cuda import apply_filter_frames
 from qampy_tpu_torch.ops.phase_cuda import cpe_coeffs, interp_rotate, moving_average, rotate
 from qampy_tpu_torch.signals import cal_pilot_idx
+from qampy_tpu_torch.utils import resolve_device
 
 __all__ = ["PilotRxChain", "make_pilot_rx_chain", "unwrap"]
 
@@ -440,8 +441,11 @@ def make_pilot_rx_chain(pilot_seq, ph_pilots, frame_len, pilot_ins_rat, os=2, nm
                         M_pilot=4, sync_Ntaps=17, sync_mu=1e-3, sync_Niter=10, Ntaps=45,
                         foe_comp=False, cpe_avg=3, cpe_pilot_rat=1, frames=(0,), block_size=128,
                         pallas=None, frames_mode="scan", return_phase=True, eq_trainer="lms",
-                        frames_pack=1, device="cpu"):
+                        frames_pack=1, device=None):
     """Build the pilot chain on ``device`` (see :class:`PilotRxChain`).
+
+    ``device=None`` is the card, and raises on a machine without one; pass
+    ``device="cpu"`` for the CPU.
 
     Parameters and defaults follow the reference's ``make_pilot_rx_chain``;
     ``pilot_seq`` (n, seq_len) and ``ph_pilots`` (n, nph) are host arrays of
@@ -456,4 +460,4 @@ def make_pilot_rx_chain(pilot_seq, ph_pilots, frame_len, pilot_ins_rat, os=2, nm
                         sync_Niter=sync_Niter, Ntaps=Ntaps, foe_comp=foe_comp, cpe_avg=cpe_avg,
                         cpe_pilot_rat=cpe_pilot_rat, frames=frames, block_size=block_size,
                         pallas=pallas, frames_mode=frames_mode, return_phase=return_phase,
-                        eq_trainer=eq_trainer, frames_pack=frames_pack).to(device)
+                        eq_trainer=eq_trainer, frames_pack=frames_pack).to(resolve_device(device))

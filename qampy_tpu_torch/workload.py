@@ -17,6 +17,7 @@ from qampy_tpu_torch.core import impairments
 from qampy_tpu_torch.core.metrics import decision_idx
 from qampy_tpu_torch.signals import cal_pilot_idx, generate_mapping
 from qampy_tpu_torch.theory import cal_scaling_factor_qam, cal_symbols_qam
+from qampy_tpu_torch.utils import resolve_device
 
 #: the gate's edge trim: dec*N of the decimated search must stay inside it
 GATE_TRIM = 200
@@ -145,7 +146,7 @@ class PilotTx(NamedTuple):
 
 
 def make_pilot_tx(nframes, M=64, frame_len=2 ** 16, seq_len=1024, ins_rat=32, snr=35,
-                  lwdth=20e3, dgd=20e-12, theta=np.pi / 4.3, seed=3, fb=24e9, device="cpu"):
+                  lwdth=20e3, dgd=20e-12, theta=np.pi / 4.3, seed=3, fb=24e9, device=None):
     """The pilot capture of ``bench.pilot_maketx`` (its 'qam' branch), made in torch on ``device``.
 
     Per mode one frame of ``SignalWithPilots(M, frame_len, seq_len,
@@ -154,11 +155,12 @@ def make_pilot_tx(nframes, M=64, frame_len=2 ** 16, seq_len=1024, ins_rat=32, sn
     shaping at beta 0.1 as in :func:`make_tx`, a roll by the frame's pilot
     count (``roll_frame_sync``), Wiener phase noise of linewidth ``lwdth``,
     the SNR and first-order PMD, in the reference's order. All draws come
-    from one ``torch.Generator`` seeded with ``seed`` on ``device``; the
-    capture is not the JAX package's array but one of the same statistics.
+    from one ``torch.Generator`` seeded with ``seed`` on ``device`` (None:
+    the card; ``"cpu"`` for the CPU); the capture is not the JAX package's
+    array but one of the same statistics.
     """
     nmodes, os = 2, 2
-    dev = torch.device(device)
+    dev = resolve_device(device)
     g = torch.Generator(device=dev).manual_seed(int(seed))
     _, idx_dat, idx_pil = cal_pilot_idx(frame_len, seq_len, ins_rat)
     npil, ndat = int(idx_pil.sum()), int(idx_dat.sum())

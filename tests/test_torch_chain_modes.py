@@ -27,6 +27,7 @@ from qampy_tpu_torch.workload import GATE_TRIM, ser_gate, shared_decisions
 
 NSYM, TRS = 2 ** 15, 2 ** 14
 CFG = dict(M=64, Ntaps=17, os=2, bps_angles=64, bps_N=14, block_size=256, TrSyms=TRS)
+CPU = dict(CFG, device="cpu")
 MODES = ["single", "twostage"]
 SER_LIMIT = 1e-5
 
@@ -52,7 +53,7 @@ def ports(capture):
     P = planes_from_complex(capture[0], "cpu")
     runs = {}
     for mode in MODES:
-        chain = make_rx_chain(**CFG, bps_mode=mode)
+        chain = make_rx_chain(**CPU, bps_mode=mode)
         (outr, outi), w = chain.planes_with_taps(P)
         runs[mode] = chain, P, torch.complex(outr, outi), w
     return runs
@@ -117,7 +118,7 @@ def test_complex_and_pair_entries(capture, ports, mode):
 
 def test_twostage32_builds_and_gates(capture, ports):
     """A1 = max(64 // 2, 16) = 32 coarse angles; the taps are the modes' common training."""
-    chain = make_rx_chain(**CFG, bps_mode="twostage32")
+    chain = make_rx_chain(**CPU, bps_mode="twostage32")
     assert chain.mode == "twostage" and chain.bps_cos.shape == (32,)
     assert chain.fine_cos.shape == (8,) and chain.search_N == 60
     _, P, _, w = ports["twostage"]
@@ -129,14 +130,14 @@ def test_twostage32_builds_and_gates(capture, ports):
 def test_indivisible_stride_falls_back_to_single(ports):
     """decimated64 does not divide the filter's phase group (32 at os=2, 17 taps, 2 modes)."""
     with pytest.warns(UserWarning, match="falling back to the single-grid BPS"):
-        chain = make_rx_chain(**CFG, bps_mode="decimated64")
+        chain = make_rx_chain(**CPU, bps_mode="decimated64")
     assert chain.mode == "single" and chain.dec is None
     single, P, out, w = ports["single"]
     outr, outi = chain.tracking_planes(P, w)
     assert torch.equal(outr, out.real) and torch.equal(outi, out.imag)
     with warnings.catch_warnings():
         warnings.simplefilter("error")
-        assert make_rx_chain(**CFG, bps_mode="decimated8").mode == "decimated"
+        assert make_rx_chain(**CPU, bps_mode="decimated8").mode == "decimated"
 
 
 @pytest.mark.parametrize("port_fn", [make_rx_chain, RxChain])

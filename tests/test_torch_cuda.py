@@ -1,4 +1,4 @@
-"""The CUDA kernels B1-B8 against their plain PyTorch versions, on the card.
+"""The CUDA kernels B1-B9 against their plain PyTorch versions, on the card.
 
 These tests need a CUDA card and the CUDA toolkit: without a card they
 skip. The module imports no JAX, so it runs on a machine that has none:
@@ -16,7 +16,8 @@ from qampy_tpu_torch.ops import phase as tph
 from qampy_tpu_torch.ops.chain import make_rx_chain
 from qampy_tpu_torch.ops.equaliser_cuda import (apply_filter_cuda, apply_filter_frames_cuda,
                                                 apply_filter_frames_plain, apply_filter_plain,
-                                                train_block_cuda, train_block_plain)
+                                                train_block_cuda, train_block_plain,
+                                                train_seq_cuda, train_seq_plain)
 from qampy_tpu_torch.ops.phase_cuda import (bps_fine_cuda, bps_fine_plain, bps_search_cuda,
                                             bps_search_plain, cpe_coeffs_cuda, cpe_coeffs_plain,
                                             interp_rotate_cuda, interp_rotate_plain,
@@ -114,7 +115,7 @@ def test_b2_checks_inputs(dev, capture):
 def _qam_planes(dev, seed, L=2 ** 16):
     """64-QAM planes on the card with a random-walk carrier phase and noise: (grid, er, ei)."""
     rng = np.random.default_rng(seed)
-    grid = make_rx_chain().grid
+    grid = make_rx_chain(device="cpu").grid
     levels = grid[1] + grid[0] * np.arange(grid[2])
     syms = rng.choice(levels, (2, L)) + 1j * rng.choice(levels, (2, L))
     z = syms * np.exp(1j * np.cumsum(rng.normal(scale=0.01, size=(2, L)), -1))
@@ -164,7 +165,7 @@ def test_chain_on_card_matches_plain_chain(dev, capture):
     assert torch.equal(tr, outr) and torch.equal(ti, outi)
     out = torch.complex(outr, outi)
     assert ser_gate(out, torch.as_tensor(syms, device=dev), const) <= 1e-5
-    ref = make_rx_chain(**CFG).forward(torch.as_tensor(E))[:, GATE_TRIM:-GATE_TRIM]
+    ref = make_rx_chain(**CFG, device="cpu").forward(torch.as_tensor(E))[:, GATE_TRIM:-GATE_TRIM]
     got = out.cpu()[:, GATE_TRIM:-GATE_TRIM]
     # a near-tied phase index may resolve either way and move a few symbols
     # by one angle step: the decisions, not the values, must agree
@@ -232,7 +233,7 @@ def test_per_sample_chain_on_card(dev, capture, mode):
     assert torch.equal(tr, outr) and torch.equal(ti, outi)
     out = torch.complex(outr, outi)
     assert ser_gate(out, torch.as_tensor(syms, device=dev), const) <= 1e-5
-    ref = make_rx_chain(**cfg).forward(torch.as_tensor(E))[:, GATE_TRIM:-GATE_TRIM]
+    ref = make_rx_chain(**cfg, device="cpu").forward(torch.as_tensor(E))[:, GATE_TRIM:-GATE_TRIM]
     assert shared_decisions(out.cpu()[:, GATE_TRIM:-GATE_TRIM], ref, const) >= 0.999
 
 
@@ -307,3 +308,91 @@ def test_pilot_chain_launches_and_gate(dev, return_phase):
     (tr, ti), _ = chain.tracking_planes(tx.planes[:2], tx.planes[2:], info["taps"],
                                         info["shift"], info["mode_order"])
     assert torch.equal(tr, dr) and torch.equal(ti, di)
+
+
+@pytest.mark.parametrize("adaptive", [False, True])
+@pytest.mark.parametrize("method", ["cma", "mcma", "rde"])
+def test_b9_train_seq(dev, capture, method, adaptive):
+    P = capture[3]
+    w0 = torch.as_tensor(teq._init_taps(17, 2, 2, np.complex64), device=dev)
+    syms = teq._reshape_symbols(None, method, 64, np.complex64, 2)
+    e_p, w_p, mu_p = train_seq_plain(P, 2048, 1, 2, 1e-3, w0, syms, method, adaptive)
+    e_k, w_k, mu_k = train_seq_cuda(P, 2048, 1, 2, 1e-3, w0, syms, method, adaptive)
+    assert e_k.shape == e_p.shape == (2, 2048) and w_k.shape == (2, 2, 17)
+    # the same roundings but for the order of z's sum; a contracting recurrence
+    assert float((w_k - w_p).abs().max()) <= 1e-5
+    torch.testing.assert_close(mu_k, mu_p, rtol=1e-4, atol=0)
+    assert float((e_k - e_p).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("nmodes, ntaps, trs, niter", [(1, 11, 1500, 2), (2, 33, 1100, 1),
+                                                       (2, 17, 300, 3)])
+def test_b9_passes_chunks_and_widths(dev, capture, nmodes, ntaps, trs, niter):
+    """Passes that end inside a chunk of 1024 symbols; one, two and three taps per lane."""
+    P = capture[3]
+    P = torch.cat([P[:nmodes], P[2:2 + nmodes]]).contiguous()
+    w0 = torch.as_tensor(teq._init_taps(ntaps, nmodes, nmodes, np.complex64), device=dev)
+    syms = teq._reshape_symbols(None, "mcma", 64, np.complex64, nmodes)
+    e_p, w_p, mu_p = train_seq_plain(P, trs, niter, 2, 1e-3, w0, syms, "mcma", True)
+    e_k, w_k, mu_k = train_seq_cuda(P, trs, niter, 2, 1e-3, w0, syms, "mcma", True)
+    assert e_k.shape == (nmodes, niter * trs)
+    assert float((w_k - w_p).abs().max()) <= 1e-5
+    torch.testing.assert_close(mu_k, mu_p, rtol=1e-4, atol=0)
+    assert float((e_k - e_p).abs().max()) <= 1e-4
+
+
+def test_b9_checks_inputs(dev, capture):
+    P = capture[3]
+    syms = teq._reshape_symbols(None, "cma", 64, np.complex64, 2)
+    w0 = torch.as_tensor(teq._init_taps(17, 2, 2, np.complex64), device=dev)
+    wide = torch.as_tensor(teq._init_taps(65, 2, 2, np.complex64), device=dev)
+    with pytest.raises(ValueError, match="taps per output mode"):
+        train_seq_cuda(P, 256, 1, 2, 1e-3, wide, syms, "cma")
+    with pytest.raises(NotImplementedError, match="takes"):
+        train_seq_cuda(P, 256, 1, 2, 1e-3, w0, syms, "mddma")
+    with pytest.raises(ValueError, match="shorter"):
+        train_seq_cuda(P, 2 ** 15, 1, 2, 1e-3, w0, syms, "cma")
+    with pytest.raises(TypeError):
+        train_seq_cuda(P.double(), 256, 1, 2, 1e-3, w0, syms, "cma")
+
+
+@pytest.mark.parametrize("method", ["cma", "sgncma", "rde", "sbd", "dd"])
+def test_b1_square_grid_methods(dev, capture, method):
+    P = capture[3]
+    w0 = torch.as_tensor(teq._init_taps(17, 2, 2, np.complex64), device=dev)
+    _, w1, _ = train_block_cuda(P, 2 ** 14, 1, 2, 1.9e-3, w0, _specs(2)["mcma"], True, 256)
+    spec = teq.err_spec(method, teq._reshape_symbols(None, method, 64, np.complex64, 2))
+    start = w0 if method in ("cma", "sgncma") else w1
+    # rde's ring decision makes the recurrence expand a rounding difference until a
+    # sample changes ring (two plain runs 2e-7 apart part after 10-20 blocks): 8 blocks
+    trs = 2 ** 11 if method == "rde" else 2 ** 14
+    e_p, w_p, mu_p = train_block_plain(P, trs, 1, 2, 1.9e-3, start, spec, True, 256)
+    e_k, w_k, mu_k = train_block_cuda(P, trs, 1, 2, 1.9e-3, start, spec, True, 256)
+    assert float((w_k - w_p).abs().max()) <= 1e-4
+    torch.testing.assert_close(mu_k, mu_p, rtol=1e-5, atol=0)
+    assert float((e_k - e_p).abs().max()) <= 1e-4
+
+
+def test_equaliser_entry_points_run_on_the_card_by_default(dev, capture):
+    E, syms, const, _ = capture
+    counters = (train_block_cuda, train_seq_cuda, apply_filter_cuda)
+    want = {"cuda": [0, 2, 1], "cuda_block": [2, 0, 1], "auto": [2, 0, 1]}
+    for backend, launches in want.items():
+        for fn in counters:
+            fn.launches = 0
+        out, w, (e1, e2) = teq.dual_mode_equalisation(
+            E, 2, (1e-3, 1e-3), 64, Ntaps=17, methods=("mcma", "rde"),
+            adaptive_stepsize=(True, True), backend=backend)
+        assert out.is_cuda and w.is_cuda and e1.is_cuda
+        assert [fn.launches for fn in counters] == launches
+        chain = make_rx_chain(bps_mode="single", bps_N=14)
+        eqp = teq.planes(out).contiguous()
+        outr, outi = chain.unwrap_derotate(eqp, chain.carrier_phase(eqp))
+        ser = ser_gate(torch.complex(outr, outi), torch.as_tensor(syms, device=dev), const)
+        assert ser <= 1e-4
+    # a plain backend on the card takes every method
+    w, err = teq.equalise_signal(E, 2, 1e-3, 64, Ntaps=17, method="mrde", backend="block",
+                                 TrSyms=4096)
+    assert w.is_cuda and err.shape == (2, 4096) and bool(torch.isfinite(w.abs()).all())
+    with pytest.raises(NotImplementedError, match="trains the complex methods"):
+        teq.equalise_signal(E, 2, 1e-3, 64, Ntaps=17, method="mrde", backend="cuda_block")

@@ -141,14 +141,16 @@ class TestEqualiserHost:
         s2 = teq._reshape_symbols(None, "mddma", 64, np.complex64, 2)
         assert teq.err_spec("mddma", s2).consts == jph.detect_grid(s2[0])
 
-    @pytest.mark.parametrize("method", ["cma", "rde", "sbd", "dd", "sca", "cma_real"])
+    @pytest.mark.parametrize("method", ["cma2", "mrde", "sbd_data", "cme", "sca", "cma_real"])
     def test_unported_methods_raise(self, method):
-        # the trainer kernel takes mcma and mddma; the plain trainer also cma
-        with pytest.raises(NotImplementedError, match="A7"):
+        # kernel B1 and its plain form take the methods of the reference's fused
+        # block trainer; the others train through the general error functions
+        with pytest.raises(NotImplementedError, match="takes"):
             method_code(method)
-        if method not in teq.BLOCK_METHODS:
-            with pytest.raises(NotImplementedError, match="A7"):
-                teq.err_spec(method, np.ones((2, 4), np.complex64))
+        with pytest.raises(NotImplementedError, match="takes"):
+            teq.err_spec(method, np.ones((2, 4), np.complex64))
+        for m in teq.BLOCK_METHODS:
+            assert method_code(m) == method_code("cma" if m == "sgncma" else m)
 
     def test_cma_error_against_reference(self):
         """The plain trainer's cma stage against the reference's XLA block trainer."""
@@ -227,7 +229,7 @@ class TestWorkload:
         # dec*N edge samples carry no full window and so no phase estimate:
         # the bench's N=12 keeps them inside the gate's trim, its default 14 not
         for N, inside in ((12, True), (14, False)):
-            ch = make_rx_chain(bps_N=N, bps_mode="decimated16")
+            ch = make_rx_chain(bps_N=N, bps_mode="decimated16", device="cpu")
             assert (ch.dec * ch.bps_N <= workload.GATE_TRIM) == inside
 
 
@@ -285,24 +287,24 @@ class TestPortBoundaries:
 
     @pytest.mark.parametrize("kwargs, item", [
         (dict(bps_mode="twostage-dec"), "Not to port"),
-        (dict(methods=("cma", "rde")), "A7"), (dict(methods=("mcma", "sbd")), "A7"),
+        (dict(methods=("cma", "mrde")), "takes"), (dict(methods=("mcma", "cme")), "takes"),
         (dict(M=32), "A4"), (dict(M=128), "A4"), (dict(symbols=np.ones(16)), "A4")])
     def test_unported_configurations_raise(self, kwargs, item):
         with pytest.raises(NotImplementedError, match=item):
-            make_rx_chain(**kwargs)
+            make_rx_chain(**kwargs, device="cpu")
 
     def test_chain_is_a_module(self):
         tables = {"w0", "bps_cos", "bps_sin"}
         for mode, buffers, A in (("single", tables, 64), ("decimated16", tables, 64),
                                  ("twostage", tables | {"fine_cos", "fine_sin"}, 16)):
-            ch = make_rx_chain(TrSyms=256, bps_mode=mode)
+            ch = make_rx_chain(TrSyms=256, bps_mode=mode, device="cpu")
             assert ch.eval() is ch and not ch.training
             assert {n for n, _ in ch.named_buffers()} == buffers
             assert ch.bps_cos.shape == (A,)
         with pytest.raises(ValueError, match="positive"):
-            make_rx_chain(bps_mode="decimated0")
+            make_rx_chain(bps_mode="decimated0", device="cpu")
         with pytest.raises(ValueError, match="unknown bps_mode"):
-            make_rx_chain(bps_mode="double")
+            make_rx_chain(bps_mode="double", device="cpu")
 
     def test_filter_side_stride_must_divide_group(self):
         P = torch.zeros(4, 1024)
@@ -311,7 +313,7 @@ class TestPortBoundaries:
             apply_filter(P, 2, w, 64)
 
     def test_chain_refuses_complex_planes(self):
-        ch = make_rx_chain(TrSyms=256)
+        ch = make_rx_chain(TrSyms=256, device="cpu")
         with pytest.raises(ValueError, match="planes"):
             ch.planes(torch.zeros(4, 2048, dtype=torch.complex64))
 
@@ -375,7 +377,7 @@ class TestPilotHost:
 
 class TestPilotWorkload:
     def test_make_pilot_tx_layout(self):
-        tx = workload.make_pilot_tx(2, frame_len=2 ** 12, seq_len=256, ins_rat=32, seed=4)
+        tx = workload.make_pilot_tx(2, frame_len=2 ** 12, seq_len=256, ins_rat=32, seed=4, device="cpu")
         _, idx_dat, idx_pil = signals.cal_pilot_idx(2 ** 12, 256, 32)
         assert tx.planes.shape == (4, 2 * 2 * 2 ** 12) and tx.planes.dtype == torch.float32
         assert tx.pilot_seq.shape == (2, 256) and tx.ph_pilots.shape == (2, idx_pil.sum() - 256)
@@ -385,7 +387,7 @@ class TestPilotWorkload:
         assert np.allclose(np.abs(tx.pilot_seq), 1, atol=1e-6)
         p = (tx.planes[:2] ** 2 + tx.planes[2:] ** 2).mean(-1)
         assert torch.allclose(p, torch.ones(2), rtol=0.05)
-        again = workload.make_pilot_tx(2, frame_len=2 ** 12, seq_len=256, ins_rat=32, seed=4)
+        again = workload.make_pilot_tx(2, frame_len=2 ** 12, seq_len=256, ins_rat=32, seed=4, device="cpu")
         assert torch.equal(again.planes, tx.planes)
 
     def test_ber_gate_counts_bits(self):

@@ -23,6 +23,7 @@ from qampy_tpu_torch.ops.pilot_chain import PilotRxChain, make_pilot_rx_chain
 
 FRAME, SEQ, INS = 2 ** 14, 512, 32
 CFG = dict(os=2, nmodes=2, Ntaps=17, cpe_avg=3, frames=(0, 1, 2), eq_trainer="ls")
+CPU = dict(CFG, device="cpu")
 SER_MAX = 1e-4          # the reference test's gate (test_pilot_chain.py:200)
 AGREE_MIN = 0.999       # decisions shared with the reference chain
 TAPS_TOL = 1e-3         # two float32 LU solves of a Tikhonov system: ~5e-5 measured
@@ -57,7 +58,7 @@ def runs(request, capture):
     (dr, di), info = jax.jit(fwd.planes)(capture["pr"], capture["pi"])
     jinfo = {k: np.asarray(v) for k, v in info.items()}
     chain = make_pilot_rx_chain(capture["seq"], capture["ph"], FRAME, INS, return_phase=rp,
-                                **CFG)
+                                **CPU)
     (tr, ti), tinfo = chain.planes(torch.as_tensor(capture["pr"]), torch.as_tensor(capture["pi"]))
     return dict(rp=rp, jax=np.asarray(dr) + 1j * np.asarray(di), jinfo=jinfo, chain=chain,
                 port=(tr, ti), info=tinfo)
@@ -95,7 +96,7 @@ def test_phase_trace(runs):
 def test_return_phase_payload_equals_serving(capture):
     pr, pi = torch.as_tensor(capture["pr"]), torch.as_tensor(capture["pi"])
     out = [make_pilot_rx_chain(capture["seq"], capture["ph"], FRAME, INS, return_phase=rp,
-                               **CFG).planes(pr, pi)[0] for rp in (False, True)]
+                               **CPU).planes(pr, pi)[0] for rp in (False, True)]
     assert np.abs(torch.complex(*out[0]).numpy() - torch.complex(*out[1]).numpy()).max() \
         <= PAYLOAD_SAME
 
@@ -134,7 +135,7 @@ def test_mode_swap_folds_into_taps(capture):
     """Swapped polarisations: the mode order is found and folded into the taps' input axis."""
     pr, pi = (torch.as_tensor(capture[k][::-1].copy()) for k in ("pr", "pi"))
     chain = make_pilot_rx_chain(capture["seq"], capture["ph"], FRAME, INS, return_phase=False,
-                                **CFG)
+                                **CPU)
     (dr, di), info = chain.planes(pr, pi)
     assert info["mode_order"].tolist() == [1, 0]
     dec = _decide(torch.complex(dr, di).numpy(), capture["coded"])
@@ -145,7 +146,7 @@ def test_mode_swap_folds_into_taps(capture):
 
 def test_port_capture_through_reference_chain():
     """The port's TX statement demodulated by the JAX chain and by the port, under the bench gate."""
-    tx = workload.make_pilot_tx(6, frame_len=FRAME, seq_len=SEQ)
+    tx = workload.make_pilot_tx(6, frame_len=FRAME, seq_len=SEQ, device="cpu")
     P = tx.planes.numpy()
     fwd = jax_make_pilot_rx_chain(tx.pilot_seq, tx.ph_pilots, FRAME, INS, pallas=True,
                                   return_phase=False, **CFG)
@@ -154,7 +155,7 @@ def test_port_capture_through_reference_chain():
                              tx, np.asarray(info["sync_corr"]))
     assert gate["ok"], gate
     (pdr, pdi), pinfo = make_pilot_rx_chain(tx.pilot_seq, tx.ph_pilots, FRAME, INS,
-                                            return_phase=False, **CFG).planes(tx.planes[:2],
+                                            return_phase=False, **CPU).planes(tx.planes[:2],
                                                                               tx.planes[2:])
     assert workload.ber_gate(pdr, pdi, tx, pinfo["sync_corr"])["ok"]
     assert pinfo["shift"].tolist() == np.asarray(info["shift"]).tolist()
@@ -164,7 +165,7 @@ def test_port_capture_through_reference_chain():
     (dict(eq_trainer="lms"), "A6b"), (dict(foe_comp=True), "A6b"),
     (dict(cpe_pilot_rat=2), "A6b"), (dict(pallas=False), "A6b")])
 def test_unported_options_raise(capture, kwargs, item):
-    cfg = dict(CFG, **kwargs)
+    cfg = dict(CPU, **kwargs)
     with pytest.raises(NotImplementedError, match=item):
         make_pilot_rx_chain(capture["seq"], capture["ph"], FRAME, INS, **cfg)
 
@@ -174,7 +175,7 @@ def test_unported_options_raise(capture, kwargs, item):
 def test_lms_settings_are_not_taken(capture, kwargs):
     """The LMS trainer's settings come with it (A6b): the LS chain refuses them, not ignores."""
     with pytest.raises(TypeError):
-        make_pilot_rx_chain(capture["seq"], capture["ph"], FRAME, INS, **dict(CFG, **kwargs))
+        make_pilot_rx_chain(capture["seq"], capture["ph"], FRAME, INS, **dict(CPU, **kwargs))
 
 
 def test_prefix_sharded_raises(runs):
@@ -186,11 +187,11 @@ def test_prefix_sharded_raises(runs):
                                     dict(frames_pack=2), dict(eq_trainer="newton")])
 def test_not_to_port_options_are_refused(capture, kwargs):
     with pytest.raises(ValueError):
-        make_pilot_rx_chain(capture["seq"], capture["ph"], FRAME, INS, **dict(CFG, **kwargs))
+        make_pilot_rx_chain(capture["seq"], capture["ph"], FRAME, INS, **dict(CPU, **kwargs))
 
 
 def test_module_and_input_checks(capture):
-    chain = make_pilot_rx_chain(capture["seq"], capture["ph"], FRAME, INS, **CFG)
+    chain = make_pilot_rx_chain(capture["seq"], capture["ph"], FRAME, INS, **CPU)
     assert isinstance(chain, PilotRxChain) and chain.W == 63 and chain.TrS_eq == 493
     assert {n for n, _ in chain.named_buffers()} >= {"starts", "seq_f", "pil_r", "bases"}
     with pytest.raises(ValueError, match="as long as frame"):
