@@ -8,8 +8,12 @@ result line):
 
 1. device: a CUDA card must be present (no CPU fallback); prints its name
    and ``nvidia-smi``'s name and power limit;
-2. build: compiles the kernels (B1-B9 and B2's frame entry) from
-   ``qampy_tpu_torch/csrc``;
+2. build: compiles the kernels (B1-B9, B2's frame entry and the latency
+   probe) from ``qampy_tpu_torch/csrc``, one ``nvcc`` per source; then the
+   probe (``csrc/probe.cu``): the card's latencies of a dependent add, a
+   shuffle and add, rde's register lookup and a CTA barrier, from which the
+   chain bounds of the two trainers are reckoned, and B9's straight-line
+   division against ``__fdiv_rn`` on 2^22 operand pairs (none may differ);
 3. blind kernels: B1-B4 against their plain PyTorch versions on the card, at
    the blind path's shapes, with the stated tolerance;
 4. blind main path: ``workload.make_tx(2**20)`` through ``RxChain.planes``
@@ -44,14 +48,18 @@ result line):
    and the card's chain against the plain CPU chain on a small capture;
 12. pilot times: the dispatch and the tracking entry in payload Msym/s, the
    device time of each stage, and each new kernel beside its plain version;
-13. per-symbol trainer: B9 against its plain version on ``make_tx(2**13)``
-   (17 taps, TrSyms 4096) for cma, mcma and rde with and without the
-   adaptive step from the centre-tap start, rde from converged taps, and
-   three passes over 1024 symbols (bounds: taps 1e-5, mu 1e-4 relative,
-   error trace 1e-4; tightened from 1e-4, 1e-4, 1e-3 after every case
-   measured bit-equal on the H100);
-14. block trainer methods: B1's cma, rde, sbd and dd against the plain block
-   trainer on the blind capture (2^14 symbols, blocks of 256);
+13. per-symbol trainer: B9 (one warp per output mode, a kernel instance per
+   taps per lane, method and adaptive step) against its plain version on
+   ``make_tx(2**13)`` (17 taps, TrSyms 4096) for cma, mcma and rde with and
+   without the adaptive step from the centre-tap start, rde from converged
+   taps, and three passes over 1024 symbols, whose chunk ends and buffered
+   error trace end inside a pass (bounds: taps 1e-5, mu 1e-4 relative,
+   error trace 1e-4; every case measured bit-equal on the H100), and two
+   launches on one input bit-equal;
+14. block trainer methods: B1's cma, rde, sbd and dd (one CTA per output
+   mode, the capture ring fed by bulk copies) against the plain block
+   trainer on the blind capture (2^14 symbols, blocks of 256), and two
+   launches on one input bit-equal;
 15. equaliser path: ``workload.make_tx(2**18)`` through
    ``dual_mode_equalisation(E, 2, (1e-3, 1e-3), 64, Ntaps=17, methods=("mcma",
    "rde"), adaptive_stepsize=(True, True))`` over the whole capture with
@@ -61,12 +69,17 @@ result line):
    B2 against their plain versions at that path's shapes (B9's plain
    version over the first 4096 symbols, whose errors the full launch must
    repeat bit for bit), and the times of the calls, the stages and the
-   kernels.
+   kernels, B9's and B1's beside their chain bounds.
 
 Beside every kernel's time stand its bound (the larger of its bytes over
 the card's 3.35 TB/s and its operations over the card's 67 TFLOP/s in
 float32, both counted from this run's shapes) and, where one PyTorch call
-computes the same function (the filters: ``conv1d``), that call's time.
+computes the same function (the filters: ``conv1d``), that call's time. The
+trainers B1 and B9 are chains of dependent steps that no roofline bound
+describes: beside their times stands a chain bound as well, the steps times
+the latency of one step's critical path, from a written count of dependent
+operations (``seq_chain_cycles``, ``block_chain_cycles``) and the latencies
+the probe measured in this run.
 
 Every time is printed with the card's name and power limit. The line before
 the last is ``{"kernels": [...]}``, one record per kernel and path that
@@ -75,6 +88,7 @@ at that path's shapes; the last line is the device record
 ``{"ok": true, "device": {...}}``.
 """
 import json
+import re
 import subprocess
 import sys
 import time
@@ -91,8 +105,9 @@ from qampy_tpu_torch.ops import phase as phops
 from qampy_tpu_torch.ops.chain import decimated_derotation_inputs, make_rx_chain
 from qampy_tpu_torch.ops.equaliser_cuda import (apply_filter_cuda, apply_filter_frames_cuda,
                                                 apply_filter_frames_plain, apply_filter_plain,
-                                                train_block_cuda, train_block_plain,
-                                                train_seq_cuda, train_seq_plain)
+                                                chain_latencies, div_check, train_block_cuda,
+                                                train_block_plain, train_seq_cuda,
+                                                train_seq_plain)
 from qampy_tpu_torch.ops.phase_cuda import (bps_fine, bps_fine_cuda, bps_fine_plain,
                                             bps_search_cuda, bps_search_plain, cpe_coeffs,
                                             cpe_coeffs_cuda, cpe_coeffs_plain, interp_rotate,
@@ -152,8 +167,10 @@ FP32_FLOPS_PER_S = 67e12
 # operations per element of each function, counted from its definition: a complex
 # multiply-add as 8, sin and cos as one each, a floor, clamp, abs or compare as one
 OPS_FILTER_TAP = 8       # one complex tap on one output sample
-OPS_TRAIN_TAP = 16       # a tap's share of z and of the update, per training sample
+OPS_TRAIN_TAP = 16       # a tap's complex multiply-add in z and in the update, per sample
 OPS_TRAIN_ERR = 10       # the error and the step-size rule, per training sample
+B1_THREADS = 288         # B1's CTA: 256 computing threads and the producer warp
+DIV_PAIRS = 2 ** 22      # operand pairs of the division check
 OPS_BPS_ANGLE = 26       # rotate 6, decide 12, distance 5, running window 2, compare 1
 OPS_ROTATE = 8           # sin, cos and the rotation
 OPS_INTERP = 2           # a + b j
@@ -275,14 +292,96 @@ def bound(moved, ops):
 
 
 def trainer_bound(nmodes, nout, ntaps, os_, nsyms, niter):
-    """Bound of a trainer (B1, B9): the capture prefix in, taps in and out, the error trace out.
+    """Roofline bound of a trainer (B1, B9): the capture prefix in, taps in and out, the error out.
 
-    The trainers are chains of dependent steps on one SM, so their time is
-    set by latency and lies far above this bound.
+    The trainers are chains of dependent steps, one SM per output mode, so
+    their time is set by latency and lies far above this bound; the bound
+    to hold them against is the chain bound (:func:`seq_chain_cycles`,
+    :func:`block_chain_cycles`), printed beside their times.
     """
     K = nmodes * ntaps
     moved = 4 * (2 * nmodes * (nsyms * os_ + ntaps - 1) + 2 * nout * nsyms * niter + 4 * nout * K)
     return bound(moved, niter * nsyms * nout * (OPS_TRAIN_TAP * K + OPS_TRAIN_ERR))
+
+
+def trainer_build_report():
+    """What ptxas said of the trainers' instances, from the build's log: registers and spills."""
+    log = (_build.build_dir() / "build.log").read_text()
+    entries = re.findall(r"Compiling entry function '(\S+)'.*?(\d+) bytes stack frame, (\d+) bytes "
+                         r"spill stores, (\d+) bytes spill loads.*?Used (\d+) registers", log, re.S)
+    for kernel, name in (("train_seq_kernel", "B9"), ("train_block_kernel", "B1")):
+        mine = [(int(st), int(ss), int(sl), int(r)) for fn, st, ss, sl, r in entries if kernel in fn]
+        require(mine, "no %s instance in the build log" % kernel)
+        print("build: %s %s has %d instances, %d to %d registers, stack up to %d bytes, spill "
+              "stores up to %d, spill loads up to %d"
+              % (name, kernel, len(mine), min(m[3] for m in mine), max(m[3] for m in mine),
+                 max(m[0] for m in mine), max(m[1] for m in mine), max(m[2] for m in mine)))
+        require(all(m[1] == 0 and m[2] == 0 for m in mine), "%s spills registers" % name)
+
+
+def probe_phase(dev, card):
+    """Phase 2, after the build: the latencies behind the chain bounds, and B9's division.
+
+    Returns the latencies in cycles (a lone warp's, and the barrier and the
+    SM-wide rates of a CTA of B1's size) and the SM clock in GHz.
+    """
+    warp, cta = chain_latencies(dev, 32), chain_latencies(dev, B1_THREADS)
+    lat = dict(warp, barrier=cta["barrier"], lds128_per_sm=cta["lds128_per_sm"],
+               ffma_per_sm=cta["ffma_per_sm"])
+    print("probe: dependent add %.2f cycles, fused multiply-add %.2f, shuffle + add %.2f, rde "
+          "lookup (ballot, popc, shuffle) + add %.2f, shared load %.2f, barrier of %d threads "
+          "%.2f; with %d threads at work %.2f SM cycles per warp's 16-byte shared load and %.3f "
+          "per warp's FFMA; SM clock %.3f GHz [%s]"
+          % (lat["fadd"], lat["ffma"], lat["shuffle_add"], lat["lookup_add"], lat["shared_load"],
+             B1_THREADS, lat["barrier"], B1_THREADS, lat["lds128_per_sm"], lat["ffma_per_sm"],
+             lat["ghz"], card))
+    require(all(np.isfinite(v) and v > 0 for v in lat.values()), "the latency probe failed")
+    g = torch.Generator(device=dev).manual_seed(1)
+    differ = []
+    for a, b in ((torch.rand(DIV_PAIRS, generator=g, device=dev) * 2e-3 + 1e-7,
+                  1 + torch.rand(DIV_PAIRS, generator=g, device=dev) * 0.5),
+                 (torch.randn(DIV_PAIRS, generator=g, device=dev),
+                  torch.randn(DIV_PAIRS, generator=g, device=dev) + 3)):
+        differ.append(div_check(a, b))
+    print("B9's straight-line division against __fdiv_rn: %d of %d quotients differ on the step "
+          "size's operands (a in (1e-7, 2e-3), b in (1, 1.5)), %d of %d on normal operands"
+          % (differ[0], DIV_PAIRS, differ[1], DIV_PAIRS))
+    require(differ == [0, 0], "B9's division rounds unlike __fdiv_rn")
+    return lat
+
+
+def seq_chain_cycles(lat, K, method):
+    """Cycles of one B9 step's critical path, from the probe's latencies.
+
+    Dependent roundings: the tap update 4 (e x, +, mu x, w +), a product and
+    its difference 2, the lane's sum over its ceil(K/32) taps, the error 3;
+    then the 5 butterfly steps (shuffle + add). rde's ring lookup stands
+    between |z|^2 and the error: its measured chain on top.
+    """
+    tpl = -(-K // 32)
+    cycles = (4 + 2 + (tpl - 1) + 3) * lat["fadd"] + 5 * lat["shuffle_add"]
+    return cycles + (lat["lookup_add"] if method == "rde" else 0.0)
+
+
+def block_chain_cycles(lat, K, S):
+    """Cycles of one B1 block's critical path at full parallelism.
+
+    Three CTA barriers and, as dependent float operations: z as a product
+    and a tree of ceil(log2 K) adds, the error 3, the product with the step
+    size 1, a tap's sum over the block as a product and a tree of
+    ceil(log2 S) adds, the tap's update 1.
+    """
+    ops = (1 + int(np.ceil(np.log2(K)))) + 3 + 1 + (1 + int(np.ceil(np.log2(S)))) + 1
+    return 3 * lat["barrier"] + ops * lat["fadd"]
+
+
+def print_chain(what, lat, steps, cycles, ms, card, unit):
+    """A trainer's chain bound beside its time."""
+    bound_ms = steps * cycles / (lat["ghz"] * 1e6)
+    print("chain bound %s: %d dependent %ss x %.1f cycles at %.3f GHz = %.4f ms; kernel %.4f ms "
+          "(%.1f cycles per %s) reaches %.1f%% of it [%s]"
+          % (what, steps, unit, cycles, lat["ghz"], bound_ms, ms,
+             ms * lat["ghz"] * 1e6 / steps, unit, 100 * bound_ms / ms, card))
 
 
 def filter_bound(P, w, *outs):
@@ -310,7 +409,7 @@ def filter_library(P, os_, w, want, reps=20):
     return device_ms(lambda: F.conv1d(P[None], W, stride=os_), reps)
 
 
-def check_kernels(P, chain, card):
+def check_kernels(P, chain, card, lat):
     """Phase 3: each kernel against its plain version at the main path's shapes."""
     rec = {}
     os_, mu, S, trs = CFG["os"], CFG["mu"], CFG["block_size"], CFG["TrSyms"]
@@ -334,6 +433,11 @@ def check_kernels(P, chain, card):
         **trainer_bound(2, 2, CFG["Ntaps"], os_, trs, 1), err=d_taps,
         ms=device_ms(lambda: train_block_cuda(P, trs, 1, os_, mu, w0, s1, True, S), 20),
         plain_ms=device_ms(lambda: train_block_plain(P, trs, 1, os_, mu, w0, s1, True, S), 3))
+    K = 2 * CFG["Ntaps"]
+    print_chain("B1 train_block (blind path)", lat, trs // S, block_chain_cycles(lat, K, S),
+                rec["B1"]["ms"], card, "block")
+    print("B1's block also needs %.0f SM cycles for its 8 K S flops at the probe's FFMA rate"
+          % (8 * K * S / 2 / 32 * lat["ffma_per_sm"]))
 
     # B2: the filter with the trained taps and its stride-16 side output
     w = w2_k
@@ -771,6 +875,9 @@ def check_seq_kernel(dev, card):
         args = (P, trs, niter, 2, 1e-3, w, syms[method], method, adaptive)
         (e_p, w_p, mu_p), ms_p = timed(lambda: train_seq_plain(*args))
         (e_k, w_k, mu_k), ms_k = timed(lambda: train_seq_cuda(*args))
+        again = train_seq_cuda(*args)
+        require(all(torch.equal(x, y) for x, y in zip((e_k, w_k, mu_k), again)),
+                "two launches of B9 on one input differ")
         d = dict(taps=float((w_k - w_p).abs().max()),
                  mu=float(((mu_k - mu_p) / mu_p).abs().max()),
                  err=float((e_k - e_p).abs().max()))
@@ -820,6 +927,9 @@ def check_block_methods(P, chain, card):
         args = (P, n, 1, os_, mu, chain.w0 if method == "cma" else w1, spec, True, S)
         e_p, w_p, mu_p = train_block_plain(*args)
         e_k, w_k, mu_k = train_block_cuda(*args)
+        again = train_block_cuda(*args)
+        require(all(torch.equal(x, y) for x, y in zip((e_k, w_k, mu_k), again)),
+                "two launches of B1 on one input differ")
         d_taps = float((w_k - w_p).abs().max())
         d_mu = float(((mu_k - mu_p) / mu_p).abs().max())
         d_err = float((e_k - e_p).abs().max())
@@ -831,7 +941,7 @@ def check_block_methods(P, chain, card):
                 "B1 %s disagrees with its plain version" % method)
 
 
-def equaliser_phases(dev, card, seq_check):
+def equaliser_phases(dev, card, seq_check, lat):
     """Phase 15: the granular equaliser at 2^18 symbols through B9 and through B1.
 
     Returns (kernel records keyed by (kernel, path), launches per path).
@@ -899,6 +1009,8 @@ def equaliser_phases(dev, card, seq_check):
     for m, t in t_b9.items():
         print("time B9 train_seq %s adaptive, %d symbols: %.4f ms, %.1f ns per symbol [%s]"
               % (m, trs, t, t / trs * 1e6, card))
+        print_chain("B9 train_seq %s" % m, lat, trs, seq_chain_cycles(lat, 2 * ntaps, m), t, card,
+                    "symbol")
     rec["B9", "equaliser seq"] = dict(
         **trainer_bound(2, 2, ntaps, 2, trs, 1), err=max(worst["taps"], d_head),
         ms=t_b9[m1], plain_ms=t_p4096, ms_at_plain_shape=t_k4096,
@@ -935,6 +1047,9 @@ def equaliser_phases(dev, card, seq_check):
           % (m1, ts, EQ_BLOCK, rec["B1", "equaliser block"]["ms"], m2,
              device_ms(lambda: train_block_cuda(P, trs, 1, 2, EQ_MU[1], w_k, specs[1], True,
                                                 EQ_BLOCK), 5), card))
+    print_chain("B1 train_block %s (equaliser block path)" % m1, lat, trs // EQ_BLOCK,
+                block_chain_cycles(lat, 2 * ntaps, EQ_BLOCK), rec["B1", "equaliser block"]["ms"],
+                card, "block")
 
     # B2 at the path's shape, with each path's taps
     for path in ("equaliser seq", "equaliser block"):
@@ -1095,6 +1210,8 @@ def main():
     t0 = time.perf_counter()
     _build.library()
     print("build: %.2f s (%s)" % (time.perf_counter() - t0, _build.build_dir()))
+    trainer_build_report()
+    lat = probe_phase(dev, card)
 
     t0 = time.perf_counter()
     E, syms, const = make_tx(NSYM)
@@ -1104,7 +1221,7 @@ def main():
           % (NSYM, tuple(P.shape), time.perf_counter() - t0))
     chain = make_rx_chain(**CFG)          # no device named: the card
 
-    rec = check_kernels(P, chain, card)
+    rec = check_kernels(P, chain, card, lat)
 
     # phase 4: the main path, counted
     (outr, outi), launches = counted(lambda: chain.planes(P))
@@ -1191,7 +1308,7 @@ def main():
     seq_check = check_seq_kernel(dev, card)
     check_block_methods(P, chain, card)
     del P
-    erec, eq_launches = equaliser_phases(dev, card, seq_check)
+    erec, eq_launches = equaliser_phases(dev, card, seq_check, lat)
     rec.update(erec)
     path_launches.update(eq_launches)
     print("launches per path: %s" % path_launches)

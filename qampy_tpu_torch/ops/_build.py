@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels.
 
-All ``csrc/*.cu`` sources are compiled by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, loaded with ctypes. The build
-runs at the first kernel launch, never at import, so the package imports
-on a machine without ``nvcc``. The library lives under ``build/`` at the
+All ``csrc/*.cu`` sources are compiled by ``nvcc`` for ``sm_90a`` (one
+``nvcc`` per source, all started together) and linked into one shared
+library with a plain C interface, loaded with ctypes. The build runs at
+the first kernel launch, never at import, so the package imports on a
+machine without ``nvcc``. The library lives under ``build/`` at the
 repository root, in a directory keyed by a hash of the sources and flags;
 a finished build is reused. Never add ``--use_fast_math``: the derotation
 kernel needs the precise ``sincosf`` (see ``csrc/phase.cu``).
@@ -21,7 +22,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "qampy_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libqampy_tpu_torch.so"
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
@@ -46,6 +47,9 @@ SIGNATURES = {
     "qtt_unwrap_derotate": (_I, [_P, _P, _P, _I, _LL, _F, _F, _P, _P, _P, _P]),
     "qtt_bps_fine_smem": (_LL, [_I, _I]),
     "qtt_bps_fine": (_I, [_P, _P, _P, _I, _LL, _P, _P, _I, _I, _F, _F, _F, _F, _P, _P]),
+    "qtt_div_check": (_I, [_P, _P, _I, _P, _P]),
+    "qtt_probe_values": (_I, []),
+    "qtt_probe_latency": (_I, [_P, _P, _I, _I, _P]),
     "qtt_error_string": (ctypes.c_char_p, [_I]),
 }
 
@@ -76,12 +80,26 @@ def library():
     if not so.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
         tmp = out_dir / ("%s.%d.tmp" % (LIB_NAME, os.getpid()))
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *(str(s) for s in sorted(CSRC.glob("*.cu")))]
-        res = subprocess.run(cmd, capture_output=True, text=True, check=False)
-        (out_dir / "build.log").write_text(" ".join(cmd) + "\n" + res.stdout + res.stderr)
-        if res.returncode != 0:
-            raise RuntimeError("nvcc failed (%d):\n%s" % (res.returncode, res.stderr[-4000:]))
+        srcs = sorted(CSRC.glob("*.cu"))
+        objs = [out_dir / ("%s.%d.o" % (s.stem, os.getpid())) for s in srcs]
+        cmds = [[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(s)] for o, s in zip(objs, srcs)]
+        cmds.append([_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)])
+        # one nvcc per source, all at once; each writes to a file of its own
+        outs = [o.with_suffix(".log") for o in objs]
+        procs = [subprocess.Popen(c, stdout=f.open("w"), stderr=subprocess.STDOUT)
+                 for c, f in zip(cmds, outs)]
+        ok = all([p.wait() == 0 for p in procs])
+        logs = [f.read_text() for f in outs]
+        if ok:
+            link = subprocess.run(cmds[-1], capture_output=True, text=True, check=False)
+            logs.append(link.stdout + link.stderr)
+            ok = link.returncode == 0
+        log = "".join(" ".join(c) + "\n" + out for c, out in zip(cmds, logs))
+        (out_dir / "build.log").write_text(log)
+        for f in (*objs, *outs):
+            f.unlink(missing_ok=True)
+        if not ok:
+            raise RuntimeError("nvcc failed:\n%s" % log[-4000:])
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     for name, (restype, argtypes) in SIGNATURES.items():

@@ -11,6 +11,10 @@ B9 ``train_equaliser_pallas`` and B2 ``apply_filter_pallas_planes``, in two
 entries: the whole-capture filter of the blind chain and the frame-batched
 filter of the pilot chain (``apply_filter_frames``). The source note in the
 .cu file says what bounds each on the card and how its design answers that.
+The trainers B1 and B9 are bound by the latency of a chain of dependent
+steps: ``chain_latencies`` (``csrc/probe.cu``) measures the latencies that
+their chain bounds are reckoned from, and ``div_check`` holds B9's
+straight-line division against ``__fdiv_rn``.
 """
 from __future__ import annotations
 
@@ -73,6 +77,33 @@ def _codebook(rows, device):
     return t, t.shape[-1]
 
 
+def block_launch_shape(P, TrSyms, os, wx, block_size):
+    """(S, nblocks) of a B1 launch, or ValueError for what the kernel does not take.
+
+    Looks at shapes only, so it holds for tensors on any device. The
+    kernel's block S is the algorithm's (``block_size``, or ``TrSyms`` if
+    that is shorter), a multiple of 32 up to 1024; its CTA has a fixed
+    number of threads whatever S is.
+    """
+    nout, nmodes, ntaps = wx.shape
+    if P.dim() != 2 or P.shape[0] != 2 * nmodes:
+        raise ValueError("planes of shape %s do not match taps %s"
+                         % (tuple(P.shape), tuple(wx.shape)))
+    if nout > _MAX_OUT:
+        raise ValueError("the trainer kernel takes at most %d output modes" % _MAX_OUT)
+    if int(os) < 1:
+        raise ValueError("oversampling %r" % (os,))
+    S = min(int(block_size), int(TrSyms))
+    if S < 32 or S % 32 or S > 1024:
+        raise ValueError("block size %d: the kernel takes a multiple of 32 up to 1024" % S)
+    nblocks = int(TrSyms) // S
+    L = P.shape[-1]
+    if L < (nblocks * S - 1) * os + ntaps:
+        raise ValueError("capture of %d samples is shorter than the %d training "
+                         "windows need" % (L, (nblocks * S - 1) * os + ntaps))
+    return S, nblocks
+
+
 def train_block_cuda(P, TrSyms, Niter, os, mu, wx, spec, adaptive=False, block_size=32):
     """Launch kernel B1; same contract as :func:`train_block_plain`.
 
@@ -86,21 +117,9 @@ def train_block_cuda(P, TrSyms, Niter, os, mu, wx, spec, adaptive=False, block_s
     if wx.device != P.device:
         raise ValueError("train_block_cuda: taps and planes lie on different devices")
     nout, nmodes, ntaps = wx.shape
-    if P.dim() != 2 or P.shape[0] != 2 * nmodes:
-        raise ValueError("planes of shape %s do not match taps %s"
-                         % (tuple(P.shape), tuple(wx.shape)))
-    if nout > _MAX_OUT:
-        raise ValueError("the trainer kernel takes at most %d output modes" % _MAX_OUT)
-    S = min(int(block_size), int(TrSyms))
-    if S < 32 or S % 32 or S > 1024:
-        raise ValueError("block size %d: the kernel runs one thread per sample and "
-                         "needs a multiple of 32 up to 1024" % S)
-    nblocks = int(TrSyms) // S
+    S, nblocks = block_launch_shape(P, TrSyms, os, wx, block_size)
     Ts = nblocks * S
     L = P.shape[-1]
-    if L < (Ts - 1) * os + ntaps:
-        raise ValueError("capture of %d samples is shorter than the %d training "
-                         "windows need" % (L, (Ts - 1) * os + ntaps))
     code = method_code(spec.method)
     lib = _build.library()
     smem = lib.qtt_train_block_smem(nmodes, nout, ntaps, os, S)
@@ -169,6 +188,28 @@ def train_seq_plain(P, TrSyms, Niter, os, mu, wx, symbols, method, adaptive=Fals
                             planes_errfn(method, syms), adaptive)
 
 
+def seq_launch_shape(P, TrSyms, os, wx):
+    """K = nmodes * ntaps of a B9 launch, or ValueError for what the kernel does not take.
+
+    Looks at shapes only. The kernel has an instance per taps per lane,
+    ceil(K / 32) from 1 to 4, so K may not exceed 128.
+    """
+    _, nmodes, ntaps = wx.shape
+    if P.dim() != 2 or P.shape[0] != 2 * nmodes:
+        raise ValueError("planes of shape %s do not match taps %s"
+                         % (tuple(P.shape), tuple(wx.shape)))
+    K = nmodes * ntaps
+    if K < 1 or K > _MAX_SEQ_K:
+        raise ValueError("the per-symbol trainer kernel holds %d taps per output mode, got "
+                         "%d x %d" % (_MAX_SEQ_K, nmodes, ntaps))
+    if int(os) < 1:
+        raise ValueError("oversampling %r" % (os,))
+    if int(TrSyms) < 1 or P.shape[-1] < (int(TrSyms) - 1) * int(os) + ntaps:
+        raise ValueError("capture of %d samples is shorter than the %d training "
+                         "windows need" % (P.shape[-1], (int(TrSyms) - 1) * int(os) + ntaps))
+    return K
+
+
 def train_seq_cuda(P, TrSyms, Niter, os, mu, wx, symbols, method, adaptive=False):
     """Launch kernel B9; same contract as :func:`train_seq_plain`.
 
@@ -181,18 +222,9 @@ def train_seq_cuda(P, TrSyms, Niter, os, mu, wx, symbols, method, adaptive=False
     if wx.device != P.device:
         raise ValueError("train_seq_cuda: taps and planes lie on different devices")
     nout, nmodes, ntaps = wx.shape
-    if P.dim() != 2 or P.shape[0] != 2 * nmodes:
-        raise ValueError("planes of shape %s do not match taps %s"
-                         % (tuple(P.shape), tuple(wx.shape)))
-    K = nmodes * ntaps
-    if K > _MAX_SEQ_K:
-        raise ValueError("the per-symbol trainer kernel holds %d taps per output mode, got "
-                         "%d x %d" % (_MAX_SEQ_K, nmodes, ntaps))
+    K = seq_launch_shape(P, TrSyms, os, wx)
     TrSyms, Niter, os = int(TrSyms), int(Niter), int(os)
     L = P.shape[-1]
-    if TrSyms < 1 or L < (TrSyms - 1) * os + ntaps:
-        raise ValueError("capture of %d samples is shorter than the %d training "
-                         "windows need" % (L, (TrSyms - 1) * os + ntaps))
     syms = _seq_symbols(symbols, method, nout, P.device)
     # (2, nout, k) float32: the real parts, then the imaginary parts
     sym_planes = torch.stack([syms.real, syms.imag]).contiguous()
@@ -222,6 +254,48 @@ def train_seq(P, TrSyms, Niter, os, mu, wx, symbols, method, adaptive=False):
     """Per-symbol LMS training: the plain version on CPU tensors, kernel B9 on CUDA."""
     fn = train_seq_plain if P.device.type == "cpu" else train_seq_cuda
     return fn(P, TrSyms, Niter, os, mu, wx, symbols, method, adaptive)
+
+
+# ---------------------------------------------------------------------------
+# what bounds the trainers: the card's latencies, and B9's division
+# ---------------------------------------------------------------------------
+
+LATENCY_KEYS = ("fadd", "ffma", "shuffle_add", "lookup_add", "shared_load", "barrier")
+
+
+def chain_latencies(device, threads=256, iters=4096):
+    """The latencies that bound B1 and B9, measured on ``device`` by ``csrc/probe.cu``.
+
+    Returns a dict: cycles per dependent repetition of a float add, a fused
+    multiply-add, a shuffle and add (one butterfly step), rde's register
+    lookup and an add (ballot, popc, shuffle, add), a shared-memory load and a CTA barrier
+    of ``threads`` threads; ``ghz`` (the SM clock while it ran); and, with
+    all ``threads`` at work, SM cycles per warp-wide 16-byte shared-memory
+    load (``lds128_per_sm``) and per warp-wide FFMA (``ffma_per_sm``).
+    """
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError("chain_latencies measures a CUDA card: got %s" % device)
+    lib = _build.library()
+    out = torch.zeros(lib.qtt_probe_values(), dtype=torch.float32, device=device)
+    arg = torch.tensor([1e-3, 1.0, 7.0], dtype=torch.float32, device=device)
+    _build.check(lib.qtt_probe_latency(out.data_ptr(), arg.data_ptr(), int(iters), int(threads),
+                                       _build.stream_of(out)), "chain_latencies")
+    vals = out.tolist()
+    return dict(zip(LATENCY_KEYS, vals), ghz=vals[6], lds128_per_sm=vals[8], ffma_per_sm=vals[9])
+
+
+def div_check(a, b):
+    """How many quotients a / b B9's straight-line division rounds unlike ``__fdiv_rn``."""
+    _build.require_cuda("div_check", a, b, dtype=torch.float32)
+    if a.shape != b.shape:
+        raise ValueError("div_check: operands of shapes %s and %s" % (tuple(a.shape),
+                                                                     tuple(b.shape)))
+    differ = torch.zeros(1, dtype=torch.int32, device=a.device)
+    _build.check(_build.library().qtt_div_check(a.data_ptr(), b.data_ptr(), a.numel(),
+                                                differ.data_ptr(), _build.stream_of(a)),
+                 "div_check")
+    return int(differ)
 
 
 # ---------------------------------------------------------------------------

@@ -16,8 +16,9 @@ from qampy_tpu_torch.ops import phase as tph
 from qampy_tpu_torch.ops.chain import make_rx_chain
 from qampy_tpu_torch.ops.equaliser_cuda import (apply_filter_cuda, apply_filter_frames_cuda,
                                                 apply_filter_frames_plain, apply_filter_plain,
-                                                train_block_cuda, train_block_plain,
-                                                train_seq_cuda, train_seq_plain)
+                                                chain_latencies, div_check, train_block_cuda,
+                                                train_block_plain, train_seq_cuda,
+                                                train_seq_plain)
 from qampy_tpu_torch.ops.phase_cuda import (bps_fine_cuda, bps_fine_plain, bps_search_cuda,
                                             bps_search_plain, cpe_coeffs_cuda, cpe_coeffs_plain,
                                             interp_rotate_cuda, interp_rotate_plain,
@@ -79,6 +80,65 @@ def test_b1_niter_and_fixed_step(dev, capture):
     assert e_k.shape == (2, 8192)
     assert bool((mu_k == 1e-3).all())
     assert float((w_k - w_p).abs().max()) <= 1e-4
+
+
+def _sub(P, nmodes, L=None):
+    """The planes of the first ``nmodes`` modes, cut to ``L`` samples."""
+    return torch.cat([P[:nmodes, :L], P[2:2 + nmodes, :L]]).contiguous()
+
+
+def _same(a, b):
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("L", [2 ** 16, 40001], ids=["bulk copies", "odd L: cp.async"])
+@pytest.mark.parametrize("nmodes, S, ntaps, os_", [(1, 32, 17, 2), (2, 64, 17, 2), (2, 256, 45, 2),
+                                                   (2, 512, 16, 2), (1, 256, 16, 2),
+                                                   (2, 32, 45, 2), (2, 128, 17, 1),
+                                                   (1, 1024, 5, 2), (2, 256, 17, 3)])
+def test_b1_instances(dev, capture, nmodes, S, ntaps, os_, L):
+    """Both ways a segment arrives, one and two modes, every block size class, odd and even
+    tap counts, os = 2 and the plain path; two passes, so the ring wraps to block 0."""
+    P = _sub(capture[3], nmodes, L)
+    w0 = torch.as_tensor(teq._init_taps(ntaps, nmodes, nmodes, np.complex64), device=dev)
+    args = (P, 4096, 2, os_, 1e-3, w0, _specs(nmodes)["mcma"], True, S)
+    e_p, w_p, mu_p = train_block_plain(*args)
+    got = train_block_cuda(*args)
+    e_k, w_k, mu_k = got
+    assert e_k.shape == e_p.shape == (nmodes, 8192)
+    assert float((w_k - w_p).abs().max()) <= 1e-4
+    torch.testing.assert_close(mu_k, mu_p, rtol=1e-5, atol=0)
+    assert float((e_k - e_p).abs().max()) <= 1e-4
+    assert _same(got, train_block_cuda(*args))
+
+
+def test_b1_unaligned_view(dev, capture):
+    """Planes that start 4 bytes past a 16-byte boundary take the cp.async path."""
+    P = capture[3]
+    buf = torch.empty(P.numel() + 1, dtype=torch.float32, device=dev)
+    view = buf[1:].view(P.shape)
+    view.copy_(P)
+    assert view.data_ptr() % 16 == 4 and view.is_contiguous()
+    w0 = torch.as_tensor(teq._init_taps(17, 2, 2, np.complex64), device=dev)
+    args = (4096, 1, 2, 1e-3, w0, _specs(2)["mcma"], True, 256)
+    assert _same(train_block_cuda(view, *args), train_block_cuda(P, *args))
+
+
+@pytest.mark.parametrize("method", ["mcma", "mddma", "cma", "rde", "sbd", "dd"])
+def test_b1_methods_small_blocks(dev, capture, method):
+    """Every method's instance at S = 64 (the filter output split over 8 lanes), two passes."""
+    P = capture[3]
+    w0 = torch.as_tensor(teq._init_taps(17, 2, 2, np.complex64), device=dev)
+    _, w1, _ = train_block_cuda(P, 2 ** 14, 1, 2, 1.9e-3, w0, _specs(2)["mcma"], True, 256)
+    spec = teq.err_spec(method, teq._reshape_symbols(None, method, 64, np.complex64, 2))
+    # rde over 8 blocks in all (see test_b1_square_grid_methods)
+    args = (P, 256, 2, 2, 1.9e-3, w0 if method in ("mcma", "cma") else w1, spec, True, 64)
+    e_p, w_p, mu_p = train_block_plain(*args)
+    got = train_block_cuda(*args)
+    assert float((got[1] - w_p).abs().max()) <= 1e-4
+    torch.testing.assert_close(got[2], mu_p, rtol=1e-5, atol=0)
+    assert float((got[0] - e_p).abs().max()) <= 1e-4
+    assert _same(got, train_block_cuda(*args))
 
 
 def test_b1_refuses_block_size(dev, capture):
@@ -339,6 +399,74 @@ def test_b9_passes_chunks_and_widths(dev, capture, nmodes, ntaps, trs, niter):
     assert float((w_k - w_p).abs().max()) <= 1e-5
     torch.testing.assert_close(mu_k, mu_p, rtol=1e-4, atol=0)
     assert float((e_k - e_p).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("adaptive", [False, True])
+@pytest.mark.parametrize("method", ["cma", "mcma", "rde"])
+@pytest.mark.parametrize("os_", [1, 2])
+@pytest.mark.parametrize("nmodes, ntaps", [(1, 17), (2, 17), (2, 45), (2, 64)],
+                         ids=["K=17", "K=34", "K=90", "K=128"])
+def test_b9_instances(dev, capture, nmodes, ntaps, os_, method, adaptive):
+    """Every instance the launcher can pick: 1-4 taps per lane x method x adaptive, os 1 and 2;
+    600 symbols, so the buffered error trace ends inside a group of 32."""
+    P = _sub(capture[3], nmodes)
+    w0 = torch.as_tensor(teq._init_taps(ntaps, nmodes, nmodes, np.complex64), device=dev)
+    syms = teq._reshape_symbols(None, method, 64, np.complex64, nmodes)
+    args = (P, 600, 1, os_, 1e-3, w0, syms, method, adaptive)
+    e_p, w_p, mu_p = train_seq_plain(*args)
+    got = train_seq_cuda(*args)
+    assert got[0].shape == (nmodes, 600)
+    assert float((got[1] - w_p).abs().max()) <= 1e-5
+    torch.testing.assert_close(got[2], mu_p, rtol=1e-4, atol=0)
+    assert float((got[0] - e_p).abs().max()) <= 1e-4
+    assert _same(got, train_seq_cuda(*args))
+
+
+def test_b9_rde_longest_row(dev, capture):
+    """The longest codebook row the kernel holds: 128-QAM's 17 codes and 16 boundaries, one
+    of each per lane. 256-QAM's row (34 + 33 entries) is refused by the launcher."""
+    P = capture[3]
+    w0 = torch.as_tensor(teq._init_taps(17, 2, 2, np.complex64), device=dev)
+    syms = teq._reshape_symbols(None, "rde", 128, np.complex64, 2)
+    assert syms.shape[-1] == 33
+    args = (P, 1000, 1, 2, 1e-3, w0, syms, "rde", True)
+    e_p, w_p, mu_p = train_seq_plain(*args)
+    e_k, w_k, mu_k = train_seq_cuda(*args)
+    assert float((w_k - w_p).abs().max()) <= 1e-5
+    torch.testing.assert_close(mu_k, mu_p, rtol=1e-4, atol=0)
+    assert float((e_k - e_p).abs().max()) <= 1e-4
+    with pytest.raises(ValueError, match="the kernel holds 64"):
+        train_seq_cuda(P, 1000, 1, 2, 1e-3, w0,
+                       teq._reshape_symbols(None, "rde", 256, np.complex64, 2), "rde", True)
+
+
+def test_b9_three_passes_across_chunk_ends(dev, capture):
+    """1100 symbols are a chunk of 1024 and one of 76; three passes reuse both buffers."""
+    P = capture[3]
+    w0 = torch.as_tensor(teq._init_taps(17, 2, 2, np.complex64), device=dev)
+    syms = teq._reshape_symbols(None, "mcma", 64, np.complex64, 2)
+    args = (P, 1100, 3, 2, 1e-3, w0, syms, "mcma", True)
+    e_p, w_p, mu_p = train_seq_plain(*args)
+    got = train_seq_cuda(*args)
+    assert got[0].shape == (2, 3300)
+    assert float((got[1] - w_p).abs().max()) <= 1e-5
+    torch.testing.assert_close(got[2], mu_p, rtol=1e-4, atol=0)
+    assert float((got[0] - e_p).abs().max()) <= 1e-4
+    assert _same(got, train_seq_cuda(*args))
+
+
+def test_b9_division_and_probe(dev):
+    """B9's straight-line division is __fdiv_rn's on normal operands; the probe reads the card."""
+    g = torch.Generator(device=dev).manual_seed(2)
+    n = 2 ** 20
+    assert div_check(torch.rand(n, generator=g, device=dev) * 2e-3 + 1e-7,
+                     1 + torch.rand(n, generator=g, device=dev)) == 0
+    assert div_check(torch.randn(n, generator=g, device=dev),
+                     torch.randn(n, generator=g, device=dev) + 3) == 0
+    lat = chain_latencies(dev, 288)
+    assert 2 < lat["fadd"] < 12 and lat["shuffle_add"] > lat["fadd"]
+    assert lat["lookup_add"] > lat["shuffle_add"] and lat["barrier"] > lat["fadd"]
+    assert 0.5 < lat["ghz"] < 3
 
 
 def test_b9_checks_inputs(dev, capture):
