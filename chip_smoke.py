@@ -68,8 +68,28 @@ result line):
    by the single-grid carrier recovery and the SER gate <= 1e-4; B9, B1 and
    B2 against their plain versions at that path's shapes (B9's plain
    version over the first 4096 symbols, whose errors the full launch must
-   repeat bit for bit), and the times of the calls, the stages and the
-   kernels, B9's and B1's beside their chain bounds.
+   repeat bit for bit; and each B9 stage with a fixed step in one launch
+   against 64 launches of 4096 symbols that hand taps and step on, bit for
+   bit), and the times of the calls, the stages and the kernels, B9's and
+   B1's beside their chain bounds;
+16. grid kernels: on a rectangular 8 x 4 grid, cross 32- and 128-QAM, the
+   warped 64- and 256-point alphabets and 32-APSK (``workload.warped_qam``,
+   ``apsk_const``), B3 at the single (64 angles, N=14) and the twostage
+   coarse (16 angles, N=60) shape and B8 (8 offsets, N=14) on 2 x 2^20
+   samples made on the card, indices and phases equal to the plain versions
+   off near-ties; B1's sbd, mddma and dd over 8 blocks on a capture of each
+   alphabet from the taps of its mcma stage (taps within 3e-7, two launches
+   bit-equal);
+17. grid paths: ``make_rx_chain(M=32)`` in ``single`` and ``decimated16``
+   mode on ``make_tx(2**20, M=32)``, ``make_rx_chain(symbols=warped_qam(64))``
+   in ``twostage`` (both searches on the fitted grid, B1 decides on the
+   points) and ``single`` (B3 on the points) and
+   ``make_rx_chain(symbols=apsk_const(32))`` in ``twostage`` (B3 and B8 on
+   the points), methods (mcma, sbd): each counted (B1=2, B2=1, B3=1, then B7,
+   B8 and B7, or B4), under the nearest-point SER gate <= 1e-4, tracking
+   bit-exact, decisions shared with the plain CPU chain on a small capture,
+   timed with its stage split, and each of its kernels against its plain
+   version on that path's own inputs.
 
 Beside every kernel's time stand its bound (the larger of its bytes over
 the card's 3.35 TB/s and its operations over the card's 67 TFLOP/s in
@@ -83,9 +103,9 @@ the probe measured in this run.
 
 Every time is printed with the card's name and power limit. The line before
 the last is ``{"kernels": [...]}``, one record per kernel and path that
-launched it, with that path's launch count and the error, times and bound
-at that path's shapes; the last line is the device record
-``{"ok": true, "device": {...}}``.
+launched it, with the kind of constellation it decided on (``grid``), that
+path's launch count and the error, times and bound at that path's shapes;
+the last line is the device record ``{"ok": true, "device": {...}}``.
 """
 import json
 import re
@@ -102,7 +122,8 @@ from qampy_tpu_torch.core.metrics import decision_idx
 from qampy_tpu_torch.ops import _build
 from qampy_tpu_torch.ops import equaliser as eqops
 from qampy_tpu_torch.ops import phase as phops
-from qampy_tpu_torch.ops.chain import decimated_derotation_inputs, make_rx_chain
+from qampy_tpu_torch.ops.chain import (TWOSTAGE_B, TWOSTAGE_N1, cma_singularity_guard,
+                                       decimated_derotation_inputs, make_rx_chain)
 from qampy_tpu_torch.ops.equaliser_cuda import (apply_filter_cuda, apply_filter_frames_cuda,
                                                 apply_filter_frames_plain, apply_filter_plain,
                                                 chain_latencies, div_check, train_block_cuda,
@@ -115,8 +136,9 @@ from qampy_tpu_torch.ops.phase_cuda import (bps_fine, bps_fine_cuda, bps_fine_pl
                                             quarter_unwrap, rotate_cuda, rotate_plain,
                                             unwrap_derotate_cuda, unwrap_derotate_plain)
 from qampy_tpu_torch.ops.pilot_chain import make_pilot_rx_chain
-from qampy_tpu_torch.workload import (GATE_TRIM, ber_gate, decide, make_pilot_tx, make_tx,
-                                      ser_gate, shared_decisions)
+from qampy_tpu_torch.theory import cal_scaling_factor_qam, cal_symbols_qam
+from qampy_tpu_torch.workload import (GATE_TRIM, apsk_const, ber_gate, decide, make_pilot_tx,
+                                      make_tx, ser_gate, shared_decisions, warped_qam)
 
 NSYM = 2 ** 20
 CFG = dict(M=64, Ntaps=17, os=2, methods=("mcma", "mddma"), mu=1.9e-3, bps_angles=64,
@@ -125,14 +147,42 @@ SER_LIMIT = 1e-5
 # the bench's blind attempts 3 and 4 (bench.py:656-657, 182-185) and their gates
 SAMPLE_CFG = dict(CFG, bps_N=14)
 SAMPLE_GATES = {"twostage": 1e-5, "single": 1e-4}
+# this slice (phases 16, 17): the reference's cross and general-alphabet benches
+# (tools/qam32_bench.py, tools/genbench.py) and their gate
+GRID_CFG = dict(Ntaps=17, os=2, methods=("mcma", "sbd"), mu=1.9e-3, bps_angles=64,
+                block_size=256, TrSyms=2 ** 14)
+GRID_SER_LIMIT = 1e-4
+# (path, alphabet, the mode's arguments): every new branch of B1, B3 and B8 is launched by a
+# chain. The warped alphabet's twostage searches run on its fitted grid (B1 alone decides on
+# the points there); its single search and the ring alphabet's two stages run on the points
+GRID_PATHS = (("cross32 single", "cross32", dict(bps_N=14, bps_mode="single")),
+              ("cross32 decimated16", "cross32", dict(bps_N=12, bps_mode="decimated16")),
+              ("warped64 twostage", "warped64", dict(bps_N=14, bps_mode="twostage")),
+              ("warped64 single", "warped64", dict(bps_N=14, bps_mode="single")),
+              ("apsk32 twostage", "apsk32", dict(bps_N=14, bps_mode="twostage")))
+# seed of the 2^15-symbol capture for the card-against-CPU comparison: the blind mcma
+# stage locks onto the ring alphabet on few short captures, in both packages (seed 4 of
+# 1-5 at 2^15 symbols, seed 1 of 1-5 at 2^16); the 2^20-symbol capture of seed 1 does lock
+SMALL_SEED = {"apsk32": 4}
+GRID_BLOCKS = 8          # blocks over which B1's decision methods are held to the plain version
+TOL_GRID_TAPS = 3e-7     # B1 taps after those blocks: what every method measured on the H100
+TOL_GRID_ERR = 1e-5      # B1 per-sample error there
+# B1 at a path's own depth of 64 blocks: a decision is discontinuous, so one rounding
+# difference at a boundary moves one error by a level spacing and a tap by up to
+# mu |d e| |x|, about 1.9e-3 x 0.4 x 2, which the recurrence then contracts. Where the two
+# error traces never part the taps are held to the 8 blocks' bound (on the H100 none parted
+# on any path), else to the step of one flipped decision; the outputs to shared decisions
+TOL_GRID_TAPS_DEPTH = 2e-3
 # kernel vs plain tolerances: float32 on both sides, summed in other orders
 TOL_TAPS = 1e-4          # B1 taps after 64 dependent blocks
 TOL_MU_REL = 1e-5        # B1 final step size
 TOL_ERR = 1e-4           # B1 per-sample error
 TOL_FILTER_REL = 1e-5    # B2, relative to the output rms
 TOL_ROTATE = 1e-5        # B4, absolute (phases of many radians)
-TIES_MAX = 1e-3          # B3: share of near-tied positions allowed to differ
-TIE_REL = 1e-5           # B3: best two window sums within this are a near-tie
+TIES_MAX = 1e-3          # B3, B8: share of near-tied positions allowed to differ
+TIE_REL = 1e-5           # B3, B8: best two window sums within this are a near-tie
+TIE_REL_GEN = 1e-6       # the same on a general alphabet's scores (see tie_rule),
+TIES_MAX_GEN = 2e-2      # whose fine angles lie pi/256 apart
 SMALL_AGREE = 0.999      # decided symbols shared with the plain chain on a small capture
 SPACER_CYCLES = 200_000_000   # ~0.1 s at the H100's ~1.98 GHz boost clock
 # the pilot serving chain (bench.py:425-435, 700): 240 frames per dispatch
@@ -171,14 +221,22 @@ OPS_TRAIN_TAP = 16       # a tap's complex multiply-add in z and in the update, 
 OPS_TRAIN_ERR = 10       # the error and the step-size rule, per training sample
 B1_THREADS = 288         # B1's CTA: 256 computing threads and the producer warp
 DIV_PAIRS = 2 ** 22      # operand pairs of the division check
-OPS_BPS_ANGLE = 26       # rotate 6, decide 12, distance 5, running window 2, compare 1
+OPS_BPS_SEARCH = 9       # per sample and angle: rotate 6, running window 2, compare 1
+# the distance per sample and angle: per axis decide 6 and offset 1, then squares and sum 3
+# (square and rectangular: 17). Cross, as grid_dist<kCross> computes it: the offset's
+# subtraction and floor(u + 0.5) once per axis (the rectangle's decide less its clamp of 2:
+# 4 per axis), then 4 clamps of 2, 4 offsets, 6 for the two squared distances and their
+# minimum 1: 8 + 8 + 4 + 6 + 1 = 27 (25 float instructions). A general alphabet 5 per point
+# (two products, two sums, the maximum)
+OPS_DECIDE = {"sq": 17, "r": 17, "x": 27}
+OPS_GEN_POINT = 5
 OPS_ROTATE = 8           # sin, cos and the rotation
 OPS_INTERP = 2           # a + b j
 OPS_UNWRAP = 6           # difference, quarter-turn count, prefix sum
 OPS_CPE_PILOT = 20       # conjugate product, atan2, unwrap, average, coefficients
 # the paths in the order they run; each is counted on its own (see counted())
 PATHS = ("blind", "blind twostage", "blind single", "pilot", "pilot return_phase",
-         "equaliser seq", "equaliser block")
+         "equaliser seq", "equaliser block") + tuple(p for p, _, _ in GRID_PATHS)
 # kernel: (wrapper name, CUDA source, the TPU kernel it replaces)
 KERNELS = {
     "B1": ("train_block", "qampy_tpu_torch/csrc/equaliser.cu",
@@ -291,17 +349,18 @@ def bound(moved, ops):
                 library_ms=None)
 
 
-def trainer_bound(nmodes, nout, ntaps, os_, nsyms, niter):
+def trainer_bound(nmodes, nout, ntaps, os_, nsyms, niter, decide_ops=0):
     """Roofline bound of a trainer (B1, B9): the capture prefix in, taps in and out, the error out.
 
     The trainers are chains of dependent steps, one SM per output mode, so
     their time is set by latency and lies far above this bound; the bound
     to hold them against is the chain bound (:func:`seq_chain_cycles`,
-    :func:`block_chain_cycles`), printed beside their times.
+    :func:`block_chain_cycles`), printed beside their times. ``decide_ops``:
+    the operations of a decision method's decision, per sample.
     """
     K = nmodes * ntaps
     moved = 4 * (2 * nmodes * (nsyms * os_ + ntaps - 1) + 2 * nout * nsyms * niter + 4 * nout * K)
-    return bound(moved, niter * nsyms * nout * (OPS_TRAIN_TAP * K + OPS_TRAIN_ERR))
+    return bound(moved, niter * nsyms * nout * (OPS_TRAIN_TAP * K + OPS_TRAIN_ERR + decide_ops))
 
 
 def trainer_build_report():
@@ -439,61 +498,14 @@ def check_kernels(P, chain, card, lat):
     print("B1's block also needs %.0f SM cycles for its 8 K S flops at the probe's FFMA rate"
           % (8 * K * S / 2 / 32 * lat["ffma_per_sm"]))
 
-    # B2: the filter with the trained taps and its stride-16 side output
-    w = w2_k
-    out_p, dec_p = apply_filter_plain(P, os_, w, chain.dec)
-    out_k, dec_k = apply_filter_cuda(P, os_, w, chain.dec)
-    rms = float(out_p.pow(2).mean().sqrt())
-    d_out = float((out_k - out_p).abs().max())
-    d_dec = float((dec_k - dec_p).abs().max())
-    print("B2 apply_filter: out %s max|d| %.3e, dec %s max|d| %.3e (tol %.0e x rms %.3f)"
-          % (tuple(out_k.shape), d_out, tuple(dec_k.shape), d_dec, TOL_FILTER_REL, rms))
-    require(out_k.shape == out_p.shape and dec_k.shape == dec_p.shape,
-            "B2 output shapes differ")
-    require(max(d_out, d_dec) <= TOL_FILTER_REL * rms, "B2 disagrees with its plain version")
-    rec["B2"] = dict(**filter_bound(P, w, out_k, dec_k), err=max(d_out, d_dec),
-                     ms=device_ms(lambda: apply_filter_cuda(P, os_, w, chain.dec), 50),
-                     plain_ms=device_ms(lambda: apply_filter_plain(P, os_, w, chain.dec), 10))
-    rec["B2"]["library_ms"] = filter_library(P, os_, w, out_k)
-
-    # B3: the phase search on the decimated planes
+    # B2 with the trained taps and its stride-16 side output, B3 on that side
+    # output, B4 with the coefficients the chain builds from B3's indices
+    rec["B2"], (out_k, dec_k) = b2_record(P, os_, w2_k, chain.dec, "stride-16 side output",
+                                          "blind path")
     no = dec_k.shape[0] // 2
-    er, ei = dec_k[:no].contiguous(), dec_k[no:].contiguous()
-    args = (er, ei, chain.bps_cos, chain.bps_sin, chain.grid, chain.bps_N)
-    idx_p = bps_search_plain(*args)
-    idx_k = bps_search_cuda(*args)
-    N = chain.bps_N
-    ties = phops.bps_near_ties(er, ei, chain.bps_cos, chain.bps_sin, chain.grid, N, TIE_REL)
-    differ = idx_k != idx_p
-    d_idx = int((idx_k - idx_p).abs()[~ties].max())
-    tie_share = float(ties.double().mean())
-    off_tie = bool((differ & ~ties).any())
-    print("B3 bps_search: %s, %d positions differ, %s off near-ties; near-tie share "
-          "%.2e (max %.0e); max|d idx| off ties %d"
-          % (tuple(idx_k.shape), int(differ.sum()), "some" if off_tie else "none",
-             tie_share, TIES_MAX, d_idx))
-    require(not off_tie and tie_share <= TIES_MAX,
-            "B3 disagrees with its plain version off near-ties")
-    rec["B3"] = dict(**bound(nbytes(er, ei, idx_k),
-                             OPS_BPS_ANGLE * chain.bps_cos.shape[0] * er.numel()),
-                     err=float(d_idx), ms=device_ms(lambda: bps_search_cuda(*args), 50),
-                     plain_ms=device_ms(lambda: bps_search_plain(*args), 10))
-
-    # B4: the derotation with the coefficients the chain builds from B3
-    eqp = out_k
-    er_p, ei_p, a, b = decimated_derotation_inputs(eqp[:no], eqp[no:], idx_k, chain.lo_a,
-                                                   chain.step_a, chain.dec)
-    rargs = (er_p, ei_p, a, b, chain.dec, 1)
-    r_p, i_p = interp_rotate_plain(*rargs)
-    r_k, i_k = interp_rotate_cuda(*rargs)
-    d_rot = max(float((r_k - r_p).abs().max()), float((i_k - i_p).abs().max()))
-    print("B4 interp_rotate: %s max|d| %.3e (tol %.0e), |phase| up to %.2f rad"
-          % (tuple(r_k.shape), d_rot, TOL_ROTATE, float(a.abs().max())))
-    require(d_rot <= TOL_ROTATE, "B4 disagrees with its plain version")
-    rec["B4"] = dict(**bound(nbytes(er_p, ei_p, a, b, r_k, i_k),
-                             (OPS_INTERP + OPS_ROTATE) * er_p.numel()),
-                     err=d_rot, ms=device_ms(lambda: interp_rotate_cuda(*rargs), 50),
-                     plain_ms=device_ms(lambda: interp_rotate_plain(*rargs), 10))
+    rec["B3"], idx_k = b3_record(dec_k[:no].contiguous(), dec_k[no:].contiguous(), chain.bps_cos,
+                                 chain.bps_sin, chain.grid, chain.bps_N, None, "blind", (50, 10))
+    rec["B4"] = b4_record(out_k, idx_k, chain, "blind")
     print_times({(k, "blind"): dict(v, shape="blind path") for k, v in rec.items()}, card)
     return rec
 
@@ -532,6 +544,135 @@ def rotation_bound(er, ei, u):
     return 2 * torch.sqrt(er * er + ei * ei) * (ulp + 2.0 ** -23)
 
 
+def bps_ops(grid, A, samples):
+    """Float operations of a phase search over ``A`` angles (B3; B8 with A = B) on ``grid``."""
+    kind, p = phops.grid_decision_info(grid)
+    per_angle = OPS_BPS_SEARCH + (OPS_GEN_POINT * len(p[0]) if kind == "gen"
+                                  else OPS_DECIDE[kind])
+    return per_angle * A * samples
+
+
+def tie_rule(grid):
+    """(relative band of a near-tie, allowed share of near-tied positions) on ``grid``.
+
+    A general alphabet's distance is a score that carries each sample's
+    -|z|^2: the windows' magnitudes, to which a float32 sum's rounding is
+    relative, are ~100 times the gap of two angles, so its band is a
+    float32 sum's own rounding and more positions fall into it.
+    """
+    gen = phops.grid_decision_info(grid)[0] == "gen"
+    return (TIE_REL_GEN, TIES_MAX_GEN) if gen else (TIE_REL, TIES_MAX)
+
+
+def b2_record(P, os_, w, dec, what, shape):
+    """B2 against its plain version, with or without the stride-``dec`` side output."""
+    plain = apply_filter_plain(P, os_, w, dec)
+    kern = apply_filter_cuda(P, os_, w, dec)
+    outs_p, outs_k = (plain, kern) if dec else ((plain,), (kern,))
+    rms = float(outs_p[0].pow(2).mean().sqrt())
+    d = max(float((k - q).abs().max()) for k, q in zip(outs_k, outs_p))
+    print("B2 apply_filter (%s): out %s%s max|d| %.3e (tol %.0e x rms %.3f)"
+          % (what, tuple(outs_k[0].shape),
+             ", dec %s" % (tuple(outs_k[1].shape),) if dec else "", d, TOL_FILTER_REL, rms))
+    require(all(k.shape == q.shape for k, q in zip(outs_k, outs_p)), "B2 output shapes differ")
+    require(d <= TOL_FILTER_REL * rms, "B2 disagrees with its plain version (%s)" % what)
+    rec = dict(**filter_bound(P, w, *outs_k), err=d,
+               ms=device_ms(lambda: apply_filter_cuda(P, os_, w, dec), 50),
+               plain_ms=device_ms(lambda: apply_filter_plain(P, os_, w, dec), 10), shape=shape)
+    rec["library_ms"] = filter_library(P, os_, w, outs_k[0])
+    return rec, outs_k
+
+
+def b3_record(er, ei, cos_t, sin_t, grid, N, points, what, reps=(20, 5)):
+    """B3 against its plain version off near-ties; returns (record, the kernel's indices)."""
+    A, L = cos_t.shape[0], er.shape[-1]
+    rel, share_max = tie_rule(grid)
+    idx_p = bps_search_plain(er, ei, cos_t, sin_t, grid, N)
+    idx_k = bps_search_cuda(er, ei, cos_t, sin_t, grid, N, points)
+    ties = phops.bps_near_ties(er, ei, cos_t, sin_t, grid, N, rel)
+    differ = idx_k != idx_p
+    tie_share = float(ties.double().mean())
+    off_tie = bool((differ & ~ties).any())
+    kind = phops.grid_decision_info(grid)[0]
+    print("B3 bps_search (%s: grid %s, A=%d, N=%d): %s, %d positions differ, %s off near-ties; "
+          "near-tie share %.2e (max %.0e)" % (what, kind, A, N, tuple(idx_k.shape),
+                                              int(differ.sum()), "some" if off_tie else "none",
+                                              tie_share, share_max))
+    require(not off_tie and tie_share <= share_max,
+            "B3 disagrees with its plain version off near-ties (%s, A=%d, N=%d)" % (what, A, N))
+    rec = dict(**bound(nbytes(er, ei, idx_k), bps_ops(grid, A, er.numel())),
+               err=float((idx_k - idx_p).abs()[~ties].max()),
+               ms=device_ms(lambda: bps_search_cuda(er, ei, cos_t, sin_t, grid, N, points),
+                            reps[0]),
+               plain_ms=device_ms(lambda: bps_search_plain(er, ei, cos_t, sin_t, grid, N), reps[1]),
+               shape="grid %s, A=%d N=%d, 2 x %d samples" % (kind, A, N, L), grid=kind)
+    return rec, idx_k
+
+
+def b8_record(er, ei, ph1, cd, sd, grid, N, d0f, ddf, points, what, reps=(20, 5)):
+    """B8 against its plain version off near-ties; returns (record, the kernel's phases)."""
+    B, L = cd.shape[0], er.shape[-1]
+    rel, share_max = tie_rule(grid)
+    fargs = (er, ei, ph1, cd, sd, grid, N, d0f, ddf)
+    f_p = bps_fine_plain(*fargs)
+    f_k = bps_fine_cuda(*fargs, points)
+    ties = phops.bps_fine_near_ties(*fargs[:7], rel)
+    differ = f_k != f_p
+    tie_share = float(ties.double().mean())
+    off_tie = bool((differ & ~ties).any())
+    kind = phops.grid_decision_info(grid)[0]
+    print("B8 bps_fine (%s: grid %s, B=%d, N=%d): %s, %d phases differ, %s off near-ties; "
+          "near-tie share %.2e (max %.0e); max|d| %.3e"
+          % (what, kind, B, N, tuple(f_k.shape), int(differ.sum()), "some" if off_tie else "none",
+             tie_share, share_max, float((f_k - f_p).abs().max())))
+    require(not off_tie and tie_share <= share_max,
+            "B8 disagrees with its plain version off near-ties (%s)" % what)
+    rec = dict(**bound(nbytes(er, ei, ph1, f_k), bps_ops(grid, B, er.numel())
+                       + OPS_ROTATE * er.numel()),
+               err=float((f_k - f_p).abs()[~ties].max()),
+               ms=device_ms(lambda: bps_fine_cuda(*fargs, points), reps[0]),
+               plain_ms=device_ms(lambda: bps_fine_plain(*fargs), reps[1]),
+               shape="grid %s, B=%d N=%d, 2 x %d samples" % (kind, B, N, L), grid=kind)
+    return rec, f_k
+
+
+def b7_record(er, ei, ph, what):
+    """B7 against its plain version within the bound of two float32 rotations."""
+    r_p, i_p = unwrap_derotate_plain(er, ei, ph)
+    r_k, i_k = unwrap_derotate_cuda(er, ei, ph)
+    dist = torch.sqrt((r_k - r_p) ** 2 + (i_k - i_p) ** 2)
+    rot_bound = rotation_bound(er, ei, quarter_unwrap(ph))
+    d_rot = max(float((r_k - r_p).abs().max()), float((i_k - i_p).abs().max()))
+    print("B7 unwrap_derotate (%s): %s max|d| %.3e, worst share of the bound "
+          "2|z|(ulp32(|u|) + 2^-23) %.3f, |u| up to %.2f rad"
+          % (what, tuple(r_k.shape), d_rot, float((dist / rot_bound).max()),
+             float(quarter_unwrap(ph).abs().max())))
+    require(bool((dist <= rot_bound).all()), "B7 disagrees with its plain version (%s)" % what)
+    return dict(**bound(nbytes(er, ei, ph, r_k, i_k), (OPS_UNWRAP + OPS_ROTATE) * er.numel()),
+                err=d_rot, ms=device_ms(lambda: unwrap_derotate_cuda(er, ei, ph), 50),
+                plain_ms=device_ms(lambda: unwrap_derotate_plain(er, ei, ph), 10),
+                shape="2 x %d samples" % er.shape[-1])
+
+
+def b4_record(eqp, idxd, chain, what):
+    """B4 against its plain version, with the coefficients the chain builds from B3's indices."""
+    no = eqp.shape[0] // 2
+    er_p, ei_p, a, b = decimated_derotation_inputs(eqp[:no], eqp[no:], idxd, chain.lo_a,
+                                                   chain.step_a, chain.dec)
+    rargs = (er_p, ei_p, a, b, chain.dec, 1)
+    r_p, i_p = interp_rotate_plain(*rargs)
+    r_k, i_k = interp_rotate_cuda(*rargs)
+    d_rot = max(float((r_k - r_p).abs().max()), float((i_k - i_p).abs().max()))
+    print("B4 interp_rotate (%s): %s max|d| %.3e (tol %.0e), |phase| up to %.2f rad"
+          % (what, tuple(r_k.shape), d_rot, TOL_ROTATE, float(a.abs().max())))
+    require(d_rot <= TOL_ROTATE, "B4 disagrees with its plain version (%s)" % what)
+    return dict(**bound(nbytes(er_p, ei_p, a, b, r_k, i_k),
+                        (OPS_INTERP + OPS_ROTATE) * er_p.numel()),
+                err=d_rot, ms=device_ms(lambda: interp_rotate_cuda(*rargs), 50),
+                plain_ms=device_ms(lambda: interp_rotate_plain(*rargs), 10),
+                shape="2 x %d samples, stride %d" % (eqp.shape[-1], chain.dec))
+
+
 def check_sample_kernels(P, w, card):
     """Phase 7: B2 (no side output), B3, B8 and B7 at the per-sample paths' shapes.
 
@@ -539,167 +680,325 @@ def check_sample_kernels(P, w, card):
     (kernel, path) for "blind twostage" and "blind single".
     """
     rec = {}
-    os_ = CFG["os"]
-    out_p = apply_filter_plain(P, os_, w)
-    out_k = apply_filter_cuda(P, os_, w)
-    rms = float(out_p.pow(2).mean().sqrt())
-    d_out = float((out_k - out_p).abs().max())
-    print("B2 apply_filter (no side output): %s max|d| %.3e (tol %.0e x rms %.3f)"
-          % (tuple(out_k.shape), d_out, TOL_FILTER_REL, rms))
-    require(out_k.shape == out_p.shape and d_out <= TOL_FILTER_REL * rms,
-            "B2 without side output disagrees with its plain version")
-    b2 = dict(**filter_bound(P, w, out_k), err=d_out,
-              ms=device_ms(lambda: apply_filter_cuda(P, os_, w), 50),
-              plain_ms=device_ms(lambda: apply_filter_plain(P, os_, w), 10),
-              shape="2 x 2^21 samples in, no side output")
-    b2["library_ms"] = filter_library(P, os_, w, out_k)
+    b2, (out_k,) = b2_record(P, CFG["os"], w, None, "no side output",
+                             "2 x 2^21 samples in, no side output")
     no = out_k.shape[0] // 2
     er, ei = out_k[:no], out_k[no:]
-    L = er.shape[-1]
     for mode in ("twostage", "single"):
         path = "blind " + mode
         chain = make_rx_chain(**dict(SAMPLE_CFG, bps_mode=mode), device=P.device)
         rec["B2", path] = b2
-        A, N = chain.bps_cos.shape[0], chain.search_N
-        args = (er, ei, chain.bps_cos, chain.bps_sin, chain.grid, N)
-        idx_p = bps_search_plain(*args)
-        idx_k = bps_search_cuda(*args)
-        ties = phops.bps_near_ties(*args, TIE_REL)
-        differ = idx_k != idx_p
-        tie_share = float(ties.double().mean())
-        off_tie = bool((differ & ~ties).any())
-        print("B3 bps_search (%s: A=%d, N=%d): %s, %d positions differ, %s off near-ties; "
-              "near-tie share %.2e (max %.0e)" % (path, A, N, tuple(idx_k.shape),
-                                                  int(differ.sum()),
-                                                  "some" if off_tie else "none", tie_share,
-                                                  TIES_MAX))
-        require(not off_tie and tie_share <= TIES_MAX,
-                "B3 disagrees with its plain version off near-ties at A=%d, N=%d" % (A, N))
-        rec["B3", path] = dict(**bound(nbytes(er, ei, idx_k), OPS_BPS_ANGLE * A * er.numel()),
-                               err=float((idx_k - idx_p).abs()[~ties].max()),
-                               ms=device_ms(lambda: bps_search_cuda(*args), 20),
-                               plain_ms=device_ms(lambda: bps_search_plain(*args), 5),
-                               shape="A=%d N=%d, 2 x %d samples" % (A, N, L))
+        rec["B3", path], idx_k = b3_record(er, ei, chain.bps_cos, chain.bps_sin, chain.grid,
+                                           chain.search_N, None, path)
         ph = chain.lo_a + chain.step_a * idx_k.to(torch.float32)
         if mode == "twostage":
-            fargs = (er, ei, ph, chain.fine_cos, chain.fine_sin, chain.grid, chain.bps_N,
-                     chain.fine_d0, chain.fine_step)
-            f_p = bps_fine_plain(*fargs)
-            f_k = bps_fine_cuda(*fargs)
-            ties = phops.bps_fine_near_ties(*fargs[:7], TIE_REL)
-            differ = f_k != f_p
-            tie_share = float(ties.double().mean())
-            off_tie = bool((differ & ~ties).any())
-            print("B8 bps_fine (B=%d, N=%d): %s, %d phases differ, %s off near-ties; near-tie "
-                  "share %.2e (max %.0e); max|d| %.3e" % (
-                      chain.fine_cos.shape[0], chain.bps_N, tuple(f_k.shape),
-                      int(differ.sum()), "some" if off_tie else "none", tie_share, TIES_MAX,
-                      float((f_k - f_p).abs().max())))
-            require(not off_tie and tie_share <= TIES_MAX,
-                    "B8 disagrees with its plain version off near-ties")
-            rec["B8", path] = dict(**bound(nbytes(er, ei, ph, f_k),
-                                           (OPS_BPS_ANGLE * chain.fine_cos.shape[0] + OPS_ROTATE)
-                                           * er.numel()),
-                                   err=float((f_k - f_p).abs()[~ties].max()),
-                                   ms=device_ms(lambda: bps_fine_cuda(*fargs), 20),
-                                   plain_ms=device_ms(lambda: bps_fine_plain(*fargs), 5),
-                                   shape="B=8 N=%d, 2 x %d samples" % (chain.bps_N, L))
-            ph = f_k
-        r_p, i_p = unwrap_derotate_plain(er, ei, ph)
-        r_k, i_k = unwrap_derotate_cuda(er, ei, ph)
-        dist = torch.sqrt((r_k - r_p) ** 2 + (i_k - i_p) ** 2)
-        rot_bound = rotation_bound(er, ei, quarter_unwrap(ph))
-        d_rot = max(float((r_k - r_p).abs().max()), float((i_k - i_p).abs().max()))
-        print("B7 unwrap_derotate (%s phase): %s max|d| %.3e, worst share of the bound "
-              "2|z|(ulp32(|u|) + 2^-23) %.3f, |u| up to %.2f rad"
-              % (mode, tuple(r_k.shape), d_rot, float((dist / rot_bound).max()),
-                 float(quarter_unwrap(ph).abs().max())))
-        require(bool((dist <= rot_bound).all()), "B7 disagrees with its plain version")
-        uargs = (er, ei, ph)
-        rec["B7", path] = dict(**bound(nbytes(er, ei, ph, r_k, i_k),
-                                       (OPS_UNWRAP + OPS_ROTATE) * er.numel()),
-                               err=d_rot, ms=device_ms(lambda: unwrap_derotate_cuda(*uargs), 50),
-                               plain_ms=device_ms(lambda: unwrap_derotate_plain(*uargs), 10),
-                               shape="2 x %d samples" % L)
+            rec["B8", path], ph = b8_record(er, ei, ph, chain.fine_cos, chain.fine_sin,
+                                            chain.grid, chain.bps_N, chain.fine_d0,
+                                            chain.fine_step, None, path)
+        rec["B7", path] = b7_record(er, ei, ph, mode + " phase")
     print_times(rec, card)
     return rec
 
 
-def sample_path(mode, P, ref, const, card):
-    """Phase 8 for one mode: the per-sample blind chain counted, gated, compared and timed.
+def chain_path(path, cfg, gate, P, ref, const, small_tx, card):
+    """One blind chain counted, gated, compared and timed: phase 8, and phase 17 per path.
 
-    Returns that path's launch counts.
+    ``cfg``: the arguments of ``make_rx_chain``; ``small_tx``: the arguments
+    (alphabet and seed) of the 2^15-symbol capture on which the card's
+    chain is held against the plain chain on the CPU. Returns (launch
+    counts, the chain, its taps).
     """
     dev = P.device
-    gate = SAMPLE_GATES[mode]
-    cfg = dict(SAMPLE_CFG, bps_mode=mode)
     chain = make_rx_chain(**cfg, device=dev)
+    mode = chain.mode
+    print("%s: %s" % (path, chain.backend_info))
     (outr, outi), launches = counted(lambda: chain.planes(P))
-    print("blind %s launches: %s" % (mode, launches))
-    want = {"B1": 2, "B2": 1, "B3": 1, "B7": 1}
+    print("%s launches: %s" % (path, launches))
+    want = {"B1": 2, "B2": 1, "B3": 1, "B4" if mode == "decimated" else "B7": 1}
     if mode == "twostage":
         want["B8"] = 1
     require(launches == expected(want), "the %s path did not launch each kernel as expected"
-            % mode)
-    Lout = (P.shape[-1] - SAMPLE_CFG["Ntaps"]) // SAMPLE_CFG["os"] + 1
+            % path)
+    Lout = (P.shape[-1] - cfg["Ntaps"]) // cfg["os"] + 1
     require(tuple(outr.shape) == (2, Lout) and outr.shape == outi.shape,
-            "%s output shape %s" % (mode, tuple(outr.shape)))
+            "%s output shape %s" % (path, tuple(outr.shape)))
     require(bool(torch.isfinite(outr).all() and torch.isfinite(outi).all()),
-            "non-finite %s output" % mode)
+            "non-finite %s output" % path)
     ser = ser_gate(torch.complex(outr, outi), ref, const)
-    print("blind %s SER %.3e (gate %.0e; against 1e-5: %s) on %d x 2 symbols"
-          % (mode, ser, gate, "pass" if ser <= 1e-5 else "fail", NSYM))
-    require(ser <= gate, "%s SER gate failed" % mode)
+    print("%s SER %.3e (gate %.0e; against 1e-5: %s) on %d x 2 symbols"
+          % (path, ser, gate, "pass" if ser <= 1e-5 else "fail", NSYM))
+    require(ser <= gate, "%s SER gate failed" % path)
 
     (fr, fi), w = chain.planes_with_taps(P)
     tr, ti = chain.tracking_planes(P, w)
     exact = bool(torch.equal(tr, fr) and torch.equal(ti, fi))
-    print("blind %s tracking_planes == planes_with_taps output: %s" % (mode, exact))
-    require(exact, "%s tracking output differs from the full chain" % mode)
+    print("%s tracking_planes == planes_with_taps output: %s" % (path, exact))
+    require(exact, "%s tracking output differs from the full chain" % path)
 
-    Es, syms_s, _ = make_tx(2 ** 15, seed=2)
+    Es, syms_s, _ = make_tx(2 ** 15, **small_tx)
     o_cpu = make_rx_chain(**cfg, device="cpu").forward(torch.as_tensor(Es))
     o_gpu = chain.forward(torch.as_tensor(Es, device=dev)).cpu()
     trim = slice(GATE_TRIM, -GATE_TRIM)
     agree = shared_decisions(o_cpu[:, trim], o_gpu[:, trim], const)
     ser_s = [ser_gate(o, torch.as_tensor(syms_s), const) for o in (o_cpu, o_gpu)]
-    print("blind %s small capture (2^15 x 2 symbols): card vs plain CPU chain share %.6f of "
+    print("%s small capture (2^15 x 2 symbols): card vs plain CPU chain share %.6f of "
           "decisions, each mode at its best quarter turn (min %.3f); SER cpu %.2e, card %.2e"
-          % (mode, agree, SMALL_AGREE, ser_s[0], ser_s[1]))
+          % (path, agree, SMALL_AGREE, ser_s[0], ser_s[1]))
     require(agree >= SMALL_AGREE and max(ser_s) <= gate,
-            "the card's %s chain disagrees with the plain chain" % mode)
+            "the card's %s chain disagrees with the plain chain" % path)
 
     nsym_tot = NSYM * 2
     t_full = cuda_ms(lambda: chain.planes(P), 10)
     t_trk = cuda_ms(lambda: chain.tracking_planes(P, w), 20)
-    print("time blind %s chain.planes: %.4f ms, %.1f Msym/s [%s]"
-          % (mode, t_full, nsym_tot / t_full / 1e3, card))
-    print("time blind %s chain.tracking_planes: %.4f ms, %.1f Msym/s [%s]"
-          % (mode, t_trk, nsym_tot / t_trk / 1e3, card))
-    eqp, _ = chain.equalise(P, w)
+    print("time %s chain.planes: %.4f ms, %.1f Msym/s [%s]"
+          % (path, t_full, nsym_tot / t_full / 1e3, card))
+    print("time %s chain.tracking_planes: %.4f ms, %.1f Msym/s [%s]"
+          % (path, t_trk, nsym_tot / t_trk / 1e3, card))
+    eqp, decp = chain.equalise(P, w)
     no = eqp.shape[0] // 2
-    idx = chain.phase_search(eqp)
-    ph1 = chain.lo_a + chain.step_a * idx.to(torch.float32)
-    ph = chain.carrier_phase(eqp)
+    searched = decp if mode == "decimated" else eqp
+    idx = chain.phase_search(searched)
     stages = {
         "train (2x B1 + guard)": device_ms(lambda: chain.train_taps(P), 10),
         "filter (B2)": device_ms(lambda: chain.equalise(P, w), 20),
-        "bps (B3, A=%d, N=%d)" % (chain.bps_cos.shape[0], chain.search_N):
-            device_ms(lambda: chain.phase_search(eqp), 20),
-        "index to phase (plain)": device_ms(
-            lambda: chain.lo_a + chain.step_a * idx.to(torch.float32), 20),
+        "bps (B3, grid %s, A=%d, N=%d)" % (phops.grid_decision_info(chain.search_grid)[0],
+                                           chain.bps_cos.shape[0], chain.search_N):
+            device_ms(lambda: chain.phase_search(searched), 20),
     }
-    if mode == "twostage":
-        stages["fine bps (B8)"] = device_ms(lambda: bps_fine(
-            eqp[:no], eqp[no:], ph1, chain.fine_cos, chain.fine_sin, chain.grid, chain.bps_N,
-            chain.fine_d0, chain.fine_step), 20)
-    stages["unwrap-derotate (B7)"] = device_ms(lambda: chain.unwrap_derotate(eqp, ph), 20)
+    if mode == "decimated":
+        er_p, ei_p, a, b = decimated_derotation_inputs(eqp[:no], eqp[no:], idx, chain.lo_a,
+                                                       chain.step_a, chain.dec)
+        stages["glue (unwrap, coeffs, pad)"] = device_ms(lambda: decimated_derotation_inputs(
+            eqp[:no], eqp[no:], idx, chain.lo_a, chain.step_a, chain.dec), 20)
+        stages["interp-rotate (B4)"] = device_ms(
+            lambda: interp_rotate(er_p, ei_p, a, b, chain.dec, 1), 20)
+    else:
+        ph1 = chain.lo_a + chain.step_a * idx.to(torch.float32)
+        ph = chain.carrier_phase(eqp)
+        stages["index to phase (plain)"] = device_ms(
+            lambda: chain.lo_a + chain.step_a * idx.to(torch.float32), 20)
+        if mode == "twostage":
+            stages["fine bps (B8, grid %s)" % phops.grid_decision_info(chain.fine_grid)[0]] = \
+                device_ms(lambda: bps_fine(eqp[:no], eqp[no:], ph1, chain.fine_cos,
+                                           chain.fine_sin, chain.fine_grid, chain.bps_N,
+                                           chain.fine_d0, chain.fine_step, chain.gen_points), 20)
+        stages["unwrap-derotate (B7)"] = device_ms(lambda: chain.unwrap_derotate(eqp, ph), 20)
     for k, v in stages.items():
-        print("time blind %s stage %s: %.4f ms device (%.1f%% of the chain's stream time) [%s]"
-              % (mode, k, v, 100 * v / t_full, card))
-    print("time blind %s stages' device sum: %.4f ms vs chain stream time %.4f ms [%s]"
-          % (mode, sum(stages.values()), t_full, card))
-    return launches
+        print("time %s stage %s: %.4f ms device (%.1f%% of the chain's stream time) [%s]"
+              % (path, k, v, 100 * v / t_full, card))
+    print("time %s stages' device sum: %.4f ms vs chain stream time %.4f ms [%s]"
+          % (path, sum(stages.values()), t_full, card))
+    return launches, chain, w
+
+
+# ---------------------------------------------------------------------------
+# phases 16 and 17: constellations that are not a square grid
+# ---------------------------------------------------------------------------
+
+def grid_alphabets():
+    """The alphabets of phases 16 and 17 by key, with their kind and their ``make_tx`` arguments."""
+    re, im = np.meshgrid(0.5 * (np.arange(8) - 3.5), 0.5 * (np.arange(4) - 1.5), indexing="ij")
+    rect = (re + 1j * im).astype(np.complex64).reshape(-1)
+    rect /= np.sqrt(np.mean(np.abs(rect) ** 2))
+
+    def qam(M):
+        return (cal_symbols_qam(M) / np.sqrt(cal_scaling_factor_qam(M))).astype(np.complex64)
+    out = {"rect 8x4": (rect, dict(const=rect)), "cross32": (qam(32), dict(M=32)),
+           "cross128": (qam(128), dict(M=128)), "warped64": (warped_qam(64), None),
+           "apsk32": (apsk_const(32), None), "warped256": (warped_qam(256), None)}
+    return {k: (c, dict(const=c) if tx is None else tx) for k, (c, tx) in out.items()}
+
+
+def synth_planes(const, L, dev, seed):
+    """Two modes of ``const`` on the card with a random-walk carrier phase and noise: (er, ei).
+
+    The input of a phase search as the filter leaves it: 24 dB SNR and a
+    phase step of 0.01 rad per sample, made on the card from a seed.
+    """
+    g = torch.Generator(device=dev).manual_seed(seed)
+    c = torch.as_tensor(const, device=dev)
+    syms = c[torch.randint(0, c.shape[0], (2, L), generator=g, device=dev)]
+    ph = torch.cumsum(0.01 * torch.randn(2, L, generator=g, device=dev), -1)
+    noise = 10 ** (-24 / 20) / np.sqrt(2) * torch.complex(
+        torch.randn(2, L, generator=g, device=dev), torch.randn(2, L, generator=g, device=dev))
+    z = syms * torch.polar(torch.ones_like(ph), ph) + noise
+    return z.real.contiguous(), z.imag.contiguous()
+
+
+def grid_trainer_check(what, P, chain, card, nblocks=GRID_BLOCKS):
+    """B1's sbd, mddma and dd on the chain's constellation against the plain block trainer.
+
+    From the taps of the chain's own first stage, over ``nblocks`` blocks:
+    a decision is discontinuous, so a rounding difference at a boundary
+    moves one error by a level spacing and long runs part, as rde's do.
+    Returns (worst tap difference, the first stage's taps).
+    """
+    os_, mu, S, trs = GRID_CFG["os"], GRID_CFG["mu"], GRID_CFG["block_size"], GRID_CFG["TrSyms"]
+    pts = chain.gen_points
+    _, w1, _ = train_block_cuda(P, trs, 1, os_, mu, chain.w0, chain.specs[0], True, S)
+    w1 = cma_singularity_guard(w1)
+    kind = chain.backend_info["grid_kind"]
+    worst = 0.0
+    for method in ("sbd", "mddma", "dd"):
+        spec = eqops.ErrSpec(method, chain.grid)
+        args = (P, nblocks * S, 1, os_, mu, w1, spec, True, S)
+        e_p, w_p, mu_p = train_block_plain(*args)
+        got = train_block_cuda(*args, pts)
+        e_k, w_k, mu_k = got
+        require(all(torch.equal(x, y) for x, y in zip(got, train_block_cuda(*args, pts))),
+                "two launches of B1 on one input differ (%s, %s)" % (what, method))
+        d_taps = float((w_k - w_p).abs().max())
+        d_mu = float(((mu_k - mu_p) / mu_p).abs().max())
+        d_err = float((e_k - e_p).abs().max())
+        print("B1 train_block %s on %s (grid %s), %d blocks: taps max|d| %.3e (tol %.0e), mu rel "
+              "%.3e (tol %.0e), err max|d| %.3e (tol %.0e); kernel %.4f ms over %d blocks [%s]"
+              % (method, what, kind, nblocks, d_taps, TOL_GRID_TAPS, d_mu, TOL_MU_REL, d_err,
+                 TOL_GRID_ERR, device_ms(lambda: train_block_cuda(
+                     P, trs, 1, os_, mu, w1, spec, True, S, pts), 10), trs // S, card))
+        require(d_taps <= TOL_GRID_TAPS and d_mu <= TOL_MU_REL and d_err <= TOL_GRID_ERR,
+                "B1 %s disagrees with its plain version on %s" % (method, what))
+        worst = max(worst, d_taps)
+    return worst, w1
+
+
+def check_grid_kernels(dev, card):
+    """Phase 16: B3, B8 and B1 on every kind of constellation against their plain versions.
+
+    B3 at the single (64 angles, N = 14) and the twostage coarse (16 angles,
+    N = 60) shape and B8 (8 offsets, N = 14) on 2 x 2^20 synthetic samples
+    of each alphabet; B1's three decision methods over 8 blocks on a
+    2^15-symbol capture of it.
+    """
+    rec = {}
+    for key, (const, txkw) in grid_alphabets().items():
+        sel = dict(M=txkw["M"]) if "M" in txkw else dict(symbols=const)
+        single = make_rx_chain(**GRID_CFG, bps_N=14, bps_mode="single", **sel, device=dev)
+        grid, pts = single.grid, single.gen_points
+        require(single.search_grid is grid, "the single mode searches the alphabet itself")
+        er, ei = synth_planes(const, NSYM, dev, 7)
+        slow = (5, 1) if pts is not None else (20, 5)
+        rec["B3", key + " A=64"], _ = b3_record(er, ei, single.bps_cos, single.bps_sin, grid, 14,
+                                                pts, key, slow)
+        ang = np.linspace(-np.pi / 4, np.pi / 4, 16, endpoint=False, dtype=np.float32)
+        cos1, sin1 = (torch.as_tensor(t, device=dev) for t in phops.bps_tables(ang, grid))
+        rec["B3", key + " A=16"], idx1 = b3_record(er, ei, cos1, sin1, grid, TWOSTAGE_N1, pts, key,
+                                                   slow)
+        ph1 = -np.pi / 4 + np.pi / 2 / 16 * idx1.to(torch.float32)
+        cd, sd, d0f, ddf = phops.fine_tables(16, TWOSTAGE_B, grid)
+        rec["B8", key], _ = b8_record(er, ei, ph1, torch.as_tensor(cd, device=dev),
+                                      torch.as_tensor(sd, device=dev), grid, 14, d0f, ddf, pts,
+                                      key, slow)
+        del er, ei
+        E, _, _ = make_tx(2 ** 15, **txkw)
+        P = torch.as_tensor(np.concatenate([E.real, E.imag]).astype(np.float32), device=dev)
+        grid_trainer_check(key, P, single, card)
+    print_times(rec, card)
+
+
+def grid_trainer_depth_check(path, P, chain, w1, const):
+    """B1's second stage at the path's own 64 blocks against the plain trainer, from taps ``w1``.
+
+    Where :func:`grid_trainer_check` holds 8 blocks to 3e-7, this holds the
+    launch that the path times: the two error traces up to the first sample
+    where they part (a decision that fell the other way), the taps within
+    the 8 blocks' bound if they never part and within the step of one
+    flipped decision if they do, and the symbols that the chain recovers
+    with either taps to shared decisions. Returns (taps max|d|, its
+    tolerance, share of decisions).
+    """
+    os_, mu, S, trs = GRID_CFG["os"], GRID_CFG["mu"], GRID_CFG["block_size"], GRID_CFG["TrSyms"]
+    args = (P, trs, 1, os_, mu, w1, chain.specs[1], True, S)
+    e_p, w_p, mu_p = train_block_plain(*args)
+    e_k, w_k, mu_k = train_block_cuda(*args, chain.gen_points)
+    parted = ((e_k - e_p).abs() > TOL_GRID_ERR).any(0).nonzero()
+    first = int(parted[0]) if parted.numel() else trs
+    d_taps = float((w_k - w_p).abs().max())
+    tol = TOL_GRID_TAPS if first == trs else TOL_GRID_TAPS_DEPTH
+    outs = [torch.complex(*chain.tracking_planes(P, w_)) for w_ in (w_k, w_p)]
+    trim = slice(GATE_TRIM, -GATE_TRIM)
+    share = shared_decisions(outs[0][:, trim], outs[1][:, trim], const)
+    print("B1 train_block %s on %s (grid %s), %d blocks: errors within %.0e up to sample %d of "
+          "%d (%s), taps max|d| %.3e (tol %.0e), mu rel %.3e; the chain's output with either taps "
+          "shares %.6f of its decisions (min %.3f)"
+          % (chain.specs[1].method, path, chain.backend_info["grid_kind"], trs // S, TOL_GRID_ERR,
+             first, trs, "no decision parts" if first == trs else "a decision parts there", d_taps,
+             tol, float(((mu_k - mu_p) / mu_p).abs().max()), share, SMALL_AGREE))
+    require(first >= GRID_BLOCKS * S and d_taps <= tol and share >= SMALL_AGREE,
+            "B1 %s disagrees with its plain version over %d blocks on %s"
+            % (chain.specs[1].method, trs // S, path))
+    return d_taps, tol, share
+
+
+def grid_path_records(path, chain, P, w, const, card):
+    """The kernels of one phase-17 path against their plain versions on that path's own inputs."""
+    rec = {}
+    d_taps8, w1 = grid_trainer_check(path, P, chain, card)
+    d_taps, tol, share = grid_trainer_depth_check(path, P, chain, w1, const)
+    os_, mu, S, trs = GRID_CFG["os"], GRID_CFG["mu"], GRID_CFG["block_size"], GRID_CFG["TrSyms"]
+    b1 = (P, trs, 1, os_, mu, w1, chain.specs[1], True, S)
+    kind, p = phops.grid_decision_info(chain.grid)
+    decide_ops = OPS_GEN_POINT * len(p[0]) if kind == "gen" else OPS_DECIDE[kind]
+    rec["B1"] = dict(**trainer_bound(2, 2, GRID_CFG["Ntaps"], os_, trs, 1, decide_ops),
+                     err=d_taps,
+                     ms=device_ms(lambda: train_block_cuda(*b1, chain.gen_points), 20),
+                     plain_ms=device_ms(lambda: train_block_plain(*b1), 2),
+                     shape="%s on grid %s, 64 blocks of 256: max_abs_err is the taps' there (tol "
+                           "%.0e, decisions shared %.6f); over %d blocks the worst of sbd, mddma, "
+                           "dd is %.3e (tol %.0e)"
+                           % (chain.specs[1].method, chain.backend_info["grid_kind"],
+                              tol, share, GRID_BLOCKS, d_taps8, TOL_GRID_TAPS))
+    rec["B2"], outs = b2_record(P, os_, w, chain.dec, path,
+                                "2 x 2^21 samples in, %s" % ("stride-%d side output" % chain.dec
+                                                             if chain.dec else "no side output"))
+    eqp = outs[0]
+    no = eqp.shape[0] // 2
+    er, ei = eqp[:no], eqp[no:]
+    pts = chain.gen_points
+    if chain.mode == "decimated":
+        decp = outs[1]
+        rec["B3"], idx = b3_record(decp[:no].contiguous(), decp[no:].contiguous(), chain.bps_cos,
+                                   chain.bps_sin, chain.search_grid, chain.search_N, pts, path,
+                                   (50, 10))
+        rec["B4"] = b4_record(eqp, idx, chain, path)
+    else:
+        slow = (5, 1) if phops.grid_decision_info(chain.search_grid)[0] == "gen" else (20, 5)
+        rec["B3"], idx = b3_record(er, ei, chain.bps_cos, chain.bps_sin, chain.search_grid,
+                                   chain.search_N, pts, path, slow)
+        ph = chain.lo_a + chain.step_a * idx.to(torch.float32)
+        if chain.mode == "twostage":
+            rec["B8"], ph = b8_record(er, ei, ph, chain.fine_cos, chain.fine_sin, chain.fine_grid,
+                                      chain.bps_N, chain.fine_d0, chain.fine_step, pts, path)
+        rec["B7"] = b7_record(er, ei, ph, path)
+    rec = {(k, path): dict(v, grid=v.get("grid", chain.backend_info["grid_kind"]))
+           for k, v in rec.items()}
+    print_times(rec, card)
+    return rec
+
+
+def grid_phases(dev, card):
+    """Phases 16 and 17. Returns (kernel records keyed by (kernel, path), launches per path)."""
+    check_grid_kernels(dev, card)
+    alphabets = grid_alphabets()
+    rec, path_launches = {}, {}
+    captures = {}
+    for path, key, kw in GRID_PATHS:
+        const, txkw = alphabets[key]
+        if key not in captures:
+            t0 = time.perf_counter()
+            captures.clear()              # one 2^20-symbol capture on the card at a time
+            E, syms, coded = make_tx(NSYM, **txkw)
+            captures[key] = (
+                torch.as_tensor(np.concatenate([E.real, E.imag]).astype(np.float32), device=dev),
+                torch.as_tensor(syms, device=dev), coded)
+            print("tx %s: %d symbols x 2 pol, %d points, %.2f s on the host"
+                  % (key, NSYM, coded.size, time.perf_counter() - t0))
+        P, ref, coded = captures[key]
+        sel = dict(M=txkw["M"]) if "M" in txkw else dict(symbols=const)
+        launches, chain, w = chain_path(path, dict(GRID_CFG, **kw, **sel), GRID_SER_LIMIT, P, ref,
+                                        coded, dict(txkw, seed=SMALL_SEED.get(key, 2)), card)
+        path_launches[path] = launches
+        rec.update(grid_path_records(path, chain, P, w, coded, card))
+    return rec, path_launches
 
 
 def syncs_in(fn):
@@ -1003,6 +1302,23 @@ def equaliser_phases(dev, card, seq_check, lat):
             and float((e_head - e_plain).abs().max()) <= TOL_SEQ_ERR
             and float(((mu_head - mu_plain) / mu_plain).abs().max()) <= TOL_SEQ_MU_REL,
             "B9 at the path's shape disagrees")
+    # the whole stage against the same stage cut into launches of 4096 symbols that hand
+    # the taps and the step on: with a fixed step the two are the same recurrence, so they
+    # must agree bit for bit at every chunk end (the adaptive rule also keeps the previous
+    # error, which a launch starts anew, so its cut run is another recurrence)
+    for m, sy in ((m1, s1), (m2, s2)):
+        e_whole, w_whole, mu_whole = train_seq_cuda(P, trs, 1, 2, EQ_MU[0], w0, sy, m, False)
+        w_c, mu_c, e_c = w0, EQ_MU[0], []
+        for start in range(0, trs, SEQ_TRS):
+            e, w_c, mu_c = train_seq_cuda(P[:, 2 * start:].contiguous(), min(SEQ_TRS, trs - start),
+                                          1, 2, mu_c, w_c, sy, m, False)
+            e_c.append(e)
+        same_cut = bool(torch.equal(torch.cat(e_c, dim=-1), e_whole)
+                        and torch.equal(w_c, w_whole) and torch.equal(mu_c, mu_whole))
+        print("B9 train_seq %s, fixed step: %d symbols in one launch against %d launches of %d "
+              "that hand taps and step on: errors, taps and step bit-equal: %s"
+              % (m, trs, len(e_c), SEQ_TRS, same_cut))
+        require(same_cut, "B9 cut into launches differs from the whole stage (%s)" % m)
     a2 = (P, trs, 1, 2, EQ_MU[1], w1, s2, m2, True)
     t_b9 = {m1: device_ms(lambda: train_seq_cuda(*a1), 3),
             m2: device_ms(lambda: train_seq_cuda(*a2), 3)}
@@ -1297,7 +1613,9 @@ def main():
     rec.update(check_sample_kernels(P, w, card))
     path_launches = {"blind": launches}
     for mode in ("twostage", "single"):
-        path_launches["blind " + mode] = sample_path(mode, P, ref, const, card)
+        path_launches["blind " + mode], _, _ = chain_path(
+            "blind " + mode, dict(SAMPLE_CFG, bps_mode=mode), SAMPLE_GATES[mode], P, ref, const,
+            dict(seed=2), card)
         rec["B1", "blind " + mode] = rec["B1", "blind"]
 
     prec, pilot_launches = pilot_phases(dev, card)
@@ -1311,10 +1629,16 @@ def main():
     erec, eq_launches = equaliser_phases(dev, card, seq_check, lat)
     rec.update(erec)
     path_launches.update(eq_launches)
+
+    # phases 16 and 17: constellations that are not a square grid
+    grec, grid_launches = grid_phases(dev, card)
+    rec.update(grec)
+    path_launches.update(grid_launches)
     print("launches per path: %s" % path_launches)
     # one record per kernel and path that launched it: that path's count and
     # the error and times measured at that path's shapes
-    kernels = [{"name": KERNELS[k][0], "path": path, "route": "cuda", "source": KERNELS[k][1],
+    kernels = [{"name": KERNELS[k][0], "path": path, "grid": "sq", "route": "cuda",
+                "source": KERNELS[k][1],
                 "replaces": KERNELS[k][2], "launches": path_launches[path][k],
                 "max_abs_err": rec[k, path]["err"],
                 **{key: val for key, val in rec[k, path].items() if key != "err"}}

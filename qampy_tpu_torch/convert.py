@@ -37,6 +37,46 @@ def symbols_from_jax(symbols_np, device):
                            device=device)
 
 
+def grid_from_jax(grid):
+    """A grid spec of the JAX package's ``detect_grid`` as the port's: plain floats and ints.
+
+    The two packages share the format ((d, lo, n), ("x", d, lo, n, c),
+    ("r", d, lor, nr, loi, ni), ("gen", sr, si)); this checks the kind and
+    the length and strips numpy scalar types.
+    """
+    if grid is None:
+        raise ValueError("the constellation was not classified (grid spec None)")
+    kind = grid[0] if isinstance(grid[0], str) else "sq"
+    want = {"sq": 3, "x": 5, "r": 6, "gen": 3}
+    if kind not in want or len(grid) != want[kind]:
+        raise ValueError("not a grid spec: %r" % (grid,))
+    if kind == "gen":
+        return ("gen", tuple(float(x) for x in grid[1]), tuple(float(x) for x in grid[2]))
+    ints = {"sq": (2,), "x": (3, 4), "r": (3, 5)}[kind]
+    vals = [int(v) if i in ints else float(v) for i, v in enumerate(grid) if i or kind == "sq"]
+    return tuple(vals) if kind == "sq" else (kind, *vals)
+
+
+def decision_from_jax(method, symbols_np, grid=None):
+    """The port's (``ErrSpec``, ``GridConsts``) for a method's symbols rows of the JAX package.
+
+    symbols_np: the (nout, k) rows of the reference's ``_reshape_symbols``
+    or ``generate_symbols_for_eq_from_alphabet`` for ``method``; ``grid``:
+    the reference's grid spec of the constellation, for the searches (None:
+    classified from the first row, which for cma, mcma and rde holds
+    constants and gives no search constants). So a test builds both sides
+    from one alphabet.
+    """
+    from qampy_tpu_torch.ops import equaliser as eqops
+    from qampy_tpu_torch.ops import phase as phops
+    spec = eqops.err_spec(method, np.asarray(symbols_np))
+    if grid is None:
+        if method not in eqops.DECISION_BLOCK_METHODS:
+            return spec, None
+        grid = spec.consts
+    return spec, phops.grid_consts(grid_from_jax(grid))
+
+
 def planes_from_complex(E, device):
     """A complex (nmodes, L) signal as the stacked float32 [Re rows; Im rows] planes.
 

@@ -1,20 +1,26 @@
 // Carrier-recovery kernels of the blind receiver, for Hopper (sm_90a).
 //
-// B3  qtt_bps_idx: blind phase search on a square grid. For each sample and
-//     each of A test angles: rotate, squared distance to the nearest grid
-//     point (per axis floor(x+0.5) clamped to the levels), sum over the 2N
-//     window around the sample, argmin over the angles (lowest index wins
-//     ties). Positions [N, L-N) are written with that index, the rest with 0.
+// B3  qtt_bps_idx: blind phase search. For each sample and each of A test
+//     angles: rotate, distance to the nearest constellation point
+//     (grid_dist below, one function for every kind of constellation), sum
+//     over the 2N window around the sample, argmin over the angles (lowest
+//     index wins ties). Positions [N, L-N) are written with that index, the
+//     rest with 0.
 //     Replaces qampy_tpu/ops/phase_pallas.py bps_idx_pallas (_bps_kernel,
 //     _make_dist_fn, _windowed_sums).
 //     Bound: arithmetic and shared-memory traffic (about 20 operations per
-//     (sample, angle) for the distance and 2N adds per (sample, angle) for
-//     the windows), on a decimated input of a few MB. Design: one CTA per
+//     (sample, angle) for an analytic distance, 5 per (sample, angle, point)
+//     for a general alphabet, and 2N adds per (sample, angle) for the
+//     windows). Design: one CTA per
 //     (mode, tile of T samples); the tile and its 2N-1 neighbours are staged
 //     in shared memory, then the whole (A x (T+2N-1)) distance table; each
 //     thread sums its windows from that table in float32 and keeps the first
 //     minimum. Tiles overlap by 2N-1 samples, so every window is exact
-//     wherever it falls and no state crosses CTAs.
+//     wherever it falls and no state crosses CTAs. A general alphabet's
+//     (M, 3) table [2 re, 2 im, |s|^2] is a constant of the launch: the CTA
+//     stages it into shared memory and every thread walks it in the same
+//     order, so a point's read is a broadcast; the distance table does not
+//     grow with M.
 //
 // B4  qtt_interp_rotate: ph = a[i/dx] + b[i/dx]*(i%dx), out = E exp(sign j ph).
 //     Replaces qampy_tpu/ops/phase_pallas.py interp_rotate_planes_pallas
@@ -71,7 +77,7 @@
 // B8  qtt_bps_fine: the fine stage of the two-stage phase search. Sample i
 //     tries B angles ph1_i + delta_b, built from cos/sin(ph1_i) and the
 //     host tables cd/sd = cos/sin(delta_b)/d0 by the angle-addition form;
-//     then B3's squared grid distance, 2N window sums and argmin (first
+//     then B3's distance (grid_dist, any kind), 2N window sums and argmin (first
 //     minimum wins) at [N, L-N), 0 elsewhere; the output is the phase
 //     (ph1_i + d0f) + ddf * idx_i. Replaces qampy_tpu/ops/phase_pallas.py
 //     bps_fine_pallas (_bps_fine_kernel). Bound: arithmetic and
@@ -84,6 +90,8 @@
 //     product and sum is rounded on its own, as in the plain version.
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "grid.cuh"
 
 namespace {
 
@@ -125,10 +133,55 @@ __device__ int block_exclusive_scan(int v, int* warp_sum, int* total) {
     return before;
 }
 
+// u - clamp(r, lo, hi), r = floor(u + 0.5): the offset from the nearest level in [lo, hi]
+__device__ __forceinline__ float level_offset(float u, float r, float lo, float hi) {
+    return __fsub_rn(u, fminf(fmaxf(r, lo), hi));
+}
+
+// Distance of the rotated sample (xr, xi), pre-scaled by the tables, to the
+// nearest point: the four forms of the reference's _make_dist_fn, with every
+// product and sum rounded on its own in the plain version's order. kRect and
+// kCross give the squared distance in units of d0^2; kGen gives
+// -max_k(2<z, s_k> - |s_k|^2), the squared distance less |z|^2, which no
+// angle changes.
+template <int KIND>
+__device__ __forceinline__ float grid_dist(float xr, float xi, const GridArgs& g,
+                                           const float* __restrict__ pts) {
+    if (KIND == kGen) {
+        float best = -INFINITY;
+        for (int k = 0; k < g.npts; ++k) {
+            const float t = __fsub_rn(__fadd_rn(__fmul_rn(xr, pts[3 * k]),
+                                                __fmul_rn(xi, pts[3 * k + 1])), pts[3 * k + 2]);
+            best = fmaxf(best, t);
+        }
+        return -best;
+    }
+    if (KIND == kRect) {
+        const float ur = __fsub_rn(xr, g.g0), ui = __fsub_rn(xi, g.g1);
+        const float fr = level_offset(ur, floorf(__fadd_rn(ur, 0.5f)), 0.f, g.g2);
+        const float fi = level_offset(ui, floorf(__fadd_rn(ui, 0.5f)), 0.f, g.g3);
+        return __fadd_rn(__fmul_rn(fr, fr), __fmul_rn(fi, fi));
+    }
+    // the cross is the union of two rectangles: the closer of the two clamps
+    const float nm1 = g.g2, c = g.g3, cm = g.g2 - g.g3;   // small whole numbers: exact
+    const float ur = __fsub_rn(xr, g.g0), ui = __fsub_rn(xi, g.g1);
+    const float rx = floorf(__fadd_rn(ur, 0.5f)), ry = floorf(__fadd_rn(ui, 0.5f));
+    const float far = level_offset(ur, rx, 0.f, nm1), fai = level_offset(ui, ry, c, cm);
+    const float fbr = level_offset(ur, rx, c, cm), fbi = level_offset(ui, ry, 0.f, nm1);
+    return fminf(__fadd_rn(__fmul_rn(far, far), __fmul_rn(fai, fai)),
+                 __fadd_rn(__fmul_rn(fbr, fbr), __fmul_rn(fbi, fbi)));
+}
+
+// A general alphabet's table from device memory into shared memory (all threads).
+__device__ __forceinline__ void stage_points(float* dst, const float* __restrict__ src, int npts) {
+    for (int i = threadIdx.x; i < 3 * npts; i += blockDim.x) dst[i] = src[i];
+}
+
+template <int KIND>
 __global__ void bps_kernel(const float* __restrict__ er, const float* __restrict__ ei,
                            long long L, const float* __restrict__ cos_t,
-                           const float* __restrict__ sin_t, int A, int N, float c0,
-                           float nm1, int* __restrict__ out) {
+                           const float* __restrict__ sin_t, int A, int N, GridArgs g,
+                           const float* __restrict__ pts_g, int* __restrict__ out) {
     extern __shared__ float sm[];
     const int N2 = 2 * N;
     const int W = kBpsTile + N2 - 1;
@@ -137,6 +190,7 @@ __global__ void bps_kernel(const float* __restrict__ er, const float* __restrict
     float* st = ct + A;               // (A,)
     float* xr_s = st + A;             // (W,)
     float* xi_s = xr_s + W;           // (W,)
+    float* pts = xi_s + W;            // (npts, 3), kGen only
     const long long row = (long long)blockIdx.y * L;
     const long long j0 = (long long)blockIdx.x * kBpsTile;
     const long long g0 = j0 - N + 1;  // first sample of the tile's windows
@@ -146,20 +200,19 @@ __global__ void bps_kernel(const float* __restrict__ er, const float* __restrict
         st[a] = sin_t[a];
     }
     for (int u = threadIdx.x; u < W; u += blockDim.x) {
-        const long long g = g0 + u;
-        const bool in = g >= 0 && g < L;
-        xr_s[u] = in ? er[row + g] : 0.f;
-        xi_s[u] = in ? ei[row + g] : 0.f;
+        const long long s = g0 + u;
+        const bool in = s >= 0 && s < L;
+        xr_s[u] = in ? er[row + s] : 0.f;
+        xi_s[u] = in ? ei[row + s] : 0.f;
     }
+    if (KIND == kGen) stage_points(pts, pts_g, g.npts);
     __syncthreads();
     for (int q = threadIdx.x; q < A * W; q += blockDim.x) {
         const int a = q / W, u = q - a * W;
         const float x = xr_s[u], y = xi_s[u];
-        const float ur = __fsub_rn(__fsub_rn(__fmul_rn(x, ct[a]), __fmul_rn(y, st[a])), c0);
-        const float ui = __fsub_rn(__fadd_rn(__fmul_rn(x, st[a]), __fmul_rn(y, ct[a])), c0);
-        const float fr = ur - fminf(fmaxf(floorf(ur + 0.5f), 0.f), nm1);
-        const float fi = ui - fminf(fmaxf(floorf(ui + 0.5f), 0.f), nm1);
-        dist[q] = __fadd_rn(__fmul_rn(fr, fr), __fmul_rn(fi, fi));
+        const float xr = __fsub_rn(__fmul_rn(x, ct[a]), __fmul_rn(y, st[a]));
+        const float xi = __fadd_rn(__fmul_rn(x, st[a]), __fmul_rn(y, ct[a]));
+        dist[q] = grid_dist<KIND>(xr, xi, g, pts);
     }
     __syncthreads();
 
@@ -357,17 +410,19 @@ __global__ void unwrap_apply_kernel(const float* __restrict__ er, const float* _
     }
 }
 
+template <int KIND>
 __global__ void bps_fine_kernel(const float* __restrict__ er, const float* __restrict__ ei,
                                 const float* __restrict__ ph1, long long L,
                                 const float* __restrict__ cd, const float* __restrict__ sd, int B,
-                                int N, float c0, float nm1, float d0f, float ddf,
-                                float* __restrict__ out) {
+                                int N, GridArgs g, const float* __restrict__ pts_g, float d0f,
+                                float ddf, float* __restrict__ out) {
     extern __shared__ float sm[];
     const int N2 = 2 * N;
     const int W = kFineTile + N2 - 1;
     float* dist = sm;                 // (B, W)
     float* cdt = dist + B * W;        // (B,)
     float* sdt = cdt + B;             // (B,)
+    float* pts = sdt + B;             // (npts, 3), kGen only
     const long long row = (long long)blockIdx.y * L;
     const long long j0 = (long long)blockIdx.x * kFineTile;
     const long long g0 = j0 - N + 1;  // first sample of the tile's windows
@@ -376,21 +431,20 @@ __global__ void bps_fine_kernel(const float* __restrict__ er, const float* __res
         cdt[b] = cd[b];
         sdt[b] = sd[b];
     }
+    if (KIND == kGen) stage_points(pts, pts_g, g.npts);
     __syncthreads();
     for (int u = threadIdx.x; u < W; u += blockDim.x) {
-        const long long g = g0 + u;
-        const bool in = g >= 0 && g < L;
-        const float x = in ? er[row + g] : 0.f, y = in ? ei[row + g] : 0.f;
+        const long long s = g0 + u;
+        const bool in = s >= 0 && s < L;
+        const float x = in ? er[row + s] : 0.f, y = in ? ei[row + s] : 0.f;
         float s1, c1;
-        sincosf(in ? ph1[row + g] : 0.f, &s1, &c1);
+        sincosf(in ? ph1[row + s] : 0.f, &s1, &c1);
         for (int b = 0; b < B; ++b) {
             const float ca = __fsub_rn(__fmul_rn(c1, cdt[b]), __fmul_rn(s1, sdt[b]));
             const float sa = __fadd_rn(__fmul_rn(s1, cdt[b]), __fmul_rn(c1, sdt[b]));
-            const float ur = __fsub_rn(__fsub_rn(__fmul_rn(x, ca), __fmul_rn(y, sa)), c0);
-            const float ui = __fsub_rn(__fadd_rn(__fmul_rn(x, sa), __fmul_rn(y, ca)), c0);
-            const float fr = ur - fminf(fmaxf(floorf(ur + 0.5f), 0.f), nm1);
-            const float fi = ui - fminf(fmaxf(floorf(ui + 0.5f), 0.f), nm1);
-            dist[b * W + u] = __fadd_rn(__fmul_rn(fr, fr), __fmul_rn(fi, fi));
+            const float xr = __fsub_rn(__fmul_rn(x, ca), __fmul_rn(y, sa));
+            const float xi = __fadd_rn(__fmul_rn(x, sa), __fmul_rn(y, ca));
+            dist[b * W + u] = grid_dist<KIND>(xr, xi, g, pts);
         }
     }
     __syncthreads();
@@ -413,27 +467,40 @@ __global__ void bps_fine_kernel(const float* __restrict__ er, const float* __res
     out[row + j] = __fadd_rn(__fadd_rn(ph1[row + j], d0f), __fmul_rn(ddf, (float)best));
 }
 
+// One of a kernel template's three instances, by the launch's grid kind.
+#define QTT_BY_KIND(fn, kind) \
+    ((kind) == kRect ? fn<kRect> : (kind) == kCross ? fn<kCross> : fn<kGen>)
+
+int set_smem(const void* fn, size_t bytes) {
+    if (bytes <= 48 * 1024) return 0;
+    return (int)cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                     (int)bytes);
+}
+
 }  // namespace
 
 extern "C" {
 
-long long qtt_bps_smem(int A, int N) {
+// npts: the points of a general alphabet (0 for the analytic kinds).
+long long qtt_bps_smem(int A, int N, int npts) {
     const long long W = kBpsTile + 2LL * N - 1;
-    return 4 * (A * W + 2LL * A + 2 * W);
+    return 4 * (A * W + 2LL * A + 2 * W + 3LL * npts);
 }
 
+// kind: a GridKind; g0..g3: its constants in units of the spacing (grid.cuh
+// GridArgs); pts: for kGen the (npts, 3) float32 table on the device, else unused.
 int qtt_bps_idx(const float* er, const float* ei, int nmodes, long long L, const float* cos_t,
-                const float* sin_t, int A, int N, float c0, float nm1, int* out,
-                void* stream) {
-    const size_t smem = (size_t)qtt_bps_smem(A, N);
-    if (smem > 48 * 1024) {
-        const int rc = (int)cudaFuncSetAttribute(
-            (const void*)bps_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (rc) return rc;
-    }
+                const float* sin_t, int A, int N, int kind, float g0, float g1, float g2,
+                float g3, const float* pts, int npts, int* out, void* stream) {
+    if (kind < kRect || kind > kGen || (kind == kGen) != (npts > 0) || (npts > 0 && !pts))
+        return (int)cudaErrorInvalidValue;
+    const size_t smem = (size_t)qtt_bps_smem(A, N, npts);
+    const auto fn = QTT_BY_KIND(bps_kernel, kind);
+    const int rc = set_smem((const void*)fn, smem);
+    if (rc) return rc;
+    const GridArgs g = {kind, 1.f, g0, g1, g2, g3, npts};
     const dim3 grid((unsigned)((L + kBpsTile - 1) / kBpsTile), (unsigned)nmodes);
-    bps_kernel<<<grid, kBpsTile, smem, (cudaStream_t)stream>>>(er, ei, L, cos_t, sin_t, A, N,
-                                                               c0, nm1, out);
+    fn<<<grid, kBpsTile, smem, (cudaStream_t)stream>>>(er, ei, L, cos_t, sin_t, A, N, g, pts, out);
     return (int)cudaGetLastError();
 }
 
@@ -465,12 +532,8 @@ int qtt_cpe_coeffs(const float* symr, const float* symi, int rows, long long ld,
                    float inv_two_pi, float* a_out, float* b_out, void* stream) {
     const int lanes = (npil + kCpeThreads - 1) / kCpeThreads;
     const size_t smem = sizeof(float) * (2 * (size_t)npil + npts);
-    if (smem > 48 * 1024) {
-        const int rc = (int)cudaFuncSetAttribute(
-            (const void*)cpe_coeffs_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            (int)smem);
-        if (rc) return rc;
-    }
+    const int rc = set_smem((const void*)cpe_coeffs_kernel, smem);
+    if (rc) return rc;
     cpe_coeffs_kernel<<<rows, kCpeThreads, smem, (cudaStream_t)stream>>>(
         symr, symi, ld, off, stride, pil_r, pil_i, rows_per_pilot, npil, n_head, npts, dx,
         cpe_avg, nbt, lanes, two_pi, inv_two_pi, a_out, b_out);
@@ -499,24 +562,26 @@ int qtt_unwrap_derotate(const float* er, const float* ei, const float* ph, int r
     return (int)cudaGetLastError();
 }
 
-long long qtt_bps_fine_smem(int B, int N) {
+long long qtt_bps_fine_smem(int B, int N, int npts) {
     const long long W = kFineTile + 2LL * N - 1;
-    return 4 * (B * W + 2LL * B);
+    return 4 * (B * W + 2LL * B + 3LL * npts);
 }
 
+// kind, g0..g3, pts, npts: as in qtt_bps_idx.
 int qtt_bps_fine(const float* er, const float* ei, const float* ph1, int nmodes, long long L,
-                 const float* cd, const float* sd, int B, int N, float c0, float nm1, float d0f,
-                 float ddf, float* out, void* stream) {
-    const size_t smem = (size_t)qtt_bps_fine_smem(B, N);
-    if (smem > 48 * 1024) {
-        const int rc = (int)cudaFuncSetAttribute(
-            (const void*)bps_fine_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            (int)smem);
-        if (rc) return rc;
-    }
+                 const float* cd, const float* sd, int B, int N, int kind, float g0, float g1,
+                 float g2, float g3, const float* pts, int npts, float d0f, float ddf, float* out,
+                 void* stream) {
+    if (kind < kRect || kind > kGen || (kind == kGen) != (npts > 0) || (npts > 0 && !pts))
+        return (int)cudaErrorInvalidValue;
+    const size_t smem = (size_t)qtt_bps_fine_smem(B, N, npts);
+    const auto fn = QTT_BY_KIND(bps_fine_kernel, kind);
+    const int rc = set_smem((const void*)fn, smem);
+    if (rc) return rc;
+    const GridArgs g = {kind, 1.f, g0, g1, g2, g3, npts};
     const dim3 grid((unsigned)((L + kFineTile - 1) / kFineTile), (unsigned)nmodes);
-    bps_fine_kernel<<<grid, kFineTile, smem, (cudaStream_t)stream>>>(
-        er, ei, ph1, L, cd, sd, B, N, c0, nm1, d0f, ddf, out);
+    fn<<<grid, kFineTile, smem, (cudaStream_t)stream>>>(er, ei, ph1, L, cd, sd, B, N, g, pts, d0f,
+                                                       ddf, out);
     return (int)cudaGetLastError();
 }
 

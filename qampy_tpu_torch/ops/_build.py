@@ -2,7 +2,8 @@
 
 All ``csrc/*.cu`` sources are compiled by ``nvcc`` for ``sm_90a`` (one
 ``nvcc`` per source, all started together) and linked into one shared
-library with a plain C interface, loaded with ctypes. The build runs at
+library with a plain C interface, loaded with ctypes (``csrc/grid.cuh`` is
+the one header, shared by the sources). The build runs at
 the first kernel launch, never at import, so the package imports on a
 machine without ``nvcc``. The library lives under ``build/`` at the
 repository root, in a directory keyed by a hash of the sources and flags;
@@ -28,15 +29,15 @@ LIB_NAME = "libqampy_tpu_torch.so"
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # (restype, argtypes) of every C entry point
 SIGNATURES = {
-    "qtt_train_block_smem": (_LL, [_I, _I, _I, _I, _I]),
+    "qtt_train_block_smem": (_LL, [_I, _I, _I, _I, _I, _I]),
     "qtt_train_block": (_I, [_P, _I, _LL, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                             _I, _F, _F, _F, _F, _F, _F, _F, _P, _I, _I, _P]),
+                             _I, _F, _F, _F, _F, _I, _F, _F, _F, _F, _F, _P, _I, _P, _I, _I, _P]),
     "qtt_train_seq": (_I, [_P, _I, _LL, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                            _I, _P]),
     "qtt_apply_filter_smem": (_LL, [_I, _I, _I, _I]),
     "qtt_apply_filter": (_I, [_P, _I, _LL, _P, _I, _I, _I, _LL, _P, _I, _LL, _P, _P]),
-    "qtt_bps_smem": (_LL, [_I, _I]),
-    "qtt_bps_idx": (_I, [_P, _P, _I, _LL, _P, _P, _I, _I, _F, _F, _P, _P]),
+    "qtt_bps_smem": (_LL, [_I, _I, _I]),
+    "qtt_bps_idx": (_I, [_P, _P, _I, _LL, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P, _I, _P, _P]),
     "qtt_interp_rotate": (_I, [_P, _P, _P, _P, _I, _LL, _LL, _I, _I, _P, _P, _P]),
     "qtt_apply_filter_frames": (_I, [_P, _I, _LL, _P, _P, _I, _I, _I, _I, _LL, _P, _P]),
     "qtt_rotate": (_I, [_P, _P, _P, _LL, _I, _P, _P, _P]),
@@ -45,13 +46,26 @@ SIGNATURES = {
                             _F, _P, _P, _P]),
     "qtt_unwrap_tiles": (_I, [_LL]),
     "qtt_unwrap_derotate": (_I, [_P, _P, _P, _I, _LL, _F, _F, _P, _P, _P, _P]),
-    "qtt_bps_fine_smem": (_LL, [_I, _I]),
-    "qtt_bps_fine": (_I, [_P, _P, _P, _I, _LL, _P, _P, _I, _I, _F, _F, _F, _F, _P, _P]),
+    "qtt_bps_fine_smem": (_LL, [_I, _I, _I]),
+    "qtt_bps_fine": (_I, [_P, _P, _P, _I, _LL, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P, _I, _F,
+                          _F, _P, _P]),
     "qtt_div_check": (_I, [_P, _P, _I, _P, _P]),
     "qtt_probe_values": (_I, []),
     "qtt_probe_latency": (_I, [_P, _P, _I, _I, _P]),
     "qtt_error_string": (ctypes.c_char_p, [_I]),
 }
+
+
+class KernelLimit(ValueError):
+    """A launch that a kernel does not take and a plain backend does.
+
+    Raised by the launchers' host checks for the limits of the kernels
+    themselves (output modes, codebook entries, block size, shared memory,
+    points of a general alphabet), with the limit and the backend to take
+    instead in the message. ``backend="auto"`` catches exactly this to pick
+    the plain trainer; an error in the caller's arguments is a plain
+    ``ValueError`` and reaches the caller from every backend.
+    """
 
 
 def _nvcc():
@@ -66,7 +80,7 @@ def _nvcc():
 def build_dir():
     """The build directory of the current sources and flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC.glob("*.cu")):
+    for src in sorted(CSRC.glob("*.cu*")):         # the sources and the header they share
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16]

@@ -24,8 +24,18 @@ A ``decimated[K]`` whose K does not divide the filter's phase group falls
 back to ``single`` with the reference's warning. On CPU tensors each kernel
 runs its plain PyTorch version; on CUDA tensors the kernels run, with no
 fallback. The two trainings take the methods of kernel B1 (cma, sgncma,
-mcma, rde, sbd, mddma, dd) on a square grid; anything else raises
-``NotImplementedError``, for a grid naming the ROADMAP item that brings it.
+mcma, rde, sbd, mddma, dd); another method raises ``NotImplementedError``.
+
+The constellation is M-QAM (square, or cross for an odd number of bits) or
+any host alphabet given as ``symbols=``: whatever ``ops.phase.detect_grid``
+classifies, a general alphabet ("gen") up to 256 points, as in the
+reference. The decision stages and the searches decide on that alphabet.
+For a gen alphabet of more than 24 points the twostage and decimated modes
+first ask two host probes (``coarse_grid_for_alphabet``, ``fine_grid_ok``)
+whether a fitted uniform grid may stand in for the alphabet in the coarse
+search, and in the fine (or the decimated mode's only) search too; the
+trainer always decides on the true alphabet. ``backend_info`` says which
+decision each search took.
 
 Two divergences from the reference, both toward float32: the filter sums
 in float32 (the reference chain contracts in bf16) and the BPS windows are
@@ -43,6 +53,7 @@ from torch import nn
 from qampy_tpu_torch.ops import equaliser as eqops
 from qampy_tpu_torch.ops import phase as phops
 from qampy_tpu_torch.ops.equaliser_cuda import apply_filter, check_dec, train_block
+from qampy_tpu_torch.ops.phase import grid_decision_info
 from qampy_tpu_torch.ops.phase_cuda import bps_search, bps_twostage, interp_rotate, unwrap_derotate
 from qampy_tpu_torch.theory import cal_scaling_factor_qam, cal_symbols_qam
 from qampy_tpu_torch.utils import resolve_device
@@ -102,23 +113,43 @@ class RxChain(nn.Module):
     given taps, skipping both trainings). ``mode`` is "decimated" (with
     stride ``dec``), "single" or "twostage"; ``bps_cos``/``bps_sin`` hold
     the angle tables of the one B3 search a call runs (the coarse grid in
-    twostage, whose fine offsets are ``fine_cos``/``fine_sin``).
+    twostage, whose fine offsets are ``fine_cos``/``fine_sin``). ``grid`` is
+    the constellation's grid spec, on which the trainer decides;
+    ``search_grid`` and ``fine_grid`` are what B3 and B8 search (``grid``,
+    or a general alphabet's fitted grid); ``gen_points`` is a general
+    alphabet's table on the chain's device, registered when a stage reads
+    it; ``backend_info`` reports the decisions as the reference does.
     """
 
     def __init__(self, M=64, Ntaps=17, os=2, methods=("mcma", "mddma"), mu=1.9e-3,
                  bps_angles=64, bps_N=14, block_size=256, TrSyms=None,
                  bps_mode="single", symbols=None):
         super().__init__()
-        if symbols is not None:
-            raise NotImplementedError("custom symbol alphabets are ROADMAP item A4b")
         if len(methods) != 2:
             raise ValueError("the chain trains two stages, got methods=%r" % (methods,))
         dtype = np.complex64
-        self.specs = tuple(eqops.err_spec(m, eqops._reshape_symbols(None, m, M, dtype, 2))
-                           for m in methods)
-        const = (cal_symbols_qam(M) / np.sqrt(cal_scaling_factor_qam(M))).astype(dtype)
+        if symbols is not None:
+            # the blind constants come from the alphabet's own moments (reference
+            # chain.py:112-125)
+            const = np.asarray(symbols).astype(dtype).reshape(-1)
+            rows = [eqops.generate_symbols_for_eq_from_alphabet(m, const, dtype)
+                    if m in eqops.BLOCK_METHODS else None for m in methods]
+            rows = [None if r is None else np.tile(r, (2, 1)) if r.shape[0] == 1 else r
+                    for r in rows]
+        else:
+            const = (cal_symbols_qam(M) / np.sqrt(cal_scaling_factor_qam(M))).astype(dtype)
+            rows = [eqops._reshape_symbols(None, m, M, dtype, 2)
+                    if m in eqops.BLOCK_METHODS else None for m in methods]
         self.grid = phops.detect_grid(const)
-        phops.square_grid(self.grid, "rx chain")
+        kind = grid_decision_info(self.grid)[0]
+        if kind == "none":
+            raise ValueError("the chain needs a constellation of at least two points, got %d"
+                             % const.size)
+        if kind == "gen" and const.size > phops.MAX_GEN_POINTS:
+            raise ValueError("a general alphabet of %d points: the chain's kernels search at "
+                             "most %d (ops.phase.MAX_GEN_POINTS), as the reference's do"
+                             % (const.size, phops.MAX_GEN_POINTS))
+        self.specs = tuple(eqops.err_spec(m, r) for m, r in zip(methods, rows))
         self.Ntaps, self.os, self.mu = int(Ntaps), int(os), float(mu)
         self.bps_N, self.block_size, self.TrSyms = int(bps_N), int(block_size), TrSyms
         self.mode, self.dec = self._resolve_mode(bps_mode)
@@ -126,16 +157,42 @@ class RxChain(nn.Module):
         if self.mode == "twostage":
             A = max(bps_angles // (2 if bps_mode.endswith("32") else 4), 16)
         self.search_N = TWOSTAGE_N1 if self.mode == "twostage" else self.bps_N
+        # a general alphabet's fitted grid, where the host probes accept it (reference
+        # chain.py:150-172): probed at the coarse angle count in twostage and at the
+        # full count in decimated, whose one search has the fine stage's role
+        coarse_fit, self.fine_grid = None, self.grid
+        if kind == "gen" and self.mode != "single" and const.size > 24:
+            coarse_fit = phops.coarse_grid_for_alphabet(const, Mtestangles=max(A, 16))
+            if coarse_fit is not None and phops.fine_grid_ok(const, coarse_fit,
+                                                             Mtestangles=max(A, 16)):
+                self.fine_grid = coarse_fit
+        if self.mode == "twostage":
+            self.search_grid = self.grid if coarse_fit is None else coarse_fit
+        else:
+            self.search_grid = self.fine_grid if self.mode == "decimated" else self.grid
+        self.backend_info = {
+            "grid_kind": kind, "bps_mode": bps_mode, "methods": tuple(methods),
+            "gen_bps_coarse": "fitted" if coarse_fit is not None else "exact",
+            "gen_bps_fine": "fitted" if self.fine_grid is not self.grid else "exact"}
         angles = np.linspace(-np.pi / 4, np.pi / 4, A, endpoint=False, dtype=np.float32)
         self.step_a, self.lo_a = float(np.pi / 2 / A), float(-np.pi / 4)
-        cos_h, sin_h = phops.bps_tables(angles, self.grid)
+        cos_h, sin_h = phops.bps_tables(angles, self.search_grid)
         self.register_buffer("w0", torch.as_tensor(eqops._init_taps(Ntaps, 2, 2, dtype)))
         self.register_buffer("bps_cos", torch.as_tensor(cos_h))
         self.register_buffer("bps_sin", torch.as_tensor(sin_h))
         if self.mode == "twostage":
-            cd, sd, self.fine_d0, self.fine_step = phops.fine_tables(A, TWOSTAGE_B, self.grid)
+            cd, sd, self.fine_d0, self.fine_step = phops.fine_tables(A, TWOSTAGE_B,
+                                                                     self.fine_grid)
             self.register_buffer("fine_cos", torch.as_tensor(cd))
             self.register_buffer("fine_sin", torch.as_tensor(sd))
+        # the table of the alphabet's points, if the trainer's decision or a search reads it:
+        # put on the card once, here, so that no dispatch copies from the host
+        searched = [self.search_grid] + ([self.fine_grid] if self.mode == "twostage" else [])
+        reads = kind == "gen" and (any(g is self.grid for g in searched)
+                                   or any(s.method in eqops.DECISION_BLOCK_METHODS
+                                          for s in self.specs))
+        self.register_buffer("gen_points",
+                             torch.as_tensor(phops.gen_points(self.grid)) if reads else None)
 
     def _resolve_mode(self, bps_mode):
         """(mode, decimation stride or None) of a ``bps_mode`` name (reference chain.py:280-292)."""
@@ -169,11 +226,11 @@ class RxChain(nn.Module):
         trs = (P.shape[-1] - self.Ntaps) // self.os if self.TrSyms is None else self.TrSyms
         s1, s2 = self.specs
         _, w1, _ = train_block(P, trs, 1, self.os, self.mu, self.w0[:nmodes, :nmodes], s1,
-                               adaptive=True, block_size=self.block_size)
+                               adaptive=True, block_size=self.block_size, points=self.gen_points)
         if nmodes == 2:
             w1 = cma_singularity_guard(w1)
         _, w2, _ = train_block(P, trs, 1, self.os, self.mu, w1, s2,
-                               adaptive=True, block_size=self.block_size)
+                               adaptive=True, block_size=self.block_size, points=self.gen_points)
         return w2
 
     def equalise(self, P, w):
@@ -188,7 +245,8 @@ class RxChain(nn.Module):
         Over the chain's angle table with half-window ``search_N``.
         """
         no = x.shape[0] // 2
-        return bps_search(x[:no], x[no:], self.bps_cos, self.bps_sin, self.grid, self.search_N)
+        return bps_search(x[:no], x[no:], self.bps_cos, self.bps_sin, self.search_grid,
+                          self.search_N, self.gen_points)
 
     def derotate(self, eqp, idxd):
         """Unwrap the decimated phase and derotate the full-rate planes: (outr, outi)."""
@@ -209,8 +267,8 @@ class RxChain(nn.Module):
             return self.lo_a + self.step_a * self.phase_search(eqp).to(torch.float32)
         no = eqp.shape[0] // 2
         return bps_twostage(eqp[:no], eqp[no:], self.bps_cos, self.bps_sin, self.search_N,
-                            self.fine_cos, self.fine_sin, self.grid, self.bps_N, self.fine_d0,
-                            self.fine_step)
+                            self.fine_cos, self.fine_sin, self.fine_grid, self.bps_N,
+                            self.fine_d0, self.fine_step, self.search_grid, self.gen_points)
 
     def unwrap_derotate(self, eqp, ph):
         """pi/2-unwrap the per-sample phase, derotate the full-rate planes (B7): (outr, outi)."""

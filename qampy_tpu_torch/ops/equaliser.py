@@ -14,11 +14,11 @@ tensors, and the ``"seq"`` and ``"block"`` backends of the entry functions
 
 The block trainer has two sources of its error function: an
 :class:`ErrSpec` of host constants, the form kernel B1 implements (the
-complex methods cma, sgncma, mcma, rde and, on a square grid, sbd, mddma,
-dd), and any error function of :func:`_make_error_fn` /
+complex methods cma, sgncma, mcma, rde and the decision methods sbd, mddma,
+dd on a square, rectangular or cross grid or a general alphabet of up to
+256 points), and any error function of :func:`_make_error_fn` /
 :func:`_make_error_fn_real`, which the ``"block"`` backend takes
-for every method. Cross, rectangular and general alphabets in the
-:class:`ErrSpec` form raise ``NotImplementedError``: ROADMAP item A4b.
+for every method and alphabet.
 """
 from __future__ import annotations
 
@@ -28,7 +28,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from qampy_tpu_torch.ops.phase import detect_grid, square_grid
+from qampy_tpu_torch.ops._build import KernelLimit
+from qampy_tpu_torch.ops.phase import (KIND_CODE, detect_grid, gen_points, grid_consts,
+                                       grid_decision_info)
 from qampy_tpu_torch.theory import cal_symbols_qam, cal_scaling_factor_qam
 from qampy_tpu_torch.utils import resolve_device
 
@@ -46,13 +48,14 @@ TRAINING_FCTS = DECISION_BASED + NONDECISION_BASED
 #: constellation-matched error (reference equaliser.py:50-54)
 EXTENDED_METHODS = ("sca", "cme")
 #: Methods of the :class:`ErrSpec` block trainer and kernel B1 (the
-#: reference's PALLAS_BLOCK_METHODS); the decision methods on a square grid
+#: reference's PALLAS_BLOCK_METHODS)
 BLOCK_METHODS = ("cma", "sgncma", "mcma", "rde", "sbd", "mddma", "dd")
 #: Methods of the per-symbol kernel B9 (the reference's PALLAS_METHODS)
 SEQ_KERNEL_METHODS = ("cma", "sgncma", "mcma", "rde")
 #: Trainer backends of ``equalise_signal`` and ``dual_mode_equalisation``
 BACKENDS = ("auto", "seq", "block", "cuda", "cuda_block")
-_GRID_METHODS = ("sbd", "mddma", "dd")
+#: The block trainer's methods that decide on the constellation
+DECISION_BLOCK_METHODS = ("sbd", "mddma", "dd")
 
 
 # ---------------------------------------------------------------------------
@@ -410,8 +413,9 @@ class ErrSpec(NamedTuple):
     ``method`` is one of :data:`BLOCK_METHODS` ("sgncma" is stored as
     "cma"). ``consts`` holds, per output mode, the radius constant (Rr, Ri)
     of mcma, the radius R of cma or the [codes, partitions] row of rde (its
-    real parts); for sbd, mddma and dd it is the square grid (d0, lo, n) of
-    the analytic decision.
+    real parts); for sbd, mddma and dd it is the grid spec of the decision
+    (``ops.phase.detect_grid``: square, rectangular, cross or the points of
+    a general alphabet), one for all outputs.
     """
     method: str
     consts: tuple
@@ -435,16 +439,43 @@ def err_spec(method, symbols):
         return ErrSpec("cma", tuple(float(r.real) for r in symbols[:, 0]))
     if method == "rde":
         return ErrSpec(method, tuple(tuple(float(x) for x in row.real) for row in symbols))
-    return ErrSpec(method, square_grid(detect_grid(symbols[0]), method))
+    # the decision is made on the first row's alphabet, as in the reference
+    # (equaliser_pallas.py:316)
+    grid = detect_grid(symbols[0])
+    if grid is None:
+        raise ValueError("method %r decides on a constellation of at least two points, got "
+                         "symbols of shape %s" % (method, symbols.shape))
+    if grid_decision_info(grid)[0] == "gen":
+        gen_points(grid)          # refuses an alphabet above its limit
+    return ErrSpec(method, grid)
 
 
-def block_kernel_takes(method, symbols, nout, real_valued=False):
-    """Whether the :class:`ErrSpec` trainer (kernel B1) takes this method, alphabet and width."""
-    if real_valued or method not in BLOCK_METHODS or nout > 2:
+def block_kernel_takes(method, symbols, nout, real_valued=False, launch=None):
+    """Whether kernel B1 trains this: the routing rule of ``backend="auto"`` on the card.
+
+    True when the :class:`ErrSpec` trainer takes the method and the
+    alphabet (at most 256 points where it has no grid) and, with ``launch``
+    = (P, TrSyms, os, wx, block_size), when B1's launcher takes that
+    launch: its own rules (``equaliser_cuda.check_block_launch``: at most 2
+    output modes, a [codes, partitions] row of at most 64 entries, a block
+    that is a multiple of 32 up to 1024, the shared memory of one CTA),
+    asked on the host without building the kernels. ``auto`` takes the
+    plain block trainer for whatever this refuses. Only the kernel's limits
+    (``KernelLimit``) make it False: arguments that no backend takes (a
+    capture shorter than the training, planes that do not match the taps,
+    an alphabet of one point) raise here as they do from every backend.
+    """
+    if real_valued or method not in BLOCK_METHODS:
         return False
-    if method in _GRID_METHODS:
-        grid = detect_grid(np.atleast_2d(np.asarray(symbols))[0])
-        return grid is not None and not isinstance(grid[0], str)
+    try:
+        spec = err_spec(method, symbols)
+        if launch is not None:
+            from qampy_tpu_torch.ops.equaliser_cuda import check_block_launch
+            check_block_launch(*launch, spec)
+        elif nout > 2:
+            return False
+    except KernelLimit:
+        return False
     return True
 
 
@@ -461,9 +492,9 @@ def block_errfn(spec, nout, device):
 
     zr/zi: (..., nout, S) filter output. mcma: (R - z^2) z per axis; cma:
     (R - |z|^2) z; rde: (r - |z|^2) z with r the codebook radius of the
-    partition |z|^2 falls in (equaliser.py:244-263); on the nearest grid
-    level d per axis, sbd: (d - z)|d|, mddma: (d^2 - z^2) z, dd: d - z
-    (equaliser_pallas.py:226-229, 277-288).
+    partition |z|^2 falls in (equaliser.py:244-263); with d the decided
+    point (:func:`grid_decision`), per axis, sbd: (d - z)|d|, mddma:
+    (d^2 - z^2) z, dd: d - z (equaliser_pallas.py:277-288).
     """
     if spec.method == "mcma":
         c = torch.tensor(spec_rows(spec, nout), dtype=torch.float32, device=device)
@@ -488,22 +519,62 @@ def block_errfn(spec, nout, device):
             d = _partition_value(sq, parts, codes) - sq
             return d * zr, d * zi
         return rde
-    d0, lo, n = spec.consts
-
-    def level(z):
-        return lo + d0 * torch.clamp(torch.floor((z - lo) / d0 + 0.5), 0.0, n - 1.0)
+    dec = grid_decision(spec.consts, device)
     if spec.method == "sbd":
         def fn(zr, zi, idxs=None):
-            dr, di = level(zr), level(zi)
+            dr, di = dec(zr, zi)
             return (dr - zr) * dr.abs(), (di - zi) * di.abs()
     elif spec.method == "mddma":
         def fn(zr, zi, idxs=None):
-            dr, di = level(zr), level(zi)
+            dr, di = dec(zr, zi)
             return (dr * dr - zr * zr) * zr, (di * di - zi * zi) * zi
     else:
         def fn(zr, zi, idxs=None):
-            return level(zr) - zr, level(zi) - zi
+            dr, di = dec(zr, zi)
+            return dr - zr, di - zi
     return fn
+
+
+def grid_decision(grid, device):
+    """The decision (zr, zi) -> (dr, di) of sbd, mddma and dd on a grid spec of any kind.
+
+    The reference's ``_make_block_err_decision`` (equaliser_pallas.py:208-273),
+    every product and sum rounded on its own; half-way points go up
+    (floor(x + 0.5), never round). Square and rectangular grids decide each
+    axis on its own levels. Cross QAM, in units x = (z - lo)/d0, takes the
+    closer of two rectangle clamps: A clamps the columns to [0, n-1] and the
+    rows to [c, n-1-c], B the other way round, and A wins a tie. A general
+    alphabet takes the point of the greatest score 2<z, s_k> - |s_k|^2, the
+    first of equal ones, from the table of ``ops.phase.gen_points``.
+    """
+    gc = grid_consts(grid, "the decision of sbd, mddma and dd")
+    d0, (lor, loi, g2, g3) = gc.d0, gc.g
+
+    def level(z, lo, hi):
+        return lo + d0 * torch.clamp(torch.floor((z - lo) / d0 + 0.5), 0.0, hi)
+    if gc.code == KIND_CODE["r"]:
+        return lambda zr, zi: (level(zr, lor, g2), level(zi, loi, g3))
+    if gc.kind == "x":
+        nm1, cc, ccm = g2, g3, g2 - g3
+
+        def cross(zr, zi):
+            x, y = (zr - lor) / d0, (zi - loi) / d0
+            rx, ry = torch.floor(x + 0.5), torch.floor(y + 0.5)
+            iA, jA = torch.clamp(rx, 0.0, nm1), torch.clamp(ry, cc, ccm)
+            iB, jB = torch.clamp(rx, cc, ccm), torch.clamp(ry, 0.0, nm1)
+            useA = ((x - iA) ** 2 + (y - jA) ** 2) <= ((x - iB) ** 2 + (y - jB) ** 2)
+            return lor + d0 * torch.where(useA, iA, iB), loi + d0 * torch.where(useA, jA, jB)
+        return cross
+    a2, b2, c = torch.as_tensor(gc.points, device=device).unbind(-1)
+    order = torch.arange(a2.shape[0], device=device)
+
+    def nearest(zr, zi):
+        # 2 (zr a + zi b) - c: the doubling is exact, so the table's 2a and 2b give the
+        # reference's score bit for bit
+        sc = (zr.unsqueeze(-1) * a2 + zi.unsqueeze(-1) * b2) - c
+        first = torch.where(sc == sc.amax(-1, keepdim=True), order, order.shape[0]).amin(-1)
+        return 0.5 * a2[first], 0.5 * b2[first]
+    return nearest
 
 
 # ---------------------------------------------------------------------------
@@ -614,6 +685,19 @@ def train_block_planes(P, TrSyms, Niter, os, mu, wx, err, adaptive=False,
     return err_out, torch.complex(wr, wi).reshape(*batch, nout, nmodes, ntaps), mu_c
 
 
+def step_sizes(mu, nout, device):
+    """The (nout,) float32 step sizes of a training: one value for all modes, or one per mode.
+
+    A tensor of per-mode step sizes is what a training returns, so a caller
+    can hand the taps and the steps of one call on to the next.
+    """
+    if isinstance(mu, torch.Tensor):
+        if mu.shape != (nout,):
+            raise ValueError("step sizes of shape %s for %d output modes" % (tuple(mu.shape), nout))
+        return mu.to(device=device, dtype=torch.float32).clone()
+    return torch.full((nout,), float(mu), dtype=torch.float32, device=device)
+
+
 def train_seq_planes(P, TrSyms, Niter, os, mu, wx, errfn, adaptive=False, real=False):
     """The exact per-symbol LMS recurrence on float32 planes (reference equaliser.py:343-394).
 
@@ -626,8 +710,9 @@ def train_seq_planes(P, TrSyms, Niter, os, mu, wx, errfn, adaptive=False, real=F
     symbols, vectorised over the output modes; every product and sum is a
     tensor op of its own, which fixes the rounding that kernel B9 repeats.
 
-    P, wx, ``real``: as :func:`train_block_planes`; ``errfn`` an error
-    function (zr, zi, idxs) -> (er, ei) on (nout, 1) estimates.
+    P, wx, ``real``: as :func:`train_block_planes`; ``mu``: a float or the
+    (nout,) steps of an earlier call (:func:`step_sizes`); ``errfn`` an
+    error function (zr, zi, idxs) -> (er, ei) on (nout, 1) estimates.
     Returns (err (nout, Niter*TrSyms), taps (nout, nmodes, ntaps), mu (nout,)).
     """
     nout, nmodes, ntaps = wx.shape
@@ -637,7 +722,7 @@ def train_seq_planes(P, TrSyms, Niter, os, mu, wx, errfn, adaptive=False, real=F
     else:
         Xr, Xi = (x.t().contiguous() for x in training_windows(P, TrSyms, os, ntaps))
     wr, wi = _real_taps(wx)
-    mu_c = torch.full((nout, 1), mu, dtype=torch.float32, device=P.device)
+    mu_c = step_sizes(mu, nout, P.device).unsqueeze(-1)
     pr = torch.zeros(nout, 1, dtype=torch.float32, device=P.device)
     pi = torch.zeros_like(pr)
     tidx = torch.arange(TrSyms, device=P.device)
@@ -808,16 +893,25 @@ def _resolve_backend(backend, block_size, on_cpu, block_kernel_ok=False):
     """Resolve ``backend="auto"`` and ``block_size=None`` for the tensor's device.
 
     "auto" is the exact per-symbol trainer for a CPU tensor, as in the
-    reference (equaliser.py:697-716); on the card it is kernel B1
-    ("cuda_block") where that takes the method and alphabet
-    (``block_kernel_ok``), else the plain block trainer. ``block_size=None``
-    is 32 for the per-symbol trainers and for a block trainer on the CPU,
-    128 for a block trainer on the card. Explicit values always win.
+    reference (equaliser.py:697-716). On the card it is a block trainer:
+    kernel B1 ("cuda_block") where ``block_kernel_ok`` (a bool, or a
+    function of the resolved block size) says that B1 takes the method, the
+    alphabet and the launch
+    (:func:`block_kernel_takes`), else the plain block trainer ("block"),
+    which takes every method, width, codebook and block size. That is a
+    rule of "auto" alone: an explicit kernel backend raises on what its
+    kernel does not take. ``block_size=None`` is 32 for the per-symbol
+    trainers and for a block trainer on the CPU, 128 for a block trainer on
+    the card. Explicit values always win.
     """
     if backend not in BACKENDS:
         raise ValueError("unknown backend %r: one of %s" % (backend, BACKENDS))
-    if backend == "auto":
-        backend = "seq" if on_cpu else ("cuda_block" if block_kernel_ok else "block")
+    if backend == "auto" and not on_cpu:
+        block_size = 128 if block_size is None else block_size
+        ok = block_kernel_ok(block_size) if callable(block_kernel_ok) else block_kernel_ok
+        backend = "cuda_block" if ok else "block"
+    elif backend == "auto":
+        backend = "seq"
     if block_size is None:
         block_size = 128 if backend in ("block", "cuda_block") and not on_cpu else 32
     return backend, block_size
@@ -840,10 +934,12 @@ def equalise_signal(E, os, mu, M, wxy=None, Ntaps=None, TrSyms=None, Niter=1,
     ``backend``: "seq" (the exact per-symbol recurrence) and "block"
     (block-LMS) are the plain trainers and take every method; "cuda" is
     kernel B9 (cma, sgncma, mcma, rde) and "cuda_block" kernel B1 (those
-    and sbd, mddma, dd on a square grid), the counterparts of the
-    reference's "pallas" and "pallas_block"; on a CPU tensor they run
-    their plain versions under the same restrictions, and a method they do
-    not take raises. "auto": see :func:`_resolve_backend`.
+    and sbd, mddma, dd on a square, rectangular or cross grid or a general
+    alphabet of up to 256 points), the counterparts of the reference's
+    "pallas" and "pallas_block"; on a CPU tensor they run their plain
+    versions under the same restrictions, and what they do not take raises
+    with the limit and the backend to take instead. "auto": see
+    :func:`_resolve_backend`.
     ``avoid_cma_sing`` (dual-pol only) trains mode 0 first and initialises
     mode 1 opposite-orthogonal to it before training mode 1.
     Returns (wxy, err) or (Eest, wxy, err) when apply=True, as tensors.
@@ -895,10 +991,15 @@ def equalise_signal(E, os, mu, M, wxy=None, Ntaps=None, TrSyms=None, Niter=1,
     symbols = _reshape_symbols(symbols, method, M, hdtype, nmodes)
     kern_method = method[:-5] if real_valued else method
     wsel, ssel = wxy[torch.as_tensor(modes, device=dev)], symbols[modes]
-    backend, block_size = _resolve_backend(
-        backend, block_size, dev.type == "cpu",
-        block_kernel_takes(kern_method, ssel, len(modes), real_valued))
     args = (TrSyms, int(Niter), int(os), float(mu), wsel)
+
+    def block_kernel_ok(bs):
+        # the launcher's rules look at shapes only: a stand-in of the planes' shape will do
+        like = torch.empty((2 * nmodes, E.shape[-1]), device="meta")
+        return block_kernel_takes(kern_method, ssel, len(modes), real_valued,
+                                  launch=(like, TrSyms, int(os), wsel, bs))
+    backend, block_size = _resolve_backend(backend, block_size, dev.type == "cpu",
+                                           block_kernel_ok)
     adaptive = bool(adaptive_stepsize)
     if backend == "seq":
         out = train_equaliser_seq(E, *args, ssel, kern_method, adaptive, real_valued)

@@ -21,9 +21,11 @@ from __future__ import annotations
 import torch
 
 from qampy_tpu_torch.ops import _build
-from qampy_tpu_torch.ops.equaliser import (BLOCK_METHODS, SEQ_KERNEL_METHODS,
-                                           apply_filter_planes, planes_errfn, spec_rows,
-                                           train_seq_planes)
+from qampy_tpu_torch.ops import phase as phops
+from qampy_tpu_torch.ops._build import KernelLimit
+from qampy_tpu_torch.ops.equaliser import (BLOCK_METHODS, DECISION_BLOCK_METHODS,
+                                           SEQ_KERNEL_METHODS, apply_filter_planes, planes_errfn,
+                                           spec_rows, step_sizes, train_seq_planes)
 from qampy_tpu_torch.ops.equaliser import apply_filter_frames_planes as apply_filter_frames_plain
 from qampy_tpu_torch.ops.equaliser import train_block_planes as train_block_plain
 
@@ -33,6 +35,9 @@ _MAX_OUT = 2                     # csrc/equaliser.cu kMaxOut
 _MAX_CODES = 64                  # csrc/equaliser.cu kMaxCodes: longest [codes, partitions] row
 _MAX_SEQ_K = 128                 # csrc/equaliser.cu kSeqTapsPerLane * 32: nmodes * ntaps of B9
 _SMEM_LIMIT = 227 * 1024         # shared memory one CTA may use on Hopper
+_BLOCK_THREADS = 256             # csrc/equaliser.cu kBlockThreads
+_RING = 3                        # csrc/equaliser.cu kRing
+_MAX_SLICES = 32                 # csrc/equaliser.cu kMaxSlices
 
 
 def filter_group(os, ntaps, nout):
@@ -63,24 +68,26 @@ def check_dec(os, ntaps, nout, dec):
 def method_code(method, takes=BLOCK_METHODS):
     """The trainer kernels' code of ``method``, which must be one of ``takes``."""
     if method not in takes:
-        raise NotImplementedError("trainer kernel method %r: the kernel takes %s"
-                                  % (method, takes))
+        raise NotImplementedError("trainer kernel method %r: the kernel takes %s; backends "
+                                  "'block' and 'seq' take every method" % (method, takes))
     return _METHOD_CODE[method]
 
 
-def _codebook(rows, device):
-    """(tensor (nout, k) float32 on ``device``, k) of per-output [codes, partitions] rows."""
-    t = torch.tensor(rows, dtype=torch.float32, device=device)
-    if t.shape[-1] > _MAX_CODES:
-        raise ValueError("rde codebook row of %d entries, the kernel holds %d"
-                         % (t.shape[-1], _MAX_CODES))
-    return t, t.shape[-1]
+def _codebook_len(rows):
+    """Entries of the per-output [codes, partitions] rows, which the kernels hold at most 64 of."""
+    k = len(rows[0])
+    if k > _MAX_CODES:
+        raise KernelLimit("rde codebook row of %d entries: the trainer kernels hold %d "
+                          "(_MAX_CODES); take backend 'block' or 'seq'" % (k, _MAX_CODES))
+    return k
 
 
 def block_launch_shape(P, TrSyms, os, wx, block_size):
-    """(S, nblocks) of a B1 launch, or ValueError for what the kernel does not take.
+    """(S, nblocks) of a B1 launch; ``KernelLimit`` for what the kernel does not take.
 
-    Looks at shapes only, so it holds for tensors on any device. The
+    Arguments that no backend takes (planes that do not match the taps, a
+    capture shorter than the training) raise a plain ValueError. Looks at
+    shapes only, so it holds for tensors on any device. The
     kernel's block S is the algorithm's (``block_size``, or ``TrSyms`` if
     that is shorter), a multiple of 32 up to 1024; its CTA has a fixed
     number of threads whatever S is.
@@ -90,12 +97,14 @@ def block_launch_shape(P, TrSyms, os, wx, block_size):
         raise ValueError("planes of shape %s do not match taps %s"
                          % (tuple(P.shape), tuple(wx.shape)))
     if nout > _MAX_OUT:
-        raise ValueError("the trainer kernel takes at most %d output modes" % _MAX_OUT)
+        raise KernelLimit("the trainer kernel takes at most %d output modes (_MAX_OUT), got %d; "
+                          "take backend 'block' or 'seq'" % (_MAX_OUT, nout))
     if int(os) < 1:
         raise ValueError("oversampling %r" % (os,))
     S = min(int(block_size), int(TrSyms))
     if S < 32 or S % 32 or S > 1024:
-        raise ValueError("block size %d: the kernel takes a multiple of 32 up to 1024" % S)
+        raise KernelLimit("block size %d: the kernel takes a multiple of 32 up to 1024; take "
+                          "backend 'block' for any block size" % S)
     nblocks = int(TrSyms) // S
     L = P.shape[-1]
     if L < (nblocks * S - 1) * os + ntaps:
@@ -104,11 +113,71 @@ def block_launch_shape(P, TrSyms, os, wx, block_size):
     return S, nblocks
 
 
-def train_block_cuda(P, TrSyms, Niter, os, mu, wx, spec, adaptive=False, block_size=32):
+def block_smem_bytes(nmodes, ntaps, os, S, npts=0):
+    """Shared-memory bytes of one B1 CTA: ``block_layout`` of csrc/equaliser.cu on the host.
+
+    ``npts``: points of a general alphabet (three floats each). The launcher
+    holds this against ``qtt_train_block_smem`` of the built library.
+    """
+    segq = (S * os + ntaps + 8 + 3) & ~3
+    ntw = (ntaps + 2 + 3) & ~3
+    items = nmodes * ((ntaps + 3) // 4) if os == 2 else nmodes * ntaps
+    nsl = min(1 if items >= _BLOCK_THREADS else _BLOCK_THREADS // items, _MAX_SLICES)
+    per = -(-S // nsl)
+    per += per & 1
+    nsl = -(-S // per)
+    ring = _RING * 2 * nmodes * segq
+    taps = 2 * nmodes * ntw
+    parts = 2 * nsl * nmodes * ntw
+    errors = 2 * S + 2 * S + 4
+    barriers = 2 * _RING + 2
+    return 4 * (ring + taps + parts + errors + barriers + 3 * npts)
+
+
+def check_block_launch(P, TrSyms, os, wx, block_size, spec):
+    """(S, nblocks, shared-memory bytes) of a B1 launch, or KernelLimit: the launcher's own rules.
+
+    Everything :func:`train_block_cuda` refuses apart from the tensors'
+    device and type, decided on the host from shapes and the spec alone, so
+    that ``backend="auto"`` can ask before it routes (``block_kernel_takes``).
+    """
+    S, nblocks = block_launch_shape(P, TrSyms, os, wx, block_size)
+    method_code(spec.method)
+    npts = 0
+    if spec.method == "rde":
+        _codebook_len(spec_rows(spec, wx.shape[0]))
+    elif (spec.method in DECISION_BLOCK_METHODS
+          and phops.grid_decision_info(spec.consts)[0] == "gen"):
+        npts = phops.gen_points(spec.consts).shape[0]
+    smem = block_smem_bytes(wx.shape[1], wx.shape[2], int(os), S, npts)
+    if smem > _SMEM_LIMIT:
+        raise KernelLimit("the trainer kernel needs %d bytes of shared memory for %d taps and "
+                          "blocks of %d, a CTA has %d; take a shorter block or backend 'block'"
+                          % (smem, wx.shape[2], S, _SMEM_LIMIT))
+    return S, nblocks, smem
+
+
+def _decision_args(spec, device, points):
+    """(kind code, d0, g0..g3, table pointer, npts, table) of a decision method's launch.
+
+    The constants of ``ops.phase.grid_consts`` in the alphabet's units; a
+    general alphabet has its (M, 3) table instead (``points`` if the caller
+    holds it on the card).
+    """
+    gc = phops.grid_consts(spec.consts, spec.method)
+    table = phops.points_tensor(spec.consts, device, points)
+    return (gc.code, gc.d0, *gc.g, None if table is None else table.data_ptr(),
+            0 if table is None else table.shape[0], table)
+
+
+def train_block_cuda(P, TrSyms, Niter, os, mu, wx, spec, adaptive=False, block_size=32,
+                     points=None):
     """Launch kernel B1; same contract as :func:`train_block_plain`.
 
     P: (2*nmodes, L) float32 CUDA planes; wx: (nout, nmodes, ntaps)
-    complex64 taps on the same device; ``spec`` an ``ErrSpec``.
+    complex64 taps on the same device; ``spec`` an ``ErrSpec``; ``points``
+    a general alphabet's table on the card for sbd, mddma and dd
+    (``ops.phase.points_tensor``; copied from the host if not given).
     Returns (err (nout, Niter*Ts) complex64, taps, mu (nout,) float32).
     """
     _build.require_cuda("train_block_cuda", P, dtype=torch.float32)
@@ -117,26 +186,25 @@ def train_block_cuda(P, TrSyms, Niter, os, mu, wx, spec, adaptive=False, block_s
     if wx.device != P.device:
         raise ValueError("train_block_cuda: taps and planes lie on different devices")
     nout, nmodes, ntaps = wx.shape
-    S, nblocks = block_launch_shape(P, TrSyms, os, wx, block_size)
+    S, nblocks, smem = check_block_launch(P, TrSyms, os, wx, block_size, spec)
     Ts = nblocks * S
     L = P.shape[-1]
     code = method_code(spec.method)
-    lib = _build.library()
-    smem = lib.qtt_train_block_smem(nmodes, nout, ntaps, os, S)
-    if smem > _SMEM_LIMIT:
-        raise ValueError("trainer needs %d bytes of shared memory" % smem)
     c = [0.0] * 4
-    d0 = lo = nm1 = 0.0
+    dargs = (0, 1.0, 0.0, 0.0, 0.0, 0.0, None, 0, None)
     codes, ncodes = None, 0
     if spec.method == "mcma":
         c = [x for pair in spec_rows(spec, nout) for x in pair] + [0.0] * (4 - 2 * nout)
     elif spec.method == "cma":
         c = [x for r in spec_rows(spec, nout) for x in (r, 0.0)] + [0.0] * (4 - 2 * nout)
     elif spec.method == "rde":
-        codes, ncodes = _codebook(spec_rows(spec, nout), P.device)
+        codes = torch.tensor(spec_rows(spec, nout), dtype=torch.float32, device=P.device)
+        ncodes = codes.shape[-1]
     else:
-        d0, lo, n = spec.consts
-        nm1 = float(n - 1)
+        dargs = _decision_args(spec, P.device, points)
+    lib = _build.library()
+    if lib.qtt_train_block_smem(nmodes, nout, ntaps, os, S, dargs[7]) != smem:
+        raise RuntimeError("block_smem_bytes and csrc/equaliser.cu block_layout disagree")
     K = nmodes * ntaps
     wr = wx.real.reshape(nout, K).clone(memory_format=torch.contiguous_format)
     wi = wx.imag.reshape(nout, K).clone(memory_format=torch.contiguous_format)
@@ -146,7 +214,7 @@ def train_block_cuda(P, TrSyms, Niter, os, mu, wx, spec, adaptive=False, block_s
     rc = lib.qtt_train_block(P.data_ptr(), nmodes, L, wr.data_ptr(), wi.data_ptr(),
                              mu_t.data_ptr(), err_r.data_ptr(), err_i.data_ptr(), nout,
                              ntaps, os, S, nblocks, int(Niter), code,
-                             *c, d0, lo, nm1, None if codes is None else codes.data_ptr(),
+                             *c, *dargs[:8], None if codes is None else codes.data_ptr(),
                              ncodes, int(bool(adaptive)), _build.stream_of(P))
     _build.check(rc, "train_block_cuda")
     train_block_cuda.launches += 1
@@ -157,10 +225,14 @@ def train_block_cuda(P, TrSyms, Niter, os, mu, wx, spec, adaptive=False, block_s
 train_block_cuda.launches = 0
 
 
-def train_block(P, TrSyms, Niter, os, mu, wx, spec, adaptive=False, block_size=32):
-    """Block-LMS training: the plain version on CPU tensors, kernel B1 on CUDA."""
-    fn = train_block_plain if P.device.type == "cpu" else train_block_cuda
-    return fn(P, TrSyms, Niter, os, mu, wx, spec, adaptive, block_size)
+def train_block(P, TrSyms, Niter, os, mu, wx, spec, adaptive=False, block_size=32, points=None):
+    """Block-LMS training: the plain version on CPU tensors, kernel B1 on CUDA.
+
+    ``points``: see :func:`train_block_cuda`; the plain version reads the host table.
+    """
+    if P.device.type == "cpu":
+        return train_block_plain(P, TrSyms, Niter, os, mu, wx, spec, adaptive, block_size)
+    return train_block_cuda(P, TrSyms, Niter, os, mu, wx, spec, adaptive, block_size, points)
 
 
 # ---------------------------------------------------------------------------
@@ -189,7 +261,7 @@ def train_seq_plain(P, TrSyms, Niter, os, mu, wx, symbols, method, adaptive=Fals
 
 
 def seq_launch_shape(P, TrSyms, os, wx):
-    """K = nmodes * ntaps of a B9 launch, or ValueError for what the kernel does not take.
+    """K = nmodes * ntaps of a B9 launch; ``KernelLimit`` for what the kernel does not take.
 
     Looks at shapes only. The kernel has an instance per taps per lane,
     ceil(K / 32) from 1 to 4, so K may not exceed 128.
@@ -200,8 +272,9 @@ def seq_launch_shape(P, TrSyms, os, wx):
                          % (tuple(P.shape), tuple(wx.shape)))
     K = nmodes * ntaps
     if K < 1 or K > _MAX_SEQ_K:
-        raise ValueError("the per-symbol trainer kernel holds %d taps per output mode, got "
-                         "%d x %d" % (_MAX_SEQ_K, nmodes, ntaps))
+        raise KernelLimit("the per-symbol trainer kernel holds %d taps per output mode "
+                          "(_MAX_SEQ_K), got %d x %d; take backend 'seq', or 'cuda_block'"
+                          % (_MAX_SEQ_K, nmodes, ntaps))
     if int(os) < 1:
         raise ValueError("oversampling %r" % (os,))
     if int(TrSyms) < 1 or P.shape[-1] < (int(TrSyms) - 1) * int(os) + ntaps:
@@ -215,7 +288,10 @@ def train_seq_cuda(P, TrSyms, Niter, os, mu, wx, symbols, method, adaptive=False
 
     Unlike the reference's kernel, which returns zeros for it
     (equaliser_pallas.py:17-18, 163), the error trace is the real one, as
-    ``train_equaliser_seq`` returns it.
+    ``train_equaliser_seq`` returns it. ``mu`` is a float or the (nout,)
+    steps an earlier launch returned: with a fixed step a training cut into
+    launches that hand taps and steps on equals the whole one bit for bit
+    (the adaptive rule also keeps the previous error, which starts anew).
     """
     _build.require_cuda("train_seq_cuda", P, dtype=torch.float32)
     _build.require_cuda("train_seq_cuda", wx, dtype=torch.complex64, contiguous=False)
@@ -230,10 +306,11 @@ def train_seq_cuda(P, TrSyms, Niter, os, mu, wx, symbols, method, adaptive=False
     sym_planes = torch.stack([syms.real, syms.imag]).contiguous()
     k = syms.shape[-1]
     if k > _MAX_CODES:
-        raise ValueError("symbols row of %d entries, the kernel holds %d" % (k, _MAX_CODES))
+        raise KernelLimit("symbols row of %d entries: the trainer kernels hold %d (_MAX_CODES); "
+                          "take backend 'seq' or 'block'" % (k, _MAX_CODES))
     wr = wx.real.reshape(nout, K).clone(memory_format=torch.contiguous_format)
     wi = wx.imag.reshape(nout, K).clone(memory_format=torch.contiguous_format)
-    mu_t = torch.full((nout,), mu, dtype=torch.float32, device=P.device)
+    mu_t = step_sizes(mu, nout, P.device)
     err_r = torch.empty((nout, Niter * TrSyms), dtype=torch.float32, device=P.device)
     err_i = torch.empty_like(err_r)
     rc = _build.library().qtt_train_seq(
@@ -322,7 +399,9 @@ def apply_filter_cuda(P, os, wx, dec=None):
         raise ValueError("planes of shape %s do not match taps %s"
                          % (tuple(P.shape), tuple(wx.shape)))
     if nout > _MAX_OUT:
-        raise ValueError("the filter kernel takes at most %d output modes" % _MAX_OUT)
+        raise ValueError("the filter kernel takes at most %d output modes per launch (_MAX_OUT), "
+                         "got %d; ops.equaliser.apply_filter filters them two at a time"
+                         % (_MAX_OUT, nout))
     L = P.shape[-1]
     if L < ntaps:
         raise ValueError("capture shorter than the filter")

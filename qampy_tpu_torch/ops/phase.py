@@ -5,13 +5,24 @@ Counterpart of ``qampy_tpu/ops/phase.py``: the numpy grid classification
 plain form of the BPS index search (``bps_idx``/``_select_angle_index``,
 phase.py:283-333) that the CUDA kernel in ``ops/phase_cuda.py`` is held
 against, with the two-stage search's fine offsets and distances
-(phase_pallas.py:447-478, 551-593). Only square grids are implemented;
-cross, rectangular and general alphabets are ROADMAP item A4b.
+(phase_pallas.py:447-478, 551-593). The distance to the nearest point has
+the reference's four forms (``_make_dist_fn``, phase_pallas.py:88-158):
+square and rectangular grids decide per axis, cross QAM takes the closer of
+two rectangle clamps, and a general alphabet of up to 256 points searches
+its points. The host probes that let a general alphabet's search run on a
+fitted uniform grid (phase.py:131-231) are here too.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
+
+from qampy_tpu_torch.ops._build import KernelLimit
+
+#: most points of a general alphabet that the searches take (reference chain.py:182)
+MAX_GEN_POINTS = 256
 
 
 def detect_square_grid(symbols):
@@ -97,55 +108,241 @@ def grid_decision_info(grid):
     return "sq", grid
 
 
-def square_grid(grid, what):
-    """The ``(d0, lo, n)`` of a square grid spec; other kinds are not ported yet."""
+def fit_uniform_grid(const, n=None):
+    """Least-squares uniform square-grid fit of an arbitrary alphabet (reference phase.py:131-154).
+
+    Returns the ``(d, lo, n)`` square-grid spec minimising the mean squared
+    per-axis quantisation error of the alphabet's coordinates, by the
+    reference's 61 x 41 parameter search.
+    """
+    const = np.asarray(const).reshape(-1)
+    if n is None:
+        n = int(np.ceil(np.sqrt(const.size)))
+    x = np.concatenate([const.real, const.imag]).astype(np.float64)
+    d0 = (x.max() - x.min()) / max(n - 1, 1)
+    best = None
+    for d in np.linspace(0.7 * d0, 1.3 * d0, 61):
+        los = (x.min() - 0.3 * d + np.linspace(0, 0.6 * d, 41))[:, None]
+        j = np.clip(np.round((x[None, :] - los) / d), 0, n - 1)
+        err = np.mean((x[None, :] - (los + j * d)) ** 2, axis=1)
+        k = int(np.argmin(err))
+        if best is None or err[k] < best[0]:
+            best = (float(err[k]), float(d), float(los[k, 0]))
+    return best[1], best[2], int(n)
+
+
+def _probe_metrics(const, grid_fit, L, angles, th_max, trials, snr_probe, seed):
+    """Per trial, the argmin over ``angles`` of the true and of the fitted-grid mean distance.
+
+    The probes' common body (reference phase.py:172-191, 209-228): L random
+    points of the alphabet with noise of amplitude ``snr_probe``, turned by
+    a random phase in [-th_max, th_max), rotated by every test angle.
+    """
+    d, lo, n = grid_fit
+    rng = np.random.default_rng(seed)
+    syms = const[rng.integers(0, const.size, L)]
+    noise = snr_probe * (rng.standard_normal(L) + 1j * rng.standard_normal(L))
+    for _ in range(trials):
+        th = rng.uniform(-th_max, th_max)
+        z = (syms + noise) * np.exp(1j * th)
+        zr = z[None, :] * np.exp(1j * angles)[:, None]
+        dtrue = np.min(np.abs(zr[:, :, None] - const[None, None, :]) ** 2, axis=-1).mean(axis=1)
+        qr = lo + d * np.clip(np.round((zr.real - lo) / d), 0, n - 1)
+        qi = lo + d * np.clip(np.round((zr.imag - lo) / d), 0, n - 1)
+        dfit = ((zr.real - qr) ** 2 + (zr.imag - qi) ** 2).mean(axis=1)
+        yield int(np.argmin(dtrue)), int(np.argmin(dfit))
+
+
+def coarse_grid_for_alphabet(const, Mtestangles=16, snr_probe=0.05, trials=32, seed=0):
+    """A fitted uniform grid for a general alphabet's COARSE search, or None (phase.py:157-194).
+
+    The coarse stage of the two-stage search needs a distance that tells
+    the phases apart, not the exact nearest point. The fit is accepted when,
+    over ``trials`` random true phases, the best of ``Mtestangles`` angles
+    by the fitted grid lies within one angle (cyclically) of the best by
+    the true alphabet in all trials but one; ring alphabets fail. Seeds and
+    trial counts are the reference's, so both packages accept the same alphabets.
+    """
+    const = np.asarray(const).reshape(-1)
+    fit = fit_uniform_grid(const)
+    angles = np.linspace(-np.pi / 4, np.pi / 4, Mtestangles, endpoint=False)
+    ok = 0
+    for a_true, a_fit in _probe_metrics(const, fit, 2048, angles, np.pi / 4, trials, snr_probe,
+                                        seed):
+        diff = abs(a_true - a_fit)
+        ok += min(diff, Mtestangles - diff) <= 1
+    return fit if ok >= trials - 1 else None
+
+
+def fine_grid_ok(const, grid_fit, Mtestangles=16, B=8, trials=16, snr_probe=0.05, seed=1):
+    """Whether the fitted grid is accurate enough for the FINE search (phase.py:197-231).
+
+    The fine stage sets the final phase: on 256 angles the fitted grid's
+    best must lie within one fine step, pi/2 / (Mtestangles * B), of the
+    true alphabet's in all trials but one.
+    """
+    const = np.asarray(const).reshape(-1)
+    na = 256
+    angles = np.linspace(-np.pi / 4, np.pi / 4, na, endpoint=False)
+    res = (np.pi / 2) / na
+    fine_step = (np.pi / 2) / (Mtestangles * B)
+    ok = sum(abs(a_true - a_fit) * res <= fine_step
+             for a_true, a_fit in _probe_metrics(const, grid_fit, 512, angles, np.pi / 8, trials,
+                                                 snr_probe, seed))
+    return bool(ok >= trials - 1)
+
+
+#: csrc/grid.cuh GridKind: square and rectangular grids share the per-axis decision
+KIND_CODE = {"sq": 0, "r": 0, "x": 1, "gen": 2}
+
+
+class GridConsts(NamedTuple):
+    """What a launch or a plain version needs of a grid spec (csrc/grid.cuh ``GridArgs``).
+
+    The one mapping from a grid spec to constants, for the phase searches
+    (reference ``_make_dist_fn``) and for the block trainer's decision
+    (``_make_block_err_decision``) alike. ``kind``: "sq", "r", "x" or "gen";
+    ``code`` its ``GridKind``. ``d0``: the level spacing (1 for gen). ``g``:
+    four floats in the alphabet's units, (g0, g1) the lowest level of the
+    real and of the imaginary axis, (g2, g3) the levels less one per axis
+    for "sq" and "r" and (n-1, c) for "x"; zeros for gen. ``points``: for
+    gen the (M, 3) float32 table of :func:`gen_points`, else None.
+    """
+    kind: str
+    code: int
+    d0: float
+    g: tuple
+    points: object
+
+    @property
+    def scale(self):
+        """The factor the searches fold into their rotation tables: 1/d0, and 1 for gen."""
+        return 1.0 / self.d0
+
+    @property
+    def scaled(self):
+        """``g`` in units of the spacing, as the searches take it: (g0/d0, g1/d0, g2, g3)."""
+        return (self.g[0] / self.d0, self.g[1] / self.d0, self.g[2], self.g[3])
+
+
+def gen_points(grid):
+    """The (M, 3) float32 table [2 re, 2 im, |s|^2] of a ("gen", sr, si) grid spec.
+
+    Computed in float64 and rounded once, as the reference folds its Python
+    floats into the trace (phase_pallas.py:151-157, equaliser_pallas.py:259).
+    Both the phase searches and the block trainer's decision read this table.
+    """
     kind, p = grid_decision_info(grid)
-    if kind != "sq":
-        raise NotImplementedError(
-            "%s: only square-grid constellations are ported; grid kind %r "
-            "(cross, rectangular or general alphabet) is ROADMAP item A4b"
-            % (what, kind))
-    return p
+    if kind != "gen":
+        raise ValueError("gen_points takes a general alphabet's grid spec, got kind %r" % kind)
+    sr, si = (np.asarray(x, dtype=np.float64) for x in p)
+    if sr.size > MAX_GEN_POINTS:
+        raise KernelLimit("a general alphabet of %d points: the searches and the block trainer's "
+                          "decision take at most %d (MAX_GEN_POINTS); the 'seq' and 'block' "
+                          "equaliser backends take any alphabet" % (sr.size, MAX_GEN_POINTS))
+    return np.stack([2.0 * sr, 2.0 * si, sr ** 2 + si ** 2], axis=1).astype(np.float32)
+
+
+def grid_consts(grid, what="bps"):
+    """The :class:`GridConsts` of a grid spec of any kind."""
+    kind, p = grid_decision_info(grid)
+    if kind == "sq":
+        d0, lo, n = p
+        g = (lo, lo, n - 1.0, n - 1.0)
+    elif kind == "r":
+        d0, lor, nr, loi, ni = p
+        g = (lor, loi, nr - 1.0, ni - 1.0)
+    elif kind == "x":
+        d0, lo, n, c = p
+        g = (lo, lo, n - 1.0, float(c))
+    elif kind == "gen":
+        return GridConsts(kind, KIND_CODE[kind], 1.0, (0.0,) * 4, gen_points(grid))
+    else:
+        raise ValueError("%s needs a constellation that detect_grid classifies, got %r"
+                         % (what, grid))
+    return GridConsts(kind, KIND_CODE[kind], d0, g, None)
+
+
+def points_tensor(grid, device, points=None):
+    """The gen table of ``grid`` for a kernel on ``device``, None for the analytic kinds.
+
+    A chain registers the table as a buffer when it is built and hands it
+    in as ``points``; a lone call copies it from the host.
+    """
+    if grid_decision_info(grid)[0] != "gen":
+        return None
+    if points is None:
+        return torch.as_tensor(gen_points(grid), device=device)
+    want = (len(grid[1]), 3)
+    if tuple(points.shape) != want or points.dtype != torch.float32 or points.device != device:
+        raise ValueError("the gen table of this alphabet is %s float32 on %s, got %s %s on %s"
+                         % (want, device, tuple(points.shape), points.dtype, points.device))
+    return points
 
 
 def bps_tables(testangles, grid):
-    """Rotation tables of the BPS search, pre-scaled by 1/d0 (host numpy f32).
+    """Rotation tables of the BPS search, pre-scaled for the grid (host numpy f32).
 
     The grid normalisation is folded into the tables, as in the reference
-    kernel (phase_pallas.py:255-259), so the search works in units of the
-    level spacing: rotate + normalise is four products.
+    kernel (phase_pallas.py:255-259), so the analytic searches work in units
+    of the level spacing: rotate + normalise is four products. A general
+    alphabet is searched in its own units (scale 1).
     """
-    d0 = square_grid(grid, "bps")[0]
+    scale = grid_consts(grid).scale
     ang = np.asarray(testangles, dtype=np.float64).reshape(-1)
-    return ((np.cos(ang) / d0).astype(np.float32),
-            (np.sin(ang) / d0).astype(np.float32))
+    return ((np.cos(ang) * scale).astype(np.float32),
+            (np.sin(ang) * scale).astype(np.float32))
 
 
 def bps_distances(er, ei, cos_t, sin_t, grid):
-    """Squared distance (units of d0^2) of each rotated sample to the grid.
+    """The search's distance of each rotated sample to the constellation.
 
     er/ei: (..., L) float32 planes; cos_t/sin_t: (A,) tables from
-    :func:`bps_tables`. Returns (..., L, A). Per axis the nearest level is
-    floor(u + 0.5) clamped to [0, n-1] (phase_pallas.py:109-119).
+    :func:`bps_tables`. Returns (..., L, A): the squared distance in units
+    of d0^2 for the analytic kinds, and for gen -max_k(2<z, s_k> - |s_k|^2),
+    the squared distance less |z|^2, which is the same at every angle.
     """
     return _rotated_distances(er, ei, cos_t, sin_t, grid)
 
 
+def _axis_distance(u, hi):
+    """u - clamp(floor(u + 0.5), 0, hi): the offset from the nearest of the levels 0..hi."""
+    return u - torch.clamp(torch.floor(u + 0.5), 0.0, hi)
+
+
 def _rotated_distances(er, ei, ca, sa, grid):
-    """Squared distance to the grid of (er + j ei) rotated by the pre-scaled (ca, sa).
+    """Distance to the constellation of (er + j ei) rotated by the pre-scaled (ca, sa).
 
     ca/sa broadcast against (..., L, 1): one angle table for all samples, or
-    one per sample. Every product and sum is rounded on its own.
+    one per sample. Every product and sum is rounded on its own, in the
+    order of the reference's ``_make_dist_fn`` and of the kernels B3 and B8.
     """
-    d0, lo, n = square_grid(grid, "bps")
-    c0 = lo / d0
+    gc = grid_consts(grid)
+    g = gc.scaled
     er = er.unsqueeze(-1)
     ei = ei.unsqueeze(-1)
-    ur = (er * ca - ei * sa) - c0
-    ui = (er * sa + ei * ca) - c0
-    fr = ur - torch.clamp(torch.floor(ur + 0.5), 0.0, n - 1.0)
-    fi = ui - torch.clamp(torch.floor(ui + 0.5), 0.0, n - 1.0)
-    return fr * fr + fi * fi
+    xr = er * ca - ei * sa
+    xi = er * sa + ei * ca
+    if gc.code == KIND_CODE["r"]:
+        fr = _axis_distance(xr - g[0], g[2])
+        fi = _axis_distance(xi - g[1], g[3])
+        return fr * fr + fi * fi
+    if gc.kind == "x":
+        # the cross is the union of two rectangles: the closer of the two clamps
+        nm1, cc, ccm = g[2], g[3], g[2] - g[3]
+        ur, ui = xr - g[0], xi - g[1]
+        rx, ry = torch.floor(ur + 0.5), torch.floor(ui + 0.5)
+        far, fai = ur - torch.clamp(rx, 0.0, nm1), ui - torch.clamp(ry, cc, ccm)
+        fbr, fbi = ur - torch.clamp(rx, cc, ccm), ui - torch.clamp(ry, 0.0, nm1)
+        return torch.minimum(far * far + fai * fai, fbr * fbr + fbi * fbi)
+    # gen: point by point from the host table, so that no (L, A, M) tensor exists
+    best = None
+    for a, b, c in gc.points.tolist():
+        t = xr * a
+        t += xi * b
+        t -= c
+        best = t if best is None else torch.maximum(best, t, out=best)
+    return best.neg_()
 
 
 def _select_angle_index(x, N2):
@@ -179,11 +376,12 @@ def fine_tables(Mtestangles, B, grid):
 
     B offsets delta_b = bvals_b / (B * Mtestangles) * pi/2, bvals =
     linspace(-B/2, B/2, B), span one step of the Mtestangles coarse grid.
-    Returns (cos_h, sin_h, d0f, ddf): cos/sin(delta_b) / d0 as host float32
-    (computed in float64, as the reference does), and the affine map of the
-    offset index, delta_b = d0f + ddf * b, as float32 values.
+    Returns (cos_h, sin_h, d0f, ddf): cos/sin(delta_b) times the grid's
+    table scale as host float32 (computed in float64, as the reference
+    does), and the affine map of the offset index, delta_b = d0f + ddf * b,
+    as float32 values.
     """
-    scale = 1.0 / square_grid(grid, "bps_fine")[0]
+    scale = grid_consts(grid, "bps_fine").scale
     bvals = np.linspace(-B / 2, B / 2, B)
     deltas = bvals / (B * Mtestangles) * np.pi / 2
     ddf = deltas[1] - deltas[0] if B > 1 else 0.0
@@ -193,7 +391,7 @@ def fine_tables(Mtestangles, B, grid):
 
 
 def bps_fine_distances(er, ei, ph1, cd, sd, grid):
-    """Squared distances (units of d0^2) at the per-sample angles ph1 + delta_b.
+    """The distances of :func:`bps_distances` at the per-sample angles ph1 + delta_b.
 
     er/ei/ph1: (..., L) float32; cd/sd: (B,) tables from :func:`fine_tables`.
     The angle comes from the angle-addition form, each product rounded on
@@ -206,11 +404,18 @@ def bps_fine_distances(er, ei, ph1, cd, sd, grid):
 
 
 def _window_near_ties(dist, N, rel):
-    """Positions [N, L-N) whose two best 2N-window sums (float64) lie within ``rel``."""
-    win = dist.double()[..., 1:, :].unfold(-2, 2 * N, 1).sum(-1)
-    best2 = torch.topk(win, 2, dim=-1, largest=False).values
+    """Positions [N, L-N) whose two best 2N-window sums (float64) lie within ``rel``.
+
+    ``rel`` is relative to the best window's sum of magnitudes, the scale of
+    a float32 sum's rounding: for the squared distances of the analytic
+    kinds that is the best sum itself; a general alphabet's score distances
+    carry each sample's -|z|^2, are mostly negative and nearly cancel.
+    """
+    d = dist.double()[..., 1:, :].unfold(-2, 2 * N, 1)
+    best2 = torch.topk(d.sum(-1), 2, dim=-1, largest=False)
+    scale = d.abs().sum(-1).gather(-1, best2.indices[..., :1])[..., 0]
     mask = torch.zeros(dist.shape[:-1], dtype=torch.bool, device=dist.device)
-    mask[..., N: dist.shape[-2] - N] = best2[..., 1] - best2[..., 0] <= rel * best2[..., 0]
+    mask[..., N: dist.shape[-2] - N] = best2.values[..., 1] - best2.values[..., 0] <= rel * scale
     return mask
 
 

@@ -5,6 +5,9 @@ As in ``ops/equaliser_cuda.py``: ``*_cuda`` launches the CUDA kernel of
 ``*_plain`` is its plain PyTorch version, and the bare name dispatches on
 the device of the input. ``*_cuda.launches`` counts kernel launches.
 
+B3 and B8 take every kind of constellation the reference's do (square,
+rectangular, cross, a general alphabet of up to 256 points).
+
 B3 (blind phase search) replaces ``qampy_tpu/ops/phase_pallas.py:bps_idx_pallas``,
 B4 (interp-rotate) ``interp_rotate_planes_pallas``, B5 (the pilot CPE's
 phase coefficients) ``cpe_coeffs_pallas``, B6 (rotation by a given
@@ -20,20 +23,29 @@ import torch
 from qampy_tpu_torch.ops import _build
 from qampy_tpu_torch.ops import phase as phops
 from qampy_tpu_torch.ops.phase import bps_idx_planes as bps_search_plain
-from qampy_tpu_torch.ops.phase import square_grid
 
 _SMEM_LIMIT = 227 * 1024
+
+
+def _grid_args(grid, device, points, what):
+    """The grid arguments of a B3 or B8 launch: (tuple for the C call, the table kept alive)."""
+    gc = phops.grid_consts(grid, what)
+    table = phops.points_tensor(grid, device, points)
+    npts = 0 if table is None else table.shape[0]
+    return (gc.code, *gc.scaled, None if table is None else table.data_ptr(), npts), table
 
 
 # ---------------------------------------------------------------------------
 # B3: blind phase search
 # ---------------------------------------------------------------------------
 
-def bps_search_cuda(er, ei, cos_t, sin_t, grid, N):
+def bps_search_cuda(er, ei, cos_t, sin_t, grid, N, points=None):
     """Launch kernel B3; same contract as :func:`bps_search_plain`.
 
     er/ei: (nmodes, L) float32 planes; cos_t/sin_t: (A,) float32 tables
-    from ``ops.phase.bps_tables``; ``grid`` a square grid spec.
+    from ``ops.phase.bps_tables``; ``grid`` a grid spec of any kind;
+    ``points`` a general alphabet's table on the card
+    (``ops.phase.points_tensor``; copied from the host if not given).
     Returns int32 (nmodes, L).
     """
     _build.require_cuda("bps_search_cuda", er, ei, cos_t, sin_t, dtype=torch.float32)
@@ -41,16 +53,17 @@ def bps_search_cuda(er, ei, cos_t, sin_t, grid, N):
         raise ValueError("bps_search_cuda takes two (nmodes, L) planes of one shape")
     if cos_t.dim() != 1 or cos_t.shape != sin_t.shape:
         raise ValueError("bps_search_cuda takes two (A,) angle tables")
-    d0, lo, n = square_grid(grid, "bps_search_cuda")
+    gargs, table = _grid_args(grid, er.device, points, "bps_search_cuda")
     lib = _build.library()
     A = cos_t.shape[0]
-    if lib.qtt_bps_smem(A, N) > _SMEM_LIMIT:
-        raise ValueError("%d angles with N=%d exceed one CTA's shared memory" % (A, N))
+    if lib.qtt_bps_smem(A, int(N), gargs[-1]) > _SMEM_LIMIT:
+        raise ValueError("%d angles with N=%d exceed one CTA's shared memory of %d bytes"
+                         % (A, N, _SMEM_LIMIT))
     nmodes, L = er.shape
     out = torch.empty((nmodes, L), dtype=torch.int32, device=er.device)
     rc = lib.qtt_bps_idx(er.data_ptr(), ei.data_ptr(), nmodes, L, cos_t.data_ptr(),
-                         sin_t.data_ptr(), A, int(N), lo / d0, float(n - 1),
-                         out.data_ptr(), _build.stream_of(er))
+                         sin_t.data_ptr(), A, int(N), *gargs, out.data_ptr(),
+                         _build.stream_of(er))
     _build.check(rc, "bps_search_cuda")
     bps_search_cuda.launches += 1
     return out
@@ -59,10 +72,14 @@ def bps_search_cuda(er, ei, cos_t, sin_t, grid, N):
 bps_search_cuda.launches = 0
 
 
-def bps_search(er, ei, cos_t, sin_t, grid, N):
-    """BPS angle-index search: the plain version on CPU tensors, kernel B3 on CUDA."""
-    fn = bps_search_plain if er.device.type == "cpu" else bps_search_cuda
-    return fn(er, ei, cos_t, sin_t, grid, N)
+def bps_search(er, ei, cos_t, sin_t, grid, N, points=None):
+    """BPS angle-index search: the plain version on CPU tensors, kernel B3 on CUDA.
+
+    ``points``: see :func:`bps_search_cuda`; the plain version reads the host table.
+    """
+    if er.device.type == "cpu":
+        return bps_search_plain(er, ei, cos_t, sin_t, grid, N)
+    return bps_search_cuda(er, ei, cos_t, sin_t, grid, N, points)
 
 
 # ---------------------------------------------------------------------------
@@ -358,19 +375,20 @@ def bps_fine_plain(er, ei, ph1, cd, sd, grid, N, d0f, ddf):
     return (ph1 + d0f) + ddf * idx.to(torch.float32)
 
 
-def bps_fine_cuda(er, ei, ph1, cd, sd, grid, N, d0f, ddf):
-    """Launch kernel B8; same contract as :func:`bps_fine_plain`."""
+def bps_fine_cuda(er, ei, ph1, cd, sd, grid, N, d0f, ddf, points=None):
+    """Launch kernel B8; same contract as :func:`bps_fine_plain` (``points``: as for B3)."""
     _build.require_cuda("bps_fine_cuda", er, ei, ph1, cd, sd, dtype=torch.float32)
     _check_fine(er, ei, ph1, cd, sd)
-    d0, lo, n = square_grid(grid, "bps_fine_cuda")
+    gargs, table = _grid_args(grid, er.device, points, "bps_fine_cuda")
     lib = _build.library()
     B = cd.shape[0]
-    if lib.qtt_bps_fine_smem(B, N) > _SMEM_LIMIT:
-        raise ValueError("%d offsets with N=%d exceed one CTA's shared memory" % (B, N))
+    if lib.qtt_bps_fine_smem(B, int(N), gargs[-1]) > _SMEM_LIMIT:
+        raise ValueError("%d offsets with N=%d exceed one CTA's shared memory of %d bytes"
+                         % (B, N, _SMEM_LIMIT))
     nmodes, L = er.shape
     out = torch.empty_like(ph1)
     rc = lib.qtt_bps_fine(er.data_ptr(), ei.data_ptr(), ph1.data_ptr(), nmodes, L,
-                          cd.data_ptr(), sd.data_ptr(), B, int(N), lo / d0, float(n - 1),
+                          cd.data_ptr(), sd.data_ptr(), B, int(N), *gargs,
                           float(d0f), float(ddf), out.data_ptr(), _build.stream_of(er))
     _build.check(rc, "bps_fine_cuda")
     bps_fine_cuda.launches += 1
@@ -380,19 +398,26 @@ def bps_fine_cuda(er, ei, ph1, cd, sd, grid, N, d0f, ddf):
 bps_fine_cuda.launches = 0
 
 
-def bps_fine(er, ei, ph1, cd, sd, grid, N, d0f, ddf):
+def bps_fine(er, ei, ph1, cd, sd, grid, N, d0f, ddf, points=None):
     """Fine BPS stage: the plain version on CPU tensors, kernel B8 on CUDA."""
-    fn = bps_fine_plain if er.device.type == "cpu" else bps_fine_cuda
-    return fn(er, ei, ph1, cd, sd, grid, N, d0f, ddf)
+    if er.device.type == "cpu":
+        return bps_fine_plain(er, ei, ph1, cd, sd, grid, N, d0f, ddf)
+    return bps_fine_cuda(er, ei, ph1, cd, sd, grid, N, d0f, ddf, points)
 
 
-def bps_twostage(er, ei, cos1, sin1, N1, cd, sd, grid, N, d0f, ddf):
+def bps_twostage(er, ei, cos1, sin1, N1, cd, sd, grid, N, d0f, ddf, grid_coarse=None,
+                 points=None):
     """Two-stage BPS phase (``bps_phase_twostage_pallas``, phase_pallas.py:483-526).
 
     B3 on the coarse tables cos1/sin1 (A1 angles over [-pi/4, pi/4)) with
     half-window N1, its phase ph1 = -pi/4 + (pi/2/A1) idx1, then B8 around
-    ph1 with half-window N. Returns the per-sample phase, before the unwrap.
+    ph1 with half-window N. ``grid_coarse`` gives the coarse stage a grid of
+    its own (a general alphabet's fitted grid; cos1/sin1 carry that grid's
+    scale); ``points`` is a general alphabet's table for whichever stage
+    searches it. Returns the per-sample phase, before the unwrap.
     """
     step1 = np.pi / 2 / cos1.shape[0]
-    ph1 = -np.pi / 4 + step1 * bps_search(er, ei, cos1, sin1, grid, N1).to(torch.float32)
-    return bps_fine(er, ei, ph1, cd, sd, grid, N, d0f, ddf)
+    idx1 = bps_search(er, ei, cos1, sin1, grid if grid_coarse is None else grid_coarse, N1,
+                      points)
+    ph1 = -np.pi / 4 + step1 * idx1.to(torch.float32)
+    return bps_fine(er, ei, ph1, cd, sd, grid, N, d0f, ddf, points)

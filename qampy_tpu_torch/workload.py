@@ -1,13 +1,17 @@
 """The benchmark workloads without JAX (counterpart of four pieces of ``bench.py``).
 
 Blind receiver: ``make_tx`` synthesises the dual-pol capture host-side in
-numpy (bench.py:24-87); ``ser_gate`` is the bench's correctness gate in
-torch (bench.py:127-154). Pilot receiver: ``make_pilot_tx`` states the
+numpy (bench.py:24-87), on M-QAM or on any alphabet (``warped_qam`` and
+``apsk_const`` are the reference's two, tools/genbench.py:27-54);
+``ser_gate`` is the correctness gate in torch: the bench's per-axis gate on
+a square grid (bench.py:127-154), the nearest-point gate on any other
+alphabet (tools/qam32_bench.py:54-98). Pilot receiver: ``make_pilot_tx`` states the
 pilot capture of ``bench.pilot_maketx`` (bench.py:318-397) in torch on any
 device; ``ber_gate`` is the bench's BER gate (bench.py:459-497).
 """
 from __future__ import annotations
 
+import itertools
 from typing import NamedTuple
 
 import numpy as np
@@ -15,6 +19,7 @@ import torch
 
 from qampy_tpu_torch.core import impairments
 from qampy_tpu_torch.core.metrics import decision_idx
+from qampy_tpu_torch.ops.phase import detect_square_grid
 from qampy_tpu_torch.signals import cal_pilot_idx, generate_mapping
 from qampy_tpu_torch.theory import cal_scaling_factor_qam, cal_symbols_qam
 from qampy_tpu_torch.utils import resolve_device
@@ -40,17 +45,57 @@ def rrc_response(L, os, fb, beta=0.1):
     return h / h.max()
 
 
-def make_tx(Nsym=2 ** 20, M=64, fb=25e9, seed=1, snr=35):
-    """Host-side TX synthesis: dual-pol M-QAM, RRC 2x oversampling, phase noise, AWGN, PMD.
+def warped_qam(M, k=0.18):
+    """Radially warped M-QAM, a grid-breaking geometric shaping (tools/genbench.py:27-37).
 
-    Same array as ``bench.make_tx`` for the same arguments (its shaped and
-    custom-alphabet options are not ported). Returns (capture (2, 2*Nsym)
-    complex64, transmitted symbols (2, Nsym) complex64, constellation).
+    c' = c (1 + k (|c|^2 - 1)), normalised to unit power: the outer points
+    pushed out, the inner pulled in, so that no uniform per-axis spacing
+    survives and ``detect_grid`` classifies it "gen".
+    """
+    c = cal_symbols_qam(M) / np.sqrt(cal_scaling_factor_qam(M))
+    w = c * (1 + k * (np.abs(c) ** 2 - 1))
+    return (w / np.sqrt(np.mean(np.abs(w) ** 2))).astype(np.complex64)
+
+
+def apsk_const(M=32):
+    """DVB-S2-style 32-APSK (tools/genbench.py:40-54): rings of 4, 12 and 16 points.
+
+    Radius ratios 1 : 2.84 : 5.27, normalised to unit power. A ring
+    alphabet fails the fitted-grid probe of the coarse search
+    (``ops.phase.coarse_grid_for_alphabet`` returns None), so both stages of
+    the two-stage search run on the alphabet itself.
+    """
+    if M != 32:
+        raise ValueError("apsk_const builds the 32-point alphabet, got M=%r" % (M,))
+    pts = [rad * np.exp(1j * (2 * np.pi * np.arange(n) / n + off))
+           for n, rad, off in ((4, 1.0, np.pi / 4), (12, 2.84, np.pi / 12), (16, 5.27, 0.0))]
+    c = np.concatenate(pts)
+    return (c / np.sqrt(np.mean(np.abs(c) ** 2))).astype(np.complex64)
+
+
+def make_tx(Nsym=2 ** 20, M=64, fb=25e9, seed=1, const=None, probs=None, snr=35):
+    """Host-side TX synthesis: dual-pol QAM, RRC 2x oversampling, phase noise, AWGN, PMD.
+
+    Same array as ``bench.make_tx`` for the same arguments: M-QAM, or a
+    caller's alphabet ``const``, drawn uniformly or with the probabilities
+    ``probs`` (the alphabet is then rescaled to unit mean symbol power).
+    Returns (capture (2, 2*Nsym) complex64, transmitted symbols (2, Nsym)
+    complex64, constellation).
     """
     rng = np.random.default_rng(seed)
-    const = (cal_symbols_qam(M) / np.sqrt(cal_scaling_factor_qam(M))).astype(np.complex64)
+    if const is not None:
+        const = np.asarray(const).astype(np.complex64).reshape(-1)
+        M = const.shape[0]
+    else:
+        const = (cal_symbols_qam(M) / np.sqrt(cal_scaling_factor_qam(M))).astype(np.complex64)
     coded = const
-    sym_idx = rng.integers(0, M, size=(2, Nsym))
+    if probs is not None:
+        probs = np.asarray(probs, dtype=np.float64)
+        probs = probs / probs.sum()
+        sym_idx = rng.choice(M, size=(2, Nsym), p=probs)
+        coded = (const / np.sqrt(np.sum(probs * np.abs(const) ** 2))).astype(np.complex64)
+    else:
+        sym_idx = rng.integers(0, M, size=(2, Nsym))
     syms = coded[sym_idx]
     # zero-insertion upsample + RRC shaping (frequency domain)
     os = 2
@@ -81,8 +126,28 @@ def make_tx(Nsym=2 ** 20, M=64, fb=25e9, seed=1, snr=35):
     return sig.astype(np.complex64), syms.astype(np.complex64), coded
 
 
+def nearest_idx(z, const, chunk=2 ** 18):
+    """Index of the nearest point of ``const`` for every element of the 1-D complex ``z``.
+
+    argmax_k 2<z, s_k> - |s_k|^2, which is argmin_k |z - s_k|^2, in chunks
+    of ``chunk`` samples. The gate of an alphabet without per-axis levels
+    (tools/qam32_bench.py:64-70).
+    """
+    c = torch.as_tensor(np.asarray(const).astype(np.complex64), device=z.device)
+    cr, ci, c2 = c.real, c.imag, c.real ** 2 + c.imag ** 2
+    return torch.cat([torch.argmax(2 * (zc.real[:, None] * cr + zc.imag[:, None] * ci) - c2, dim=-1)
+                      for zc in z.split(chunk)])
+
+
 def decide(z, const):
-    """Nearest constellation level per axis (round half to even, clamped), as complex."""
+    """The decided constellation point of every element of ``z``, as complex.
+
+    On a square grid the nearest level per axis (round half to even,
+    clamped), as the bench decides; on any other alphabet the nearest point.
+    """
+    if detect_square_grid(np.asarray(const)) is None:
+        c = torch.as_tensor(np.asarray(const).astype(np.complex64), device=z.device)
+        return c[nearest_idx(z.reshape(-1), const)].reshape(z.shape)
     levels = np.unique(np.asarray(const).real)
     d0, lo, n = float(levels[1] - levels[0]), float(levels[0]), int(levels.size)
 
@@ -111,20 +176,39 @@ def shared_decisions(a, b, const):
 
 
 def ser_gate(out, ref, const):
-    """Symbol error rate of the recovered symbols, as the bench gates it.
+    """Symbol error rate of the recovered symbols, as the reference's benches gate it.
 
     out: (nmodes, Lout) complex recovered symbols; ref: (nref, Nsym) complex
     transmitted symbols on the same device; const: the host constellation.
-    After a 200-sample trim at both ends, each output mode is decided on the
-    constellation's levels and compared against every transmitted mode at
-    delays 3-5 (the taps-centre offset) under each pi/2 rotation; a symbol
-    is wrong when the decision lies more than d0/4 from the reference. Each
-    mode keeps its best pairing; the result is the mean over modes.
+    After a 200-sample trim at both ends, each output mode is compared
+    against every transmitted mode at delays 3-5 (the taps-centre offset)
+    under each pi/2 rotation.
+
+    On a square grid (bench.py:127-154) the output is decided on the
+    constellation's levels, a symbol is wrong when the decision lies more
+    than d0/4 from the reference, each mode keeps its best pairing, and the
+    result is the mean over modes. On any other alphabet there are no
+    per-axis levels (tools/qam32_bench.py:54-98, tools/genbench.py:132-165):
+    output and reference are both decided to the nearest point, a symbol is
+    wrong when the indices differ, and the pairing of outputs with
+    transmitted modes is restricted to permutations, so that a chain that
+    emits one polarisation twice cannot pass.
     """
-    levels = np.unique(np.asarray(const).real)
-    d0 = float(levels[1] - levels[0])
     o = out[:, GATE_TRIM:-GATE_TRIM]
     L = o.shape[1]
+    if detect_square_grid(np.asarray(const)) is None:
+        ridx = {(rm, off): nearest_idx(ref[rm, GATE_TRIM + off: GATE_TRIM + off + L], const)
+                for rm in range(ref.shape[0]) for off in (3, 4, 5)}
+        ser_mr = []
+        for m in range(o.shape[0]):
+            decs = [nearest_idx(o[m] * (1j ** rot), const) for rot in range(4)]
+            ser_mr.append([min(float((dec != ridx[rm, off]).double().mean())
+                               for off in (3, 4, 5) for dec in decs)
+                           for rm in range(ref.shape[0])])
+        return min(float(np.mean([ser_mr[m][perm[m]] for m in range(o.shape[0])]))
+                   for perm in itertools.permutations(range(ref.shape[0]), o.shape[0]))
+    levels = np.unique(np.asarray(const).real)
+    d0 = float(levels[1] - levels[0])
     sers = []
     for m in range(o.shape[0]):
         decs = [decide(o[m] * (1j ** rot), const) for rot in range(4)]

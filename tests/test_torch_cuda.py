@@ -25,8 +25,9 @@ from qampy_tpu_torch.ops.phase_cuda import (bps_fine_cuda, bps_fine_plain, bps_s
                                             quarter_unwrap, rotate_cuda, rotate_plain,
                                             unwrap_derotate_cuda, unwrap_derotate_plain)
 from qampy_tpu_torch.ops.pilot_chain import make_pilot_rx_chain
-from qampy_tpu_torch.workload import (GATE_TRIM, ber_gate, decide, make_pilot_tx, make_tx,
-                                      ser_gate, shared_decisions)
+from qampy_tpu_torch.theory import cal_scaling_factor_qam, cal_symbols_qam
+from qampy_tpu_torch.workload import (GATE_TRIM, apsk_const, ber_gate, decide, make_pilot_tx,
+                                      make_tx, ser_gate, shared_decisions, warped_qam)
 
 pytestmark = pytest.mark.gpu
 
@@ -435,7 +436,7 @@ def test_b9_rde_longest_row(dev, capture):
     assert float((w_k - w_p).abs().max()) <= 1e-5
     torch.testing.assert_close(mu_k, mu_p, rtol=1e-4, atol=0)
     assert float((e_k - e_p).abs().max()) <= 1e-4
-    with pytest.raises(ValueError, match="the kernel holds 64"):
+    with pytest.raises(ValueError, match=r"hold 64 \(_MAX_CODES\)"):
         train_seq_cuda(P, 1000, 1, 2, 1e-3, w0,
                        teq._reshape_symbols(None, "rde", 256, np.complex64, 2), "rde", True)
 
@@ -524,3 +525,198 @@ def test_equaliser_entry_points_run_on_the_card_by_default(dev, capture):
     assert w.is_cuda and err.shape == (2, 4096) and bool(torch.isfinite(w.abs()).all())
     with pytest.raises(NotImplementedError, match="trains the complex methods"):
         teq.equalise_signal(E, 2, 1e-3, 64, Ntaps=17, method="mrde", backend="cuda_block")
+
+
+# ---------------------------------------------------------------------------
+# constellations that are not a square grid: the decisions of B1, B3 and B8
+# ---------------------------------------------------------------------------
+
+def _alphabet(key):
+    """(constellation, make_tx arguments, make_rx_chain arguments) of a grid test's alphabet."""
+    if key in ("x32", "x128"):
+        M = int(key[1:])
+        c = (cal_symbols_qam(M) / np.sqrt(cal_scaling_factor_qam(M))).astype(np.complex64)
+        return c, dict(M=M), dict(M=M)
+    if key == "r":
+        re, im = np.meshgrid(0.5 * (np.arange(8) - 3.5), 0.5 * (np.arange(4) - 1.5),
+                             indexing="ij")
+        c = (re + 1j * im).astype(np.complex64).reshape(-1)
+    else:
+        c = {"w64": warped_qam(64), "w256": warped_qam(256), "apsk": apsk_const(32)}[key]
+    return c, dict(const=c), dict(symbols=c)
+
+
+GRID_KEYS = ["r", "x32", "x128", "w64", "apsk", "w256"]
+GRID_KINDS = {"r": "r", "x32": "x", "x128": "x", "w64": "gen", "apsk": "gen", "w256": "gen"}
+
+
+def _alphabet_planes(dev, const, seed, L=2 ** 16):
+    """Planes of ``const`` on the card with a random-walk carrier phase and noise: (er, ei)."""
+    rng = np.random.default_rng(seed)
+    z = const[rng.integers(0, const.size, (2, L))] * np.exp(
+        1j * np.cumsum(rng.normal(scale=0.01, size=(2, L)), -1))
+    z = z + 0.045 * (rng.standard_normal((2, L)) + 1j * rng.standard_normal((2, L)))
+    return (torch.as_tensor(z.real.astype(np.float32), device=dev),
+            torch.as_tensor(z.imag.astype(np.float32), device=dev))
+
+
+def _tie_rule(grid):
+    """Near-tie band and allowed share: a general alphabet's scores carry -|z|^2 (chip_smoke)."""
+    return (1e-6, 2e-2) if tph.grid_decision_info(grid)[0] == "gen" else (1e-5, 1e-3)
+
+
+@pytest.mark.parametrize("A, N", [(64, 14), (16, 60)])
+@pytest.mark.parametrize("key", GRID_KEYS)
+def test_b3_grid_kinds(dev, key, A, N):
+    const = _alphabet(key)[0]
+    grid = tph.detect_grid(const)
+    assert tph.grid_decision_info(grid)[0] == GRID_KINDS[key]
+    er, ei = _alphabet_planes(dev, const, A + N)
+    ang = np.linspace(-np.pi / 4, np.pi / 4, A, endpoint=False, dtype=np.float32)
+    cos_t, sin_t = (torch.as_tensor(t, device=dev) for t in tph.bps_tables(ang, grid))
+    ref = bps_search_plain(er, ei, cos_t, sin_t, grid, N)
+    got = bps_search_cuda(er, ei, cos_t, sin_t, grid, N)
+    rel, share = _tie_rule(grid)
+    ties = tph.bps_near_ties(er, ei, cos_t, sin_t, grid, N, rel)
+    assert not bool(((got != ref) & ~ties).any())
+    assert float(ties.double().mean()) <= share
+    assert len(torch.unique(got)) > 1
+    # the table handed in from the card is the one copied from the host
+    pts = tph.points_tensor(grid, dev)
+    assert torch.equal(bps_search_cuda(er, ei, cos_t, sin_t, grid, N, pts), got)
+
+
+@pytest.mark.parametrize("key", GRID_KEYS)
+def test_b8_grid_kinds(dev, key):
+    const = _alphabet(key)[0]
+    grid = tph.detect_grid(const)
+    er, ei = _alphabet_planes(dev, const, 21)
+    ang = np.linspace(-np.pi / 4, np.pi / 4, 16, endpoint=False, dtype=np.float32)
+    cos1, sin1 = (torch.as_tensor(t, device=dev) for t in tph.bps_tables(ang, grid))
+    ph1 = -np.pi / 4 + np.pi / 32 * bps_search_cuda(er, ei, cos1, sin1, grid, 60).float()
+    cd, sd, d0f, ddf = tph.fine_tables(16, 8, grid)
+    cd, sd = torch.as_tensor(cd, device=dev), torch.as_tensor(sd, device=dev)
+    ref = bps_fine_plain(er, ei, ph1, cd, sd, grid, 14, d0f, ddf)
+    got = bps_fine_cuda(er, ei, ph1, cd, sd, grid, 14, d0f, ddf)
+    rel, share = _tie_rule(grid)
+    ties = tph.bps_fine_near_ties(er, ei, ph1, cd, sd, grid, 14, rel)
+    assert not bool(((got != ref) & ~ties).any())
+    assert float(ties.double().mean()) <= share
+
+
+def test_b3_b8_refuse_a_wrong_table(dev):
+    grid = tph.detect_grid(warped_qam(64))
+    er, ei = _alphabet_planes(dev, warped_qam(64), 2, L=4096)
+    ang = np.linspace(-np.pi / 4, np.pi / 4, 16, endpoint=False, dtype=np.float32)
+    cos_t, sin_t = (torch.as_tensor(t, device=dev) for t in tph.bps_tables(ang, grid))
+    with pytest.raises(ValueError, match="gen table"):
+        bps_search_cuda(er, ei, cos_t, sin_t, grid, 14, torch.zeros(32, 3, device=dev))
+    with pytest.raises(ValueError, match="gen table"):
+        bps_search_cuda(er, ei, cos_t, sin_t, grid, 14, torch.zeros(64, 3))
+
+
+@pytest.mark.parametrize("S", [64, 256])
+@pytest.mark.parametrize("method", ["sbd", "mddma", "dd"])
+@pytest.mark.parametrize("key", GRID_KEYS)
+def test_b1_grid_decisions(dev, key, method, S):
+    """8 blocks from the taps of an mcma stage: a decision is discontinuous, long runs part."""
+    const, txkw, _ = _alphabet(key)
+    E, _, _ = make_tx(2 ** 15, seed=5, **txkw)
+    P = torch.as_tensor(np.concatenate([E.real, E.imag]).astype(np.float32), device=dev)
+    w0 = torch.as_tensor(teq._init_taps(17, 2, 2, np.complex64), device=dev)
+    rows = np.tile(const, (2, 1))
+    first = teq.err_spec("mcma", teq.generate_symbols_for_eq_from_alphabet(
+        "mcma", const, np.complex64).repeat(2, axis=0))
+    _, w1, _ = train_block_cuda(P, 2 ** 14, 1, 2, 1.9e-3, w0, first, True, 256)
+    spec = teq.err_spec(method, rows)
+    args = (P, 8 * S, 1, 2, 1.9e-3, w1, spec, True, S)
+    e_p, w_p, mu_p = train_block_plain(*args)
+    got = train_block_cuda(*args)
+    assert float((got[1] - w_p).abs().max()) <= 1e-6
+    torch.testing.assert_close(got[2], mu_p, rtol=1e-5, atol=0)
+    assert float((got[0] - e_p).abs().max()) <= 1e-5
+    assert _same(got, train_block_cuda(*args, tph.points_tensor(spec.consts, dev)))
+
+
+@pytest.mark.parametrize("key, mode", [("x32", "single"), ("x32", "decimated16"),
+                                       ("w64", "twostage"), ("w64", "single"),
+                                       ("w64", "decimated16"), ("apsk", "twostage")])
+def test_grid_chain_on_card(dev, key, mode):
+    """A 2^16-symbol cross or general capture: launches, gate, tracking, card against CPU."""
+    const, txkw, sel = _alphabet(key)
+    E, syms, coded = make_tx(2 ** 16, seed=1, **txkw)
+    P = torch.as_tensor(np.concatenate([E.real, E.imag]).astype(np.float32), device=dev)
+    cfg = dict(Ntaps=17, os=2, methods=("mcma", "sbd"), mu=1.9e-3, bps_angles=64,
+               bps_N=12 if mode == "decimated16" else 14, block_size=256, TrSyms=2 ** 14,
+               bps_mode=mode, **sel)
+    counters = (train_block_cuda, apply_filter_cuda, bps_search_cuda, interp_rotate_cuda,
+                bps_fine_cuda, unwrap_derotate_cuda)
+    for fn in counters:
+        fn.launches = 0
+    chain = make_rx_chain(**cfg, device=dev)
+    (outr, outi), w = chain.planes_with_taps(P)
+    dec = mode == "decimated16"
+    assert [fn.launches for fn in counters] == [2, 1, 1, int(dec), int(mode == "twostage"),
+                                                int(not dec)]
+    if chain.gen_points is not None:
+        assert chain.gen_points.is_cuda
+    tr, ti = chain.tracking_planes(P, w)
+    assert torch.equal(tr, outr) and torch.equal(ti, outi)
+    out = torch.complex(outr, outi)
+    assert ser_gate(out, torch.as_tensor(syms, device=dev), coded) <= 1e-4
+    ref = make_rx_chain(**cfg, device="cpu").forward(torch.as_tensor(E))[:, GATE_TRIM:-GATE_TRIM]
+    assert shared_decisions(out.cpu()[:, GATE_TRIM:-GATE_TRIM], ref, coded) >= 0.999
+
+
+# ---------------------------------------------------------------------------
+# backend="auto" on the card, and a training cut into launches
+# ---------------------------------------------------------------------------
+
+def test_auto_trains_what_b1_refuses(dev):
+    """256-QAM's rde row of 67 entries, a block of 100 and a 20-symbol training go to "block"."""
+    E, _, _ = make_tx(2 ** 15, M=256, seed=5)
+    counters = (train_block_cuda, train_seq_cuda, apply_filter_cuda)
+
+    def launches(fn):
+        for c in counters:
+            c.launches = 0
+        out = fn()
+        return out, [c.launches for c in counters]
+    (w, err), n = launches(lambda: teq.equalise_signal(E, 2, 1e-3, 256, Ntaps=17, method="rde",
+                                                       TrSyms=4096))
+    assert n == [0, 0, 0] and w.is_cuda and bool(torch.isfinite(w.abs()).all())
+    w_b, err_b = teq.equalise_signal(E, 2, 1e-3, 256, Ntaps=17, method="rde", TrSyms=4096,
+                                     backend="block")
+    assert torch.equal(w, w_b) and torch.equal(err, err_b)
+    (out, w2, errs), n = launches(lambda: teq.dual_mode_equalisation(
+        E, 2, (1e-3, 1e-3), 256, Ntaps=17, methods=("mcma", "rde"), TrSyms=(2 ** 14, 4096),
+        adaptive_stepsize=(True, True)))
+    assert n == [1, 0, 1] and out.is_cuda and bool(torch.isfinite(out.abs()).all())
+    for kw in (dict(block_size=100), dict(TrSyms=20)):
+        (w3, _), n = launches(lambda: teq.equalise_signal(E, 2, 1e-3, 256, Ntaps=17,
+                                                          method="mcma", **kw))
+        assert n == [0, 0, 0] and w3.is_cuda
+    (w4, _), n = launches(lambda: teq.equalise_signal(E, 2, 1e-3, 256, Ntaps=17, method="mcma",
+                                                      TrSyms=4096))
+    assert n == [1, 0, 0]
+    with pytest.raises(ValueError, match=r"_MAX_CODES.*'block' or 'seq'"):
+        teq.equalise_signal(E, 2, 1e-3, 256, Ntaps=17, method="rde", TrSyms=4096,
+                            backend="cuda_block")
+    with pytest.raises(ValueError, match="multiple of 32"):
+        teq.equalise_signal(E, 2, 1e-3, 256, Ntaps=17, method="mcma", block_size=100,
+                            backend="cuda_block")
+
+
+@pytest.mark.parametrize("method", ["mcma", "rde"])
+def test_b9_cut_into_launches_equals_the_whole(dev, capture, method):
+    """With a fixed step, launches that hand taps and step on are the whole training, bit for bit."""
+    P = capture[3]
+    w0 = torch.as_tensor(teq._init_taps(17, 2, 2, np.complex64), device=dev)
+    syms = teq._reshape_symbols(None, method, 64, np.complex64, 2)
+    whole = train_seq_cuda(P, 5000, 1, 2, 1e-3, w0, syms, method, False)
+    w, mu, errs = w0, 1e-3, []
+    for start in range(0, 5000, 1536):
+        e, w, mu = train_seq_cuda(P[:, 2 * start:].contiguous(), min(1536, 5000 - start), 1, 2,
+                                  mu, w, syms, method, False)
+        errs.append(e)
+    assert _same(whole, (torch.cat(errs, dim=-1), w, mu))

@@ -350,9 +350,16 @@ class TestRaises:
                                 device="cpu")
 
     def test_block_kernel_refuses_a_cross_grid(self, capture):
-        with pytest.raises(NotImplementedError, match="A4b"):
-            teq.equalise_signal(capture[0], 2, 1e-3, 32, Ntaps=11, method="sbd",
-                                backend="cuda_block", device="cpu")
+        """cuda_block takes a cross grid: its plain version decides on the cross as block does."""
+        kw = dict(Ntaps=11, method="sbd", TrSyms=512, block_size=64, device="cpu")
+        w, err = teq.equalise_signal(capture[0], 2, 1e-3, 32, backend="cuda_block", **kw)
+        w_b, err_b = teq.equalise_signal(capture[0], 2, 1e-3, 32, backend="block", **kw)
+        assert float((w - w_b).abs().max()) <= 1e-6 and float((err - err_b).abs().max()) <= 1e-5
+        # what the kernel does refuse is an alphabet above 256 points without a grid
+        big = np.exp(2j * np.pi * np.arange(300) / 300) * (1 + np.arange(300) / 300)
+        with pytest.raises(ValueError, match="at most 256"):
+            teq.equalise_signal(capture[0], 2, 1e-3, 32, symbols=big.astype(np.complex64),
+                                backend="cuda_block", **kw)
 
     def test_avoid_cma_sing_checks(self, capture):
         with pytest.raises(ValueError, match="dual-pol"):

@@ -11,6 +11,7 @@ import torch
 from qampy_tpu.ops import equaliser as jeq
 from qampy_tpu_torch import convert
 from qampy_tpu_torch.ops import equaliser as teq
+from qampy_tpu_torch.ops import phase as tph
 from qampy_tpu_torch.theory import cal_scaling_factor_qam, cal_symbols_qam
 
 GENERATED = ("cma", "cma2", "sgncma", "sca", "cme", "mcma", "rde", "mrde", "sbd", "mddma", "dd",
@@ -200,9 +201,12 @@ class TestErrorFunctions:
         with pytest.raises(NotImplementedError, match="takes"):
             teq.err_spec("mrde", syms)
         cross = teq._reshape_symbols(None, "sbd", 32, np.complex64, 2)
-        with pytest.raises(NotImplementedError, match="A4b"):
-            teq.err_spec("sbd", cross)
-        assert not teq.block_kernel_takes("sbd", cross, 2)
+        assert teq.err_spec("sbd", cross).consts == tph.detect_grid(cross[0])
+        assert teq.block_kernel_takes("sbd", cross, 2)
+        big = np.tile(np.exp(2j * np.pi * np.arange(257) / 257) * (1 + np.arange(257) / 257), (2, 1))
+        with pytest.raises(ValueError, match="at most 256"):
+            teq.err_spec("sbd", big)
+        assert not teq.block_kernel_takes("sbd", big, 2)
         assert not teq.block_kernel_takes("mrde", syms, 2)
         assert not teq.block_kernel_takes("cma", syms, 3)
         assert teq.block_kernel_takes("rde", syms, 2)

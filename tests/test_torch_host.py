@@ -19,6 +19,7 @@ from qampy_tpu.core import impairments as jimp
 from qampy_tpu.core import metrics as jmet
 from qampy_tpu.ops import equaliser as jeq
 from qampy_tpu.ops import phase as jph
+from qampy_tpu.ops import phase_pallas as jpp
 from qampy_tpu.ops.equaliser_pallas import pallas_filter_group
 from qampy_tpu_torch import convert, signals, workload
 from qampy_tpu_torch import theory as tth
@@ -86,8 +87,16 @@ class TestGrid:
 
     @pytest.mark.parametrize("key", [32, 128, "apsk"])
     def test_non_square_grids_refused(self, key):
-        with pytest.raises(NotImplementedError, match="A4"):
-            tph.square_grid(tph.detect_grid(_alphabets()[key]), "test")
+        """The searches take every grid the reference searches and refuse only what it refuses."""
+        sc = tph.grid_consts(tph.detect_grid(_alphabets()[key]), "test")
+        assert sc.kind == {32: "x", 128: "x", "apsk": "gen"}[key]
+        assert sc.scale == jpp._make_dist_fn(jph.detect_grid(_alphabets()[key]))[1]
+        assert (sc.points is None) == (key != "apsk")
+        with pytest.raises(ValueError, match="classifies"):
+            tph.grid_consts(None, "test")
+        big = np.exp(2j * np.pi * np.arange(257) / 257) * (1 + np.arange(257) / 257)
+        with pytest.raises(ValueError, match="at most 256"):
+            tph.grid_consts(tph.detect_grid(big), "test")
 
     def test_bps_tables(self):
         g = tph.detect_grid(_alphabets()[64])
@@ -288,9 +297,16 @@ class TestPortBoundaries:
     @pytest.mark.parametrize("kwargs, item", [
         (dict(bps_mode="twostage-dec"), "Not to port"),
         (dict(methods=("cma", "mrde")), "takes"), (dict(methods=("mcma", "cme")), "takes"),
-        (dict(M=32), "A4"), (dict(M=128), "A4"), (dict(symbols=np.ones(16)), "A4")])
+        (dict(M=32), "x"), (dict(M=128), "x"), (dict(symbols=np.ones(16)), "gen"),
+        (dict(symbols=np.exp(2j * np.pi * np.arange(300) / 300)), "at most 256"),
+        (dict(symbols=np.ones(1)), "at least two points")])
     def test_unported_configurations_raise(self, kwargs, item):
-        with pytest.raises(NotImplementedError, match=item):
+        """What the port does not run raises; the constellations of the reference build."""
+        if item in ("x", "gen"):
+            assert make_rx_chain(**kwargs, device="cpu").backend_info["grid_kind"] == item
+            return
+        err = NotImplementedError if item in ("Not to port", "takes") else ValueError
+        with pytest.raises(err, match=item):
             make_rx_chain(**kwargs, device="cpu")
 
     def test_chain_is_a_module(self):
