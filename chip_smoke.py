@@ -129,7 +129,7 @@ from qampy_tpu_torch.ops.equaliser_cuda import (apply_filter_cuda, apply_filter_
                                                 chain_latencies, div_check, train_block_cuda,
                                                 train_block_plain, train_seq_cuda,
                                                 train_seq_plain)
-from qampy_tpu_torch.ops.phase_cuda import (bps_fine, bps_fine_cuda, bps_fine_plain,
+from qampy_tpu_torch.ops.phase_cuda import (bps_fine, bps_fine_cuda, bps_fine_plain, bps_plan,
                                             bps_search_cuda, bps_search_plain, cpe_coeffs,
                                             cpe_coeffs_cuda, cpe_coeffs_plain, interp_rotate,
                                             interp_rotate_cuda, interp_rotate_plain,
@@ -364,11 +364,13 @@ def trainer_bound(nmodes, nout, ntaps, os_, nsyms, niter, decide_ops=0):
 
 
 def trainer_build_report():
-    """What ptxas said of the trainers' instances, from the build's log: registers and spills."""
+    """What ptxas said of the trainers' and B3's instances, from the build's log: registers and
+    spills (B3 keeps its run's best sums and indices in registers)."""
     log = (_build.build_dir() / "build.log").read_text()
     entries = re.findall(r"Compiling entry function '(\S+)'.*?(\d+) bytes stack frame, (\d+) bytes "
                          r"spill stores, (\d+) bytes spill loads.*?Used (\d+) registers", log, re.S)
-    for kernel, name in (("train_seq_kernel", "B9"), ("train_block_kernel", "B1")):
+    for kernel, name in (("train_seq_kernel", "B9"), ("train_block_kernel", "B1"),
+                         ("bps_kernel", "B3")):
         mine = [(int(st), int(ss), int(sl), int(r)) for fn, st, ss, sl, r in entries if kernel in fn]
         require(mine, "no %s instance in the build log" % kernel)
         print("build: %s %s has %d instances, %d to %d registers, stack up to %d bytes, spill "
@@ -594,6 +596,7 @@ def b3_record(er, ei, cos_t, sin_t, grid, N, points, what, reps=(20, 5)):
     tie_share = float(ties.double().mean())
     off_tie = bool((differ & ~ties).any())
     kind = phops.grid_decision_info(grid)[0]
+    npts = len(grid[1]) if kind == "gen" else 0
     print("B3 bps_search (%s: grid %s, A=%d, N=%d): %s, %d positions differ, %s off near-ties; "
           "near-tie share %.2e (max %.0e)" % (what, kind, A, N, tuple(idx_k.shape),
                                               int(differ.sum()), "some" if off_tie else "none",
@@ -605,7 +608,8 @@ def b3_record(er, ei, cos_t, sin_t, grid, N, points, what, reps=(20, 5)):
                ms=device_ms(lambda: bps_search_cuda(er, ei, cos_t, sin_t, grid, N, points),
                             reps[0]),
                plain_ms=device_ms(lambda: bps_search_plain(er, ei, cos_t, sin_t, grid, N), reps[1]),
-               shape="grid %s, A=%d N=%d, 2 x %d samples" % (kind, A, N, L), grid=kind)
+               shape="grid %s, A=%d N=%d, 2 x %d samples, tiles of %d" % (
+                   kind, A, N, L, bps_plan(er.shape[0], L, N, npts).tile), grid=kind)
     return rec, idx_k
 
 

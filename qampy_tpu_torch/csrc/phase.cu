@@ -8,19 +8,32 @@
 //     rest with 0.
 //     Replaces qampy_tpu/ops/phase_pallas.py bps_idx_pallas (_bps_kernel,
 //     _make_dist_fn, _windowed_sums).
-//     Bound: arithmetic and shared-memory traffic (about 20 operations per
-//     (sample, angle) for an analytic distance, 5 per (sample, angle, point)
-//     for a general alphabet, and 2N adds per (sample, angle) for the
-//     windows). Design: one CTA per
-//     (mode, tile of T samples); the tile and its 2N-1 neighbours are staged
-//     in shared memory, then the whole (A x (T+2N-1)) distance table; each
-//     thread sums its windows from that table in float32 and keeps the first
-//     minimum. Tiles overlap by 2N-1 samples, so every window is exact
-//     wherever it falls and no state crosses CTAs. A general alphabet's
-//     (M, 3) table [2 re, 2 im, |s|^2] is a constant of the launch: the CTA
-//     stages it into shared memory and every thread walks it in the same
-//     order, so a point's read is a broadcast; the distance table does not
-//     grow with M.
+//     Bound: float32 instructions (every product and sum rounded on its own,
+//     so one instruction each: about 23 per (sample, angle) for the rotation
+//     and an analytic distance, 5 per (sample, angle, point) for a general
+//     alphabet), then the window sums' shared-memory loads. Design: one CTA
+//     of kBpsThreads threads per (mode, tile of T positions); each thread
+//     owns a run of R consecutive positions (T = kBpsThreads R; the launch
+//     plan bps_plan picks R from L so that the grid keeps ~2 CTAs per SM, at
+//     most 16, and 8 on a general alphabet, whose point loop gains more from
+//     CTAs per SM than from longer runs).
+//     The tile's T + 2N - 1 samples are staged once in shared memory; then,
+//     chunk by chunk of kBpsChunk angles, the CTA fills a table of T + 2N - 1
+//     slots, each one sample's distances at the chunk's angles (a thread
+//     takes one sample and its kBpsChunk rotations at a time; a general
+//     alphabet's points are restaged as float4 [2 re, 2 im, |s|^2, 0], one
+//     16-byte broadcast load serving the chunk's angles), and each thread
+//     sums the windows of its run: the run's first window in full, then
+//     sliding, s += (entering - leaving), so a run's R windows cost 2N +
+//     2(R-1) slot loads (16 bytes each, for all the chunk's angles) instead
+//     of 2N R; every run starts exact, so the rounding drift is bounded by
+//     R. The run's best sums and indices stay in registers across chunks
+//     (angles in increasing order, strict <: the first minimum wins), so
+//     shared memory does not grow with A, nor with the alphabet beyond its
+//     table. The table is padded by a slot every run (bps_pad), so lanes
+//     whose runs start R slots apart fall on distinct banks. Tiles overlap
+//     by 2N-1 samples and no state crosses CTAs; the indices leave through
+//     shared memory in coalesced stores.
 //
 // B4  qtt_interp_rotate: ph = a[i/dx] + b[i/dx]*(i%dx), out = E exp(sign j ph).
 //     Replaces qampy_tpu/ops/phase_pallas.py interp_rotate_planes_pallas
@@ -83,10 +96,11 @@
 //     bps_fine_pallas (_bps_fine_kernel). Bound: arithmetic and
 //     shared-memory traffic (a sincosf per sample, ~30 operations per
 //     (sample, offset) for the angle and distance, 2N adds per (sample,
-//     offset) for the windows). Design: B3's, one CTA per (mode, tile of
-//     kFineTile samples) staging the tile and its 2N-1 neighbours, but each
-//     staged sample carries its own angle, so the staging thread takes one
-//     sincosf and fills its column of the (B x W) distance table. Every
+//     offset) for the windows). Design: one CTA per (mode, tile of kFineTile
+//     samples, one per thread) staging the tile and its 2N-1 neighbours;
+//     each staged sample carries its own angle, so the staging thread takes
+//     one sincosf and fills its column of the (B x W) distance table, and
+//     each thread sums its own windows in full. Every
 //     product and sum is rounded on its own, as in the plain version.
 #include <cuda_runtime.h>
 #include <math.h>
@@ -95,7 +109,11 @@
 
 namespace {
 
-constexpr int kBpsTile = 128;     // decimated samples per CTA, one per thread
+constexpr int kBpsThreads = 128;  // B3: threads of a CTA, each owning a run of positions
+constexpr int kBpsMaxRun = 16;    // B3: positions of a run, at most
+constexpr int kBpsMaxRunGen = 8;  // B3: the same on a general alphabet
+constexpr int kBpsChunk = 4;      // B3: angles per pass over the tile
+constexpr int kBpsMinCtas = 256;  // B3: runs shrink until the grid has this many CTAs
 constexpr int kFineTile = 256;    // B8 samples per CTA, one per thread
 constexpr int kRotThreads = 256;
 constexpr int kCpeThreads = 1024;
@@ -177,61 +195,181 @@ __device__ __forceinline__ void stage_points(float* dst, const float* __restrict
     for (int i = threadIdx.x; i < 3 * npts; i += blockDim.x) dst[i] = src[i];
 }
 
+// B3: the place of staged sample or tile position u in the padded table, one
+// slot of padding every run of 2^sh (sh = 31 for runs of one: no padding), so
+// that lanes whose runs start R slots apart fall on distinct banks.
+__device__ __forceinline__ int bps_pad(int u, int sh) { return u + (u >> sh); }
+
+// B3: one slot of the distance table, a sample's distances at the chunk's angles
+struct alignas(sizeof(float) * kBpsChunk >= 16 ? 16 : sizeof(float) * kBpsChunk) BpsSlot {
+    float v[kBpsChunk];
+};
+
+// B3's launch: R positions per thread, a tile of T = kBpsThreads R positions
+// per CTA, kBpsChunk angles per pass, the CTA's shared-memory bytes (the gen
+// table as float4, the padded table of BpsSlot, the staged samples as
+// float2, in that order, each aligned) and the CTAs of the grid.
+// ops/phase_cuda.py bps_plan is the same rule.
+struct BpsPlan {
+    long long run, tile, chunk, smem, ctas;
+};
+
+BpsPlan bps_plan(int nmodes, long long L, int N, int npts) {
+    BpsPlan p;
+    p.run = npts > 0 ? kBpsMaxRunGen : kBpsMaxRun;
+    while (p.run > 1 &&
+           nmodes * ((L + kBpsThreads * p.run - 1) / (kBpsThreads * p.run)) < kBpsMinCtas)
+        p.run /= 2;
+    p.tile = kBpsThreads * p.run;
+    p.chunk = kBpsChunk;
+    const long long W = p.tile + 2LL * N - 1;
+    const int sh = p.run > 1 ? __builtin_ctzll(p.run) : 31;
+    p.smem = 16LL * npts + 8 * W + (long long)sizeof(BpsSlot) * (W + ((W - 1) >> sh));
+    p.ctas = nmodes * ((L + p.tile - 1) / p.tile);
+    return p;
+}
+
+// A general alphabet's distances of one sample at the chunk's kBpsChunk
+// rotations, in grid_dist<kGen>'s arithmetic: each float4 point, loaded once,
+// serves every angle.
+__device__ __forceinline__ void gen_dists(const float (&xr)[kBpsChunk],
+                                          const float (&xi)[kBpsChunk],
+                                          const float4* pts, int npts, float (&d)[kBpsChunk]) {
+    float best[kBpsChunk];
+#pragma unroll
+    for (int k = 0; k < kBpsChunk; ++k) best[k] = -INFINITY;
+    for (int p = 0; p < npts; ++p) {
+        const float4 q = pts[p];
+#pragma unroll
+        for (int k = 0; k < kBpsChunk; ++k)
+            best[k] = fmaxf(best[k], __fsub_rn(__fadd_rn(__fmul_rn(xr[k], q.x),
+                                                         __fmul_rn(xi[k], q.y)), q.z));
+    }
+#pragma unroll
+    for (int k = 0; k < kBpsChunk; ++k) d[k] = -best[k];
+}
+
+// The distance table of one chunk (angles ct[k], st[k] for k < na) for all W
+// staged samples: a thread takes one sample at a time and all its rotations,
+// and stores them as one slot.
 template <int KIND>
-__global__ void bps_kernel(const float* __restrict__ er, const float* __restrict__ ei,
-                           long long L, const float* __restrict__ cos_t,
-                           const float* __restrict__ sin_t, int A, int N, GridArgs g,
-                           const float* __restrict__ pts_g, int* __restrict__ out) {
-    extern __shared__ float sm[];
-    const int N2 = 2 * N;
-    const int W = kBpsTile + N2 - 1;
-    float* dist = sm;                 // (A, W)
-    float* ct = dist + A * W;         // (A,)
-    float* st = ct + A;               // (A,)
-    float* xr_s = st + A;             // (W,)
-    float* xi_s = xr_s + W;           // (W,)
-    float* pts = xi_s + W;            // (npts, 3), kGen only
-    const long long row = (long long)blockIdx.y * L;
-    const long long j0 = (long long)blockIdx.x * kBpsTile;
-    const long long g0 = j0 - N + 1;  // first sample of the tile's windows
+__device__ __forceinline__ void bps_fill(const float2* xs, int W, int sh,
+                                         const float* __restrict__ ct,
+                                         const float* __restrict__ st, int na, const GridArgs& g,
+                                         const float4* pts, BpsSlot* tab) {
+    float c[kBpsChunk], s[kBpsChunk];
+#pragma unroll
+    for (int k = 0; k < kBpsChunk; ++k) {
+        c[k] = k < na ? ct[k] : 0.f;
+        s[k] = k < na ? st[k] : 0.f;
+    }
+    constexpr int kUnroll = KIND == kGen ? 1 : 2;   // a point loop is long enough alone
+#pragma unroll kUnroll
+    for (int u = threadIdx.x; u < W; u += kBpsThreads) {
+        const float2 z = xs[u];
+        float xr[kBpsChunk], xi[kBpsChunk];
+        BpsSlot d;
+#pragma unroll
+        for (int k = 0; k < kBpsChunk; ++k) {
+            xr[k] = __fsub_rn(__fmul_rn(z.x, c[k]), __fmul_rn(z.y, s[k]));
+            xi[k] = __fadd_rn(__fmul_rn(z.x, s[k]), __fmul_rn(z.y, c[k]));
+        }
+        if constexpr (KIND == kGen) {
+            gen_dists(xr, xi, pts, g.npts, d.v);
+        } else {
+#pragma unroll
+            for (int k = 0; k < kBpsChunk; ++k)
+                d.v[k] = grid_dist<KIND>(xr[k], xi[k], g, nullptr);
+        }
+        tab[bps_pad(u, sh)] = d;
+    }
+}
 
-    for (int a = threadIdx.x; a < A; a += blockDim.x) {
-        ct[a] = cos_t[a];
-        st[a] = sin_t[a];
+// The window sums of the thread's run (positions p0 .. p0+run-1 of the tile,
+// run <= R) at the chunk's angles a0 + k, k < na, into the run's best sums and
+// indices. The first window is summed in full, the next ones slide.
+template <int R>
+__device__ __forceinline__ void bps_run_sums(const BpsSlot* tab, int sh, int p0, int run, int N2,
+                                             int a0, int na, float (&bs)[R], int (&bi)[R]) {
+    float s[kBpsChunk];
+#pragma unroll
+    for (int k = 0; k < kBpsChunk; ++k) s[k] = 0.f;
+    for (int n = 0; n < N2; ++n) {
+        const BpsSlot e = tab[bps_pad(p0 + n, sh)];
+#pragma unroll
+        for (int k = 0; k < kBpsChunk; ++k) s[k] += e.v[k];
     }
-    for (int u = threadIdx.x; u < W; u += blockDim.x) {
-        const long long s = g0 + u;
-        const bool in = s >= 0 && s < L;
-        xr_s[u] = in ? er[row + s] : 0.f;
-        xi_s[u] = in ? ei[row + s] : 0.f;
-    }
-    if (KIND == kGen) stage_points(pts, pts_g, g.npts);
-    __syncthreads();
-    for (int q = threadIdx.x; q < A * W; q += blockDim.x) {
-        const int a = q / W, u = q - a * W;
-        const float x = xr_s[u], y = xi_s[u];
-        const float xr = __fsub_rn(__fmul_rn(x, ct[a]), __fmul_rn(y, st[a]));
-        const float xi = __fadd_rn(__fmul_rn(x, st[a]), __fmul_rn(y, ct[a]));
-        dist[q] = grid_dist<KIND>(xr, xi, g, pts);
-    }
-    __syncthreads();
-
-    const long long j = j0 + threadIdx.x;
-    if (j >= L) return;
-    int best = 0;
-    if (j >= N && j < L - N) {
-        float bs = INFINITY;
-        for (int a = 0; a < A; ++a) {
-            const float* d = dist + a * W + threadIdx.x;
-            float acc = 0.f;
-            for (int n = 0; n < N2; ++n) acc += d[n];
-            if (acc < bs) {
-                bs = acc;
-                best = a;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+        if (r == run) break;
+        if (r > 0) {
+            const BpsSlot e = tab[bps_pad(p0 + r - 1 + N2, sh)], l = tab[bps_pad(p0 + r - 1, sh)];
+#pragma unroll
+            for (int k = 0; k < kBpsChunk; ++k) s[k] += e.v[k] - l.v[k];
+        }
+#pragma unroll
+        for (int k = 0; k < kBpsChunk; ++k) {
+            if (k < na && s[k] < bs[r]) {
+                bs[r] = s[k];
+                bi[r] = a0 + k;
             }
         }
     }
-    out[row + j] = best;
+}
+
+template <int KIND>
+__global__ void __launch_bounds__(kBpsThreads)
+    bps_kernel(const float* __restrict__ er, const float* __restrict__ ei, long long L,
+               const float* __restrict__ cos_t, const float* __restrict__ sin_t, int A, int N,
+               GridArgs g, const float* __restrict__ pts_g, int run, int* __restrict__ out) {
+    extern __shared__ float4 bps_sm[];
+    const int N2 = 2 * N, tile = kBpsThreads * run, W = tile + N2 - 1;
+    const int sh = run > 1 ? __ffs(run) - 1 : 31;
+    float4* pts = bps_sm;                                     // (npts,), kGen only
+    BpsSlot* tab = reinterpret_cast<BpsSlot*>(pts + g.npts);  // (bps_pad(W - 1, sh) + 1,)
+    float2* xs = reinterpret_cast<float2*>(tab + bps_pad(W - 1, sh) + 1);   // (W,) samples
+    const long long row = (long long)blockIdx.y * L;
+    const long long j0 = (long long)blockIdx.x * tile;
+    const long long s0 = j0 - N + 1;  // staged sample u is sample s0 + u of the row
+
+    if constexpr (KIND == kGen) {
+        for (int k = threadIdx.x; k < g.npts; k += kBpsThreads)
+            pts[k] = make_float4(pts_g[3 * k], pts_g[3 * k + 1], pts_g[3 * k + 2], 0.f);
+    }
+    for (int u = threadIdx.x; u < W; u += kBpsThreads) {
+        const long long s = s0 + u;
+        const bool in = s >= 0 && s < L;
+        xs[u] = make_float2(in ? er[row + s] : 0.f, in ? ei[row + s] : 0.f);
+    }
+    constexpr int R = KIND == kGen ? kBpsMaxRunGen : kBpsMaxRun;   // registers of a run
+    float bs[R];
+    int bi[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+        bs[r] = INFINITY;
+        bi[r] = 0;
+    }
+    const int p0 = threadIdx.x * run;
+    for (int a0 = 0; a0 < A; a0 += kBpsChunk) {
+        const int na = min(kBpsChunk, A - a0);
+        __syncthreads();  // the samples are staged, the previous chunk's sums are done
+        bps_fill<KIND>(xs, W, sh, cos_t + a0, sin_t + a0, na, g, pts, tab);
+        __syncthreads();
+        bps_run_sums(tab, sh, p0, run, N2, a0, na, bs, bi);
+    }
+    __syncthreads();
+    int* idx = reinterpret_cast<int*>(tab);   // the tile's indices, padded as the slots
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+        if (r == run) break;
+        const long long j = j0 + p0 + r;
+        idx[bps_pad(p0 + r, sh)] = j >= N && j < L - N ? bi[r] : 0;
+    }
+    __syncthreads();
+    for (int p = threadIdx.x; p < tile; p += kBpsThreads) {
+        const long long j = j0 + p;
+        if (j < L) out[row + j] = idx[bps_pad(p, sh)];
+    }
 }
 
 // (x + j y) exp(sign j ph), each product and sum rounded on its own
@@ -481,10 +619,15 @@ int set_smem(const void* fn, size_t bytes) {
 
 extern "C" {
 
-// npts: the points of a general alphabet (0 for the analytic kinds).
-long long qtt_bps_smem(int A, int N, int npts) {
-    const long long W = kBpsTile + 2LL * N - 1;
-    return 4 * (A * W + 2LL * A + 2 * W + 3LL * npts);
+// B3's launch plan (bps_plan) into plan[5]: run, tile, chunk, shared-memory
+// bytes, CTAs. npts: the points of a general alphabet (0 for the analytic kinds).
+void qtt_bps_plan(int nmodes, long long L, int N, int npts, long long* plan) {
+    const BpsPlan p = bps_plan(nmodes, L, N, npts);
+    plan[0] = p.run;
+    plan[1] = p.tile;
+    plan[2] = p.chunk;
+    plan[3] = p.smem;
+    plan[4] = p.ctas;
 }
 
 // kind: a GridKind; g0..g3: its constants in units of the spacing (grid.cuh
@@ -492,15 +635,18 @@ long long qtt_bps_smem(int A, int N, int npts) {
 int qtt_bps_idx(const float* er, const float* ei, int nmodes, long long L, const float* cos_t,
                 const float* sin_t, int A, int N, int kind, float g0, float g1, float g2,
                 float g3, const float* pts, int npts, int* out, void* stream) {
-    if (kind < kRect || kind > kGen || (kind == kGen) != (npts > 0) || (npts > 0 && !pts))
+    if (kind < kRect || kind > kGen || (kind == kGen) != (npts > 0) || (npts > 0 && !pts) ||
+        A < 1 || N < 0)
         return (int)cudaErrorInvalidValue;
-    const size_t smem = (size_t)qtt_bps_smem(A, N, npts);
+    if (nmodes == 0 || L == 0) return 0;
+    const BpsPlan p = bps_plan(nmodes, L, N, npts);
     const auto fn = QTT_BY_KIND(bps_kernel, kind);
-    const int rc = set_smem((const void*)fn, smem);
+    const int rc = set_smem((const void*)fn, (size_t)p.smem);
     if (rc) return rc;
     const GridArgs g = {kind, 1.f, g0, g1, g2, g3, npts};
-    const dim3 grid((unsigned)((L + kBpsTile - 1) / kBpsTile), (unsigned)nmodes);
-    fn<<<grid, kBpsTile, smem, (cudaStream_t)stream>>>(er, ei, L, cos_t, sin_t, A, N, g, pts, out);
+    const dim3 grid((unsigned)(p.ctas / nmodes), (unsigned)nmodes);
+    fn<<<grid, kBpsThreads, (size_t)p.smem, (cudaStream_t)stream>>>(er, ei, L, cos_t, sin_t, A, N,
+                                                                    g, pts, (int)p.run, out);
     return (int)cudaGetLastError();
 }
 

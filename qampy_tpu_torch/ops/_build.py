@@ -36,7 +36,7 @@ SIGNATURES = {
                            _I, _P]),
     "qtt_apply_filter_smem": (_LL, [_I, _I, _I, _I]),
     "qtt_apply_filter": (_I, [_P, _I, _LL, _P, _I, _I, _I, _LL, _P, _I, _LL, _P, _P]),
-    "qtt_bps_smem": (_LL, [_I, _I, _I]),
+    "qtt_bps_plan": (None, [_I, _LL, _I, _I, _P]),
     "qtt_bps_idx": (_I, [_P, _P, _I, _LL, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P, _I, _P, _P]),
     "qtt_interp_rotate": (_I, [_P, _P, _P, _P, _I, _LL, _LL, _I, _I, _P, _P, _P]),
     "qtt_apply_filter_frames": (_I, [_P, _I, _LL, _P, _P, _I, _I, _I, _I, _LL, _P, _P]),

@@ -17,11 +17,15 @@ phase) ``rotate_planes_pallas``, B7 (pi/2 unwrap and derotation)
 """
 from __future__ import annotations
 
+import ctypes
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
 from qampy_tpu_torch.ops import _build
 from qampy_tpu_torch.ops import phase as phops
+from qampy_tpu_torch.ops._build import KernelLimit
 from qampy_tpu_torch.ops.phase import bps_idx_planes as bps_search_plain
 
 _SMEM_LIMIT = 227 * 1024
@@ -39,6 +43,48 @@ def _grid_args(grid, device, points, what):
 # B3: blind phase search
 # ---------------------------------------------------------------------------
 
+#: csrc/phase.cu: threads of a B3 CTA, positions of a thread's run at most (on a square,
+#: rectangular or cross grid; on a general alphabet), angles per pass over the tile, and
+#: the least grid the runs shrink for (~2 CTAs per SM)
+BPS_THREADS, BPS_MAX_RUN, BPS_MAX_RUN_GEN, BPS_CHUNK, BPS_MIN_CTAS = 128, 16, 8, 4, 256
+
+
+class BpsPlan(NamedTuple):
+    """A B3 launch (csrc/phase.cu ``BpsPlan``).
+
+    ``run``: consecutive positions per thread; ``tile``: positions per CTA;
+    ``chunk``: angles per pass over the tile; ``smem``: shared-memory bytes
+    of a CTA; ``ctas``: CTAs of the grid, ``nmodes`` rows of tiles.
+    """
+    run: int
+    tile: int
+    chunk: int
+    smem: int
+    ctas: int
+
+
+def bps_plan(nmodes, L, N, npts=0):
+    """The :class:`BpsPlan` of B3 on (nmodes, L) planes with half-window N, on the host.
+
+    The run halves from ``BPS_MAX_RUN`` (``BPS_MAX_RUN_GEN`` on a general
+    alphabet, whose long point loop wants more CTAs per SM) while the grid
+    would have fewer than ``BPS_MIN_CTAS`` CTAs (down to one position per
+    thread), so that short rows still fill the card. A CTA holds a general alphabet's ``npts``
+    points as float4, a table of T + 2N - 1 slots of ``BPS_CHUNK`` floats,
+    padded by one slot every run, and the tile's T + 2N - 1 samples as
+    float2: nothing grows with the number of angles. The launcher holds
+    this against ``qtt_bps_plan`` of the built library.
+    """
+    run = BPS_MAX_RUN_GEN if npts else BPS_MAX_RUN
+    while run > 1 and nmodes * -(-L // (BPS_THREADS * run)) < BPS_MIN_CTAS:
+        run //= 2
+    tile = BPS_THREADS * run
+    W = tile + 2 * N - 1
+    pads = (W - 1) // run if run > 1 else 0
+    smem = 16 * npts + 8 * W + 4 * BPS_CHUNK * (W + pads)
+    return BpsPlan(run, tile, BPS_CHUNK, smem, nmodes * -(-L // tile))
+
+
 def bps_search_cuda(er, ei, cos_t, sin_t, grid, N, points=None):
     """Launch kernel B3; same contract as :func:`bps_search_plain`.
 
@@ -51,15 +97,22 @@ def bps_search_cuda(er, ei, cos_t, sin_t, grid, N, points=None):
     _build.require_cuda("bps_search_cuda", er, ei, cos_t, sin_t, dtype=torch.float32)
     if er.dim() != 2 or er.shape != ei.shape:
         raise ValueError("bps_search_cuda takes two (nmodes, L) planes of one shape")
-    if cos_t.dim() != 1 or cos_t.shape != sin_t.shape:
-        raise ValueError("bps_search_cuda takes two (A,) angle tables")
+    if cos_t.dim() != 1 or cos_t.shape != sin_t.shape or cos_t.shape[0] < 1:
+        raise ValueError("bps_search_cuda takes two (A,) angle tables, A >= 1")
+    if int(N) < 0:
+        raise ValueError("bps_search_cuda takes a half-window N >= 0, got %r" % (N,))
     gargs, table = _grid_args(grid, er.device, points, "bps_search_cuda")
+    A, (nmodes, L) = cos_t.shape[0], er.shape
+    plan = bps_plan(nmodes, L, int(N), gargs[-1])
+    if plan.smem > _SMEM_LIMIT:
+        raise KernelLimit("B3 needs %d bytes of shared memory for N=%d, a CTA has %d"
+                          % (plan.smem, N, _SMEM_LIMIT))
     lib = _build.library()
-    A = cos_t.shape[0]
-    if lib.qtt_bps_smem(A, int(N), gargs[-1]) > _SMEM_LIMIT:
-        raise ValueError("%d angles with N=%d exceed one CTA's shared memory of %d bytes"
-                         % (A, N, _SMEM_LIMIT))
-    nmodes, L = er.shape
+    built = (ctypes.c_longlong * len(plan))()
+    lib.qtt_bps_plan(nmodes, L, int(N), gargs[-1], ctypes.addressof(built))
+    if tuple(built) != plan:
+        raise RuntimeError("bps_plan and csrc/phase.cu bps_plan disagree: %s, %s"
+                           % (plan, tuple(built)))
     out = torch.empty((nmodes, L), dtype=torch.int32, device=er.device)
     rc = lib.qtt_bps_idx(er.data_ptr(), ei.data_ptr(), nmodes, L, cos_t.data_ptr(),
                          sin_t.data_ptr(), A, int(N), *gargs, out.data_ptr(),

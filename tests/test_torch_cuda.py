@@ -19,15 +19,17 @@ from qampy_tpu_torch.ops.equaliser_cuda import (apply_filter_cuda, apply_filter_
                                                 chain_latencies, div_check, train_block_cuda,
                                                 train_block_plain, train_seq_cuda,
                                                 train_seq_plain)
-from qampy_tpu_torch.ops.phase_cuda import (bps_fine_cuda, bps_fine_plain, bps_search_cuda,
-                                            bps_search_plain, cpe_coeffs_cuda, cpe_coeffs_plain,
-                                            interp_rotate_cuda, interp_rotate_plain,
-                                            quarter_unwrap, rotate_cuda, rotate_plain,
-                                            unwrap_derotate_cuda, unwrap_derotate_plain)
+from qampy_tpu_torch.ops.phase_cuda import (bps_fine_cuda, bps_fine_plain, bps_plan,
+                                            bps_search_cuda, bps_search_plain, cpe_coeffs_cuda,
+                                            cpe_coeffs_plain, interp_rotate_cuda,
+                                            interp_rotate_plain, quarter_unwrap, rotate_cuda,
+                                            rotate_plain, unwrap_derotate_cuda,
+                                            unwrap_derotate_plain)
 from qampy_tpu_torch.ops.pilot_chain import make_pilot_rx_chain
 from qampy_tpu_torch.theory import cal_scaling_factor_qam, cal_symbols_qam
 from qampy_tpu_torch.workload import (GATE_TRIM, apsk_const, ber_gate, decide, make_pilot_tx,
                                       make_tx, ser_gate, shared_decisions, warped_qam)
+from test_torch_bps_launch import kernel_order_search
 
 pytestmark = pytest.mark.gpu
 
@@ -613,6 +615,60 @@ def test_b3_b8_refuse_a_wrong_table(dev):
         bps_search_cuda(er, ei, cos_t, sin_t, grid, 14, torch.zeros(32, 3, device=dev))
     with pytest.raises(ValueError, match="gen table"):
         bps_search_cuda(er, ei, cos_t, sin_t, grid, 14, torch.zeros(64, 3))
+
+
+# B3's tiles, runs and angle chunks at the edges that a tile of one position per thread
+# never met: (alphabet, modes, L, A, N)
+B3_EDGES = {
+    "L not a multiple of the tile": ("sq", 2, 2 ** 16 + 37, 64, 12),
+    "L shorter than a tile": ("sq", 1, 100, 16, 14),
+    "L = 2N: all zeros": ("sq", 2, 28, 64, 14),
+    "L < 2N: all zeros": ("sq", 2, 17, 8, 14),
+    "N = 0": ("sq", 2, 3000, 16, 0),
+    "tile boundaries at N and L - N": ("sq", 1, 5120, 16, 128),
+    "run boundaries at N and L - N": ("sq", 2, 2 ** 18, 16, 16),
+    "A = 256, N = 60": ("sq", 2, 2 ** 14, 256, 60),
+    "A = 256, N = 60, full-rate runs": ("sq", 2, 2 ** 18, 256, 60),
+    "A = 61, not a multiple of the chunk": ("sq", 2, 2 ** 18, 61, 14),
+    "A = 3, less than a chunk": ("sq", 2, 5000, 3, 14),
+    "A = 1": ("sq", 2, 5000, 1, 14),
+    **{"full-rate runs, grid %s" % k: (k, 2, 2 ** 18, 64, 14) for k in GRID_KEYS},
+    "decimated runs, grid w64": ("w64", 2, 2 ** 16, 64, 12),
+}
+
+
+@pytest.mark.parametrize("case", list(B3_EDGES))
+def test_b3_tiles_runs_and_chunks(dev, case):
+    """B3 equals, bit for bit, a float32 model of its own summation order (run-reseeded
+    sliding window sums) and its plain version off near-ties; two launches are bit-equal."""
+    key, nmodes, L, A, N = B3_EDGES[case]
+    if key == "sq":
+        grid, er, ei = _qam_planes(dev, L + A, L)
+    else:
+        grid = tph.detect_grid(_alphabet(key)[0])
+        er, ei = _alphabet_planes(dev, _alphabet(key)[0], L + A, L)
+    er, ei = er[:nmodes].contiguous(), ei[:nmodes].contiguous()
+    ang = np.linspace(-np.pi / 4, np.pi / 4, A, endpoint=False, dtype=np.float32)
+    cos_t, sin_t = (torch.as_tensor(t, device=dev) for t in tph.bps_tables(ang, grid))
+    got = bps_search_cuda(er, ei, cos_t, sin_t, grid, N)
+    assert got.shape == (nmodes, L) and got.dtype == torch.int32
+    npts = len(grid[1]) if tph.grid_decision_info(grid)[0] == "gen" else 0
+    run = bps_plan(nmodes, L, N, npts).run
+    assert torch.equal(got, kernel_order_search(er, ei, cos_t, sin_t, grid, N, run))
+    assert torch.equal(got, bps_search_cuda(er, ei, cos_t, sin_t, grid, N))
+    ref = bps_search_plain(er, ei, cos_t, sin_t, grid, N)
+    if L <= 2 * N or N == 0 or A == 1:
+        assert not bool(got.any()) and not bool(ref.any())
+        return
+    if er.numel() * A * 2 * N > 2 ** 31:
+        return      # the near-tie mask unfolds every window in float64: 128 GB here
+    rel, share = _tie_rule(grid)
+    if A > 64:
+        share = 1e-2    # 256 angles lie pi/512 apart: the best two windows tie more often
+    ties = tph.bps_near_ties(er, ei, cos_t, sin_t, grid, N, rel)
+    assert not bool(((got != ref) & ~ties).any())
+    assert float(ties.double().mean()) <= share
+    assert not bool(got[:, :N].any()) and not bool(got[:, L - N:].any())
 
 
 @pytest.mark.parametrize("S", [64, 256])
