@@ -9,13 +9,18 @@ result line):
 1. device: a CUDA card must be present (no CPU fallback); prints its name
    and ``nvidia-smi``'s name and power limit;
 2. build: compiles the kernels (B1-B9, B2's frame entry and the latency
-   probe) from ``qampy_tpu_torch/csrc``, one ``nvcc`` per source; then the
-   probe (``csrc/probe.cu``): the card's latencies of a dependent add, a
-   shuffle and add, rde's register lookup and a CTA barrier, from which the
-   chain bounds of the two trainers are reckoned, and B9's straight-line
-   division against ``__fdiv_rn`` on 2^22 operand pairs (none may differ);
+   probe) from ``qampy_tpu_torch/csrc``, one ``nvcc`` per source, and fails
+   on a register spill in any instance of B1, B2, B3 or B9; then the probe
+   (``csrc/probe.cu``): the card's latencies of a dependent add, a shuffle
+   and add, rde's register lookup and a CTA barrier, from which the chain
+   bounds of the two trainers are reckoned, B9's straight-line division
+   against ``__fdiv_rn`` on 2^22 operand pairs (none may differ), and the
+   JAX package's cost probes asked of the H100 (K5: an empty launch, a copy
+   of the pilot capture at two thread and CTA counts, an argmin over 64
+   candidates, complex64 to planes), each beside its byte bound;
 3. blind kernels: B1-B4 against their plain PyTorch versions on the card, at
-   the blind path's shapes, with the stated tolerance;
+   the blind path's shapes, with the stated tolerance (B2, at every path's
+   shapes: two launches bit-equal, its launch plan printed beside its time);
 4. blind main path: ``workload.make_tx(2**20)`` through ``RxChain.planes``
    with the bench configuration; SER gate <= 1e-5, launch counts B1=2, B2=1,
    B3=1, B4=1 for that one call, and agreement with the plain chain on the
@@ -126,7 +131,8 @@ from qampy_tpu_torch.ops.chain import (TWOSTAGE_B, TWOSTAGE_N1, cma_singularity_
                                        decimated_derotation_inputs, make_rx_chain)
 from qampy_tpu_torch.ops.equaliser_cuda import (apply_filter_cuda, apply_filter_frames_cuda,
                                                 apply_filter_frames_plain, apply_filter_plain,
-                                                chain_latencies, div_check, train_block_cuda,
+                                                chain_latencies, div_check, filter_plan,
+                                                train_block_cuda,
                                                 train_block_plain, train_seq_cuda,
                                                 train_seq_plain)
 from qampy_tpu_torch.ops.phase_cuda import (bps_fine, bps_fine_cuda, bps_fine_plain, bps_plan,
@@ -221,6 +227,12 @@ OPS_TRAIN_TAP = 16       # a tap's complex multiply-add in z and in the update, 
 OPS_TRAIN_ERR = 10       # the error and the step-size rule, per training sample
 B1_THREADS = 288         # B1's CTA: 256 computing threads and the producer warp
 DIV_PAIRS = 2 ** 22      # operand pairs of the division check
+# K5: the pilot capture's planes (244 frames of 2 x 65,536 symbols at os 2), the frame
+# entry's grids before this design (480 rows x 256 tiles) and with it (240 frames x 52
+# tiles), and probe_pallas_overhead.build_expand's argmin (A = 64, 2 x 2^21 samples)
+K5_PLANES = (4, 31_981_568)
+K5_COPY_CTAS = (122_880, 12_480)
+K5_ARGMIN = (64, 2 * 2 ** 21)
 OPS_BPS_SEARCH = 9       # per sample and angle: rotate 6, running window 2, compare 1
 # the distance per sample and angle: per axis decide 6 and offset 1, then squares and sum 3
 # (square and rectangular: 17). Cross, as grid_dist<kCross> computes it: the offset's
@@ -364,13 +376,15 @@ def trainer_bound(nmodes, nout, ntaps, os_, nsyms, niter, decide_ops=0):
 
 
 def trainer_build_report():
-    """What ptxas said of the trainers' and B3's instances, from the build's log: registers and
-    spills (B3 keeps its run's best sums and indices in registers)."""
+    """What ptxas said of the trainers', B3's and B2's instances, from the build's log: registers
+    and spills (B3 keeps its run's best sums and indices in registers, B2 its run's sums and
+    window)."""
     log = (_build.build_dir() / "build.log").read_text()
     entries = re.findall(r"Compiling entry function '(\S+)'.*?(\d+) bytes stack frame, (\d+) bytes "
                          r"spill stores, (\d+) bytes spill loads.*?Used (\d+) registers", log, re.S)
     for kernel, name in (("train_seq_kernel", "B9"), ("train_block_kernel", "B1"),
-                         ("bps_kernel", "B3")):
+                         ("bps_kernel", "B3"), ("apply_filter_kernel", "B2"),
+                         ("apply_filter_frames_kernel", "B2 frames")):
         mine = [(int(st), int(ss), int(sl), int(r)) for fn, st, ss, sl, r in entries if kernel in fn]
         require(mine, "no %s instance in the build log" % kernel)
         print("build: %s %s has %d instances, %d to %d registers, stack up to %d bytes, spill "
@@ -408,7 +422,75 @@ def probe_phase(dev, card):
           "size's operands (a in (1e-7, 2e-3), b in (1, 1.5)), %d of %d on normal operands"
           % (differ[0], DIV_PAIRS, differ[1], DIV_PAIRS))
     require(differ == [0, 0], "B9's division rounds unlike __fdiv_rn")
+    k5_probes(dev, card)
     return lat
+
+
+def k5_probes(dev, card):
+    """Phase 2: the JAX package's cost probes asked again of the H100 (K5), beside byte bounds.
+
+    ``tools/probe_pallas_overhead.py``'s questions: the launch latency of an
+    empty kernel; a copy over the pilot capture's planes at 256 and 1,024
+    threads per CTA and at the frame entry's old and new CTA counts (the cost
+    of a CTA); an argmin over A candidates per sample (its reduce and
+    write). ``tools/probe_interleave.py``'s: complex64 samples written as
+    float32 planes in a kernel, against the port's ``planes`` (real, imag,
+    cat). ``csrc/probe.cu``; nothing on a path runs these.
+    """
+    lib = _build.library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    n = 1000
+    t_dev = device_ms(lambda: _build.check(lib.qtt_probe_empty(n, stream), "probe_empty"), 3) / n
+    torch.cuda.synchronize()
+    h0 = time.perf_counter()
+    _build.check(lib.qtt_probe_empty(n, stream), "probe_empty")
+    t_host = (time.perf_counter() - h0) / n * 1e3
+    torch.cuda.synchronize()
+    print("K5 empty kernel: %.2f us per launch on the card back to back, %.2f us to enqueue one "
+          "from C [%s]" % (t_dev * 1e3, t_host * 1e3, card))
+    numel = K5_PLANES[0] * K5_PLANES[1]
+    src = torch.randn(numel, device=dev)
+    dst = torch.empty_like(src)
+    t_b = bound(2 * nbytes(src), 0)["bound_ms"]
+    for threads in (256, 1024):
+        for ctas in K5_COPY_CTAS:
+            def copy(threads=threads, ctas=ctas):
+                _build.check(lib.qtt_probe_copy(src.data_ptr(), dst.data_ptr(), numel, threads,
+                                                ctas, stream), "probe_copy")
+            copy()
+            require(torch.equal(dst, src), "the copy probe did not copy")
+            ms = device_ms(copy, 5)
+            print("K5 copy of the pilot capture's planes %s (%d MB each way), %d threads x %d "
+                  "CTAs: %.4f ms, bound %.4f ms by bytes (%.1f%%), %.1f ns per CTA [%s]"
+                  % (K5_PLANES, nbytes(src) >> 20, threads, ctas, ms, t_b, 100 * t_b / ms,
+                     ms * 1e6 / ctas, card))
+    del src, dst
+    A, ns = K5_ARGMIN
+    x = torch.randn(ns, device=dev)
+    idx = torch.empty(ns, dtype=torch.int32, device=dev)
+
+    def argmin():
+        _build.check(lib.qtt_probe_argmin(x.data_ptr(), idx.data_ptr(), ns, A, stream),
+                     "probe_argmin")
+    argmin()
+    require(torch.equal(idx, torch.where(x < 0, A - 1, 0).to(torch.int32)),
+            "the argmin probe is wrong")
+    b = bound(nbytes(x, idx), 2 * A * ns)
+    ms = device_ms(argmin, 20)
+    print("K5 argmin over A = %d candidates of %d samples: %.4f ms, bound %.4f ms by %s [%s]"
+          % (A, ns, ms, b["bound_ms"], b["bound_by"], card))
+    z = torch.complex(x[:ns // 2], x[ns // 2:]).reshape(2, -1)
+    out = torch.empty((4, z.shape[1]), device=dev)
+
+    def deint():
+        _build.check(lib.qtt_probe_deinterleave(torch.view_as_real(z).data_ptr(), out.data_ptr(),
+                                                2, z.shape[1], stream), "probe_deinterleave")
+    deint()
+    require(torch.equal(out, eqops.planes(z)), "the deinterleave probe is wrong")
+    b = bound(2 * nbytes(out), 0)["bound_ms"]
+    print("K5 complex64 (2, %d) to float32 planes: kernel %.4f ms, the port's planes() %.4f ms, "
+          "bound %.4f ms by bytes [%s]" % (z.shape[1], device_ms(deint, 20),
+                                           device_ms(lambda: eqops.planes(z), 20), b, card))
 
 
 def seq_chain_cycles(lat, K, method):
@@ -566,21 +648,34 @@ def tie_rule(grid):
     return (TIE_REL_GEN, TIES_MAX_GEN) if gen else (TIE_REL, TIES_MAX)
 
 
+def plan_text(plan):
+    """A B2 launch plan as printed beside its times."""
+    return ("plan run %d, tile %d, chunk %d, %d threads, segment %d, %d B shared, %d CTAs"
+            % tuple(plan))
+
+
 def b2_record(P, os_, w, dec, what, shape):
-    """B2 against its plain version, with or without the stride-``dec`` side output."""
+    """B2 against its plain version, with or without the stride-``dec`` side output; two
+    launches bit-equal; the launch plan beside its time."""
     plain = apply_filter_plain(P, os_, w, dec)
     kern = apply_filter_cuda(P, os_, w, dec)
     outs_p, outs_k = (plain, kern) if dec else ((plain,), (kern,))
+    again = apply_filter_cuda(P, os_, w, dec)
+    same = all(torch.equal(a, b) for a, b in zip(outs_k, again if dec else (again,)))
     rms = float(outs_p[0].pow(2).mean().sqrt())
     d = max(float((k - q).abs().max()) for k, q in zip(outs_k, outs_p))
-    print("B2 apply_filter (%s): out %s%s max|d| %.3e (tol %.0e x rms %.3f)"
-          % (what, tuple(outs_k[0].shape),
-             ", dec %s" % (tuple(outs_k[1].shape),) if dec else "", d, TOL_FILTER_REL, rms))
+    plan = filter_plan(w.shape[1], w.shape[0], w.shape[2], os_, outs_k[0].shape[-1])
+    print("B2 apply_filter (%s): out %s%s max|d| %.3e (tol %.0e x rms %.3f), two launches "
+          "bit-equal: %s; %s" % (what, tuple(outs_k[0].shape),
+                                 ", dec %s" % (tuple(outs_k[1].shape),) if dec else "", d,
+                                 TOL_FILTER_REL, rms, same, plan_text(plan)))
     require(all(k.shape == q.shape for k, q in zip(outs_k, outs_p)), "B2 output shapes differ")
     require(d <= TOL_FILTER_REL * rms, "B2 disagrees with its plain version (%s)" % what)
+    require(same, "two B2 launches differ (%s)" % what)
     rec = dict(**filter_bound(P, w, *outs_k), err=d,
                ms=device_ms(lambda: apply_filter_cuda(P, os_, w, dec), 50),
-               plain_ms=device_ms(lambda: apply_filter_plain(P, os_, w, dec), 10), shape=shape)
+               plain_ms=device_ms(lambda: apply_filter_plain(P, os_, w, dec), 10),
+               shape="%s; %s" % (shape, plan_text(plan)))
     rec["library_ms"] = filter_library(P, os_, w, outs_k[0])
     return rec, outs_k
 
@@ -1053,6 +1148,8 @@ def check_pilot_kernels(chain, st, card):
     # plain filter, one frame at a time
     offs = chain.frame_offsets(P, eqsh)
     got = apply_filter_frames_cuda(P, chain.os, taps, offs, F)
+    same = torch.equal(got, apply_filter_frames_cuda(P, chain.os, taps, offs, F))
+    d_modes = (offs[1] - offs[0]).abs()
     wv = torch.zeros((n, n * n, chain.Ntaps), dtype=taps.dtype, device=P.device)
     for i in range(n):
         wv[i, i * n:(i + 1) * n] = taps[i]
@@ -1064,21 +1161,26 @@ def check_pilot_kernels(chain, st, card):
         d_f.append(float((got[:, :, f] - ref.reshape(2, n, F)).abs().max()))
         rms = max(rms, float(ref.pow(2).mean().sqrt()))
     print("B2 frames apply_filter_frames: %s max|d| %.3e over all %d frames, %.3e over the "
-          "first %d, against the virtual-input form (tol %.0e x rms %.3f)"
-          % (tuple(got.shape), max(d_f), len(d_f), max(d_f[:nr]), nr, TOL_FILTER_REL, rms))
+          "first %d, against the virtual-input form (tol %.0e x rms %.3f); two launches "
+          "bit-equal: %s; the output modes' windows %d-%d samples apart"
+          % (tuple(got.shape), max(d_f), len(d_f), max(d_f[:nr]), nr, TOL_FILTER_REL, rms, same,
+             int(d_modes.min()), int(d_modes.max())))
     require(max(d_f) <= TOL_FILTER_REL * rms, "B2's frame entry disagrees with the plain form")
+    require(same, "two launches of B2's frame entry differ")
     for path, o, d in (("pilot", offs, max(d_f)),
                        ("pilot return_phase", offs[:, :nr].contiguous(), max(d_f[:nr]))):
         fargs = (P, chain.os, taps, o, F)
         nf = o.shape[1]
         # each input read once: the span of the capture that the frames' windows cover
         span = int(o.max() - o.min()) + chain.fr_len
+        plan = filter_plan(n, n, chain.Ntaps, chain.os, F, nf)
+        print("B2 frames (%s, %d frames): %s" % (path, nf, plan_text(plan)))
         rec["B2 frames", path] = dict(
             **bound(4 * 2 * n * span + nbytes(taps, o) + 4 * 2 * n * nf * F,
                     OPS_FILTER_TAP * n * chain.Ntaps * n * nf * F),
             err=d, ms=device_ms(lambda: apply_filter_frames_cuda(*fargs), 20),
             plain_ms=device_ms(lambda: apply_filter_frames_plain(*fargs), 3),
-            shape="%d frames" % nf)
+            shape="%d frames; %s" % (nf, plan_text(plan)))
         rec["B2 frames", path]["library_ms"] = frames_library(
             P, chain.os, taps, o, chain.fr_len, got[:, :, :nf])
 
@@ -1373,20 +1475,8 @@ def equaliser_phases(dev, card, seq_check, lat):
 
     # B2 at the path's shape, with each path's taps
     for path in ("equaliser seq", "equaliser block"):
-        w = taps[path][0]
-        out_p = apply_filter_plain(P, 2, w)
-        out_k = apply_filter_cuda(P, 2, w)
-        rms = float(out_p.pow(2).mean().sqrt())
-        d_out = float((out_k - out_p).abs().max())
-        print("B2 apply_filter (%s): %s max|d| %.3e (tol %.0e x rms %.3f)"
-              % (path, tuple(out_k.shape), d_out, TOL_FILTER_REL, rms))
-        require(out_k.shape == out_p.shape and d_out <= TOL_FILTER_REL * rms,
-                "B2 disagrees with its plain version on the %s path" % path)
-        rec["B2", path] = dict(**filter_bound(P, w, out_k), err=d_out,
-                               ms=device_ms(lambda: apply_filter_cuda(P, 2, w), 50),
-                               plain_ms=device_ms(lambda: apply_filter_plain(P, 2, w), 10),
-                               shape="2 x 2^19 samples in, no side output")
-        rec["B2", path]["library_ms"] = filter_library(P, 2, w, out_k)
+        rec["B2", path], _ = b2_record(P, 2, taps[path][0], None, path,
+                                       "2 x 2^19 samples in, no side output")
     print_times(rec, card)
     return rec, path_launches
 

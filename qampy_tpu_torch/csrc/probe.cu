@@ -13,6 +13,16 @@
 // without bank conflicts and independent fused multiply-adds, in SM cycles
 // per warp instruction. It replaces no TPU kernel:
 // the chain bounds in PERF.md are reckoned from its numbers.
+//
+// The cost probes of the JAX package (tools/probe_pallas_overhead.py,
+// tools/probe_interleave.py), asked again of the H100 (chip_smoke.py phase
+// 2): qtt_probe_empty launches empty kernels (the launch latency);
+// qtt_probe_copy copies planes with a given number of CTAs and threads (the
+// cost of a CTA, the frame filter's old and new grids); qtt_probe_argmin
+// forms A candidates per sample and keeps the first least (the reduce and
+// write that build_expand isolates); qtt_probe_deinterleave writes complex64
+// samples as float32 planes (the layout question of probe_interleave.py).
+// They measure and feed no path.
 #include <cuda_runtime.h>
 
 namespace {
@@ -135,6 +145,50 @@ __global__ void latency_kernel(float* __restrict__ out, const float* __restrict_
     if (v == 123.456f && p == 77) out[0] = v;
 }
 
+__global__ void empty_kernel() {}
+
+// CTA b copies float4 [b per, (b + 1) per) of n4; the rest of n after 4 n4 by CTA 0.
+__global__ void copy_kernel(const float4* __restrict__ src, float4* __restrict__ dst, long long n4,
+                            long long per, const float* __restrict__ s1, float* __restrict__ d1,
+                            long long n) {
+    const long long lo = blockIdx.x * per, hi = min(n4, lo + per);
+    for (long long i = lo + threadIdx.x; i < hi; i += blockDim.x) dst[i] = src[i];
+    if (blockIdx.x == 0)
+        for (long long i = 4 * n4 + threadIdx.x; i < n; i += blockDim.x) d1[i] = s1[i];
+}
+
+// out[i] = the first a of the least x[i] * (a + 1), a < A
+__global__ void argmin_kernel(const float* __restrict__ x, int* __restrict__ out, long long n,
+                              int A) {
+    for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+         i += (long long)gridDim.x * blockDim.x) {
+        const float v = x[i];
+        float best = v;
+        int at = 0;
+        for (int a = 1; a < A; ++a) {
+            const float c = v * (float)(a + 1);
+            if (c < best) {
+                best = c;
+                at = a;
+            }
+        }
+        out[i] = at;
+    }
+}
+
+// (nmodes, L) complex64 samples to (2 nmodes, L) float32 planes
+__global__ void deinterleave_kernel(const float2* __restrict__ z, float* __restrict__ planes,
+                                    int nmodes, long long L) {
+    const long long n = nmodes * L;
+    for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+         i += (long long)gridDim.x * blockDim.x) {
+        const float2 v = z[i];
+        const long long m = i / L, k = i - m * L;
+        planes[m * L + k] = v.x;
+        planes[(nmodes + m) * L + k] = v.y;
+    }
+}
+
 }  // namespace
 
 extern "C" {
@@ -147,6 +201,35 @@ int qtt_probe_latency(float* out, const float* in, int iters, int threads, void*
     if (threads < 32 || threads > 1024 || threads % 32 || iters < 1)
         return (int)cudaErrorInvalidValue;
     latency_kernel<<<1, threads, 0, (cudaStream_t)stream>>>(out, in, iters);
+    return (int)cudaGetLastError();
+}
+
+int qtt_probe_empty(int n, void* stream) {
+    for (int i = 0; i < n; ++i) empty_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
+    return (int)cudaGetLastError();
+}
+
+// n floats from src to dst (both 16-byte aligned) by `ctas` CTAs of `threads`.
+int qtt_probe_copy(const float* src, float* dst, long long n, int threads, int ctas,
+                   void* stream) {
+    if (threads < 32 || threads > 1024 || ctas < 1 || n < 0) return (int)cudaErrorInvalidValue;
+    const long long n4 = n / 4, per = (n4 + ctas - 1) / ctas;
+    copy_kernel<<<ctas, threads, 0, (cudaStream_t)stream>>>(
+        reinterpret_cast<const float4*>(src), reinterpret_cast<float4*>(dst), n4, per, src, dst,
+        n);
+    return (int)cudaGetLastError();
+}
+
+int qtt_probe_argmin(const float* x, int* out, long long n, int A, void* stream) {
+    if (A < 1) return (int)cudaErrorInvalidValue;
+    argmin_kernel<<<132 * 16, 256, 0, (cudaStream_t)stream>>>(x, out, n, A);
+    return (int)cudaGetLastError();
+}
+
+int qtt_probe_deinterleave(const float* z, float* planes, int nmodes, long long L,
+                           void* stream) {
+    deinterleave_kernel<<<132 * 16, 256, 0, (cudaStream_t)stream>>>(
+        reinterpret_cast<const float2*>(z), planes, nmodes, L);
     return (int)cudaGetLastError();
 }
 

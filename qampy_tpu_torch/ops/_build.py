@@ -34,7 +34,7 @@ SIGNATURES = {
                              _I, _F, _F, _F, _F, _I, _F, _F, _F, _F, _F, _P, _I, _P, _I, _I, _P]),
     "qtt_train_seq": (_I, [_P, _I, _LL, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                            _I, _P]),
-    "qtt_apply_filter_smem": (_LL, [_I, _I, _I, _I]),
+    "qtt_filter_plan": (None, [_I, _I, _I, _I, _LL, _I, _P]),
     "qtt_apply_filter": (_I, [_P, _I, _LL, _P, _I, _I, _I, _LL, _P, _I, _LL, _P, _P]),
     "qtt_bps_plan": (None, [_I, _LL, _I, _I, _P]),
     "qtt_bps_idx": (_I, [_P, _P, _I, _LL, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P, _I, _P, _P]),
@@ -52,6 +52,10 @@ SIGNATURES = {
     "qtt_div_check": (_I, [_P, _P, _I, _P, _P]),
     "qtt_probe_values": (_I, []),
     "qtt_probe_latency": (_I, [_P, _P, _I, _I, _P]),
+    "qtt_probe_empty": (_I, [_I, _P]),
+    "qtt_probe_copy": (_I, [_P, _P, _LL, _I, _I, _P]),
+    "qtt_probe_argmin": (_I, [_P, _P, _LL, _I, _P]),
+    "qtt_probe_deinterleave": (_I, [_P, _P, _I, _LL, _P]),
     "qtt_error_string": (ctypes.c_char_p, [_I]),
 }
 

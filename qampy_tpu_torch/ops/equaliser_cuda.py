@@ -18,6 +18,9 @@ straight-line division against ``__fdiv_rn``.
 """
 from __future__ import annotations
 
+import ctypes
+from typing import NamedTuple
+
 import torch
 
 from qampy_tpu_torch.ops import _build
@@ -387,6 +390,100 @@ def apply_filter_plain(P, os, wx, dec=None):
     return out, out[:, ::dec].contiguous()
 
 
+#: csrc/equaliser.cu: threads of a CTA per output mode, taps per step, the outputs per thread
+#: that each entry's plan takes (in order: it shrinks the run while the grid has fewer than
+#: ``FILTER_MIN_CTAS`` CTAs), and the largest grid
+FILTER_THREADS, FILTER_CHUNK, FILTER_MIN_CTAS = 128, 4, 264
+FILTER_FRAME_RUNS, FILTER_PLANES_RUNS = (10, 6, 2), (6, 2)
+_MAX_GRID = 2 ** 31 - 1
+
+
+class FilterPlan(NamedTuple):
+    """A B2 launch (csrc/equaliser.cu ``FilterPlan``), of either entry.
+
+    ``run``: consecutive outputs per thread; ``tile``: outputs per CTA and
+    output mode; ``chunk``: taps per step (the tap table is zero-padded to a
+    multiple); ``threads``: of a CTA, ``FILTER_THREADS`` per output mode that
+    a frame CTA computes (its group, one launch each); ``seg``: staged
+    samples per plane and window (a frame window is staged from its 16-byte
+    aligned start, seg + 4 samples; two whose aligned starts lie less than
+    ``seg`` apart are staged as one union); ``smem``: shared-memory bytes of
+    a CTA; ``ctas``: CTAs of the grid (of every group's launch).
+    """
+    run: int
+    tile: int
+    chunk: int
+    threads: int
+    seg: int
+    smem: int
+    ctas: int
+
+
+def _plan_at(nmodes, nout, group, ntaps, os, Lout, nframes, run):
+    """The plan at a given run and group of output modes per frame CTA (csrc ``filter_plan_at``)."""
+    tile = FILTER_THREADS * run
+    ntp = -(-ntaps // FILTER_CHUNK) * FILTER_CHUNK
+    seg = (tile * os + ntp + 3) & ~3
+    # a frame CTA stages each output mode's window from its 16-byte aligned start: a row
+    # holds group windows of seg + 4
+    x = 2 * nmodes * (group * (seg + 4) if nframes > 0 else seg)
+    smem = 4 * (max(x, 2 * group * tile) + ntp * nmodes * group * 2)
+    rows = nframes * -(-nout // group) if nframes > 0 else 1
+    return FilterPlan(run, tile, FILTER_CHUNK, FILTER_THREADS * (group if nframes > 0 else 1),
+                      seg, smem, rows * -(-Lout // tile))
+
+
+def filter_plan(nmodes, nout, ntaps, os, Lout, nframes=0):
+    """The :class:`FilterPlan` of B2 on the host; ``nframes`` = 0: the planes entry.
+
+    The run is the first of the entry's (``FILTER_FRAME_RUNS`` or
+    ``FILTER_PLANES_RUNS``: the planes entry, whose threads sum two output
+    modes, needs 168 registers at runs of 10, and was measured slower there)
+    whose CTA fits the shared memory, shortened while the grid has fewer
+    than ``FILTER_MIN_CTAS`` CTAs, so that short rows still fill the card. A
+    frame CTA computes a group of two output modes (one for the last of an
+    odd ``nout``), or of one where two fit at no run. A CTA stages ``seg`` =
+    tile * os + the padded taps, rounded up to 4, samples of each of the 2 *
+    nmodes planes (the frame entry room for a window of seg + 4 per output
+    mode of its group), the tap table, and shares the staging with its
+    output tile. A plan whose ``smem`` passes 227 KB is refused by the
+    launchers, which hold it against ``qtt_filter_plan`` of the built library.
+    """
+    frames = nframes > 0
+    runs = FILTER_FRAME_RUNS if frames else FILTER_PLANES_RUNS
+    groups = ((2, 1) if nout > 1 else (1,)) if frames else (nout,)
+    for group in groups:
+        def at(k):
+            return _plan_at(nmodes, nout, group, ntaps, os, Lout, nframes, runs[k])
+        k = 0
+        while k < len(runs) - 1 and at(k).smem > _SMEM_LIMIT:
+            k += 1
+        plan = at(k)
+        if plan.smem > _SMEM_LIMIT:
+            continue
+        while k < len(runs) - 1 and plan.ctas < FILTER_MIN_CTAS:
+            k += 1
+            plan = at(k)
+        return plan
+    return plan
+
+
+def _checked_plan(lib, what, nmodes, nout, ntaps, os, Lout, nframes=0):
+    """The plan of a launch, refused if it does not fit a CTA or a grid, held against the card's."""
+    plan = filter_plan(nmodes, nout, ntaps, os, Lout, nframes)
+    if plan.smem > _SMEM_LIMIT:
+        raise KernelLimit("%s: filter too long for one CTA's shared memory (%d bytes for %d taps, "
+                          "a CTA has %d)" % (what, plan.smem, ntaps, _SMEM_LIMIT))
+    if plan.ctas > _MAX_GRID:
+        raise KernelLimit("%s: %d CTAs, a grid takes at most %d" % (what, plan.ctas, _MAX_GRID))
+    built = (ctypes.c_longlong * len(plan))()
+    lib.qtt_filter_plan(nmodes, nout, ntaps, os, Lout, nframes, ctypes.addressof(built))
+    if tuple(built) != plan:
+        raise RuntimeError("filter_plan and csrc/equaliser.cu filter_plan disagree: %s, %s"
+                           % (plan, tuple(built)))
+    return plan
+
+
 def apply_filter_cuda(P, os, wx, dec=None):
     """Launch kernel B2; same contract as :func:`apply_filter_plain`."""
     _build.require_cuda("apply_filter_cuda", P, dtype=torch.float32)
@@ -405,11 +502,11 @@ def apply_filter_cuda(P, os, wx, dec=None):
     L = P.shape[-1]
     if L < ntaps:
         raise ValueError("capture shorter than the filter")
-    lib = _build.library()
-    if lib.qtt_apply_filter_smem(nmodes, nout, ntaps, os) > _SMEM_LIMIT:
-        raise ValueError("filter too long for one CTA's shared memory")
+    os = int(os)
     Lout = (L - ntaps) // os + 1
-    w = torch.stack([wx.real, wx.imag]).contiguous()   # (2, nout, nmodes, ntaps)
+    lib = _build.library()
+    _checked_plan(lib, "apply_filter_cuda", nmodes, nout, ntaps, os, Lout)
+    w = torch.view_as_real(wx.resolve_conj().contiguous())   # no copy for contiguous taps
     out = torch.empty((2 * nout, Lout), dtype=torch.float32, device=P.device)
     outd = None
     Ld = 0
@@ -447,7 +544,11 @@ def apply_filter_frames_cuda(P, os, wx, offs, frame_len):
     """Launch the frame entry of kernel B2; same contract as :func:`apply_filter_frames_plain`.
 
     offs: (nout, nframes) int64 window starts on the card (they are read
-    there, never on the host). Returns (2, nout, nframes, frame_len).
+    there, never on the host). Returns (2, nout, nframes, frame_len). One
+    CTA per (frame, tile) holds a group of two output modes, one launch per
+    group (see :func:`filter_plan`; the pilot chain's two modes are one
+    launch); any number of output modes and frames is taken up to a grid of
+    2^31 - 1 CTAs.
     """
     _build.require_cuda("apply_filter_frames_cuda", P, dtype=torch.float32)
     _build.require_cuda("apply_filter_frames_cuda", offs, dtype=torch.int64)
@@ -462,18 +563,16 @@ def apply_filter_frames_cuda(P, os, wx, offs, frame_len):
     if offs.dim() != 2 or offs.shape[0] != nout:
         raise ValueError("offsets of shape %s: expected (%d, nframes)" % (tuple(offs.shape), nout))
     nframes = offs.shape[1]
-    if nout * nframes > 65535:
-        raise ValueError("the frame filter takes at most 65535 (mode, frame) rows per launch")
     lib = _build.library()
-    if lib.qtt_apply_filter_smem(nmodes, 1, ntaps, os) > _SMEM_LIMIT:
-        raise ValueError("filter too long for one CTA's shared memory")
-    w = torch.stack([wx.real, wx.imag]).contiguous()   # (2, nout, nmodes, ntaps)
+    plan = _checked_plan(lib, "apply_filter_frames_cuda", nmodes, nout, ntaps, int(os),
+                         int(frame_len), nframes)
+    w = torch.view_as_real(wx.resolve_conj().contiguous())   # no copy for contiguous taps
     out = torch.empty((2, nout, nframes, frame_len), dtype=torch.float32, device=P.device)
     rc = lib.qtt_apply_filter_frames(P.data_ptr(), nmodes, P.shape[-1], w.data_ptr(),
                                      offs.data_ptr(), nout, nframes, ntaps, int(os),
                                      int(frame_len), out.data_ptr(), _build.stream_of(P))
     _build.check(rc, "apply_filter_frames_cuda")
-    apply_filter_frames_cuda.launches += 1
+    apply_filter_frames_cuda.launches += -(-nout // (plan.threads // FILTER_THREADS))
     return out
 
 

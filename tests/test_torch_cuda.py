@@ -16,7 +16,7 @@ from qampy_tpu_torch.ops import phase as tph
 from qampy_tpu_torch.ops.chain import make_rx_chain
 from qampy_tpu_torch.ops.equaliser_cuda import (apply_filter_cuda, apply_filter_frames_cuda,
                                                 apply_filter_frames_plain, apply_filter_plain,
-                                                chain_latencies, div_check, train_block_cuda,
+                                                chain_latencies, filter_plan, div_check, train_block_cuda,
                                                 train_block_plain, train_seq_cuda,
                                                 train_seq_plain)
 from qampy_tpu_torch.ops.phase_cuda import (bps_fine_cuda, bps_fine_plain, bps_plan,
@@ -150,21 +150,33 @@ def test_b1_refuses_block_size(dev, capture):
         train_block_cuda(capture[3], 4096, 1, 2, 1e-3, w0, _specs(2)["mcma"], True, 100)
 
 
+def _taps(dev, nout, nmodes, ntaps, seed):
+    g = torch.Generator().manual_seed(seed)
+    return torch.complex(torch.randn(nout, nmodes, ntaps, generator=g),
+                         torch.randn(nout, nmodes, ntaps, generator=g)).to(dev) / 8
+
+
 @pytest.mark.parametrize("dec", [None, 8, 16])
+@pytest.mark.parametrize("nout", [1, 2])
+@pytest.mark.parametrize("os_", [1, 2, 3, 6])
+@pytest.mark.parametrize("ntaps", [1, 2, 17, 45, 63])
 @pytest.mark.parametrize("nmodes", [1, 2])
-def test_b2_filter(dev, capture, dec, nmodes):
-    P = capture[3]
-    P = torch.cat([P[:nmodes], P[2:2 + nmodes]]).contiguous()
-    g = torch.Generator().manual_seed(3)
-    w = torch.complex(torch.randn(nmodes, nmodes, 17, generator=g),
-                      torch.randn(nmodes, nmodes, 17, generator=g)).to(dev) / 8
-    ref = apply_filter_plain(P, 2, w, dec)
-    got = apply_filter_cuda(P, 2, w, dec)
+def test_b2_filter(dev, capture, dec, nout, os_, ntaps, nmodes):
+    """Every tap count class (one chunk, padded chunks, 45 and 63), os = 2 and the generic
+    instance, one and two output modes, with and without side output; 2^16 - 5 samples, so
+    the last tile is ragged and the rows are staged thread by thread (L % 4 != 0)."""
+    P = _sub(capture[3], nmodes, 2 ** 16 - 5)
+    w = _taps(dev, nout, nmodes, ntaps, 3 + ntaps)
+    ref = apply_filter_plain(P, os_, w, dec)
+    got = apply_filter_cuda(P, os_, w, dec)
     ref, got = (ref, got) if dec else ((ref,), (got,))
+    assert got[0].shape[-1] % filter_plan(nmodes, nout, ntaps, os_, got[0].shape[-1]).tile
     rms = float(ref[0].pow(2).mean().sqrt())
     for r, k in zip(ref, got):
         assert r.shape == k.shape
         assert float((k - r).abs().max()) <= 1e-5 * rms
+    again = apply_filter_cuda(P, os_, w, dec)
+    assert _same(got, again if dec else (again,))
 
 
 def test_b2_checks_inputs(dev, capture):
@@ -340,18 +352,108 @@ def test_b6_rotate(dev, sign):
     assert float((ik - ip).abs().max()) <= 1e-5
 
 
-@pytest.mark.parametrize("ntaps", [17, 45])
-def test_b2_frame_entry(dev, ntaps):
-    g = torch.Generator(device=dev).manual_seed(ntaps)
-    F = 2 ** 14
-    P = torch.randn(4, 2 * F * 7, generator=g, device=dev)
-    w = torch.complex(torch.randn(2, 2, ntaps, generator=g, device=dev),
-                      torch.randn(2, 2, ntaps, generator=g, device=dev)) / 8
-    offs = torch.arange(6, device=dev)[None] * 2 * F + torch.tensor([[35], [7]], device=dev)
-    ref = apply_filter_frames_plain(P, 2, w, offs, F)
-    got = apply_filter_frames_cuda(P, 2, w, offs, F)
-    assert got.shape == ref.shape == (2, 2, 6, F)
+def _frame_case(dev, nframes, F, ntaps, where, seed, nout=2, os_=2, pad=0, shift_ptr=0):
+    """(planes, taps, offsets) of a frame launch: windows of (F - 1) os + ntaps samples.
+
+    ``where``: "near", the first two output modes' windows 28 samples apart (staged as one
+    union); "apart", more than a window apart (two stagings); "ends", frames clamped at both
+    ends of the capture, as the pilot chain clamps them. ``pad``: samples added to the
+    capture, so that L % 4 != 0; ``shift_ptr``: floats by which the planes' storage starts
+    past an aligned allocation. Either makes the rows unfit for bulk copies, so every thread
+    stages its share.
+    """
+    g = torch.Generator(device=dev).manual_seed(seed)
+    fr_len = (F - 1) * os_ + ntaps
+    L = os_ * F * (nframes + 3) + pad
+    P = torch.randn(4 * L + shift_ptr, generator=g, device=dev)[shift_ptr:].view(4, L)
+    w = torch.complex(torch.randn(nout, 2, ntaps, generator=g, device=dev),
+                      torch.randn(nout, 2, ntaps, generator=g, device=dev)) / 8
+    bases = torch.arange(nframes, device=dev) * os_ * F
+    shift = {"near": [35, 7, 21, 50], "apart": [3, fr_len + 5, 2 * fr_len + 9, 11],
+             "ends": [-40, 4 * os_ * F + 40, 0, 4 * os_ * F + 40]}[where]
+    offs = (bases[None] + torch.tensor(shift[:nout], device=dev)[:, None]).clamp(0, L - fr_len)
+    return P, w, offs.contiguous()
+
+
+def _frames_agree(P, os_, w, offs, F):
+    ref = apply_filter_frames_plain(P, os_, w, offs, F)
+    got = apply_filter_frames_cuda(P, os_, w, offs, F)
+    assert got.shape == ref.shape == (2, w.shape[0], offs.shape[1], F)
     assert float((got - ref).abs().max()) <= 1e-5 * float(ref.pow(2).mean().sqrt())
+    return got
+
+
+@pytest.mark.parametrize("where", ["near", "apart", "ends"])
+@pytest.mark.parametrize("ntaps", [17, 45])
+def test_b2_frame_entry(dev, ntaps, where):
+    P, w, offs = _frame_case(dev, 6, 2 ** 14, ntaps, where, ntaps)
+    if where == "ends":
+        assert int(offs.min()) == 0 and int(offs.max()) == P.shape[-1] - ((2 ** 14 - 1) * 2 + ntaps)
+    got = _frames_agree(P, 2, w, offs, 2 ** 14)
+    assert torch.equal(got, apply_filter_frames_cuda(P, 2, w, offs, 2 ** 14))
+
+
+@pytest.mark.parametrize("where", ["near", "apart", "ends"])
+@pytest.mark.parametrize("pad, shift_ptr", [(1, 0), (3, 0), (0, 1)])
+def test_b2_frame_entry_unaligned_rows(dev, where, pad, shift_ptr):
+    """Rows of L % 4 != 0 samples or planes not 16-byte aligned: each thread stages its share
+    of one window, of two or of their union, zeros past both ends."""
+    P, w, offs = _frame_case(dev, 6, 2 ** 12, 45, where, 5 + pad, pad=pad, shift_ptr=shift_ptr)
+    assert P.is_contiguous() and (P.shape[-1] % 4 or P.data_ptr() % 16)
+    got = _frames_agree(P, 2, w, offs, 2 ** 12)
+    assert torch.equal(got, apply_filter_frames_cuda(P, 2, w, offs, 2 ** 12))
+
+
+@pytest.mark.parametrize("nframes", [1, 8, 240])
+def test_b2_frame_counts(dev, nframes):
+    """One frame (the smallest grid: runs of 2), the return_phase chain's 8, the dispatch's
+    240 (frames of 2^12, 45 taps)."""
+    P, w, offs = _frame_case(dev, nframes, 2 ** 12, 45, "near", nframes)
+    _frames_agree(P, 2, w, offs, 2 ** 12)
+
+
+@pytest.mark.parametrize("os_, nout", [(1, 2), (3, 2), (2, 1), (2, 3), (2, 4), (6, 2), (6, 3),
+                                       (30, 2)])
+def test_b2_frame_generic_instances(dev, os_, nout):
+    """The generic instance (os 1, 3, 6 and 30), one output mode (no union), three and four
+    output modes (groups of two, the last of one), os = 6 (runs of 6: runs of 10 would not fit
+    the shared memory) and os = 30 (groups of one: two fit at no run)."""
+    P, w, offs = _frame_case(dev, 5, 3000, 17, "near", 7, nout=nout, os_=os_)
+    plan = filter_plan(2, nout, 17, os_, 3000, 5)
+    assert plan.threads == 128 * (1 if nout == 1 or os_ == 30 else 2)
+    got = _frames_agree(P, os_, w, offs, 3000)
+    assert torch.equal(got, apply_filter_frames_cuda(P, os_, w, offs, 3000))
+
+
+def test_b2_frame_run_shrinks_to_fit(dev):
+    """os = 6 over 240 frames: the grid would take runs of 10, whose CTA needs 247 KB; the
+    plan takes runs of 6."""
+    plan = filter_plan(2, 2, 45, 6, 2 ** 12, 240)
+    assert plan.run == 6 and plan.threads == 256
+    P, w, offs = _frame_case(dev, 240, 2 ** 12, 45, "near", 13, os_=6)
+    _frames_agree(P, 6, w, offs, 2 ** 12)
+
+
+def test_b2_frame_grid_past_the_old_row_limit(dev):
+    """2 x 40,000 (mode, frame) rows: the old grid refused more than 65,535."""
+    P, w, offs = _frame_case(dev, 40000, 64, 5, "near", 11)
+    assert offs.numel() > 65535
+    _frames_agree(P, 2, w, offs, 64)
+
+
+@pytest.mark.parametrize("args", [(2, 2, 17, 2, 2 ** 20 - 8, 0), (2, 2, 17, 2, 2 ** 18 - 8, 0),
+                                  (2, 2, 45, 2, 2 ** 16, 240), (2, 2, 45, 2, 2 ** 16, 8),
+                                  (2, 2, 45, 2, 2 ** 12, 1), (1, 1, 63, 3, 21843, 0),
+                                  (2, 1, 2, 1, 100, 0), (2, 2, 5, 2, 64, 40000),
+                                  (2, 3, 17, 2, 3000, 5), (2, 2, 17, 6, 3000, 5),
+                                  (2, 2, 17, 30, 3000, 5), (2, 2, 45, 6, 2 ** 16, 240),
+                                  (2, 2, 17, 6, 2 ** 16 - 5, 0)])
+def test_b2_plan_equals_the_library(dev, args):
+    import ctypes
+    from qampy_tpu_torch.ops import _build
+    built = (ctypes.c_longlong * len(filter_plan(*args)))()
+    _build.library().qtt_filter_plan(*args, ctypes.addressof(built))
+    assert tuple(built) == filter_plan(*args)
 
 
 @pytest.mark.parametrize("return_phase", [False, True])
