@@ -10,7 +10,7 @@ result line):
    and ``nvidia-smi``'s name and power limit;
 2. build: compiles the kernels (B1-B9, B2's frame entry and the latency
    probe) from ``qampy_tpu_torch/csrc``, one ``nvcc`` per source, and fails
-   on a register spill in any instance of B1, B2, B3 or B9; then the probe
+   on a register spill in any instance of B1, B2, B3, B7, B8 or B9; then the probe
    (``csrc/probe.cu``): the card's latencies of a dependent add, a shuffle
    and add, rde's register lookup and a CTA barrier, from which the chain
    bounds of the two trainers are reckoned, B9's straight-line division
@@ -34,7 +34,9 @@ result line):
    host hidden);
 7. per-sample kernels: on the same capture and taps, B2 without its side
    output, B3 at the twostage coarse (16 angles, N=60) and single (64, N=14)
-   shapes, B8 and B7 against their plain versions at 2 x 2^20 samples;
+   shapes, B8 and B7 against their plain versions at 2 x 2^20 samples (B7
+   also bit for bit against B6 rotating by the plain unwrap), each with its
+   launch plan;
 8. blind twostage and blind single: the bench's attempts 3 and 4
    (``bps_mode="twostage"``/``"single"``, bps_N=14) through ``RxChain.planes``
    on the same capture; SER <= 1e-5 (twostage) and <= 1e-4 (single), launch
@@ -137,10 +139,11 @@ from qampy_tpu_torch.ops.equaliser_cuda import (apply_filter_cuda, apply_filter_
                                                 train_seq_plain)
 from qampy_tpu_torch.ops.phase_cuda import (bps_fine, bps_fine_cuda, bps_fine_plain, bps_plan,
                                             bps_search_cuda, bps_search_plain, cpe_coeffs,
-                                            cpe_coeffs_cuda, cpe_coeffs_plain, interp_rotate,
-                                            interp_rotate_cuda, interp_rotate_plain,
-                                            quarter_unwrap, rotate_cuda, rotate_plain,
-                                            unwrap_derotate_cuda, unwrap_derotate_plain)
+                                            cpe_coeffs_cuda, cpe_coeffs_plain, fine_plan,
+                                            interp_rotate, interp_rotate_cuda,
+                                            interp_rotate_plain, quarter_unwrap, rotate_cuda,
+                                            rotate_plain, unwrap_derotate_cuda,
+                                            unwrap_derotate_plain, unwrap_plan)
 from qampy_tpu_torch.ops.pilot_chain import make_pilot_rx_chain
 from qampy_tpu_torch.theory import cal_scaling_factor_qam, cal_symbols_qam
 from qampy_tpu_torch.workload import (GATE_TRIM, apsk_const, ber_gate, decide, make_pilot_tx,
@@ -234,6 +237,7 @@ K5_PLANES = (4, 31_981_568)
 K5_COPY_CTAS = (122_880, 12_480)
 K5_ARGMIN = (64, 2 * 2 ** 21)
 OPS_BPS_SEARCH = 9       # per sample and angle: rotate 6, running window 2, compare 1
+OPS_FINE_ANGLE = 6       # B8 per sample and offset: ph1 + delta by angle addition
 # the distance per sample and angle: per axis decide 6 and offset 1, then squares and sum 3
 # (square and rectangular: 17). Cross, as grid_dist<kCross> computes it: the offset's
 # subtraction and floor(u + 0.5) once per axis (the rectangle's decide less its clamp of 2:
@@ -376,16 +380,18 @@ def trainer_bound(nmodes, nout, ntaps, os_, nsyms, niter, decide_ops=0):
 
 
 def trainer_build_report():
-    """What ptxas said of the trainers', B3's and B2's instances, from the build's log: registers
-    and spills (B3 keeps its run's best sums and indices in registers, B2 its run's sums and
-    window)."""
+    """What ptxas said of the trainers', B2's, B3's, B7's and B8's instances, from the build's
+    log: registers and spills (B3 and B8 keep their run's best sums and indices in registers, B2
+    its run's sums and window)."""
     log = (_build.build_dir() / "build.log").read_text()
     entries = re.findall(r"Compiling entry function '(\S+)'.*?(\d+) bytes stack frame, (\d+) bytes "
                          r"spill stores, (\d+) bytes spill loads.*?Used (\d+) registers", log, re.S)
     for kernel, name in (("train_seq_kernel", "B9"), ("train_block_kernel", "B1"),
-                         ("bps_kernel", "B3"), ("apply_filter_kernel", "B2"),
+                         ("bps_kernel", "B3"), ("bps_fine_kernel", "B8"), ("unwrap_kernel", "B7"),
+                         ("apply_filter_kernel", "B2"),
                          ("apply_filter_frames_kernel", "B2 frames")):
-        mine = [(int(st), int(ss), int(sl), int(r)) for fn, st, ss, sl, r in entries if kernel in fn]
+        mine = [(int(st), int(ss), int(sl), int(r)) for fn, st, ss, sl, r in entries
+                if kernel in fn]
         require(mine, "no %s instance in the build log" % kernel)
         print("build: %s %s has %d instances, %d to %d registers, stack up to %d bytes, spill "
               "stores up to %d, spill loads up to %d"
@@ -628,11 +634,12 @@ def rotation_bound(er, ei, u):
     return 2 * torch.sqrt(er * er + ei * ei) * (ulp + 2.0 ** -23)
 
 
-def bps_ops(grid, A, samples):
-    """Float operations of a phase search over ``A`` angles (B3; B8 with A = B) on ``grid``."""
+def bps_ops(grid, A, samples, fine=False):
+    """Float operations of a phase search over ``A`` angles on ``grid``: B3, or B8 (``fine``,
+    A = B) with each offset's angle formed per sample."""
     kind, p = phops.grid_decision_info(grid)
     per_angle = OPS_BPS_SEARCH + (OPS_GEN_POINT * len(p[0]) if kind == "gen"
-                                  else OPS_DECIDE[kind])
+                                  else OPS_DECIDE[kind]) + (OPS_FINE_ANGLE if fine else 0)
     return per_angle * A * samples
 
 
@@ -726,12 +733,17 @@ def b8_record(er, ei, ph1, cd, sd, grid, N, d0f, ddf, points, what, reps=(20, 5)
              tie_share, share_max, float((f_k - f_p).abs().max())))
     require(not off_tie and tie_share <= share_max,
             "B8 disagrees with its plain version off near-ties (%s)" % what)
-    rec = dict(**bound(nbytes(er, ei, ph1, f_k), bps_ops(grid, B, er.numel())
+    plan = fine_plan(er.shape[0], L, N, len(grid[1]) if kind == "gen" else 0)
+    print("B8 bps_fine (%s): plan run %d, tile %d, %d offsets per slot, %d B shared, %d CTAs"
+          % (what, *plan))
+    rec = dict(**bound(nbytes(er, ei, ph1, f_k), bps_ops(grid, B, er.numel(), fine=True)
                        + OPS_ROTATE * er.numel()),
                err=float((f_k - f_p).abs()[~ties].max()),
                ms=device_ms(lambda: bps_fine_cuda(*fargs, points), reps[0]),
                plain_ms=device_ms(lambda: bps_fine_plain(*fargs), reps[1]),
-               shape="grid %s, B=%d N=%d, 2 x %d samples" % (kind, B, N, L), grid=kind)
+               shape="grid %s, B=%d N=%d, 2 x %d samples, plan run %d, tile %d, chunk %d, "
+                     "%d CTAs" % (kind, B, N, L, plan.run, plan.tile, plan.chunk, plan.ctas),
+               grid=kind)
     return rec, f_k
 
 
@@ -739,6 +751,12 @@ def b7_record(er, ei, ph, what):
     """B7 against its plain version within the bound of two float32 rotations."""
     r_p, i_p = unwrap_derotate_plain(er, ei, ph)
     r_k, i_k = unwrap_derotate_cuda(er, ei, ph)
+    r_6, i_6 = rotate_cuda(er, ei, quarter_unwrap(ph), 1)
+    same6 = bool(torch.equal(r_k, r_6) and torch.equal(i_k, i_6))
+    plan = unwrap_plan(*er.shape)
+    print("B7 unwrap_derotate (%s): plan tile %d, %d tiles per row, %d CTAs, %d scratch words; "
+          "equal to B6 rotating by the plain unwrap: %s" % (what, *plan, same6))
+    require(same6, "B7 differs from B6 rotating by the plain unwrap (%s)" % what)
     dist = torch.sqrt((r_k - r_p) ** 2 + (i_k - i_p) ** 2)
     rot_bound = rotation_bound(er, ei, quarter_unwrap(ph))
     d_rot = max(float((r_k - r_p).abs().max()), float((i_k - i_p).abs().max()))
@@ -750,7 +768,8 @@ def b7_record(er, ei, ph, what):
     return dict(**bound(nbytes(er, ei, ph, r_k, i_k), (OPS_UNWRAP + OPS_ROTATE) * er.numel()),
                 err=d_rot, ms=device_ms(lambda: unwrap_derotate_cuda(er, ei, ph), 50),
                 plain_ms=device_ms(lambda: unwrap_derotate_plain(er, ei, ph), 10),
-                shape="2 x %d samples" % er.shape[-1])
+                shape="2 x %d samples, plan tile %d, %d CTAs" % (er.shape[-1], plan.tile,
+                                                                 plan.ctas))
 
 
 def b4_record(eqp, idxd, chain, what):

@@ -27,7 +27,8 @@
 //     sliding, s += (entering - leaving), so a run's R windows cost 2N +
 //     2(R-1) slot loads (16 bytes each, for all the chunk's angles) instead
 //     of 2N R; every run starts exact, so the rounding drift is bounded by
-//     R. The run's best sums and indices stay in registers across chunks
+//     R (windows of up to kBpsFullWindow samples are each summed in full).
+//     The run's best sums and indices stay in registers across chunks
 //     (angles in increasing order, strict <: the first minimum wins), so
 //     shared memory does not grow with A, nor with the alphabet beyond its
 //     table. The table is padded by a slot every run (bps_pad), so lanes
@@ -74,34 +75,51 @@
 //     Replaces qampy_tpu/ops/phase_pallas.py unwrap_derotate_pallas
 //     (_unwrap_derotate_kernel), which carries (previous phase, count) from
 //     tile to tile of its sequential grid. Bound: device memory (read three
-//     planes, write two; the phase is read twice). Here a row of 2^20
-//     samples has to be split over many CTAs, so the scan takes three
-//     launches: (1) each tile of kUnwrapTile samples sums its counts (d at a
-//     tile's first sample reads ph_{i-1} from device memory, so a tile's
-//     counts depend on the data alone); (2) one CTA per row turns the tile
-//     totals into exclusive offsets; (3) each tile recounts, scans its counts
-//     in the block, adds its offset and derotates. Counts are int32, so any
-//     summation order gives the same M and u equals the plain version's bit
-//     for bit; d (2/pi) + 0.5 and (pi/2) M are rounded op by op (no FMA
-//     contraction, which would flip a count within an ulp of an odd multiple
-//     of pi/4 and turn the rest of the row by a quarter), and the rotation is
-//     B4's (precise sincosf).
+//     planes, write two: 20 bytes per sample). Design: one launch, a
+//     single-pass scan with decoupled look-back (Merrill and Garland 2016).
+//     A CTA of kUnwrapThreads threads takes the next tile of its row from a
+//     per-row ticket (atomicAdd), so it waits only on tiles whose CTAs have
+//     started and no schedule deadlocks (it loads the tile of its launch index
+//     while the ticket comes back, and again where the ticket differs). A
+//     thread owns kUnwrapItems consecutive samples, loaded and stored as
+//     16-byte vectors of each plane where the five planes share their
+//     alignment (a row's tiles start up to 3 samples before its first aligned
+//     sample; the ragged ends and planes of different alignment take scalar
+//     accesses); the previous phase of its first sample
+//     comes from the neighbour lane by a shuffle, only a warp's first lane
+//     reads it from memory. The tile's counts are scanned in the block; its
+//     total is published in a 64-bit status word (flag and int32 value, one
+//     store), warp 0 sums its predecessors' words back to the nearest
+//     inclusive one, 32 at a time, and publishes the tile's inclusive prefix.
+//     Counts are int32, so any summation order gives the same M and u equals
+//     the plain version's bit for bit; d (2/pi) + 0.5 and (pi/2) M are rounded
+//     op by op (no FMA contraction, which would flip a count within an ulp of
+//     an odd multiple of pi/4 and turn the rest of the row by a quarter), and
+//     the rotation is B4's (precise sincosf): the output equals B6's rotation
+//     by the plain unwrap bit for bit.
 //
 // B8  qtt_bps_fine: the fine stage of the two-stage phase search. Sample i
 //     tries B angles ph1_i + delta_b, built from cos/sin(ph1_i) and the
 //     host tables cd/sd = cos/sin(delta_b)/d0 by the angle-addition form;
-//     then B3's distance (grid_dist, any kind), 2N window sums and argmin (first
-//     minimum wins) at [N, L-N), 0 elsewhere; the output is the phase
-//     (ph1_i + d0f) + ddf * idx_i. Replaces qampy_tpu/ops/phase_pallas.py
-//     bps_fine_pallas (_bps_fine_kernel). Bound: arithmetic and
-//     shared-memory traffic (a sincosf per sample, ~30 operations per
-//     (sample, offset) for the angle and distance, 2N adds per (sample,
-//     offset) for the windows). Design: one CTA per (mode, tile of kFineTile
-//     samples, one per thread) staging the tile and its 2N-1 neighbours;
-//     each staged sample carries its own angle, so the staging thread takes
-//     one sincosf and fills its column of the (B x W) distance table, and
-//     each thread sums its own windows in full. Every
-//     product and sum is rounded on its own, as in the plain version.
+//     then B3's distance (any kind), 2N window sums and argmin (first minimum
+//     wins) at [N, L-N), 0 elsewhere; the output is the phase (ph1_i + d0f) +
+//     ddf * idx_i. Replaces qampy_tpu/ops/phase_pallas.py bps_fine_pallas
+//     (_bps_fine_kernel). Bound: float32 instructions (B3's per offset, plus
+//     6 for the angle), then the window sums' shared-memory loads. Design: B3's
+//     tiled search with a per-sample angle (bps_fine_kernel over B3's helpers:
+//     the slots, gen_dists, bps_run_sums, the tile's indices). Each staged
+//     sample is a float4 [x, y, cos ph1, sin ph1], one precise sincosf per
+//     staged sample; per chunk of kBpsChunk offsets cd/sd sit in registers and
+//     the fill forms each offset's angle and rotation op by op, in the plain
+//     version's order; the runs of sliding window sums and the float4 points
+//     of a general alphabet are B3's; the epilogue writes the phase. The launch
+//     plan fine_plan takes B3's run rule (from kFineMaxRun = 8 and kFineMaxRunGen = 8:
+//     runs of 16 cost 1.4x on the square grid, measured) and
+//     halves the run until the CTA fits 227 KB; where even runs of one do not
+//     fit (half-windows of thousands of samples), it takes slots of one offset
+//     and reads the samples, their angle and the points where they lie, so
+//     that shared memory holds 4 bytes per staged sample, no more than the
+//     first design's table at B = 1.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -114,14 +132,19 @@ constexpr int kBpsMaxRun = 16;    // B3: positions of a run, at most
 constexpr int kBpsMaxRunGen = 8;  // B3: the same on a general alphabet
 constexpr int kBpsChunk = 4;      // B3: angles per pass over the tile
 constexpr int kBpsMinCtas = 256;  // B3: runs shrink until the grid has this many CTAs
-constexpr int kFineTile = 256;    // B8 samples per CTA, one per thread
+constexpr int kBpsFullWindow = 4; // B3, B8: windows of at most this many samples are not slid
+constexpr int kFineMaxRun = 8;    // B8: positions of a run, at most
+constexpr int kFineMaxRunGen = 8; // B8: the same on a general alphabet
+constexpr int kFineMaxRunNarrow = 4;   // B8: the same with slots of one offset
+constexpr long long kSmemLimit = 227 * 1024;   // shared memory a CTA can have
 constexpr int kRotThreads = 256;
 constexpr int kCpeThreads = 1024;
 constexpr int kCpeMaxLanes = 4;   // lanes per thread of B5: rows of up to 4096 pilots
-constexpr int kUnwrapThreads = 256;
-constexpr int kUnwrapItems = 8;   // consecutive samples per thread of B7
-constexpr int kUnwrapTile = kUnwrapThreads * kUnwrapItems;
-constexpr int kScanThreads = 1024;
+constexpr int kUnwrapThreads = 512;
+constexpr int kUnwrapItems = 4;   // B7: consecutive samples per thread, a multiple of 4
+constexpr int kUnwrapTile = kUnwrapItems * kUnwrapThreads;
+constexpr unsigned long long kUnwrapAggregate = 1ull << 32;   // B7 status flags, above the value
+constexpr unsigned long long kUnwrapInclusive = 2ull << 32;
 
 // Exclusive prefix sum of v over the block's threads (blockDim.x a multiple
 // of 32); *total, if given, receives the block's sum. Every thread of the
@@ -190,9 +213,10 @@ __device__ __forceinline__ float grid_dist(float xr, float xi, const GridArgs& g
                  __fadd_rn(__fmul_rn(fbr, fbr), __fmul_rn(fbi, fbi)));
 }
 
-// A general alphabet's table from device memory into shared memory (all threads).
-__device__ __forceinline__ void stage_points(float* dst, const float* __restrict__ src, int npts) {
-    for (int i = threadIdx.x; i < 3 * npts; i += blockDim.x) dst[i] = src[i];
+// A general alphabet's (npts, 3) table into shared memory as float4 [2 re, 2 im, |s|^2, 0]
+__device__ __forceinline__ void stage_points(float4* dst, const float* __restrict__ src, int npts) {
+    for (int k = threadIdx.x; k < npts; k += blockDim.x)
+        dst[k] = make_float4(src[3 * k], src[3 * k + 1], src[3 * k + 2], 0.f);
 }
 
 // B3: the place of staged sample or tile position u in the padded table, one
@@ -200,10 +224,12 @@ __device__ __forceinline__ void stage_points(float* dst, const float* __restrict
 // that lanes whose runs start R slots apart fall on distinct banks.
 __device__ __forceinline__ int bps_pad(int u, int sh) { return u + (u >> sh); }
 
-// B3: one slot of the distance table, a sample's distances at the chunk's angles
-struct alignas(sizeof(float) * kBpsChunk >= 16 ? 16 : sizeof(float) * kBpsChunk) BpsSlot {
-    float v[kBpsChunk];
+// B3, B8: one slot of the distance table, a sample's distances at the chunk's C angles
+template <int C>
+struct alignas(sizeof(float) * C >= 16 ? 16 : sizeof(float) * C) Slot {
+    float v[C];
 };
+using BpsSlot = Slot<kBpsChunk>;
 
 // B3's launch: R positions per thread, a tile of T = kBpsThreads R positions
 // per CTA, kBpsChunk angles per pass, the CTA's shared-memory bytes (the gen
@@ -214,39 +240,98 @@ struct BpsPlan {
     long long run, tile, chunk, smem, ctas;
 };
 
+// The longest run, from max_run down, at which the grid still has kBpsMinCtas CTAs
+long long bps_run(int nmodes, long long L, int max_run) {
+    long long run = max_run;
+    while (run > 1 && nmodes * ((L + kBpsThreads * run - 1) / (kBpsThreads * run)) < kBpsMinCtas)
+        run /= 2;
+    return run;
+}
+
+// Slots of a table of W staged samples padded for runs of `run`
+long long bps_slots(long long W, long long run) {
+    return run > 1 ? W + ((W - 1) >> __builtin_ctzll(run)) : W;
+}
+
 BpsPlan bps_plan(int nmodes, long long L, int N, int npts) {
     BpsPlan p;
-    p.run = npts > 0 ? kBpsMaxRunGen : kBpsMaxRun;
-    while (p.run > 1 &&
-           nmodes * ((L + kBpsThreads * p.run - 1) / (kBpsThreads * p.run)) < kBpsMinCtas)
-        p.run /= 2;
+    p.run = bps_run(nmodes, L, npts > 0 ? kBpsMaxRunGen : kBpsMaxRun);
     p.tile = kBpsThreads * p.run;
     p.chunk = kBpsChunk;
     const long long W = p.tile + 2LL * N - 1;
-    const int sh = p.run > 1 ? __builtin_ctzll(p.run) : 31;
-    p.smem = 16LL * npts + 8 * W + (long long)sizeof(BpsSlot) * (W + ((W - 1) >> sh));
+    p.smem = 16LL * npts + 8 * W + (long long)sizeof(BpsSlot) * bps_slots(W, p.run);
     p.ctas = nmodes * ((L + p.tile - 1) / p.tile);
     return p;
 }
 
-// A general alphabet's distances of one sample at the chunk's kBpsChunk
+// B8's launch (ops/phase_cuda.py fine_plan is the same rule): B3's run rule
+// from kFineMaxRun (kFineMaxRunGen on a general alphabet), halved while the
+// CTA would not fit kSmemLimit: the gen table as float4, the padded table of
+// kBpsChunk-offset slots and the staged samples as float4 [x, y, cos, sin].
+// Where no run fits, slots of one offset (chunk 1) over max(W, tile)
+// samples, nothing else staged, from runs of at most kFineMaxRunNarrow.
+long long fine_smem(long long run, long long chunk, int N, int npts) {
+    const long long tile = kBpsThreads * run, W = tile + 2LL * N - 1;
+    if (chunk == 1) return 4 * bps_slots(W > tile ? W : tile, run);
+    return 16LL * npts + 16 * W + (long long)sizeof(BpsSlot) * bps_slots(W, run);
+}
+
+BpsPlan fine_plan(int nmodes, long long L, int N, int npts) {
+    BpsPlan p;
+    const long long first = bps_run(nmodes, L, npts > 0 ? kFineMaxRunGen : kFineMaxRun);
+    for (p.chunk = kBpsChunk;; p.chunk = 1) {
+        for (p.run = p.chunk > 1 || first < kFineMaxRunNarrow ? first : kFineMaxRunNarrow;;
+             p.run /= 2) {
+            p.smem = fine_smem(p.run, p.chunk, N, npts);
+            if (p.smem <= kSmemLimit || p.run == 1) break;
+        }
+        if (p.smem <= kSmemLimit || p.chunk == 1) break;
+    }
+    p.tile = kBpsThreads * p.run;
+    p.ctas = nmodes * ((L + p.tile - 1) / p.tile);
+    return p;
+}
+
+// A general alphabet's distances of one sample at the chunk's C
 // rotations, in grid_dist<kGen>'s arithmetic: each float4 point, loaded once,
 // serves every angle.
-__device__ __forceinline__ void gen_dists(const float (&xr)[kBpsChunk],
-                                          const float (&xi)[kBpsChunk],
-                                          const float4* pts, int npts, float (&d)[kBpsChunk]) {
-    float best[kBpsChunk];
+template <int C>
+__device__ __forceinline__ void gen_dists(const float (&xr)[C], const float (&xi)[C],
+                                          const float4* pts, int npts, float (&d)[C]) {
+    float best[C];
 #pragma unroll
-    for (int k = 0; k < kBpsChunk; ++k) best[k] = -INFINITY;
+    for (int k = 0; k < C; ++k) best[k] = -INFINITY;
     for (int p = 0; p < npts; ++p) {
         const float4 q = pts[p];
 #pragma unroll
-        for (int k = 0; k < kBpsChunk; ++k)
+        for (int k = 0; k < C; ++k)
             best[k] = fmaxf(best[k], __fsub_rn(__fadd_rn(__fmul_rn(xr[k], q.x),
                                                          __fmul_rn(xi[k], q.y)), q.z));
     }
 #pragma unroll
-    for (int k = 0; k < kBpsChunk; ++k) d[k] = -best[k];
+    for (int k = 0; k < C; ++k) d[k] = -best[k];
+}
+
+// The distances of sample (x, y) rotated by the chunk's C pre-scaled angles
+// (c[k], s[k]): the points from the float4 table pts in shared memory where
+// C > 1, else from the (npts, 3) table pts_g where it lies.
+template <int KIND, int C>
+__device__ __forceinline__ void chunk_dists(float x, float y, const float (&c)[C],
+                                            const float (&s)[C], const GridArgs& g,
+                                            const float4* pts, const float* __restrict__ pts_g,
+                                            float (&d)[C]) {
+    float xr[C], xi[C];
+#pragma unroll
+    for (int k = 0; k < C; ++k) {
+        xr[k] = __fsub_rn(__fmul_rn(x, c[k]), __fmul_rn(y, s[k]));
+        xi[k] = __fadd_rn(__fmul_rn(x, s[k]), __fmul_rn(y, c[k]));
+    }
+    if constexpr (KIND == kGen && C > 1) {
+        gen_dists(xr, xi, pts, g.npts, d);
+    } else {
+#pragma unroll
+        for (int k = 0; k < C; ++k) d[k] = grid_dist<KIND>(xr[k], xi[k], g, pts_g);
+    }
 }
 
 // The distance table of one chunk (angles ct[k], st[k] for k < na) for all W
@@ -267,54 +352,71 @@ __device__ __forceinline__ void bps_fill(const float2* xs, int W, int sh,
 #pragma unroll kUnroll
     for (int u = threadIdx.x; u < W; u += kBpsThreads) {
         const float2 z = xs[u];
-        float xr[kBpsChunk], xi[kBpsChunk];
         BpsSlot d;
-#pragma unroll
-        for (int k = 0; k < kBpsChunk; ++k) {
-            xr[k] = __fsub_rn(__fmul_rn(z.x, c[k]), __fmul_rn(z.y, s[k]));
-            xi[k] = __fadd_rn(__fmul_rn(z.x, s[k]), __fmul_rn(z.y, c[k]));
-        }
-        if constexpr (KIND == kGen) {
-            gen_dists(xr, xi, pts, g.npts, d.v);
-        } else {
-#pragma unroll
-            for (int k = 0; k < kBpsChunk; ++k)
-                d.v[k] = grid_dist<KIND>(xr[k], xi[k], g, nullptr);
-        }
+        chunk_dists<KIND>(z.x, z.y, c, s, g, pts, nullptr, d.v);
         tab[bps_pad(u, sh)] = d;
     }
 }
 
 // The window sums of the thread's run (positions p0 .. p0+run-1 of the tile,
 // run <= R) at the chunk's angles a0 + k, k < na, into the run's best sums and
-// indices. The first window is summed in full, the next ones slide.
-template <int R>
-__device__ __forceinline__ void bps_run_sums(const BpsSlot* tab, int sh, int p0, int run, int N2,
+// indices. The first window is summed in full, the next ones slide; windows of
+// at most kBpsFullWindow samples are each summed in full (as cheap, and a
+// slide's rounding, up to an ulp of the largest value slid through, would
+// outgrow such a window's own).
+template <int R, int C>
+__device__ __forceinline__ void bps_run_sums(const Slot<C>* tab, int sh, int p0, int run, int N2,
                                              int a0, int na, float (&bs)[R], int (&bi)[R]) {
-    float s[kBpsChunk];
+    float s[C];
 #pragma unroll
-    for (int k = 0; k < kBpsChunk; ++k) s[k] = 0.f;
+    for (int k = 0; k < C; ++k) s[k] = 0.f;
     for (int n = 0; n < N2; ++n) {
-        const BpsSlot e = tab[bps_pad(p0 + n, sh)];
+        const Slot<C> e = tab[bps_pad(p0 + n, sh)];
 #pragma unroll
-        for (int k = 0; k < kBpsChunk; ++k) s[k] += e.v[k];
+        for (int k = 0; k < C; ++k) s[k] += e.v[k];
     }
 #pragma unroll
     for (int r = 0; r < R; ++r) {
         if (r == run) break;
-        if (r > 0) {
-            const BpsSlot e = tab[bps_pad(p0 + r - 1 + N2, sh)], l = tab[bps_pad(p0 + r - 1, sh)];
+        if (r > 0 && N2 <= kBpsFullWindow) {
 #pragma unroll
-            for (int k = 0; k < kBpsChunk; ++k) s[k] += e.v[k] - l.v[k];
+            for (int k = 0; k < C; ++k) s[k] = 0.f;
+            for (int n = 0; n < N2; ++n) {
+                const Slot<C> e = tab[bps_pad(p0 + r + n, sh)];
+#pragma unroll
+                for (int k = 0; k < C; ++k) s[k] += e.v[k];
+            }
+        } else if (r > 0) {
+            const Slot<C> e = tab[bps_pad(p0 + r - 1 + N2, sh)], l = tab[bps_pad(p0 + r - 1, sh)];
+#pragma unroll
+            for (int k = 0; k < C; ++k) s[k] += e.v[k] - l.v[k];
         }
 #pragma unroll
-        for (int k = 0; k < kBpsChunk; ++k) {
+        for (int k = 0; k < C; ++k) {
             if (k < na && s[k] < bs[r]) {
                 bs[r] = s[k];
                 bi[r] = a0 + k;
             }
         }
     }
+}
+
+// The tile's indices (its run's best, 0 outside [N, L-N)) into shared memory
+// at `table`, padded as the slots, for coalesced stores; all threads.
+template <int R>
+__device__ __forceinline__ const int* bps_tile_indices(void* table, int sh, int p0, int run,
+                                                       long long j0, long long L, int N,
+                                                       const int (&bi)[R]) {
+    __syncthreads();   // every run's sums are done with the table
+    int* idx = reinterpret_cast<int*>(table);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+        if (r == run) break;
+        const long long j = j0 + p0 + r;
+        idx[bps_pad(p0 + r, sh)] = j >= N && j < L - N ? bi[r] : 0;
+    }
+    __syncthreads();
+    return idx;
 }
 
 template <int KIND>
@@ -332,10 +434,7 @@ __global__ void __launch_bounds__(kBpsThreads)
     const long long j0 = (long long)blockIdx.x * tile;
     const long long s0 = j0 - N + 1;  // staged sample u is sample s0 + u of the row
 
-    if constexpr (KIND == kGen) {
-        for (int k = threadIdx.x; k < g.npts; k += kBpsThreads)
-            pts[k] = make_float4(pts_g[3 * k], pts_g[3 * k + 1], pts_g[3 * k + 2], 0.f);
-    }
+    if constexpr (KIND == kGen) stage_points(pts, pts_g, g.npts);
     for (int u = threadIdx.x; u < W; u += kBpsThreads) {
         const long long s = s0 + u;
         const bool in = s >= 0 && s < L;
@@ -357,18 +456,89 @@ __global__ void __launch_bounds__(kBpsThreads)
         __syncthreads();
         bps_run_sums(tab, sh, p0, run, N2, a0, na, bs, bi);
     }
-    __syncthreads();
-    int* idx = reinterpret_cast<int*>(tab);   // the tile's indices, padded as the slots
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-        if (r == run) break;
-        const long long j = j0 + p0 + r;
-        idx[bps_pad(p0 + r, sh)] = j >= N && j < L - N ? bi[r] : 0;
-    }
-    __syncthreads();
+    const int* idx = bps_tile_indices(tab, sh, p0, run, j0, L, N, bi);
     for (int p = threadIdx.x; p < tile; p += kBpsThreads) {
         const long long j = j0 + p;
         if (j < L) out[row + j] = idx[bps_pad(p, sh)];
+    }
+}
+
+// B8: B3's search with a per-sample angle. C: offsets per slot, kBpsChunk
+// with the samples (float4 [x, y, cos ph1, sin ph1]) and a general
+// alphabet's points staged, or 1 with nothing staged (fine_plan).
+template <int KIND, int C>
+__global__ void __launch_bounds__(kBpsThreads)
+    bps_fine_kernel(const float* __restrict__ er, const float* __restrict__ ei,
+                    const float* __restrict__ ph1, long long L, const float* __restrict__ cd,
+                    const float* __restrict__ sd, int B, int N, GridArgs g,
+                    const float* __restrict__ pts_g, int run, float d0f, float ddf,
+                    float* __restrict__ out) {
+    constexpr bool kStaged = C > 1;
+    extern __shared__ float4 bps_sm[];
+    const int N2 = 2 * N, tile = kBpsThreads * run, W = tile + N2 - 1;
+    const int sh = run > 1 ? __ffs(run) - 1 : 31;
+    float4* pts = bps_sm;                                     // (npts,), kGen and staged only
+    Slot<C>* tab = reinterpret_cast<Slot<C>*>(kStaged ? pts + g.npts : bps_sm);
+    float4* xs = reinterpret_cast<float4*>(tab + bps_pad(W - 1, sh) + 1);   // (W,), staged only
+    const long long row = (long long)blockIdx.y * L;
+    const long long j0 = (long long)blockIdx.x * tile;
+    const long long s0 = j0 - N + 1;  // staged sample u is sample s0 + u of the row
+
+    // sample u as [x, y, cos ph1, sin ph1]; outside the row a zero sample at angle 0
+    auto sample = [&](int u) {
+        const long long s = s0 + u;
+        const bool in = s >= 0 && s < L;
+        float sn, cs;
+        sincosf(in ? ph1[row + s] : 0.f, &sn, &cs);
+        return make_float4(in ? er[row + s] : 0.f, in ? ei[row + s] : 0.f, cs, sn);
+    };
+    if constexpr (kStaged) {
+        if constexpr (KIND == kGen) stage_points(pts, pts_g, g.npts);
+#pragma unroll 4
+        for (int u = threadIdx.x; u < W; u += kBpsThreads) xs[u] = sample(u);
+    }
+    constexpr int R = !kStaged ? kFineMaxRunNarrow : KIND == kGen ? kFineMaxRunGen : kFineMaxRun;
+    float bs[R];   // the run's best sums and indices in registers
+    int bi[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+        bs[r] = INFINITY;
+        bi[r] = 0;
+    }
+    const int p0 = threadIdx.x * run;
+    for (int b0 = 0; b0 < B; b0 += C) {
+        const int nb = min(C, B - b0);
+        float c[C], s[C];
+#pragma unroll
+        for (int k = 0; k < C; ++k) {
+            c[k] = k < nb ? cd[b0 + k] : 0.f;
+            s[k] = k < nb ? sd[b0 + k] : 0.f;
+        }
+        __syncthreads();  // the samples are staged, the previous chunk's sums are done
+        constexpr int kUnroll = KIND == kGen || !kStaged ? 1 : 2;
+#pragma unroll kUnroll
+        for (int u = threadIdx.x; u < W; u += kBpsThreads) {
+            const float4 z = kStaged ? xs[u] : sample(u);
+            // the offsets' angles ph1 + delta_b by angle addition, as bps_fine_distances
+            float ca[C], sa[C];
+#pragma unroll
+            for (int k = 0; k < C; ++k) {
+                ca[k] = __fsub_rn(__fmul_rn(z.z, c[k]), __fmul_rn(z.w, s[k]));
+                sa[k] = __fadd_rn(__fmul_rn(z.w, c[k]), __fmul_rn(z.z, s[k]));
+            }
+            Slot<C> d;
+            chunk_dists<KIND>(z.x, z.y, ca, sa, g, pts, pts_g, d.v);
+            tab[bps_pad(u, sh)] = d;
+        }
+        __syncthreads();
+        bps_run_sums(tab, sh, p0, run, N2, b0, nb, bs, bi);
+    }
+    const int* idx = bps_tile_indices(tab, sh, p0, run, j0, L, N, bi);
+    for (int p = threadIdx.x; p < tile; p += kBpsThreads) {
+        const long long j = j0 + p;
+        if (j < L)
+            out[row + j] = __fadd_rn(__fadd_rn(ph1[row + j], d0f),
+                                     __fmul_rn(ddf, (float)idx[bps_pad(p, sh)]));
     }
 }
 
@@ -477,137 +647,154 @@ __global__ void cpe_coeffs_kernel(const float* __restrict__ symr, const float* _
     }
 }
 
-// B7: the pi/2 jump count of sample i of a row (0 at i = 0)
-__device__ __forceinline__ int quarter_jump(const float* __restrict__ p, long long i,
+// B7: the tiles of a row of L samples: from up to 3 samples before the
+// row's first 16-byte aligned one (its head), kUnwrapTile samples each
+long long unwrap_tiles(long long L) { return (L + 3 + kUnwrapTile - 1) / kUnwrapTile; }
+
+// B7: the jump count of sample i of a row (0 at i = 0 and outside the row) from
+// its phase p and the previous sample's, rounded op by op
+__device__ __forceinline__ int quarter_jump(float p, float before, long long i, long long L,
                                             float inv_half_pi) {
-    if (i == 0) return 0;
-    const float d = __fsub_rn(p[i], p[i - 1]);
-    return (int)floorf(__fadd_rn(__fmul_rn(d, inv_half_pi), 0.5f));
+    if (i < 1 || i >= L) return 0;
+    return (int)floorf(__fadd_rn(__fmul_rn(__fsub_rn(p, before), inv_half_pi), 0.5f));
 }
 
-// B7 launch 1: tiles[row, tile] = the sum of the tile's jump counts
-__global__ void unwrap_count_kernel(const float* __restrict__ ph, long long L, float inv_half_pi,
-                                    int ntiles, int* __restrict__ tiles) {
-    __shared__ int warp_sum[32];
-    const float* p = ph + (long long)blockIdx.y * L;
-    const long long i0 =
-        (long long)blockIdx.x * kUnwrapTile + (long long)threadIdx.x * kUnwrapItems;
-    int own = 0;
-    for (int q = 0; q < kUnwrapItems; ++q)
-        if (i0 + q < L) own += quarter_jump(p, i0 + q, inv_half_pi);
-    int total;
-    block_exclusive_scan(own, warp_sum, &total);
-    if (threadIdx.x == 0) tiles[(long long)blockIdx.y * ntiles + blockIdx.x] = total;
-}
-
-// B7 launch 2: one CTA per row turns its tile totals into exclusive offsets, in place
-__global__ void unwrap_scan_kernel(int ntiles, int* __restrict__ tiles) {
-    __shared__ int warp_sum[32];
-    int* t = tiles + (long long)blockIdx.x * ntiles;
-    const int per = (ntiles + blockDim.x - 1) / blockDim.x;
-    const int first = threadIdx.x * per;
-    int own = 0;
-    for (int q = 0; q < per; ++q)
-        if (first + q < ntiles) own += t[first + q];
-    int run = block_exclusive_scan(own, warp_sum, nullptr);
-    for (int q = 0; q < per; ++q) {
-        if (first + q < ntiles) {
-            const int v = t[first + q];
-            t[first + q] = run;
-            run += v;
+// B7: warp 0's look-back from tile t of a row: the sum of its predecessors'
+// counts, read from their status words (flag << 32 | value) 32 at a time back
+// to the nearest inclusive one; a word not yet published is read again. Tiles
+// before the row's first count as an inclusive 0.
+__device__ __forceinline__ int unwrap_look_back(const unsigned long long* status, int t) {
+    const int lane = threadIdx.x & 31;
+    int excl = 0;
+    for (int k = t - 1;; k -= 32) {
+        const int j = k - lane;   // lane 0 the nearest predecessor
+        unsigned long long w = kUnwrapInclusive;
+        if (j >= 0) {
+            do {
+                w = *reinterpret_cast<const volatile unsigned long long*>(status + j);
+            } while ((w >> 32) == 0);
         }
+        const unsigned incl = __ballot_sync(0xffffffffu, (w >> 32) == (kUnwrapInclusive >> 32));
+        const int stop = incl ? __ffs(incl) - 1 : 32;
+        int v = lane <= stop ? (int)(unsigned)w : 0;
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+        excl += v;
+        if (incl) return excl;
     }
 }
 
-// B7 launch 3: recount, scan in the tile, add the tile's offset, derotate
-__global__ void unwrap_apply_kernel(const float* __restrict__ er, const float* __restrict__ ei,
-                                    const float* __restrict__ ph, long long L, float half_pi,
-                                    float inv_half_pi, int ntiles, const int* __restrict__ tiles,
-                                    float* __restrict__ outr, float* __restrict__ outi) {
+// B7. phase: the alignment (in floats, mod 4) of the five planes' storage where
+// they share it, -1 where they do not (then every access is scalar). scratch:
+// the rows' tickets, then their status words, (rows, ntiles), zero at launch.
+__global__ void __launch_bounds__(kUnwrapThreads)
+    unwrap_kernel(const float* __restrict__ er, const float* __restrict__ ei,
+                  const float* __restrict__ ph, long long L, int phase, float half_pi,
+                  float inv_half_pi, int ntiles, unsigned long long* __restrict__ scratch,
+                  float* __restrict__ outr, float* __restrict__ outi) {
     __shared__ int warp_sum[32];
+    __shared__ int shared_int;
+    const int lane = threadIdx.x & 31;
     const long long row = (long long)blockIdx.y * L;
-    const float* p = ph + row;
-    const long long i0 =
-        (long long)blockIdx.x * kUnwrapTile + (long long)threadIdx.x * kUnwrapItems;
-    int m[kUnwrapItems];
-    int own = 0;
+    unsigned long long* status = scratch + gridDim.y + (long long)blockIdx.y * ntiles;
+    if (threadIdx.x == 0) shared_int = (int)atomicAdd(scratch + blockIdx.y, 1ull);
+
+    // the thread's samples i0 .. i0+kUnwrapItems-1 of a tile, in groups of 4 that lie on
+    // 16-byte boundaries where the planes share their alignment
+    constexpr int K = kUnwrapItems;
+    const long long head = phase >= 0 ? (phase + row) & 3 : 0;
+    float p[K], x[K], y[K];
+    long long i0;
+    auto load = [&](int tile) {
+        i0 = (long long)tile * kUnwrapTile + (long long)K * threadIdx.x - head;
 #pragma unroll
-    for (int q = 0; q < kUnwrapItems; ++q) {
-        m[q] = i0 + q < L ? quarter_jump(p, i0 + q, inv_half_pi) : 0;
+        for (int q0 = 0; q0 < K; q0 += 4) {
+            const long long i = i0 + q0;
+            if (phase >= 0 && i >= 0 && i + 4 <= L) {
+                const float4 a = *reinterpret_cast<const float4*>(ph + row + i);
+                const float4 b = *reinterpret_cast<const float4*>(er + row + i);
+                const float4 c = *reinterpret_cast<const float4*>(ei + row + i);
+                p[q0] = a.x, p[q0 + 1] = a.y, p[q0 + 2] = a.z, p[q0 + 3] = a.w;
+                x[q0] = b.x, x[q0 + 1] = b.y, x[q0 + 2] = b.z, x[q0 + 3] = b.w;
+                y[q0] = c.x, y[q0 + 1] = c.y, y[q0 + 2] = c.z, y[q0 + 3] = c.w;
+            } else {
+#pragma unroll
+                for (int q = q0; q < q0 + 4; ++q) {
+                    const bool in = i0 + q >= 0 && i0 + q < L;
+                    p[q] = in ? ph[row + i0 + q] : 0.f;
+                    x[q] = in ? er[row + i0 + q] : 0.f;
+                    y[q] = in ? ei[row + i0 + q] : 0.f;
+                }
+            }
+        }
+    };
+    // tickets mostly come in launch order: load that tile while the ticket comes back
+    load(blockIdx.x);
+    __syncthreads();
+    const int t = shared_int;   // this CTA's tile: its predecessors' CTAs have all started
+    if (t != (int)blockIdx.x) load(t);
+    // the phase before the first sample: the neighbour lane's last; a warp's first lane reads it
+    float before = __shfl_up_sync(0xffffffffu, p[K - 1], 1);
+    if (lane == 0 && i0 >= 1 && i0 <= L) before = ph[row + i0 - 1];
+    int m[K], own = 0;
+#pragma unroll
+    for (int q = 0; q < K; ++q) {
+        m[q] = quarter_jump(p[q], q ? p[q - 1] : before, i0 + q, L, inv_half_pi);
         own += m[q];
     }
-    int M = tiles[(long long)blockIdx.y * ntiles + blockIdx.x] +
-            block_exclusive_scan(own, warp_sum, nullptr);
-#pragma unroll
-    for (int q = 0; q < kUnwrapItems; ++q) {
-        const long long i = i0 + q;
-        if (i >= L) break;
-        M += m[q];
-        const float u = __fsub_rn(p[i], __fmul_rn(half_pi, (float)M));
-        rotate_one(er[row + i], ei[row + i], u, 1, outr + row + i, outi + row + i);
-    }
-}
-
-template <int KIND>
-__global__ void bps_fine_kernel(const float* __restrict__ er, const float* __restrict__ ei,
-                                const float* __restrict__ ph1, long long L,
-                                const float* __restrict__ cd, const float* __restrict__ sd, int B,
-                                int N, GridArgs g, const float* __restrict__ pts_g, float d0f,
-                                float ddf, float* __restrict__ out) {
-    extern __shared__ float sm[];
-    const int N2 = 2 * N;
-    const int W = kFineTile + N2 - 1;
-    float* dist = sm;                 // (B, W)
-    float* cdt = dist + B * W;        // (B,)
-    float* sdt = cdt + B;             // (B,)
-    float* pts = sdt + B;             // (npts, 3), kGen only
-    const long long row = (long long)blockIdx.y * L;
-    const long long j0 = (long long)blockIdx.x * kFineTile;
-    const long long g0 = j0 - N + 1;  // first sample of the tile's windows
-
-    for (int b = threadIdx.x; b < B; b += blockDim.x) {
-        cdt[b] = cd[b];
-        sdt[b] = sd[b];
-    }
-    if (KIND == kGen) stage_points(pts, pts_g, g.npts);
-    __syncthreads();
-    for (int u = threadIdx.x; u < W; u += blockDim.x) {
-        const long long s = g0 + u;
-        const bool in = s >= 0 && s < L;
-        const float x = in ? er[row + s] : 0.f, y = in ? ei[row + s] : 0.f;
-        float s1, c1;
-        sincosf(in ? ph1[row + s] : 0.f, &s1, &c1);
-        for (int b = 0; b < B; ++b) {
-            const float ca = __fsub_rn(__fmul_rn(c1, cdt[b]), __fmul_rn(s1, sdt[b]));
-            const float sa = __fadd_rn(__fmul_rn(s1, cdt[b]), __fmul_rn(c1, sdt[b]));
-            const float xr = __fsub_rn(__fmul_rn(x, ca), __fmul_rn(y, sa));
-            const float xi = __fadd_rn(__fmul_rn(x, sa), __fmul_rn(y, ca));
-            dist[b * W + u] = grid_dist<KIND>(xr, xi, g, pts);
+    int total;
+    const int in_tile = block_exclusive_scan(own, warp_sum, &total);
+    if (threadIdx.x < 32) {
+        int excl = 0;
+        if (t > 0) {
+            if (lane == 0)
+                *reinterpret_cast<volatile unsigned long long*>(status + t) =
+                    kUnwrapAggregate | (unsigned)total;
+            excl = unwrap_look_back(status, t);
+        }
+        if (lane == 0) {
+            *reinterpret_cast<volatile unsigned long long*>(status + t) =
+                kUnwrapInclusive | (unsigned)(excl + total);
+            shared_int = excl;
         }
     }
     __syncthreads();
-
-    const long long j = j0 + threadIdx.x;
-    if (j >= L) return;
-    int best = 0;
-    if (j >= N && j < L - N) {
-        float bs = INFINITY;
-        for (int b = 0; b < B; ++b) {
-            const float* d = dist + b * W + threadIdx.x;
-            float acc = 0.f;
-            for (int n = 0; n < N2; ++n) acc += d[n];
-            if (acc < bs) {
-                bs = acc;
-                best = b;
+    int M = shared_int + in_tile;
+    float o_r[K], o_i[K];
+#pragma unroll
+    for (int q = 0; q < K; ++q) {
+        M += m[q];
+        rotate_one(x[q], y[q], __fsub_rn(p[q], __fmul_rn(half_pi, (float)M)), 1, o_r + q, o_i + q);
+    }
+#pragma unroll
+    for (int q0 = 0; q0 < K; q0 += 4) {
+        const long long i = i0 + q0;
+        if (phase >= 0 && i >= 0 && i + 4 <= L) {
+            *reinterpret_cast<float4*>(outr + row + i) =
+                make_float4(o_r[q0], o_r[q0 + 1], o_r[q0 + 2], o_r[q0 + 3]);
+            *reinterpret_cast<float4*>(outi + row + i) =
+                make_float4(o_i[q0], o_i[q0 + 1], o_i[q0 + 2], o_i[q0 + 3]);
+        } else {
+#pragma unroll
+            for (int q = q0; q < q0 + 4; ++q) {
+                if (i0 + q >= 0 && i0 + q < L) {
+                    outr[row + i0 + q] = o_r[q];
+                    outi[row + i0 + q] = o_i[q];
+                }
             }
         }
     }
-    out[row + j] = __fadd_rn(__fadd_rn(ph1[row + j], d0f), __fmul_rn(ddf, (float)best));
 }
 
 // One of a kernel template's three instances, by the launch's grid kind.
 #define QTT_BY_KIND(fn, kind) \
     ((kind) == kRect ? fn<kRect> : (kind) == kCross ? fn<kCross> : fn<kGen>)
+
+// B8's instance by grid kind and offsets per slot
+#define QTT_FINE(kind, C)                                                          \
+    ((kind) == kRect    ? bps_fine_kernel<kRect, C>                                \
+     : (kind) == kCross ? bps_fine_kernel<kCross, C>                               \
+                        : bps_fine_kernel<kGen, C>)
 
 int set_smem(const void* fn, size_t bytes) {
     if (bytes <= 48 * 1024) return 0;
@@ -686,31 +873,36 @@ int qtt_cpe_coeffs(const float* symr, const float* symi, int rows, long long ld,
     return (int)cudaGetLastError();
 }
 
-// Tiles per row of B7: the wrapper's scratch is (rows, qtt_unwrap_tiles(L)) int32.
-int qtt_unwrap_tiles(long long L) { return (int)((L + kUnwrapTile - 1) / kUnwrapTile); }
+// Tiles per row of B7: the wrapper's scratch is rows + rows * qtt_unwrap_tiles(L)
+// 64-bit words, zeroed (the rows' tickets, then the tiles' status words).
+int qtt_unwrap_tiles(long long L) { return (int)unwrap_tiles(L); }
 
-// er/ei/ph/outr/outi: (rows, L); tiles: (rows, qtt_unwrap_tiles(L)) int32 scratch.
+// er/ei/ph/outr/outi: (rows, L); scratch: as qtt_unwrap_tiles says.
 int qtt_unwrap_derotate(const float* er, const float* ei, const float* ph, int rows, long long L,
-                        float half_pi, float inv_half_pi, int* tiles, float* outr, float* outi,
-                        void* stream) {
+                        float half_pi, float inv_half_pi, unsigned long long* scratch,
+                        float* outr, float* outi, void* stream) {
     if (rows == 0 || L == 0) return 0;
-    const int ntiles = qtt_unwrap_tiles(L);
+    const int ntiles = (int)unwrap_tiles(L);
+    // 16-byte accesses where the five planes' storage shares its alignment
+    const unsigned long long a = (unsigned long long)ph & 15;
+    const bool same = ((unsigned long long)er & 15) == a && ((unsigned long long)ei & 15) == a &&
+                      ((unsigned long long)outr & 15) == a && ((unsigned long long)outi & 15) == a;
+    const int phase = same && (a & 3) == 0 ? (int)(a >> 2) : -1;
     const dim3 grid((unsigned)ntiles, (unsigned)rows);
-    cudaStream_t s = (cudaStream_t)stream;
-    unwrap_count_kernel<<<grid, kUnwrapThreads, 0, s>>>(ph, L, inv_half_pi, ntiles, tiles);
-    int rc = (int)cudaGetLastError();
-    if (rc) return rc;
-    unwrap_scan_kernel<<<rows, kScanThreads, 0, s>>>(ntiles, tiles);
-    rc = (int)cudaGetLastError();
-    if (rc) return rc;
-    unwrap_apply_kernel<<<grid, kUnwrapThreads, 0, s>>>(er, ei, ph, L, half_pi, inv_half_pi,
-                                                        ntiles, tiles, outr, outi);
+    unwrap_kernel<<<grid, kUnwrapThreads, 0, (cudaStream_t)stream>>>(
+        er, ei, ph, L, phase, half_pi, inv_half_pi, ntiles, scratch, outr, outi);
     return (int)cudaGetLastError();
 }
 
-long long qtt_bps_fine_smem(int B, int N, int npts) {
-    const long long W = kFineTile + 2LL * N - 1;
-    return 4 * (B * W + 2LL * B + 3LL * npts);
+// B8's launch plan (fine_plan) into plan[5]: run, tile, offsets per slot,
+// shared-memory bytes, CTAs.
+void qtt_bps_fine_plan(int nmodes, long long L, int N, int npts, long long* plan) {
+    const BpsPlan p = fine_plan(nmodes, L, N, npts);
+    plan[0] = p.run;
+    plan[1] = p.tile;
+    plan[2] = p.chunk;
+    plan[3] = p.smem;
+    plan[4] = p.ctas;
 }
 
 // kind, g0..g3, pts, npts: as in qtt_bps_idx.
@@ -718,16 +910,19 @@ int qtt_bps_fine(const float* er, const float* ei, const float* ph1, int nmodes,
                  const float* cd, const float* sd, int B, int N, int kind, float g0, float g1,
                  float g2, float g3, const float* pts, int npts, float d0f, float ddf, float* out,
                  void* stream) {
-    if (kind < kRect || kind > kGen || (kind == kGen) != (npts > 0) || (npts > 0 && !pts))
+    if (kind < kRect || kind > kGen || (kind == kGen) != (npts > 0) || (npts > 0 && !pts) ||
+        B < 1 || N < 0)
         return (int)cudaErrorInvalidValue;
-    const size_t smem = (size_t)qtt_bps_fine_smem(B, N, npts);
-    const auto fn = QTT_BY_KIND(bps_fine_kernel, kind);
-    const int rc = set_smem((const void*)fn, smem);
+    if (nmodes == 0 || L == 0) return 0;
+    const BpsPlan p = fine_plan(nmodes, L, N, npts);
+    if (p.smem > kSmemLimit) return (int)cudaErrorInvalidValue;
+    const auto fn = p.chunk == 1 ? QTT_FINE(kind, 1) : QTT_FINE(kind, kBpsChunk);
+    const int rc = set_smem((const void*)fn, (size_t)p.smem);
     if (rc) return rc;
     const GridArgs g = {kind, 1.f, g0, g1, g2, g3, npts};
-    const dim3 grid((unsigned)((L + kFineTile - 1) / kFineTile), (unsigned)nmodes);
-    fn<<<grid, kFineTile, smem, (cudaStream_t)stream>>>(er, ei, ph1, L, cd, sd, B, N, g, pts, d0f,
-                                                       ddf, out);
+    const dim3 grid((unsigned)(p.ctas / nmodes), (unsigned)nmodes);
+    fn<<<grid, kBpsThreads, (size_t)p.smem, (cudaStream_t)stream>>>(
+        er, ei, ph1, L, cd, sd, B, N, g, pts, (int)p.run, d0f, ddf, out);
     return (int)cudaGetLastError();
 }
 

@@ -63,6 +63,27 @@ class BpsPlan(NamedTuple):
     ctas: int
 
 
+def _bps_run(nmodes, L, max_run):
+    """The longest run from ``max_run`` down at which the grid keeps ``BPS_MIN_CTAS`` CTAs."""
+    run = max_run
+    while run > 1 and nmodes * -(-L // (BPS_THREADS * run)) < BPS_MIN_CTAS:
+        run //= 2
+    return run
+
+
+def _bps_slots(W, run):
+    """Slots of a table of W staged samples, padded by one every run (none at runs of one)."""
+    return W + ((W - 1) // run if run > 1 else 0)
+
+
+def _check_plan(what, plan, c_fn, *args):
+    """Hold a host launch plan against the built library's (``c_fn`` fills 5 long longs)."""
+    built = (ctypes.c_longlong * len(plan))()
+    c_fn(*args, ctypes.addressof(built))
+    if tuple(built) != plan:
+        raise RuntimeError("%s and csrc/phase.cu disagree: %s, %s" % (what, plan, tuple(built)))
+
+
 def bps_plan(nmodes, L, N, npts=0):
     """The :class:`BpsPlan` of B3 on (nmodes, L) planes with half-window N, on the host.
 
@@ -75,13 +96,10 @@ def bps_plan(nmodes, L, N, npts=0):
     float2: nothing grows with the number of angles. The launcher holds
     this against ``qtt_bps_plan`` of the built library.
     """
-    run = BPS_MAX_RUN_GEN if npts else BPS_MAX_RUN
-    while run > 1 and nmodes * -(-L // (BPS_THREADS * run)) < BPS_MIN_CTAS:
-        run //= 2
+    run = _bps_run(nmodes, L, BPS_MAX_RUN_GEN if npts else BPS_MAX_RUN)
     tile = BPS_THREADS * run
     W = tile + 2 * N - 1
-    pads = (W - 1) // run if run > 1 else 0
-    smem = 16 * npts + 8 * W + 4 * BPS_CHUNK * (W + pads)
+    smem = 16 * npts + 8 * W + 4 * BPS_CHUNK * _bps_slots(W, run)
     return BpsPlan(run, tile, BPS_CHUNK, smem, nmodes * -(-L // tile))
 
 
@@ -108,11 +126,7 @@ def bps_search_cuda(er, ei, cos_t, sin_t, grid, N, points=None):
         raise KernelLimit("B3 needs %d bytes of shared memory for N=%d, a CTA has %d"
                           % (plan.smem, N, _SMEM_LIMIT))
     lib = _build.library()
-    built = (ctypes.c_longlong * len(plan))()
-    lib.qtt_bps_plan(nmodes, L, int(N), gargs[-1], ctypes.addressof(built))
-    if tuple(built) != plan:
-        raise RuntimeError("bps_plan and csrc/phase.cu bps_plan disagree: %s, %s"
-                           % (plan, tuple(built)))
+    _check_plan("bps_plan", plan, lib.qtt_bps_plan, nmodes, L, int(N), gargs[-1])
     out = torch.empty((nmodes, L), dtype=torch.int32, device=er.device)
     rc = lib.qtt_bps_idx(er.data_ptr(), ei.data_ptr(), nmodes, L, cos_t.data_ptr(),
                          sin_t.data_ptr(), A, int(N), *gargs, out.data_ptr(),
@@ -373,22 +387,54 @@ def unwrap_derotate_plain(er, ei, ph):
     return rotate_plain(er, ei, quarter_unwrap(ph), 1)
 
 
+#: csrc/phase.cu: threads of a B7 CTA, consecutive samples per thread (16-byte vectors of
+#: each plane) and samples of a tile
+UNWRAP_THREADS, UNWRAP_ITEMS = 512, 4
+UNWRAP_TILE = UNWRAP_ITEMS * UNWRAP_THREADS
+
+
+class UnwrapPlan(NamedTuple):
+    """A B7 launch: ``tiles`` per row of ``UNWRAP_TILE`` samples (a row's first starts up
+    to 3 samples before the row, at its first 16-byte aligned sample), ``ctas`` of the grid,
+    and the ``scratch`` words (int64) the wrapper zeroes: one ticket per row, then one status
+    word per tile."""
+    tile: int
+    tiles: int
+    ctas: int
+    scratch: int
+
+
+def unwrap_plan(rows, L):
+    """The :class:`UnwrapPlan` of B7 on (rows, L) planes (csrc/phase.cu ``unwrap_tiles``)."""
+    tiles = -(-(L + 3) // UNWRAP_TILE)
+    return UnwrapPlan(UNWRAP_TILE, tiles, rows * tiles, rows + rows * tiles)
+
+
+def unwrap_scratch(rows, L, device):
+    """B7's scratch on ``device``: :func:`unwrap_plan`'s words, zeroed (no ticket taken, no
+    tile published)."""
+    return torch.zeros(unwrap_plan(rows, L).scratch, dtype=torch.int64, device=device)
+
+
 def unwrap_derotate_cuda(er, ei, ph):
     """Launch kernel B7; same contract as :func:`unwrap_derotate_plain`.
 
-    The row scan takes three CUDA launches (tile counts, their scan, apply);
-    the counter counts one per call.
+    One launch: a single-pass scan of the rows' jump counts with decoupled
+    look-back, over a scratch of :func:`unwrap_plan` words zeroed here.
     """
     _build.require_cuda("unwrap_derotate_cuda", er, ei, ph, dtype=torch.float32)
     _check_unwrap(er, ei, ph)
     lib = _build.library()
     rows, L = er.shape
-    tiles = torch.empty((rows, max(lib.qtt_unwrap_tiles(L), 1)), dtype=torch.int32,
-                        device=er.device)
+    plan = unwrap_plan(rows, L)
+    if lib.qtt_unwrap_tiles(L) != plan.tiles:
+        raise RuntimeError("unwrap_plan and csrc/phase.cu unwrap_tiles disagree: %d, %d"
+                           % (plan.tiles, lib.qtt_unwrap_tiles(L)))
+    scratch = unwrap_scratch(rows, L, er.device)
     outr = torch.empty_like(er)
     outi = torch.empty_like(ei)
     rc = lib.qtt_unwrap_derotate(er.data_ptr(), ei.data_ptr(), ph.data_ptr(), rows, L,
-                                 HALF_PI, INV_HALF_PI, tiles.data_ptr(), outr.data_ptr(),
+                                 HALF_PI, INV_HALF_PI, scratch.data_ptr(), outr.data_ptr(),
                                  outi.data_ptr(), _build.stream_of(er))
     _build.check(rc, "unwrap_derotate_cuda")
     unwrap_derotate_cuda.launches += 1
@@ -428,17 +474,58 @@ def bps_fine_plain(er, ei, ph1, cd, sd, grid, N, d0f, ddf):
     return (ph1 + d0f) + ddf * idx.to(torch.float32)
 
 
+#: csrc/phase.cu: positions of a B8 run at most (on the analytic grids; on a general
+#: alphabet; with slots of one offset)
+FINE_MAX_RUN, FINE_MAX_RUN_GEN, FINE_MAX_RUN_NARROW = 8, 8, 4
+
+
+def _fine_smem(run, chunk, N, npts):
+    tile = BPS_THREADS * run
+    W = tile + 2 * N - 1
+    if chunk == 1:
+        return 4 * _bps_slots(max(W, tile), run)
+    return 16 * npts + 16 * W + 4 * BPS_CHUNK * _bps_slots(W, run)
+
+
+def fine_plan(nmodes, L, N, npts=0):
+    """The :class:`BpsPlan` of B8 on (nmodes, L) planes with half-window N, on the host.
+
+    B3's run rule from ``FINE_MAX_RUN`` (``FINE_MAX_RUN_GEN`` on a general
+    alphabet), the run then halved while the CTA would exceed 227 KB: a
+    general alphabet's points as float4, the padded table of ``BPS_CHUNK``
+    offsets per slot and the staged samples as float4 [x, y, cos ph1, sin
+    ph1]. Where no run fits (half-windows of thousands), ``chunk`` is 1: slots
+    of one offset over max(W, tile) samples and nothing else staged, from runs
+    of at most ``FINE_MAX_RUN_NARROW``. The number of offsets B does not
+    enter. The launcher holds this against ``qtt_bps_fine_plan`` of the built
+    library.
+    """
+    first = _bps_run(nmodes, L, FINE_MAX_RUN_GEN if npts else FINE_MAX_RUN)
+    for chunk in (BPS_CHUNK, 1):
+        run = first if chunk > 1 else min(first, FINE_MAX_RUN_NARROW)
+        while _fine_smem(run, chunk, N, npts) > _SMEM_LIMIT and run > 1:
+            run //= 2
+        smem = _fine_smem(run, chunk, N, npts)
+        if smem <= _SMEM_LIMIT:
+            break
+    tile = BPS_THREADS * run
+    return BpsPlan(run, tile, chunk, smem, nmodes * -(-L // tile))
+
+
 def bps_fine_cuda(er, ei, ph1, cd, sd, grid, N, d0f, ddf, points=None):
     """Launch kernel B8; same contract as :func:`bps_fine_plain` (``points``: as for B3)."""
     _build.require_cuda("bps_fine_cuda", er, ei, ph1, cd, sd, dtype=torch.float32)
     _check_fine(er, ei, ph1, cd, sd)
+    if cd.shape[0] < 1 or int(N) < 0:
+        raise ValueError("bps_fine_cuda takes B >= 1 offsets and a half-window N >= 0")
     gargs, table = _grid_args(grid, er.device, points, "bps_fine_cuda")
+    B, (nmodes, L) = cd.shape[0], er.shape
+    plan = fine_plan(nmodes, L, int(N), gargs[-1])
+    if plan.smem > _SMEM_LIMIT:
+        raise KernelLimit("B8 needs %d bytes of shared memory for N=%d, a CTA has %d"
+                          % (plan.smem, N, _SMEM_LIMIT))
     lib = _build.library()
-    B = cd.shape[0]
-    if lib.qtt_bps_fine_smem(B, int(N), gargs[-1]) > _SMEM_LIMIT:
-        raise ValueError("%d offsets with N=%d exceed one CTA's shared memory of %d bytes"
-                         % (B, N, _SMEM_LIMIT))
-    nmodes, L = er.shape
+    _check_plan("fine_plan", plan, lib.qtt_bps_fine_plan, nmodes, L, int(N), gargs[-1])
     out = torch.empty_like(ph1)
     rc = lib.qtt_bps_fine(er.data_ptr(), ei.data_ptr(), ph1.data_ptr(), nmodes, L,
                           cd.data_ptr(), sd.data_ptr(), B, int(N), *gargs,

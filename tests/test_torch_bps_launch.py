@@ -23,6 +23,7 @@ from qampy_tpu_torch.workload import apsk_const, warped_qam
 SMEM_LIMIT = 227 * 1024
 FULL_RATE = (2, 2 ** 20)             # the per-sample chains' planes
 DECIMATED = (2, 2 ** 16)             # decimated16's side output
+FULL_WINDOW = 4                      # csrc/phase.cu kBpsFullWindow: windows not slid
 
 
 def kernel_order_indices(d, d_zero, N, run):
@@ -33,7 +34,8 @@ def kernel_order_indices(d, d_zero, N, run):
     row, so a run that starts before N sums them and slides them out. Runs
     start at multiples of ``run`` (a tile is ``BPS_THREADS`` runs); the first
     window of a run is summed from 0 one distance at a time, the next ones
-    slide by s + (entering - leaving); the first minimum over the angles wins.
+    slide by s + (entering - leaving), but windows of at most 4 samples are
+    each summed from 0; the first minimum over the angles wins.
     """
     nmodes, L, A = d.shape
     tile = tpc.BPS_THREADS * run
@@ -48,7 +50,11 @@ def kernel_order_indices(d, d_zero, N, run):
         s = s + d[:, starts + n]
     idx = torch.empty((nmodes, starts.numel(), run), dtype=torch.int32, device=d.device)
     for r in range(run):
-        if r:
+        if r and 2 * N <= FULL_WINDOW:
+            s = torch.zeros_like(s)
+            for n in range(2 * N):
+                s = s + d[:, starts + r + n]
+        elif r:
             s = s + (d[:, starts + r - 1 + 2 * N] - d[:, starts + r - 1])
         idx[:, :, r] = torch.argmin(s, dim=-1).to(torch.int32)
     idx = idx.reshape(nmodes, -1)[:, :L]
@@ -204,7 +210,8 @@ def test_kernel_order_equals_the_plain_search_off_near_ties(key, A, N):
     assert float(ties.double().mean()) <= tie_rule(grid)[1]
 
 
-@pytest.mark.parametrize("L, N", [(300, 14), (28, 14), (20, 14), (1000, 0), (517, 60)])
+@pytest.mark.parametrize("L, N", [(300, 14), (28, 14), (20, 14), (1000, 0), (517, 60),
+                                  (5000, 1), (5000, 2)])
 def test_kernel_order_at_the_row_edges(L, N):
     """Rows shorter than a tile, of at most 2N samples (all zeros), and N = 0."""
     const = _alphabet("sq64")

@@ -24,7 +24,7 @@ from qampy_tpu_torch.ops.phase_cuda import (bps_fine_cuda, bps_fine_plain, bps_p
                                             cpe_coeffs_plain, interp_rotate_cuda,
                                             interp_rotate_plain, quarter_unwrap, rotate_cuda,
                                             rotate_plain, unwrap_derotate_cuda,
-                                            unwrap_derotate_plain)
+                                            unwrap_derotate_plain, fine_plan)
 from qampy_tpu_torch.ops.pilot_chain import make_pilot_rx_chain
 from qampy_tpu_torch.theory import cal_scaling_factor_qam, cal_symbols_qam
 from qampy_tpu_torch.workload import (GATE_TRIM, apsk_const, ber_gate, decide, make_pilot_tx,
@@ -717,6 +717,92 @@ def test_b3_b8_refuse_a_wrong_table(dev):
         bps_search_cuda(er, ei, cos_t, sin_t, grid, 14, torch.zeros(32, 3, device=dev))
     with pytest.raises(ValueError, match="gen table"):
         bps_search_cuda(er, ei, cos_t, sin_t, grid, 14, torch.zeros(64, 3))
+
+
+# B8 (B3's runs of sliding window sums over a per-sample angle) on every
+# grid kind, at B in {3, 8} and N in {1, 14, 60}, on rows that are not a multiple of a tile
+@pytest.mark.parametrize("N", [1, 14, 60])
+@pytest.mark.parametrize("B", [3, 8])
+@pytest.mark.parametrize("key", ["sq"] + GRID_KEYS)
+def test_b8_offsets_windows_and_kinds(dev, key, B, N):
+    L = 2 ** 16 + 37
+    if key == "sq":
+        grid, er, ei = _qam_planes(dev, 31 + B + N, L)
+    else:
+        grid = tph.detect_grid(_alphabet(key)[0])
+        er, ei = _alphabet_planes(dev, _alphabet(key)[0], 31 + B + N, L)
+    ang = np.linspace(-np.pi / 4, np.pi / 4, 16, endpoint=False, dtype=np.float32)
+    cos1, sin1 = (torch.as_tensor(t, device=dev) for t in tph.bps_tables(ang, grid))
+    ph1 = -np.pi / 4 + np.pi / 32 * bps_search_cuda(er, ei, cos1, sin1, grid, 60).float()
+    cd, sd, d0f, ddf = tph.fine_tables(16, B, grid)
+    cd, sd = torch.as_tensor(cd, device=dev), torch.as_tensor(sd, device=dev)
+    args = (er, ei, ph1, cd, sd, grid, N, d0f, ddf)
+    got = bps_fine_cuda(*args)
+    assert fine_plan(2, L, N, len(grid[1]) if GRID_KINDS.get(key) == "gen" else 0).run == 4
+    assert torch.equal(got, bps_fine_cuda(*args))
+    rel, share = _tie_rule(grid)
+    ties = tph.bps_fine_near_ties(*args[:7], rel)
+    assert not bool(((got != bps_fine_plain(*args)) & ~ties).any())
+    assert float(ties.double().mean()) <= share
+
+
+@pytest.mark.parametrize("B, N, L", [(1, 3700, 12000), (3, 3700, 12000), (8, 5000, 14000),
+                                     (1, 28000, 58000)])
+def test_b8_windows_of_thousands(dev, B, N, L):
+    """Half-windows past what slots of 4 offsets fit take slots of one (fine_plan), up to the
+    longest window the first design took (B = 1, N = 28,000)."""
+    grid, er, ei = _qam_planes(dev, N, L)
+    er, ei = er[:1].contiguous(), ei[:1].contiguous()
+    ph1 = torch.zeros_like(er)
+    cd, sd, d0f, ddf = tph.fine_tables(16, B, grid)
+    cd, sd = torch.as_tensor(cd, device=dev), torch.as_tensor(sd, device=dev)
+    args = (er, ei, ph1, cd, sd, grid, N, d0f, ddf)
+    assert fine_plan(1, L, N).chunk == 1
+    got = bps_fine_cuda(*args)
+    assert torch.equal(got, bps_fine_cuda(*args))
+    if B == 1:     # one offset: the phase is ph1 + d0f everywhere
+        assert torch.equal(got, bps_fine_plain(*args))
+        return
+    ties = tph.bps_fine_near_ties(*args[:7])
+    assert not bool(((got != bps_fine_plain(*args)) & ~ties).any())
+
+
+def _unwrap_case(dev, rows, L, seed, offs=(0, 0, 0)):
+    """(er, ei, ph) with jumps on every tile edge, a drift that takes |M| into the thousands,
+    each plane placed ``offs`` floats into a buffer of its own (storage not 16-byte aligned)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    i = torch.arange(L, device=dev)
+    step = 0.3 * torch.randn(rows, L, generator=g, device=dev) + 0.01
+    edge = ((i % 2048) <= 1) | ((i % 2048) >= 2045)
+    step = torch.where(edge, step + 1.3, step)
+    theta = torch.cumsum(step, -1)
+    ph = torch.remainder(theta + np.pi / 4, np.pi / 2) - np.pi / 4
+    planes = (torch.randn(rows, L, generator=g, device=dev),
+              torch.randn(rows, L, generator=g, device=dev), ph)
+    out = []
+    for x, o in zip(planes, offs):
+        buf = torch.empty(rows * L + 4, device=dev)
+        v = buf[o:o + rows * L].view(rows, L)
+        v.copy_(x)
+        out.append(v)
+    return out
+
+
+@pytest.mark.parametrize("L", [1, 2047, 2048, 2049, 2 ** 20])
+@pytest.mark.parametrize("rows", [1, 2, 5])
+def test_b7_equals_b6_on_the_plain_unwrap(dev, rows, L):
+    """B7 (one pass, decoupled look-back) equals B6 rotating by quarter_unwrap(ph) bit for bit,
+    at every alignment of the planes, shared or not; two launches are bit-equal."""
+    for offs in ((0, 0, 0), (1, 1, 1), (3, 3, 3), (2, 0, 1)):
+        er, ei, ph = _unwrap_case(dev, rows, L, rows * L + sum(offs), offs)
+        u = quarter_unwrap(ph)
+        want = rotate_cuda(er, ei, u, 1)
+        got = unwrap_derotate_cuda(er, ei, ph)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), offs
+        again = unwrap_derotate_cuda(er, ei, ph)
+        assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    if L == 2 ** 20:
+        assert float((ph - u).abs().max()) > 1000 * np.pi / 2     # |M| in the thousands
 
 
 # B3's tiles, runs and angle chunks at the edges that a tile of one position per thread

@@ -66,6 +66,11 @@ ABLATIONS = {
          "d.v[k] = __fadd_rn(xr[k], xi[k]);"),
         ("gen_dists(xr, xi, pts, g.npts, d.v);",
          "for (int k = 0; k < kBpsChunk; ++k) d.v[k] = __fadd_rn(xr[k], xi[k]);"),
+        # B3's and B8's fills sharing chunk_dists
+        ("        gen_dists(xr, xi, pts, g.npts, d);",
+         "        for (int k = 0; k < C; ++k) d[k] = __fadd_rn(xr[k], xi[k]);"),
+        ("for (int k = 0; k < C; ++k) d[k] = grid_dist<KIND>(xr[k], xi[k], g, pts_g);",
+         "for (int k = 0; k < C; ++k) d[k] = __fadd_rn(xr[k], xi[k]);"),
     ),
 }
 TUNINGS = {
