@@ -10,7 +10,7 @@ result line):
    and ``nvidia-smi``'s name and power limit;
 2. build: compiles the kernels (B1-B9, B2's frame entry and the latency
    probe) from ``qampy_tpu_torch/csrc``, one ``nvcc`` per source, and fails
-   on a register spill in any instance of B1, B2, B3, B7, B8 or B9; then the probe
+   on a register spill in any instance of B1, B2, B3, B5, B7, B8 or B9; then the probe
    (``csrc/probe.cu``): the card's latencies of a dependent add, a shuffle
    and add, rde's register lookup and a CTA barrier, from which the chain
    bounds of the two trainers are reckoned, B9's straight-line division
@@ -44,17 +44,29 @@ result line):
    decisions shared with the plain CPU chain on a small capture, and times
    (chain, tracking, each stage);
 9. pilot kernels: ``workload.make_pilot_tx(244)`` built on the card; B2's
-   frame entry (every one of the 240 frames), B5, B4 and B6 against their
-   plain versions at the pilot path's shapes (480 rows of 2^16 symbols);
+   frame entry (every one of the 240 frames; with its pilot side output the
+   main output bit-equal to the entry's without it, and the side output
+   bit-equal to the main output's pilot columns, both timed), B5 from that
+   side output and strided from the filter output (its sector floor beside
+   its byte bound), B4 and B6 against their plain versions at the pilot
+   path's shapes (480 rows of 2^16 symbols); B5 at rows of 4,097, 8,160 and
+   32,736 pilots in both forms;
 10. pilot main path: one dispatch of the LS pilot chain over frames 0-239
    through ``PilotRxChain.planes``; BER <= 1e-5 with sync_corr >= 120,
-   launch counts B2 frames=1, B5=1, B4=1 and no other kernel, and the
-   synchronising calls seen in that dispatch;
+   launch counts B2 frames=1, B5=1, B4=1 and no other kernel (B5 reads the
+   frame filter's pilot side output), and the synchronising calls seen in
+   that dispatch;
 11. pilot variants: the ``return_phase=True`` chain over 8 frames (B6 once,
    B5 never, payload within 1e-4 of the serving chain's), tracking bit-exact,
    and the card's chain against the plain CPU chain on a small capture;
 12. pilot times: the dispatch and the tracking entry in payload Msym/s, the
    device time of each stage, and each new kernel beside its plain version;
+   then the path "pilot long frames": ``make_pilot_tx(20, frame_len=2**18)``
+   (8,160 CPE pilots a row) over 16 frames through ``PilotRxChain.planes``,
+   launches B2 frames=1, B5=1, B4=1, BER <= 1e-5 with sync_corr >= 120,
+   tracking bit-exact, its kernels against their plain versions, and the
+   capture of seed 3, whose frame sync fails in the reference too, held to
+   the plain CPU chain (shift, mode_order, sync_corr, the gate's outcome);
 13. per-symbol trainer: B9 (one warp per output mode, a kernel instance per
    taps per lane, method and adaptive step) against its plain version on
    ``make_tx(2**13)`` (17 taps, TrSyms 4096) for cma, mcma and rde with and
@@ -139,7 +151,8 @@ from qampy_tpu_torch.ops.equaliser_cuda import (apply_filter_cuda, apply_filter_
                                                 train_seq_plain)
 from qampy_tpu_torch.ops.phase_cuda import (bps_fine, bps_fine_cuda, bps_fine_plain, bps_plan,
                                             bps_search_cuda, bps_search_plain, cpe_coeffs,
-                                            cpe_coeffs_cuda, cpe_coeffs_plain, fine_plan,
+                                            cpe_coeffs_cuda, cpe_coeffs_plain, cpe_plan,
+                                            fine_plan,
                                             interp_rotate, interp_rotate_cuda,
                                             interp_rotate_plain, quarter_unwrap, rotate_cuda,
                                             rotate_plain, unwrap_derotate_cuda,
@@ -199,6 +212,18 @@ PILOT_TX_FRAMES, PILOT_FRAMES, PILOT_FRAME, PILOT_SEQ, PILOT_RAT = 244, 240, 2 *
 PILOT_CFG = dict(os=2, nmodes=2, sync_Ntaps=17, sync_mu=5e-3, sync_Niter=10, Ntaps=45,
                  cpe_avg=3, block_size=256, eq_trainer="ls")
 PHASE_FRAMES = 8         # depth of the return_phase=True chain
+# B5 at rows of more pilots than its first design took (4,096): (pilots, rows); 8,160 and
+# 32,736 are frames of 2^18 and 2^20 symbols at ratio 32
+CPE_LENGTHS = ((4097, 64), (8160, 64), (32736, 16))
+# the path "pilot long frames": make_pilot_tx(20, frame_len=2^18), 16 frames a dispatch, the
+# bench's other settings. At 2^18-symbol frames (511 sync windows) the frame sync fails on
+# half the captures (seeds 2, 3, 5 and 8 of 1-8 on the card's generator: sync_corr 72-88 <
+# 120), in the port's card and CPU chains alike and in the JAX reference wherever it was run
+# on such a capture (ROADMAP queue C, C5): the path gates the first seed that syncs and runs
+# the capture's default seed 3 beside it, holding the card's chain on it to the plain CPU chain
+PILOT_LONG = dict(tx_frames=20, frames=16, frame_len=2 ** 18, seed=1, sync_fails_seed=3)
+TOL_SYNC_CORR = 1e-4     # card vs CPU sync_corr, relative (the card test's bound)
+LONG_AGREE = 0.999       # card vs CPU decisions on that capture (the card test's bound)
 TOL_CPE_A = 1e-5         # B5 a: the same float32 formula; atan2 may differ by an ulp,
 TOL_CPE_B = 1e-6         # which moves a (a few rad) by ~1e-6 and the slopes b by ~1e-7
 TOL_PAYLOAD = 1e-4       # return_phase on/off, the reference's bound (test_pilot_chain.py:543)
@@ -252,7 +277,8 @@ OPS_UNWRAP = 6           # difference, quarter-turn count, prefix sum
 OPS_CPE_PILOT = 20       # conjugate product, atan2, unwrap, average, coefficients
 # the paths in the order they run; each is counted on its own (see counted())
 PATHS = ("blind", "blind twostage", "blind single", "pilot", "pilot return_phase",
-         "equaliser seq", "equaliser block") + tuple(p for p, _, _ in GRID_PATHS)
+         "pilot long frames", "equaliser seq", "equaliser block") + tuple(
+             p for p, _, _ in GRID_PATHS)
 # kernel: (wrapper name, CUDA source, the TPU kernel it replaces)
 KERNELS = {
     "B1": ("train_block", "qampy_tpu_torch/csrc/equaliser.cu",
@@ -380,14 +406,15 @@ def trainer_bound(nmodes, nout, ntaps, os_, nsyms, niter, decide_ops=0):
 
 
 def trainer_build_report():
-    """What ptxas said of the trainers', B2's, B3's, B7's and B8's instances, from the build's
-    log: registers and spills (B3 and B8 keep their run's best sums and indices in registers, B2
-    its run's sums and window)."""
+    """What ptxas said of the trainers', B2's, B3's, B5's, B7's and B8's instances, from the
+    build's log: registers and spills (B3 and B8 keep their run's best sums and indices in
+    registers, B2 its run's sums and window; B5's registers set how many CTAs share an SM)."""
     log = (_build.build_dir() / "build.log").read_text()
     entries = re.findall(r"Compiling entry function '(\S+)'.*?(\d+) bytes stack frame, (\d+) bytes "
                          r"spill stores, (\d+) bytes spill loads.*?Used (\d+) registers", log, re.S)
     for kernel, name in (("train_seq_kernel", "B9"), ("train_block_kernel", "B1"),
                          ("bps_kernel", "B3"), ("bps_fine_kernel", "B8"), ("unwrap_kernel", "B7"),
+                         ("cpe_coeffs_kernel", "B5"),
                          ("apply_filter_kernel", "B2"),
                          ("apply_filter_frames_kernel", "B2 frames")):
         mine = [(int(st), int(ss), int(sl), int(r)) for fn, st, ss, sl, r in entries
@@ -1134,19 +1161,160 @@ def syncs_in(fn):
 
 
 def pilot_stages(chain, pr, pi):
-    """The pilot chain's stages run one by one: a dict of every stage's inputs and outputs."""
+    """The pilot chain's stages run one by one: a dict of every stage's inputs and outputs.
+
+    ``cargs`` are B5's arguments as the chain gives them (the frame filter's
+    pilot side output, read contiguous); ``sargs`` the same pilots read
+    strided from the filter output (B5's other form).
+    """
     P = chain._planes(pr, pi)
     wxs, best_w = chain.sync_search(P)
     mode_order, shift, _, _ = chain.align(P, wxs, best_w)
     eqsh = chain._eq_shift(shift)
     taps = chain.ls_taps(P, eqsh, mode_order).index_select(1, torch.argsort(mode_order))
-    out = chain.frame_filter(P, eqsh, taps)
+    out, side = chain.frame_filter(P, eqsh, taps)
     rows = out.shape[1] * out.shape[2]
     symr, symi = out[0].reshape(rows, -1), out[1].reshape(rows, -1)
-    cargs = (symr, symi, chain.pil_r, chain.pil_i, chain.seq_len, chain.ins_rat, chain.n_head,
-             chain.npts, chain.cpe_dx, chain.cpe_avg, chain.nbt)
+    zr, zi = side[0].reshape(rows, -1), side[1].reshape(rows, -1)
+    tail = (chain.n_head, chain.npts, chain.cpe_dx, chain.cpe_avg, chain.nbt)
+    cargs = (zr, zi, chain.pil_r, chain.pil_i, 0, 1, *tail)
+    sargs = (symr, symi, chain.pil_r, chain.pil_i, chain.seq_len, chain.ins_rat, *tail)
     return dict(P=P, wxs=wxs, best_w=best_w, mode_order=mode_order, eqsh=eqsh, taps=taps,
-                rows=rows, symr=symr, symi=symi, cargs=cargs)
+                rows=rows, out=out, side=side, symr=symr, symi=symi, cargs=cargs, sargs=sargs)
+
+
+def pilot_side(chain):
+    """The frame filter's pilot side output of ``chain``: (poff, pstride, npil)."""
+    return chain.seq_len, chain.ins_rat, chain.nblk
+
+
+def b2_frames_record(chain, st, offs, what, err):
+    """B2's frame entry on ``offs``: with the pilot side output (the serving path's form) and
+    without, the main outputs bit-equal and the side output bit-equal to the main output's pilot
+    columns; times of both beside the bound, the plain version and the grouped ``conv1d``.
+    ``err``: the main output's error against the plain version, measured by the caller."""
+    P, taps, F_ = st["P"], st["taps"], chain.frame_len
+    n, nf = taps.shape[0], offs.shape[1]
+    pil = pilot_side(chain)
+    poff, pstride, npil = pil
+    got, side = apply_filter_frames_cuda(P, chain.os, taps, offs, F_, pil)
+    bare = apply_filter_frames_cuda(P, chain.os, taps, offs, F_)
+    same_main = torch.equal(got, bare)
+    same_side = torch.equal(side, got[..., poff::pstride][..., :npil])
+    print("B2 frames (%s, %d frames): main output with the pilot side output bit-equal to it "
+          "without: %s; side output %s bit-equal to the main output's columns %d + %d p: %s"
+          % (what, nf, same_main, tuple(side.shape), poff, pstride, same_side))
+    require(same_main, "B2's frame entry changes its main output with the side output (%s)" % what)
+    require(same_side, "B2's pilot side output is not the pilot columns (%s)" % what)
+    del bare
+    # each input read once: the span of the capture that the frames' windows cover
+    span = int(offs.max() - offs.min()) + chain.fr_len
+    plan = filter_plan(n, n, chain.Ntaps, chain.os, F_, nf)
+    print("B2 frames (%s, %d frames): %s" % (what, nf, plan_text(plan)))
+    fargs = (P, chain.os, taps, offs, F_)
+    rec = dict(**bound(4 * 2 * n * span + nbytes(taps, offs, got, side),
+                       OPS_FILTER_TAP * n * chain.Ntaps * n * nf * F_),
+               err=err, ms=device_ms(lambda: apply_filter_frames_cuda(*fargs, pil), 20),
+               ms_without_side=device_ms(lambda: apply_filter_frames_cuda(*fargs), 20),
+               plain_ms=device_ms(lambda: apply_filter_frames_plain(*fargs, pil), 3),
+               shape="%d frames, pilot side output (2, %d, %d, %d); %s"
+                     % (nf, n, nf, npil, plan_text(plan)))
+    rec["library_ms"] = frames_library(P, chain.os, taps, offs, chain.fr_len, got)
+    print("time B2 frames (%s, device, %d frames): with the pilot side output %.4f ms, without "
+          "%.4f ms, bound %.5f ms by %s" % (what, nf, rec["ms"], rec["ms_without_side"],
+                                            rec["bound_ms"], rec["bound_by"]))
+    return rec
+
+
+def b5_record(chain, st, card, what):
+    """B5 against its plain version in both forms: from the side output (the chain's) and
+    strided from the filter output; its bound (4 bytes a pilot and plane) and, for the strided
+    form, the sector floor (a 32-byte sector a pilot and plane)."""
+    rows, cargs, sargs = st["rows"], st["cargs"], st["sargs"]
+    npil = chain.nblk
+    a_p, b_p = cpe_coeffs_plain(*cargs)
+    a_s, b_s = cpe_coeffs_plain(*sargs)
+    require(torch.equal(a_p, a_s) and torch.equal(b_p, b_s),
+            "the plain B5 differs between the side output and the strided pilots")
+    errs = []
+    for form, args in (("side output", cargs), ("strided", sargs)):
+        a_k, b_k = cpe_coeffs_cuda(*args)
+        d_a, d_b = float((a_k - a_p).abs().max()), float((b_k - b_p).abs().max())
+        errs.append(max(d_a, d_b))
+        print("B5 cpe_coeffs (%s, %s): %d rows x %d pilots -> %s, max|da| %.3e (tol %.0e), "
+              "max|db| %.3e (tol %.0e), |a| up to %.2f rad"
+              % (what, form, rows, npil, tuple(a_k.shape), d_a, TOL_CPE_A, d_b, TOL_CPE_B,
+                 float(a_p.abs().max())))
+        require(d_a <= TOL_CPE_A and d_b <= TOL_CPE_B,
+                "B5 disagrees with its plain version (%s, %s)" % (what, form))
+    rest = nbytes(chain.pil_r, chain.pil_i, a_k, b_k)
+    plan = cpe_plan(rows, npil, chain.cpe_avg, chain.npts)
+    floor_ms = (2 * 32 * rows * npil + rest) / HBM_BYTES_PER_S * 1e3
+    rec = dict(**bound(2 * 4 * rows * npil + rest, OPS_CPE_PILOT * rows * npil),
+               err=max(errs), ms=device_ms(lambda: cpe_coeffs_cuda(*cargs), 50),
+               strided_ms=device_ms(lambda: cpe_coeffs_cuda(*sargs), 50),
+               plain_ms=device_ms(lambda: cpe_coeffs_plain(*cargs), 10),
+               shape="%d rows x %d pilots, from the side output; plan %d tiles of %d, %d B "
+                     "shared, opt-in %s" % (rows, npil, plan.tiles, plan.tile, plan.smem,
+                                            plan.opt_in))
+    print("time B5 (%s, device, %d rows x %d pilots): side output %.4f ms beside its bound "
+          "%.5f ms (bytes); strided %.4f ms beside its sector floor %.5f ms [%s]"
+          % (what, rows, npil, rec["ms"], rec["bound_ms"], rec["strided_ms"], floor_ms, card))
+    return rec
+
+
+def b4_pilot_record(chain, st, what):
+    """B4 (sign -1) against its plain version with the coefficients B5 builds on the path."""
+    symr, symi = st["symr"], st["symi"]
+    a, b = cpe_coeffs_cuda(*st["cargs"])
+    rargs = (symr, symi, a, b, chain.cpe_dx, -1)
+    r_p, i_p = interp_rotate_plain(*rargs)
+    r_k, i_k = interp_rotate_cuda(*rargs)
+    d_r = max(float((r_k - r_p).abs().max()), float((i_k - i_p).abs().max()))
+    print("B4 interp_rotate (%s, pilot CPE): %s max|d| %.3e (tol %.0e)"
+          % (what, tuple(r_k.shape), d_r, TOL_ROTATE))
+    require(d_r <= TOL_ROTATE, "B4 disagrees with its plain version on the %s path" % what)
+    return dict(**bound(nbytes(symr, symi, a, b, r_k, i_k),
+                        (OPS_INTERP + OPS_ROTATE) * symr.numel()),
+                err=d_r, ms=device_ms(lambda: interp_rotate_cuda(*rargs), 50),
+                plain_ms=device_ms(lambda: interp_rotate_plain(*rargs), 10),
+                shape="%d rows" % st["rows"])
+
+
+def synth_cpe_rows(dev, rows, npil, seed, R=PILOT_RAT, seq_len=PILOT_SEQ):
+    """(rows, seq_len + R npil) symbol planes on the card whose pilots carry a random-walk phase,
+    and the known pilots: the input of B5 at ``npil`` pilots a row."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    frame = seq_len + R * npil
+    pil = torch.polar(torch.ones(2, npil, device=dev),
+                      (torch.randint(0, 4, (2, npil), generator=g, device=dev) + 0.5) * np.pi / 2)
+    walk = torch.cumsum(0.05 * torch.randn(rows, npil, generator=g, device=dev), -1)
+    sym = torch.complex(torch.randn(rows, frame, generator=g, device=dev),
+                        torch.randn(rows, frame, generator=g, device=dev))
+    sym[:, seq_len::R] = pil.repeat_interleave(rows // 2, 0) * torch.polar(torch.ones_like(walk),
+                                                                          walk)
+    return (sym.real.contiguous(), sym.imag.contiguous(), pil.real.contiguous(),
+            pil.imag.contiguous())
+
+
+def check_cpe_lengths(dev, card):
+    """Phase 9: B5 at rows of more pilots than its first design took, both forms."""
+    for npil, rows in CPE_LENGTHS:
+        symr, symi, pr, pi = synth_cpe_rows(dev, rows, npil, npil)
+        tail = (PILOT_SEQ // PILOT_RAT + 1, npil - 2, PILOT_RAT, 3, PILOT_SEQ // PILOT_RAT + npil)
+        zr, zi = (x[:, PILOT_SEQ::PILOT_RAT].contiguous() for x in (symr, symi))
+        for form, args in (("contiguous", (zr, zi, pr, pi, 0, 1, *tail)),
+                           ("strided", (symr, symi, pr, pi, PILOT_SEQ, PILOT_RAT, *tail))):
+            a_p, b_p = cpe_coeffs_plain(*args)
+            a_k, b_k = cpe_coeffs_cuda(*args)
+            d_a, d_b = float((a_k - a_p).abs().max()), float((b_k - b_p).abs().max())
+            ms = device_ms(lambda: cpe_coeffs_cuda(*args), 20)
+            print("B5 cpe_coeffs (%d rows x %d pilots, %s): max|da| %.3e (tol %.0e), max|db| "
+                  "%.3e (tol %.0e), %d tiles a row; %.4f ms [%s]"
+                  % (rows, npil, form, d_a, TOL_CPE_A, d_b, TOL_CPE_B,
+                     cpe_plan(rows, npil, 3).tiles, ms, card))
+            require(d_a <= TOL_CPE_A and d_b <= TOL_CPE_B,
+                    "B5 disagrees with its plain version at %d pilots (%s)" % (npil, form))
 
 
 def check_pilot_kernels(chain, st, card):
@@ -1154,9 +1322,9 @@ def check_pilot_kernels(chain, st, card):
 
     The inputs are the pilot path's own (``st``, from :func:`pilot_stages`):
     the capture, the state the chain acquires on it, the filter output and
-    the CPE coefficients built from it. Returns records keyed by (kernel,
-    path): the serving path's shapes for "pilot" and the first
-    ``PHASE_FRAMES`` frames for "pilot return_phase".
+    its pilot side output, and the CPE coefficients built from it. Returns
+    records keyed by (kernel, path): the serving path's shapes for "pilot"
+    and the first ``PHASE_FRAMES`` frames for "pilot return_phase".
     """
     rec = {}
     P, eqsh, taps = st["P"], st["eqsh"], st["taps"]
@@ -1166,8 +1334,9 @@ def check_pilot_kernels(chain, st, card):
     # form, nmodes^2 virtual input planes and block-diagonal taps through the
     # plain filter, one frame at a time
     offs = chain.frame_offsets(P, eqsh)
-    got = apply_filter_frames_cuda(P, chain.os, taps, offs, F)
-    same = torch.equal(got, apply_filter_frames_cuda(P, chain.os, taps, offs, F))
+    got = st["out"]
+    same = torch.equal(got, apply_filter_frames_cuda(P, chain.os, taps, offs, F,
+                                                     pilot_side(chain))[0])
     d_modes = (offs[1] - offs[0]).abs()
     wv = torch.zeros((n, n * n, chain.Ntaps), dtype=taps.dtype, device=P.device)
     for i in range(n):
@@ -1186,56 +1355,32 @@ def check_pilot_kernels(chain, st, card):
              int(d_modes.min()), int(d_modes.max())))
     require(max(d_f) <= TOL_FILTER_REL * rms, "B2's frame entry disagrees with the plain form")
     require(same, "two launches of B2's frame entry differ")
-    for path, o, d in (("pilot", offs, max(d_f)),
-                       ("pilot return_phase", offs[:, :nr].contiguous(), max(d_f[:nr]))):
-        fargs = (P, chain.os, taps, o, F)
-        nf = o.shape[1]
-        # each input read once: the span of the capture that the frames' windows cover
-        span = int(o.max() - o.min()) + chain.fr_len
-        plan = filter_plan(n, n, chain.Ntaps, chain.os, F, nf)
-        print("B2 frames (%s, %d frames): %s" % (path, nf, plan_text(plan)))
-        rec["B2 frames", path] = dict(
-            **bound(4 * 2 * n * span + nbytes(taps, o) + 4 * 2 * n * nf * F,
-                    OPS_FILTER_TAP * n * chain.Ntaps * n * nf * F),
-            err=d, ms=device_ms(lambda: apply_filter_frames_cuda(*fargs), 20),
-            plain_ms=device_ms(lambda: apply_filter_frames_plain(*fargs), 3),
-            shape="%d frames; %s" % (nf, plan_text(plan)))
-        rec["B2 frames", path]["library_ms"] = frames_library(
-            P, chain.os, taps, o, chain.fr_len, got[:, :, :nf])
+    rec["B2 frames", "pilot"] = b2_frames_record(chain, st, offs, "pilot", max(d_f))
+    # the return_phase chain's frames take no side output
+    o = offs[:, :nr].contiguous()
+    fargs = (P, chain.os, taps, o, F)
+    span = int(o.max() - o.min()) + chain.fr_len
+    plan = filter_plan(n, n, chain.Ntaps, chain.os, F, nr)
+    print("B2 frames (pilot return_phase, %d frames): %s" % (nr, plan_text(plan)))
+    rec["B2 frames", "pilot return_phase"] = dict(
+        **bound(4 * 2 * n * span + nbytes(taps, o) + 4 * 2 * n * nr * F,
+                OPS_FILTER_TAP * n * chain.Ntaps * n * nr * F),
+        err=max(d_f[:nr]), ms=device_ms(lambda: apply_filter_frames_cuda(*fargs), 20),
+        plain_ms=device_ms(lambda: apply_filter_frames_plain(*fargs), 3),
+        shape="%d frames; %s" % (nr, plan_text(plan)))
+    rec["B2 frames", "pilot return_phase"]["library_ms"] = frames_library(
+        P, chain.os, taps, o, chain.fr_len, got[:, :, :nr])
 
-    # B5 on all 480 rows of the filter output
-    rows, symr, symi, cargs = st["rows"], st["symr"], st["symi"], st["cargs"]
-    a_p, b_p = cpe_coeffs_plain(*cargs)
-    a_k, b_k = cpe_coeffs_cuda(*cargs)
-    d_a, d_b = float((a_k - a_p).abs().max()), float((b_k - b_p).abs().max())
-    print("B5 cpe_coeffs: %d rows x %d pilots -> %s, max|da| %.3e (tol %.0e), max|db| %.3e "
-          "(tol %.0e), |a| up to %.2f rad" % (rows, chain.nblk, tuple(a_k.shape), d_a, TOL_CPE_A,
-                                              d_b, TOL_CPE_B, float(a_p.abs().max())))
-    require(d_a <= TOL_CPE_A and d_b <= TOL_CPE_B, "B5 disagrees with its plain version")
-    # of the filter output it reads the pilot samples only
-    rec["B5", "pilot"] = dict(**bound(2 * 4 * rows * chain.nblk + nbytes(chain.pil_r, chain.pil_i,
-                                                                         a_k, b_k),
-                                      OPS_CPE_PILOT * rows * chain.nblk),
-                              err=max(d_a, d_b), ms=device_ms(lambda: cpe_coeffs_cuda(*cargs), 50),
-                              plain_ms=device_ms(lambda: cpe_coeffs_plain(*cargs), 10),
-                              shape="%d rows" % rows)
+    # B5 on all 480 rows, in both forms; then at rows of more pilots
+    rec["B5", "pilot"] = b5_record(chain, st, card, "pilot")
+    check_cpe_lengths(P.device, card)
 
     # B4 (sign -1, dx 32) with those coefficients
-    rargs = (symr, symi, a_k, b_k, chain.cpe_dx, -1)
-    r_p, i_p = interp_rotate_plain(*rargs)
-    r_k, i_k = interp_rotate_cuda(*rargs)
-    d_r = max(float((r_k - r_p).abs().max()), float((i_k - i_p).abs().max()))
-    print("B4 interp_rotate (pilot CPE): %s max|d| %.3e (tol %.0e)"
-          % (tuple(r_k.shape), d_r, TOL_ROTATE))
-    require(d_r <= TOL_ROTATE, "B4 disagrees with its plain version on the pilot path")
-    rec["B4", "pilot"] = dict(**bound(nbytes(symr, symi, a_k, b_k, r_k, i_k),
-                                      (OPS_INTERP + OPS_ROTATE) * symr.numel()),
-                              err=d_r, ms=device_ms(lambda: interp_rotate_cuda(*rargs), 50),
-                              plain_ms=device_ms(lambda: interp_rotate_plain(*rargs), 10),
-                              shape="%d rows" % rows)
+    rec["B4", "pilot"] = b4_pilot_record(chain, st, "pilot")
 
     # B6 with the plain CPE trace: on all 480 rows, and on the rows of the
     # return_phase chain's first frames, which that path derotates
+    symr, symi, rows = st["symr"], st["symi"], st["rows"]
     out = torch.stack([symr, symi]).reshape(2, n, -1, F)
     sub = out[:, :, :nr].reshape(2, n * nr, F)
     for what, (zr, zi) in (("%d rows" % rows, (symr, symi)),
@@ -1534,6 +1679,8 @@ def pilot_phases(dev, card):
                                        gate["sync_corr"], info["shift"].tolist(),
                                        info["mode_order"].tolist()))
     require(gate["ok"], "pilot BER gate failed (BER <= 1e-5 and sync_corr >= 120)")
+    print("pilot main path: the frame filter hands B5 its pilot side output %s (pilots %d + %d p)"
+          % (tuple(st["side"].shape), chain.seq_len, chain.ins_rat))
     syncs = syncs_in(lambda: chain.planes(pr, pi))
     print("pilot dispatch: %d synchronising calls under torch.cuda.set_sync_debug_mode('warn')%s"
           % (len(syncs), "".join("\n  " + s for s in syncs)))
@@ -1604,8 +1751,9 @@ def pilot_phases(dev, card):
         "sync search (%d windows, batched CMA)" % chain.W: lambda: chain.sync_search(P),
         "alignment (filter, FOE, xcorr, assignment)": lambda: chain.align(P, wxs, best_w),
         "LS solve": lambda: chain.ls_taps(P, eqsh, mode_order),
-        "frame filter (B2 frames)": lambda: chain.frame_filter(P, eqsh, taps),
-        "CPE coefficients (B5)": lambda: cpe_coeffs(*cargs),
+        "frame filter (B2 frames, with the pilot side output)":
+            lambda: chain.frame_filter(P, eqsh, taps),
+        "CPE coefficients (B5, from the side output)": lambda: cpe_coeffs(*cargs),
         "derotation (B4)": lambda: interp_rotate(symr, symi, a, b, chain.cpe_dx, -1),
         "payload extraction": lambda: chain.payload(outr, outi),
     }
@@ -1619,7 +1767,105 @@ def pilot_phases(dev, card):
               % (k, st_busy, st_nk, 100 * st_busy / busy, st_wall, card))
     print("time pilot stages' device busy sum: %.4f ms vs the dispatch's %.4f ms busy, %.4f ms "
           "stream time [%s]" % (total, busy, t_full, card))
-    return rec, {"pilot": launches, "pilot return_phase": launches_rp}
+    del st, stages, outr, outi, a, b
+    long_rec, long_launches = pilot_long_path(card)
+    rec.update(long_rec)
+    return rec, {"pilot": launches, "pilot return_phase": launches_rp,
+                 "pilot long frames": long_launches}
+
+
+def pilot_long_path(card):
+    """The path "pilot long frames": frames of 2^18 symbols, 8,160 CPE pilots a row.
+
+    One dispatch of 16 frames through ``PilotRxChain.planes``, counted (B2
+    frames, B5, B4 once each), under the BER gate, tracking bit-exact, and its
+    kernels against their plain versions on its own inputs; then the capture
+    of seed 3, on which the frame sync fails as the reference's does (see
+    ``PILOT_LONG``), counted and held to the port's plain CPU chain: the same
+    shift and mode order, sync_corr within 1e-4, the same outcome of the BER
+    gate and 99.9 % of the decisions. Returns (records, launches).
+    """
+    path, cfg = "pilot long frames", PILOT_LONG
+    F_ = cfg["frame_len"]
+
+    def dispatch(seed):
+        t0 = time.perf_counter()
+        tx = make_pilot_tx(cfg["tx_frames"], frame_len=F_, seed=seed)   # on the card
+        chain = make_pilot_rx_chain(tx.pilot_seq, tx.ph_pilots, F_, PILOT_RAT,
+                                    frames=range(cfg["frames"]), return_phase=False, **PILOT_CFG)
+        pr, pi = tx.planes[:2], tx.planes[2:]
+        ((dr, di), info), launches = counted(lambda: chain.planes(pr, pi))
+        nd = tx.idx_tx.shape[-1]
+        require(launches == expected({"B4": 1, "B2 frames": 1, "B5": 1}),
+                "the %s path did not launch each kernel once (seed %d): %s"
+                % (path, seed, launches))
+        require(tuple(dr.shape) == (2, cfg["frames"] * nd) and dr.shape == di.shape
+                and bool(torch.isfinite(dr).all() and torch.isfinite(di).all()),
+                "%s payload of shape %s, or not finite" % (path, tuple(dr.shape)))
+        gate = ber_gate(dr, di, tx, info["sync_corr"])
+        print("%s, seed %d: %d frames of SignalWithPilots(64, %d, %d, %d) statistics, %d CPE "
+              "pilots a row, launches %s; BER %.3e SER %.3e over 2 x %d x %d payload symbols, "
+              "sync_corr %.1f, shift %s, mode_order %s (%.2f s with the capture)"
+              % (path, seed, cfg["tx_frames"], F_, PILOT_SEQ, PILOT_RAT, chain.nblk, launches,
+                 gate["ber"], gate["ser"], cfg["frames"], nd, gate["sync_corr"],
+                 info["shift"].tolist(), info["mode_order"].tolist(),
+                 time.perf_counter() - t0))
+        return tx, chain, (dr, di), info, launches, gate
+
+    tx, chain, (dr, di), info, launches, gate = dispatch(cfg["seed"])
+    require(gate["ok"], "the %s BER gate failed (BER <= 1e-5 and sync_corr >= 120)" % path)
+    pr, pi = tx.planes[:2], tx.planes[2:]
+    (tr, ti), _ = chain.tracking_planes(pr, pi, info["taps"], info["shift"], info["mode_order"])
+    exact = bool(torch.equal(tr, dr) and torch.equal(ti, di))
+    print("%s tracking_planes == planes payload: %s" % (path, exact))
+    require(exact, "the %s tracking output differs from the full chain" % path)
+    npay = dr.numel()
+    t_trk = cuda_ms(lambda: chain.tracking_planes(pr, pi, info["taps"], info["shift"],
+                                                  info["mode_order"]), 5)
+    print("time %s chain.tracking_planes (%d frames): %.4f ms, %.1f payload Msym/s [%s]"
+          % (path, cfg["frames"], t_trk, npay / t_trk / 1e3, card))
+
+    st = pilot_stages(chain, pr, pi)
+    offs = chain.frame_offsets(st["P"], st["eqsh"])
+    ref = apply_filter_frames_plain(st["P"], chain.os, st["taps"], offs, F_)
+    rms = float(ref.pow(2).mean().sqrt())
+    d_f = float((st["out"] - ref).abs().max())
+    del ref
+    print("B2 frames (%s): %s max|d| %.3e against the plain version (tol %.0e x rms %.3f)"
+          % (path, tuple(st["out"].shape), d_f, TOL_FILTER_REL, rms))
+    require(d_f <= TOL_FILTER_REL * rms, "B2's frame entry disagrees on the %s path" % path)
+    rec = {("B2 frames", path): b2_frames_record(chain, st, offs, path, d_f),
+           ("B5", path): b5_record(chain, st, card, path),
+           ("B4", path): b4_pilot_record(chain, st, path)}
+    print_times(rec, card)
+    del st, tx, chain, dr, di, tr, ti
+
+    # the capture whose frame sync fails in the reference too: the card's chain held to the
+    # port's plain CPU chain on it, state, sync_corr and the BER gate's outcome
+    seed = cfg["sync_fails_seed"]
+    tx, chain, (dr, di), info, _, gate = dispatch(seed)
+    t0 = time.perf_counter()
+    cpu = make_pilot_rx_chain(tx.pilot_seq, tx.ph_pilots, F_, PILOT_RAT,
+                              frames=range(cfg["frames"]), return_phase=False, **PILOT_CFG,
+                              device="cpu")
+    (cr, ci), cinfo = cpu.planes(tx.planes[:2].cpu(), tx.planes[2:].cpu())
+    cgate = ber_gate(cr.to(dr.device), ci.to(dr.device), tx, cinfo["sync_corr"])
+    same_state = all(cinfo[k].tolist() == info[k].tolist() for k in ("shift", "mode_order"))
+    d_corr = abs(float(cinfo["sync_corr"]) - float(info["sync_corr"]))
+    agree = float((decide(torch.complex(dr, di).cpu(), tx.coded)
+                   == decide(torch.complex(cr, ci), tx.coded)).double().mean())
+    print("%s, seed %d: plain CPU chain (%.2f s): shift %s, mode_order %s, sync_corr %.4f (card "
+          "%.4f, |d| %.3e, tol %.0e relative), BER %.3e, BER gate %s (card: %s), decisions "
+          "agree on %.6f (min %.3f); the frame sync itself fails on this capture, in the JAX "
+          "reference too (ROADMAP queue C, C5)"
+          % (path, seed, time.perf_counter() - t0, cinfo["shift"].tolist(),
+             cinfo["mode_order"].tolist(), float(cinfo["sync_corr"]), float(info["sync_corr"]),
+             d_corr, TOL_SYNC_CORR, cgate["ber"], "held" if cgate["ok"] else "failed",
+             "held" if gate["ok"] else "failed", agree, LONG_AGREE))
+    require(same_state and d_corr <= TOL_SYNC_CORR * abs(float(cinfo["sync_corr"]))
+            and cgate["ok"] == gate["ok"] and agree >= LONG_AGREE,
+            "the card's %s chain disagrees with the plain CPU chain on seed %d" % (path, seed))
+    return rec, launches
 
 
 def main():

@@ -55,13 +55,27 @@
 //     - pavg[la])/dx inside, a = pavg[0] or pavg[npts-1] and b = 0 outside.
 //     Replaces qampy_tpu/ops/phase_pallas.py cpe_coeffs_pallas
 //     (_cpe_coeffs_kernel, its in-kernel use_atan2 form: CUDA has atan2f,
-//     which Mosaic lacked). Bound: latency (a few thousand values per row, a
-//     scan across them). Design: one CTA of 1024 threads per row; the
-//     pilots are read strided straight from the filter output; a thread
-//     owns up to four neighbouring lanes; the jump counts are scanned in
-//     int32 (exact) by warp shuffles and then across the 32 warps. Every
-//     product and sum is rounded on its own (no FMA contraction), so the
-//     result equals the plain version's.
+//     which Mosaic lacked). Bound: device memory (4 bytes per pilot and plane
+//     in, the known pilots, (a, b) out) where the pilots arrive contiguous, as
+//     B2's frame entry gathers them on the pilot chain's path; read strided
+//     from the filter output each pilot and plane pulls a 32-byte sector.
+//     Design: one CTA of kCpeThreads threads per row walks the row in tiles
+//     of kCpeTile pilots. The tile's loads come first and coalesced
+//     (neighbouring threads on neighbouring pilots, any stride), the phases
+//     (atan2f) go to shared memory, and from there each thread takes
+//     kCpeItems consecutive ones as a float4: it counts their jumps, one
+//     block scan (int32: exact in any order) gives the unwrapped u, and the
+//     count and the last phase carry to the next tile. The tile's u sits in
+//     shared memory behind a halo of the cpe_avg values before it, so the
+//     averages that end in the tile, and the one before them, are summed
+//     there once each in the plain version's order; the tile writes the
+//     (a, b) of the blocks whose averages it holds (cpe_plan; the head where
+//     pavg[0] ends, the tail in the last tile) as 16-byte vectors. No pilot
+//     count is too long; shared memory is 4 (halo + 2 kCpeTile + 36) bytes,
+//     the halo cpe_avg rounded up to 4: past 48 KB opted in (cpe_avg above
+//     8,156), past 227 KB refused (above 53,980). Every product and sum is
+//     rounded on its own (no FMA contraction), so the result equals the plain
+//     version's but for atan2f against torch.atan2 (an ulp).
 //
 // B6  qtt_rotate: out = E exp(sign j ph) for a given per-sample phase.
 //     Replaces qampy_tpu/ops/phase_pallas.py rotate_planes_pallas
@@ -138,8 +152,11 @@ constexpr int kFineMaxRunGen = 8; // B8: the same on a general alphabet
 constexpr int kFineMaxRunNarrow = 4;   // B8: the same with slots of one offset
 constexpr long long kSmemLimit = 227 * 1024;   // shared memory a CTA can have
 constexpr int kRotThreads = 256;
-constexpr int kCpeThreads = 1024;
-constexpr int kCpeMaxLanes = 4;   // lanes per thread of B5: rows of up to 4096 pilots
+constexpr long long kStaticSmem = 48 * 1024;   // shared memory a CTA has without opting in
+constexpr int kCpeThreads = 512;  // B5: threads of a CTA, one CTA per row
+constexpr int kCpeItems = 4;      // B5: consecutive pilots (and blocks) per thread: a float4
+constexpr int kCpeTile = kCpeItems * kCpeThreads;   // B5: pilots per pass over the row
+static_assert(kCpeItems == 4, "B5 moves a thread's pilots and phases as one float4");
 constexpr int kUnwrapThreads = 512;
 constexpr int kUnwrapItems = 4;   // B7: consecutive samples per thread, a multiple of 4
 constexpr int kUnwrapTile = kUnwrapItems * kUnwrapThreads;
@@ -577,73 +594,167 @@ __global__ void rotate_kernel(const float* __restrict__ er, const float* __restr
     rotate_one(er[i], ei[i], ph[i], sign, outr + i, outi + i);
 }
 
-__global__ void cpe_coeffs_kernel(const float* __restrict__ symr, const float* __restrict__ symi,
-                                  long long ld, int off, int stride,
-                                  const float* __restrict__ pil_r,
-                                  const float* __restrict__ pil_i, int rows_per_pilot,
-                                  int npil, int n_head, int npts, int dx, int cpe_avg, int nbt,
-                                  int lanes, float two_pi, float inv_two_pi,
-                                  float* __restrict__ a_out, float* __restrict__ b_out) {
-    extern __shared__ float sm[];
-    float* ph_s = sm;                 // (npil,) pilot phases
-    float* u_s = ph_s + npil;         // (npil,) unwrapped phases
-    float* pavg_s = u_s + npil;       // (npts,) moving average
-    __shared__ int warp_sum[32];
+// B5's halo: the cpe_avg unwrapped phases before a tile, rounded up to 4 so that the tile's
+// own start on a 16-byte boundary
+inline __host__ __device__ int cpe_halo(int cpe_avg) { return (cpe_avg + 3) & ~3; }
+
+// B5's launch plan (qtt_cpe_plan; ops/phase_cuda.py cpe_plan on the host): a row's
+// pilots that the average reaches, npts + cpe_avg - 1, in tiles of kCpeTile; the halo
+// holds the last cpe_avg unwrapped phases before a tile (the average of a tile's first
+// block reaches back cpe_avg - 1 pilots, and its left neighbour's one more)
+struct CpePlan {
+    long long tile, tiles, halo, smem, ctas, opt_in;
+};
+inline CpePlan cpe_plan(long long rows, int npts, int cpe_avg) {
+    CpePlan p;
+    p.tile = kCpeTile;
+    p.tiles = ((long long)npts + cpe_avg - 1 + kCpeTile - 1) / kCpeTile;
+    p.halo = cpe_halo(cpe_avg);
+    // the halo and the tile's u; the tile's phases, then its averages (one more than a tile,
+    // rounded up to 4); the scan's warp sums
+    p.smem = 4 * (p.halo + 2 * (long long)kCpeTile + 4 + 32);
+    p.ctas = rows;
+    p.opt_in = p.smem > kStaticSmem;
+    return p;
+}
+
+__device__ __forceinline__ bool aligned16(const void* p) {
+    return ((unsigned long long)p & 15) == 0;
+}
+
+// pavg[l] = (u[l+c-1] + ... + u[l]) / c, summed in that order (the plain version's), from
+// u_l = u[l] in shared memory
+__device__ __forceinline__ float cpe_pavg(const float* u_l, int c) {
+    float acc = u_l[c - 1];
+    for (int k = 1; k < c; ++k) acc = __fadd_rn(acc, u_l[c - 1 - k]);
+    return __fdiv_rn(acc, (float)c);
+}
+
+// One CTA per row; see the note at the top (B5).
+__global__ void __launch_bounds__(kCpeThreads)
+cpe_coeffs_kernel(const float* __restrict__ symr, const float* __restrict__ symi, long long ld,
+                  int off, int stride, const float* __restrict__ pil_r,
+                  const float* __restrict__ pil_i, int rows_per_pilot, int npil, int n_head,
+                  int npts, int dx, int cpe_avg, int nbt, float two_pi, float inv_two_pi,
+                  float* __restrict__ a_out, float* __restrict__ b_out) {
+    constexpr int K = kCpeItems, T = kCpeTile;
+    extern __shared__ float4 sm4[];
+    const int H = cpe_avg, Hp = cpe_halo(cpe_avg);
+    float* u_s = reinterpret_cast<float*>(sm4);        // u[j0 - Hp .. j0 + T) of tile j0
+    float* ph_s = u_s + Hp + T;                        // the tile's phases, then its averages
+    int* warp_sum = reinterpret_cast<int*>(ph_s + T + 4);
     const long long row = blockIdx.x;
     const int t = threadIdx.x;
     const float* zr = symr + row * ld + off;
     const float* zi = symi + row * ld + off;
     const float* pr = pil_r + (row / rows_per_pilot) * npil;
     const float* pi = pil_i + (row / rows_per_pilot) * npil;
-
-    for (int j = t; j < npil; j += blockDim.x) {
-        const float xr = zr[(long long)j * stride], xi = zi[(long long)j * stride];
-        const float y = __fsub_rn(__fmul_rn(pr[j], xi), __fmul_rn(pi[j], xr));
-        const float x = __fadd_rn(__fmul_rn(pr[j], xr), __fmul_rn(pi[j], xi));
-        ph_s[j] = atan2f(y, x);
-    }
-    __syncthreads();
-
-    // jump counts of this thread's lanes t*lanes .. t*lanes+lanes-1, prefix-summed
-    int incl_q[kCpeMaxLanes];
-    int own = 0;
+    float* a_row = a_out + row * nbt;
+    float* b_row = b_out + row * nbt;
+    const bool vec_out = aligned16(a_row) && aligned16(b_row);
+    const int nuse = npts + cpe_avg - 1;               // the pilots the average reaches
+    int count = 0;                                     // the jumps before the tile
+    float carry = 0.f;                                 // the phase of the pilot before it
+    for (int j0 = 0; j0 < nuse; j0 += T) {
+        const int j1 = min(j0 + T, nuse), n = j1 - j0;
+        // the tile's phases: pilot j0 + i by thread i mod kCpeThreads (neighbouring threads
+        // on neighbouring pilots), every load first
+        float xr[K], xi[K], wr[K], wi[K];
 #pragma unroll
-    for (int q = 0; q < kCpeMaxLanes; ++q) {
-        if (q >= lanes) break;
-        const int j = t * lanes + q;
-        int m = 0;
-        if (j > 0 && j < npil) {
-            const float d = __fsub_rn(ph_s[j], ph_s[j - 1]);
-            m = (int)floorf(__fadd_rn(__fmul_rn(d, inv_two_pi), 0.5f));
+        for (int q = 0; q < K; ++q) {
+            const int i = t + q * kCpeThreads;
+            const bool in = i < n;
+            const int j = in ? j0 + i : 0;
+            xr[q] = in ? zr[(long long)j * stride] : 0.f;
+            xi[q] = in ? zi[(long long)j * stride] : 0.f;
+            wr[q] = in ? pr[j] : 0.f;
+            wi[q] = in ? pi[j] : 0.f;
         }
-        own += m;
-        incl_q[q] = own;
-    }
-    // exclusive prefix of `own` over the block: warp scan, then over the warps
-    const int before = block_exclusive_scan(own, warp_sum, nullptr);
 #pragma unroll
-    for (int q = 0; q < kCpeMaxLanes; ++q) {
-        if (q >= lanes) break;
-        const int j = t * lanes + q;
-        if (j < npil)
-            u_s[j] = __fsub_rn(ph_s[j], __fmul_rn(two_pi, (float)(before + incl_q[q])));
-    }
-    __syncthreads();
+        for (int q = 0; q < K; ++q)
+            ph_s[t + q * kCpeThreads] =
+                atan2f(__fsub_rn(__fmul_rn(wr[q], xi[q]), __fmul_rn(wi[q], xr[q])),
+                       __fadd_rn(__fmul_rn(wr[q], xr[q]), __fmul_rn(wi[q], xi[q])));
+        __syncthreads();
+        // each thread's K consecutive pilots from here on
+        const float4 v = reinterpret_cast<const float4*>(ph_s)[t];
+        const float ph[K] = {v.x, v.y, v.z, v.w};
+        const float before = t > 0 ? ph_s[K * t - 1] : carry;
+        const float next_carry = ph_s[T - 1];
+        // jump counts, rounded op by op (a step of exactly +pi counts), prefix-summed in int32
+        int incl[K], own = 0;
+#pragma unroll
+        for (int q = 0; q < K; ++q) {
+            const int j = j0 + K * t + q;
+            if (j > 0 && j < j1) {
+                const float d = __fsub_rn(ph[q], q ? ph[q - 1] : before);
+                own += (int)floorf(__fadd_rn(__fmul_rn(d, inv_two_pi), 0.5f));
+            }
+            incl[q] = own;
+        }
+        int total;
+        const int excl = count + block_exclusive_scan(own, warp_sum, &total);   // syncs
+        float u[K];
+#pragma unroll
+        for (int q = 0; q < K; ++q)
+            u[q] = __fsub_rn(ph[q], __fmul_rn(two_pi, (float)(excl + incl[q])));
+        reinterpret_cast<float4*>(u_s + Hp)[t] = make_float4(u[0], u[1], u[2], u[3]);
+        __syncthreads();
 
-    for (int l = t; l < npts; l += blockDim.x) {
-        float acc = u_s[l + cpe_avg - 1];
-        for (int k = 1; k < cpe_avg; ++k) acc = __fadd_rn(acc, u_s[l + cpe_avg - 1 - k]);
-        pavg_s[l] = __fdiv_rn(acc, (float)cpe_avg);
-    }
-    __syncthreads();
-
-    const float first = pavg_s[0], last = pavg_s[npts - 1];
-    for (int k = t; k < nbt; k += blockDim.x) {
-        const int la = k - n_head;
-        const bool mid = la >= 0 && la < npts - 1;
-        a_out[row * nbt + k] = la < 0 ? first : (mid ? pavg_s[la] : last);
-        b_out[row * nbt + k] =
-            mid ? __fdiv_rn(__fsub_rn(pavg_s[la + 1], pavg_s[la]), (float)dx) : 0.f;
+        // the averages pavg[p0 .. p1) end in this tile; it decides the blocks whose la (or,
+        // inside, la + 1) is among them: the head (la < 0) where pavg[0] ends, the tail
+        // (la >= npts - 1) where pavg[npts - 1] ends
+        const int p0 = max(0, j0 - cpe_avg + 1), p1 = min(npts, j1 - cpe_avg + 1);
+        if (p0 < p1) {
+            // the averages pavg[l0 .. p1) (the one before the tile's first, where it has one),
+            // over the phases in ph_s
+            const int l0 = max(p0 - 1, 0);
+            const float* u_base = u_s + Hp - j0;       // u_base[l] = u[l]
+            for (int i = t; i < p1 - l0; i += kCpeThreads)
+                ph_s[i] = cpe_pavg(u_base + l0 + i, cpe_avg);
+            __syncthreads();
+            const int k_lo = p0 == 0 ? 0 : min(nbt, max(0, p0 - 1 + n_head));
+            const int k_hi = p1 == npts ? nbt : min(nbt, max(0, p1 - 1 + n_head));
+            const float first = ph_s[0], last = p1 == npts ? ph_s[npts - 1 - l0] : 0.f;
+            for (int kb = (k_lo & ~(K - 1)) + K * t; kb < k_hi; kb += T) {
+                float av[K], bv[K];
+#pragma unroll
+                for (int q = 0; q < K; ++q) {
+                    const int la = kb + q - n_head, i = min(max(la - l0, 0), p1 - l0 - 1);
+                    const bool mid = la >= 0 && la < npts - 1;
+                    const float lo = ph_s[i], hi = ph_s[min(i + 1, p1 - l0 - 1)];
+                    av[q] = la < 0 ? first : (mid ? lo : last);
+                    bv[q] = mid ? __fdiv_rn(__fsub_rn(hi, lo), (float)dx) : 0.f;
+                }
+                if (vec_out && kb >= k_lo && kb + K <= k_hi) {
+                    *reinterpret_cast<float4*>(a_row + kb) =
+                        make_float4(av[0], av[1], av[2], av[3]);
+                    *reinterpret_cast<float4*>(b_row + kb) =
+                        make_float4(bv[0], bv[1], bv[2], bv[3]);
+                } else {
+#pragma unroll
+                    for (int q = 0; q < K; ++q) {
+                        const int k = kb + q;
+                        if (k >= k_lo && k < k_hi) {
+                            a_row[k] = av[q];
+                            b_row[k] = bv[q];
+                        }
+                    }
+                }
+            }
+        }
+        count += total;
+        carry = next_carry;
+        if (j1 < nuse) {
+            // the next tile's halo: u[j1 - H .. j1), in passes (it may be longer than a tile)
+            for (int i0 = 0; i0 < H; i0 += kCpeThreads) {
+                const int i = i0 + t;
+                const float v = i < H ? u_s[Hp - H + T + i] : 0.f;
+                __syncthreads();
+                if (i < H) u_s[Hp - H + i] = v;
+            }
+        }
+        __syncthreads();                               // ph_s and u_s free for the next tile
     }
 }
 
@@ -854,22 +965,33 @@ int qtt_rotate(const float* er, const float* ei, const float* ph, long long n, i
     return (int)cudaGetLastError();
 }
 
-// Largest pilot count one B5 row takes (the wrapper checks it).
-int qtt_cpe_max_pilots() { return kCpeThreads * kCpeMaxLanes; }
+// B5's launch plan (cpe_plan) into plan[6]: tile, tiles, halo, shared-memory bytes,
+// CTAs, whether the launch opts in to more than 48 KB.
+void qtt_cpe_plan(long long rows, int npts, int cpe_avg, long long* plan) {
+    const CpePlan p = cpe_plan(rows, npts, cpe_avg);
+    const long long v[6] = {p.tile, p.tiles, p.halo, p.smem, p.ctas, p.opt_in};
+    for (int i = 0; i < 6; ++i) plan[i] = v[i];
+}
 
-// symr/symi: (rows, ld) filtered symbols; pil_r/pil_i: (rows/rows_per_pilot, npil);
-// a_out/b_out: (rows, nbt).
+// symr/symi: (rows, ld) filtered symbols, the pilots at off + j stride; pil_r/pil_i:
+// (rows/rows_per_pilot, npil); a_out/b_out: (rows, nbt).
 int qtt_cpe_coeffs(const float* symr, const float* symi, int rows, long long ld, int off,
                    int stride, const float* pil_r, const float* pil_i, int rows_per_pilot,
                    int npil, int n_head, int npts, int dx, int cpe_avg, int nbt, float two_pi,
                    float inv_two_pi, float* a_out, float* b_out, void* stream) {
-    const int lanes = (npil + kCpeThreads - 1) / kCpeThreads;
-    const size_t smem = sizeof(float) * (2 * (size_t)npil + npts);
-    const int rc = set_smem((const void*)cpe_coeffs_kernel, smem);
-    if (rc) return rc;
-    cpe_coeffs_kernel<<<rows, kCpeThreads, smem, (cudaStream_t)stream>>>(
+    if (rows < 0 || stride < 1 || cpe_avg < 1 || npts < 2 || npts + cpe_avg - 1 > npil ||
+        n_head < 0 || nbt < 1 || rows_per_pilot < 1)
+        return (int)cudaErrorInvalidValue;
+    if (rows == 0) return 0;
+    const CpePlan p = cpe_plan(rows, npts, cpe_avg);
+    if (p.smem > kSmemLimit) return (int)cudaErrorInvalidValue;
+    if (p.opt_in) {
+        const int rc = set_smem((const void*)cpe_coeffs_kernel, (size_t)p.smem);
+        if (rc) return rc;
+    }
+    cpe_coeffs_kernel<<<(unsigned)p.ctas, kCpeThreads, (size_t)p.smem, (cudaStream_t)stream>>>(
         symr, symi, ld, off, stride, pil_r, pil_i, rows_per_pilot, npil, n_head, npts, dx,
-        cpe_avg, nbt, lanes, two_pi, inv_two_pi, a_out, b_out);
+        cpe_avg, nbt, two_pi, inv_two_pi, a_out, b_out);
     return (int)cudaGetLastError();
 }
 

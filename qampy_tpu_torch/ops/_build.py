@@ -39,9 +39,10 @@ SIGNATURES = {
     "qtt_bps_plan": (None, [_I, _LL, _I, _I, _P]),
     "qtt_bps_idx": (_I, [_P, _P, _I, _LL, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P, _I, _P, _P]),
     "qtt_interp_rotate": (_I, [_P, _P, _P, _P, _I, _LL, _LL, _I, _I, _P, _P, _P]),
-    "qtt_apply_filter_frames": (_I, [_P, _I, _LL, _P, _P, _I, _I, _I, _I, _LL, _P, _P]),
+    "qtt_apply_filter_frames": (_I, [_P, _I, _LL, _P, _P, _I, _I, _I, _I, _LL, _P, _I, _I, _I,
+                                     _P, _P]),
     "qtt_rotate": (_I, [_P, _P, _P, _LL, _I, _P, _P, _P]),
-    "qtt_cpe_max_pilots": (_I, []),
+    "qtt_cpe_plan": (None, [_LL, _I, _I, _P]),
     "qtt_cpe_coeffs": (_I, [_P, _P, _I, _LL, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
                             _F, _P, _P, _P]),
     "qtt_unwrap_tiles": (_I, [_LL]),

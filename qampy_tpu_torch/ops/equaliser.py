@@ -815,7 +815,16 @@ def apply_filter_planes(P, os, wx):
     return torch.cat([outr, outi], dim=0)
 
 
-def apply_filter_frames_planes(P, os, wx, offs, frame_len):
+def check_pilot_side(pilots, frame_len):
+    """(poff, pstride, npil) of a frame filter's pilot side output, checked against the frame."""
+    poff, pstride, npil = (int(v) for v in pilots)
+    if poff < 0 or pstride < 1 or npil < 1 or poff + (npil - 1) * pstride >= frame_len:
+        raise ValueError("pilot side output of %d outputs at offset %d, stride %d does not fit "
+                         "a frame of %d" % (npil, poff, pstride, frame_len))
+    return poff, pstride, npil
+
+
+def apply_filter_frames_planes(P, os, wx, offs, frame_len, pilots=None):
     """Plain frame-batched filter: out[i, f, k] = sum_{m,t} E[m, offs[i,f] + k*os + t] w[i,m,t].
 
     The sum the reference pilot chain forms per frame with nmodes^2 stacked
@@ -823,8 +832,14 @@ def apply_filter_frames_planes(P, os, wx, offs, frame_len):
     all frames at once. P: (2*nmodes, L) float32; wx: (nout, nmodes, ntaps)
     complex64; offs: (nout, nframes) int64 window starts, each window of
     (frame_len - 1)*os + ntaps samples inside the capture. Returns
-    (2, nout, nframes, frame_len) float32, [Re; Im].
+    (2, nout, nframes, frame_len) float32, [Re; Im]. With ``pilots`` =
+    (poff, pstride, npil) it also returns the side output, the contiguous
+    (2, nout, nframes, npil) copy of the outputs k = poff + p*pstride.
     """
+    if pilots is not None:
+        poff, pstride, npil = check_pilot_side(pilots, frame_len)
+        out = apply_filter_frames_planes(P, os, wx, offs, frame_len)
+        return out, out[..., poff:poff + (npil - 1) * pstride + 1:pstride].contiguous()
     nout, nmodes, ntaps = wx.shape
     fr_len = (frame_len - 1) * os + ntaps
     idx = offs[..., None] + torch.arange(fr_len, device=P.device)

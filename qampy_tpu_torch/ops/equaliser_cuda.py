@@ -27,8 +27,9 @@ from qampy_tpu_torch.ops import _build
 from qampy_tpu_torch.ops import phase as phops
 from qampy_tpu_torch.ops._build import KernelLimit
 from qampy_tpu_torch.ops.equaliser import (BLOCK_METHODS, DECISION_BLOCK_METHODS,
-                                           SEQ_KERNEL_METHODS, apply_filter_planes, planes_errfn,
-                                           spec_rows, step_sizes, train_seq_planes)
+                                           SEQ_KERNEL_METHODS, apply_filter_planes,
+                                           check_pilot_side, planes_errfn, spec_rows, step_sizes,
+                                           train_seq_planes)
 from qampy_tpu_torch.ops.equaliser import apply_filter_frames_planes as apply_filter_frames_plain
 from qampy_tpu_torch.ops.equaliser import train_block_planes as train_block_plain
 
@@ -540,15 +541,17 @@ def apply_filter(P, os, wx, dec=None):
 # B2, frame entry: the filter over many frame windows in one launch
 # ---------------------------------------------------------------------------
 
-def apply_filter_frames_cuda(P, os, wx, offs, frame_len):
+def apply_filter_frames_cuda(P, os, wx, offs, frame_len, pilots=None):
     """Launch the frame entry of kernel B2; same contract as :func:`apply_filter_frames_plain`.
 
     offs: (nout, nframes) int64 window starts on the card (they are read
-    there, never on the host). Returns (2, nout, nframes, frame_len). One
-    CTA per (frame, tile) holds a group of two output modes, one launch per
-    group (see :func:`filter_plan`; the pilot chain's two modes are one
-    launch); any number of output modes and frames is taken up to a grid of
-    2^31 - 1 CTAs.
+    there, never on the host). Returns (2, nout, nframes, frame_len), and
+    with ``pilots`` = (poff, pstride, npil) also the (2, nout, nframes, npil)
+    side output of the outputs k = poff + p*pstride, which each thread stores
+    from its run's registers. One CTA per (frame, tile) holds a
+    group of two output modes, one launch per group (see :func:`filter_plan`;
+    the pilot chain's two modes are one launch); any number of output modes
+    and frames is taken up to a grid of 2^31 - 1 CTAs.
     """
     _build.require_cuda("apply_filter_frames_cuda", P, dtype=torch.float32)
     _build.require_cuda("apply_filter_frames_cuda", offs, dtype=torch.int64)
@@ -568,18 +571,28 @@ def apply_filter_frames_cuda(P, os, wx, offs, frame_len):
                          int(frame_len), nframes)
     w = torch.view_as_real(wx.resolve_conj().contiguous())   # no copy for contiguous taps
     out = torch.empty((2, nout, nframes, frame_len), dtype=torch.float32, device=P.device)
+    poff, pstride, npil = 0, 1, 0
+    side = None
+    if pilots is not None:
+        poff, pstride, npil = check_pilot_side(pilots, frame_len)
+        side = torch.empty((2, nout, nframes, npil), dtype=torch.float32, device=P.device)
     rc = lib.qtt_apply_filter_frames(P.data_ptr(), nmodes, P.shape[-1], w.data_ptr(),
                                      offs.data_ptr(), nout, nframes, ntaps, int(os),
-                                     int(frame_len), out.data_ptr(), _build.stream_of(P))
+                                     int(frame_len), out.data_ptr(), poff, pstride, npil,
+                                     None if side is None else side.data_ptr(),
+                                     _build.stream_of(P))
     _build.check(rc, "apply_filter_frames_cuda")
     apply_filter_frames_cuda.launches += -(-nout // (plan.threads // FILTER_THREADS))
-    return out
+    return out if side is None else (out, side)
 
 
 apply_filter_frames_cuda.launches = 0
 
 
-def apply_filter_frames(P, os, wx, offs, frame_len):
-    """Frame-batched MIMO filter: the plain version on CPU tensors, kernel B2 on CUDA."""
+def apply_filter_frames(P, os, wx, offs, frame_len, pilots=None):
+    """Frame-batched MIMO filter: the plain version on CPU tensors, kernel B2 on CUDA.
+
+    With ``pilots`` = (poff, pstride, npil) it also returns the pilot side output.
+    """
     fn = apply_filter_frames_plain if P.device.type == "cpu" else apply_filter_frames_cuda
-    return fn(P, os, wx, offs, frame_len)
+    return fn(P, os, wx, offs, frame_len, pilots)

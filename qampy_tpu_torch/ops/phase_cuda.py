@@ -77,7 +77,7 @@ def _bps_slots(W, run):
 
 
 def _check_plan(what, plan, c_fn, *args):
-    """Hold a host launch plan against the built library's (``c_fn`` fills 5 long longs)."""
+    """Hold a host launch plan against the built library's (``c_fn`` fills its fields)."""
     built = (ctypes.c_longlong * len(plan))()
     c_fn(*args, ctypes.addressof(built))
     if tuple(built) != plan:
@@ -281,15 +281,65 @@ def cpe_coeffs_plain(symr, symi, pil_r, pil_i, off, stride, n_head, npts, dx, cp
     return a, b
 
 
+#: csrc/phase.cu: threads of a B5 CTA, consecutive pilots per thread, pilots per tile
+CPE_THREADS, CPE_ITEMS = 512, 4
+CPE_TILE = CPE_THREADS * CPE_ITEMS
+_STATIC_SMEM = 48 * 1024
+
+
+class CpePlan(NamedTuple):
+    """A B5 launch (csrc/phase.cu ``CpePlan``): one CTA of ``CPE_THREADS`` per row.
+
+    ``tile``: pilots per pass over a row; ``tiles``: passes, over the
+    npts + cpe_avg - 1 pilots that the average reaches; ``halo``: the
+    unwrapped phases kept before a tile (cpe_avg, rounded up to 4 so that
+    the tile starts on 16 bytes); ``smem``: shared-memory bytes of a CTA;
+    ``ctas``: one per row; ``opt_in``: whether the launch asks for more than
+    the 48 KB a CTA has by default.
+    """
+    tile: int
+    tiles: int
+    halo: int
+    smem: int
+    ctas: int
+    opt_in: bool
+
+
+def cpe_plan(rows, npil, cpe_avg, npts=None):
+    """The :class:`CpePlan` of B5 on the host (mirrored by ``qtt_cpe_plan``).
+
+    ``npts`` (the averages) defaults to the pilot chain's npil - cpe_avg + 1.
+    The CTA's shared memory holds the halo and a tile of unwrapped phases,
+    the tile's phases and then its averages (one more than a tile, rounded up
+    to 4) and the scan's 32 warp sums: no opt-in up to cpe_avg 8,156, and a
+    plan past 227 KB (cpe_avg above 53,980) is refused by the launcher.
+    """
+    if npts is None:
+        npts = npil - cpe_avg + 1
+    halo = -(-cpe_avg // 4) * 4
+    smem = 4 * (halo + 2 * CPE_TILE + 4 + 32)
+    return CpePlan(CPE_TILE, -(-(npts + cpe_avg - 1) // CPE_TILE), halo, smem, rows,
+                   smem > _STATIC_SMEM)
+
+
+def check_cpe_plan(rows, npil, cpe_avg, npts=None):
+    """The plan of a B5 launch; ``KernelLimit`` where its CTA does not fit the shared memory."""
+    plan = cpe_plan(rows, npil, cpe_avg, npts)
+    if plan.smem > _SMEM_LIMIT:
+        raise KernelLimit("kernel B5: a %d-point average needs %d bytes of shared memory, a CTA "
+                          "has %d (cpe_avg up to %d)"
+                          % (cpe_avg, plan.smem, _SMEM_LIMIT, _SMEM_LIMIT // 4 - 2 * CPE_TILE - 36))
+    return plan
+
+
 def cpe_coeffs_cuda(symr, symi, pil_r, pil_i, off, stride, n_head, npts, dx, cpe_avg, nbt):
-    """Launch kernel B5; same contract as :func:`cpe_coeffs_plain`."""
+    """Launch kernel B5; same contract as :func:`cpe_coeffs_plain`, any number of pilots."""
     _build.require_cuda("cpe_coeffs_cuda", symr, symi, pil_r, pil_i, dtype=torch.float32)
     npil = _check_cpe(symr, symi, pil_r, pil_i, off, stride, n_head, npts, cpe_avg, nbt)
-    lib = _build.library()
-    if npil > lib.qtt_cpe_max_pilots():
-        raise ValueError("kernel B5 takes at most %d pilots per row, got %d"
-                         % (lib.qtt_cpe_max_pilots(), npil))
     rows = symr.shape[0]
+    plan = check_cpe_plan(rows, npil, int(cpe_avg), int(npts))
+    lib = _build.library()
+    _check_plan("cpe_plan", plan, lib.qtt_cpe_plan, rows, int(npts), int(cpe_avg))
     a = torch.empty((rows, nbt), dtype=torch.float32, device=symr.device)
     b = torch.empty_like(a)
     rc = lib.qtt_cpe_coeffs(symr.data_ptr(), symi.data_ptr(), rows, symr.shape[1], int(off),

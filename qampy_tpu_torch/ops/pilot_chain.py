@@ -14,7 +14,8 @@ reference's pilot receiver on float32 planes in one dispatch:
 3. pilot equalisation in closed form (``eq_trainer="ls"``): one Gram
    product and one 180 x 180 real block solve per output mode;
 4. the frame body, batched over all frames: the frame filter (kernel B2,
-   frame entry), the pilot phase coefficients (kernel B5) and the
+   frame entry, which also gathers the CPE pilots into contiguous rows),
+   the pilot phase coefficients (kernel B5, from those rows) and the
    piecewise-linear derotation (kernel B4); with ``return_phase=True`` the
    phase trace is built in plain torch and kernel B6 derotates;
 5. the payload: pilots dropped, frames concatenated per mode.
@@ -41,7 +42,8 @@ from torch import nn
 
 from qampy_tpu_torch.ops import equaliser as eqops
 from qampy_tpu_torch.ops.equaliser_cuda import apply_filter_frames
-from qampy_tpu_torch.ops.phase_cuda import cpe_coeffs, interp_rotate, moving_average, rotate
+from qampy_tpu_torch.ops.phase_cuda import (check_cpe_plan, cpe_coeffs, interp_rotate,
+                                            moving_average, rotate)
 from qampy_tpu_torch.signals import cal_pilot_idx
 from qampy_tpu_torch.utils import resolve_device
 
@@ -304,11 +306,18 @@ class PilotRxChain(nn.Module):
         return (eqsh[:, None] + self.bases[None, :]).clamp(0, P.shape[-1] - self.fr_len)
 
     def frame_filter(self, P, eqsh, taps):
-        """All frames through kernel B2's frame entry: (2, n, nframes, frame_len) planes.
+        """All frames through kernel B2's frame entry: (out, side).
 
-        ``taps`` act on the capture's own mode order.
+        ``out``: (2, n, nframes, frame_len) planes; ``taps`` act on the
+        capture's own mode order. In the serving form (``kernel_interp``)
+        ``side`` is the entry's side output, the CPE pilots as (2, n,
+        nframes, nblk) planes, which B5 reads; else None.
         """
-        return apply_filter_frames(P, self.os, taps, self.frame_offsets(P, eqsh), self.frame_len)
+        offs = self.frame_offsets(P, eqsh)
+        if not self.kernel_interp:
+            return apply_filter_frames(P, self.os, taps, offs, self.frame_len), None
+        return apply_filter_frames(P, self.os, taps, offs, self.frame_len,
+                                   (self.seq_len, self.ins_rat, self.nblk))
 
     def cpe_trace(self, symr, symi):
         """The per-symbol CPE phase of each (mode, frame) row (reference :742-751, 607-620).
@@ -332,15 +341,17 @@ class PilotRxChain(nn.Module):
                            ph_avg[..., -1:].expand(*lead, tail)], dim=-1)
         return trace.reshape(symr.shape)
 
-    def cpe_derotate(self, symr, symi):
+    def cpe_derotate(self, symr, symi, pilots=None):
         """Pilot CPE of (rows, frame_len) planes: ((outr, outi), trace or None).
 
-        Serving form: kernel B5 builds per-block (a, b) coefficients, kernel
-        B4 derotates. With ``return_phase``: the plain trace and kernel B6.
+        Serving form: kernel B5 builds per-block (a, b) coefficients from
+        ``pilots``, the (rows, nblk) pilot planes of the frame filter's side
+        output, and kernel B4 derotates. With ``return_phase``: the plain
+        trace and kernel B6.
         """
         if self.kernel_interp:
-            a, b = cpe_coeffs(symr, symi, self.pil_r, self.pil_i, self.seq_len, self.ins_rat,
-                              self.n_head, self.npts, self.cpe_dx, self.cpe_avg, self.nbt)
+            a, b = cpe_coeffs(*pilots, self.pil_r, self.pil_i, 0, 1, self.n_head, self.npts,
+                              self.cpe_dx, self.cpe_avg, self.nbt)
             return interp_rotate(symr, symi, a, b, self.cpe_dx, sign=-1), None
         trace = self.cpe_trace(symr, symi)
         return rotate(symr, symi, trace, sign=-1), trace
@@ -356,10 +367,11 @@ class PilotRxChain(nn.Module):
 
     def demod(self, P, eqsh, taps):
         """Frame body over every frame of the dispatch: ((dr, di), trace or None)."""
-        out = self.frame_filter(P, eqsh, taps)
+        out, side = self.frame_filter(P, eqsh, taps)
+        pil = None if side is None else side.reshape(2, -1, self.nblk).unbind(0)
         rows = out.shape[1] * out.shape[2]
         (outr, outi), trace = self.cpe_derotate(out[0].reshape(rows, self.frame_len),
-                                                out[1].reshape(rows, self.frame_len))
+                                                out[1].reshape(rows, self.frame_len), pil)
         return self.payload(outr, outi), trace
 
     # -- entries ----------------------------------------------------------------
@@ -455,9 +467,14 @@ def make_pilot_rx_chain(pilot_seq, ph_pilots, frame_len, pilot_ins_rat, os=2, nm
     for the reference's XLA frame body and raises; the XLA unroll knob
     ``frames_unroll`` has no counterpart here.
     """
-    return PilotRxChain(pilot_seq, ph_pilots, frame_len, pilot_ins_rat, os=os, nmodes=nmodes,
-                        M_pilot=M_pilot, sync_Ntaps=sync_Ntaps, sync_mu=sync_mu,
-                        sync_Niter=sync_Niter, Ntaps=Ntaps, foe_comp=foe_comp, cpe_avg=cpe_avg,
-                        cpe_pilot_rat=cpe_pilot_rat, frames=frames, block_size=block_size,
-                        pallas=pallas, frames_mode=frames_mode, return_phase=return_phase,
-                        eq_trainer=eq_trainer, frames_pack=frames_pack).to(resolve_device(device))
+    dev = resolve_device(device)
+    chain = PilotRxChain(pilot_seq, ph_pilots, frame_len, pilot_ins_rat, os=os, nmodes=nmodes,
+                         M_pilot=M_pilot, sync_Ntaps=sync_Ntaps, sync_mu=sync_mu,
+                         sync_Niter=sync_Niter, Ntaps=Ntaps, foe_comp=foe_comp, cpe_avg=cpe_avg,
+                         cpe_pilot_rat=cpe_pilot_rat, frames=frames, block_size=block_size,
+                         pallas=pallas, frames_mode=frames_mode, return_phase=return_phase,
+                         eq_trainer=eq_trainer, frames_pack=frames_pack)
+    if dev.type == "cuda" and chain.kernel_interp:
+        # B5's limit (an average of tens of thousands of pilots), here rather than at a launch
+        check_cpe_plan(chain.nmodes * len(frames), chain.nblk, chain.cpe_avg, chain.npts)
+    return chain.to(dev)

@@ -24,7 +24,7 @@ from qampy_tpu_torch.ops.phase_cuda import (bps_fine_cuda, bps_fine_plain, bps_p
                                             cpe_coeffs_plain, interp_rotate_cuda,
                                             interp_rotate_plain, quarter_unwrap, rotate_cuda,
                                             rotate_plain, unwrap_derotate_cuda,
-                                            unwrap_derotate_plain, fine_plan)
+                                            unwrap_derotate_plain, fine_plan, cpe_plan)
 from qampy_tpu_torch.ops.pilot_chain import make_pilot_rx_chain
 from qampy_tpu_torch.theory import cal_scaling_factor_qam, cal_symbols_qam
 from qampy_tpu_torch.workload import (GATE_TRIM, apsk_const, ber_gate, decide, make_pilot_tx,
@@ -341,6 +341,55 @@ def test_b5_cpe_coeffs(dev, frame_len, seq_len, rows):
     assert float((b_k - b_p).abs().max()) <= 1e-6
 
 
+def _cpe_forms(symr, symi, seq_len, R, npil, form):
+    """The symbol planes and (off, stride) B5 reads the pilots from in ``form``: "strided", the
+    filter output itself; "contiguous", the pilots gathered as B2's side output gives them;
+    "unaligned", the same rows one float past 16-byte alignment (scalar loads)."""
+    if form == "strided":
+        return symr, symi, seq_len, R
+    zr, zi = (x[:, seq_len::R][:, :npil] for x in (symr, symi))
+    if form == "contiguous":
+        return zr.contiguous(), zi.contiguous(), 0, 1
+    pad = torch.zeros(zr.shape[0], 1, device=zr.device)
+    return torch.cat([pad, zr], 1), torch.cat([pad, zi], 1), 1, 1
+
+
+@pytest.mark.parametrize("form", ["strided", "contiguous", "unaligned"])
+@pytest.mark.parametrize("cpe_avg", [1, 3, 9])
+@pytest.mark.parametrize("frame_len, rows", [(1024 + 32 * 4097, 6), (2 ** 18, 8), (2 ** 20, 4),
+                                             (2 ** 16, 480)])
+def test_b5_any_pilot_count(dev, frame_len, rows, cpe_avg, form):
+    """Rows of 4,097, 8,160 and 32,736 pilots (2^18 and 2^20 symbols at ratio 32), which the
+    first B5 design refused, and the bench's 2,016; averages of 1, 3 and 9 pilots; the pilots
+    read strided, contiguous and contiguous from rows off 16-byte alignment."""
+    R, seq_len = 32, 1024
+    symr, symi, pr, pi = _pilot_rows(dev, rows, frame_len, seq_len, R, rows + cpe_avg)
+    npil = (frame_len - seq_len) // R
+    n_head = (seq_len + R * ((cpe_avg - 1) // 2)) // R
+    zr, zi, off, stride = _cpe_forms(symr, symi, seq_len, R, npil, form)
+    args = (zr, zi, pr, pi, off, stride, n_head, npil - cpe_avg + 1, R, cpe_avg, frame_len // R)
+    a_p, b_p = cpe_coeffs_plain(*args)
+    a_k, b_k = cpe_coeffs_cuda(*args)
+    assert float((a_k - a_p).abs().max()) <= 1e-5
+    assert float((b_k - b_p).abs().max()) <= 1e-6
+    a2, b2 = cpe_coeffs_cuda(*args)
+    assert torch.equal(a2, a_k) and torch.equal(b2, b_k)
+
+
+@pytest.mark.parametrize("npil, rows, cpe_avg, n_head, nbt", [(8160, 4, 2501, 3000, 12000),
+                                                            (12000, 2, 10001, 5, 100)])
+def test_b5_long_average_and_head(dev, npil, rows, cpe_avg, n_head, nbt):
+    """An average of 2,501 pilots (longer than a tile: its halo spans tiles) with a head and a
+    tail of thousands of blocks; one of 10,001 (past 48 KB of shared memory: opted in)."""
+    symr, symi, pr, pi = _pilot_rows(dev, rows, 1024 + 32 * npil, 1024, 32, cpe_avg)
+    args = (symr, symi, pr, pi, 1024, 32, n_head, npil - cpe_avg + 1, 32, cpe_avg, nbt)
+    assert cpe_plan(rows, npil, cpe_avg).opt_in == (cpe_avg > 8156)
+    a_p, b_p = cpe_coeffs_plain(*args)
+    a_k, b_k = cpe_coeffs_cuda(*args)
+    assert float((a_k - a_p).abs().max()) <= 1e-5
+    assert float((b_k - b_p).abs().max()) <= 1e-6
+
+
 @pytest.mark.parametrize("sign", [1, -1])
 def test_b6_rotate(dev, sign):
     g = torch.Generator(device=dev).manual_seed(11)
@@ -402,6 +451,41 @@ def test_b2_frame_entry_unaligned_rows(dev, where, pad, shift_ptr):
     assert P.is_contiguous() and (P.shape[-1] % 4 or P.data_ptr() % 16)
     got = _frames_agree(P, 2, w, offs, 2 ** 12)
     assert torch.equal(got, apply_filter_frames_cuda(P, 2, w, offs, 2 ** 12))
+
+
+@pytest.mark.parametrize("os_, nout, where, F, pilots", [
+    (2, 2, "near", 2 ** 14, (512, 32, 496)), (2, 2, "apart", 2 ** 14, (0, 1, 2 ** 14)),
+    (2, 3, "ends", 2 ** 12, (100, 8, 487)), (3, 2, "near", 3000, (7, 5, 598)),
+    (2, 1, "near", 2 ** 12, (4000, 100, 1))])
+def test_b2_frame_entry_pilot_side_output(dev, os_, nout, where, F, pilots):
+    """With the pilot side output the main output is the entry's without it, bit for bit, and
+    the side output is the main output's columns poff + p pstride, bit for bit."""
+    P, w, offs = _frame_case(dev, 6, F, 17, where, 3, nout=nout, os_=os_)
+    poff, pstride, npil = pilots
+    got, side = apply_filter_frames_cuda(P, os_, w, offs, F, pilots)
+    assert torch.equal(got, apply_filter_frames_cuda(P, os_, w, offs, F))
+    assert side.shape == (2, nout, 6, npil)
+    assert torch.equal(side, got[..., poff::pstride][..., :npil])
+    _, side_p = apply_filter_frames_plain(P, os_, w, offs, F, pilots)
+    assert float((side - side_p).abs().max()) <= 1e-5 * float(side_p.pow(2).mean().sqrt())
+
+
+@pytest.mark.parametrize("pilots", [(0, 1, 2 ** 13), (9, 2, 4000), (5, 7, 1000)])
+def test_b2_frame_entry_side_output_of_dense_pilots(dev, pilots):
+    """One input mode at os 1, pilots at strides 1, 2 and 7: a thread's run holds several
+    pilots (every output at stride 1); the side output bit-equal to the main output's
+    columns."""
+    g = torch.Generator(device=dev).manual_seed(17)
+    F, nframes = 2 ** 13, 5
+    P = torch.randn(2, F * (nframes + 2), generator=g, device=dev)
+    w = torch.complex(torch.randn(2, 1, 45, generator=g, device=dev),
+                      torch.randn(2, 1, 45, generator=g, device=dev)) / 8
+    offs = (torch.arange(nframes, device=dev) * F)[None].repeat(2, 1)
+    offs[1] += 3
+    poff, pstride, npil = pilots
+    got, side = apply_filter_frames_cuda(P, 1, w, offs.contiguous(), F, pilots)
+    assert torch.equal(got, apply_filter_frames_cuda(P, 1, w, offs.contiguous(), F))
+    assert torch.equal(side, got[..., poff::pstride][..., :npil])
 
 
 @pytest.mark.parametrize("nframes", [1, 8, 240])
@@ -473,6 +557,37 @@ def test_pilot_chain_launches_and_gate(dev, return_phase):
     (tr, ti), _ = chain.tracking_planes(tx.planes[:2], tx.planes[2:], info["taps"],
                                         info["shift"], info["mode_order"])
     assert torch.equal(tr, dr) and torch.equal(ti, di)
+
+
+def test_pilot_chain_of_more_than_4096_cpe_pilots(dev):
+    """Frames of 2^16 symbols at pilot ratio 8 (8,064 CPE pilots), which the card refused
+    before B5 took any pilot count: launches, tracking, and the plain CPU chain on the same
+    capture. On this capture the frame sync fails in both chains and in the JAX reference's
+    alike (sync_corr 72.67 < 120, BER 0.25; ROADMAP queue C, C5), so the BER gate's outcome
+    is held equal between the card and the CPU, not required to pass."""
+    tx = make_pilot_tx(6, frame_len=2 ** 16, ins_rat=8, device=dev)
+    cfg = dict(os=2, nmodes=2, sync_Ntaps=17, sync_mu=5e-3, sync_Niter=10, Ntaps=45,
+               cpe_avg=3, frames=(0, 1, 2), block_size=256, return_phase=False,
+               eq_trainer="ls")
+    chain = make_pilot_rx_chain(tx.pilot_seq, tx.ph_pilots, 2 ** 16, 8, **cfg, device=dev)
+    assert chain.nblk == 8064 and chain.kernel_interp
+    counters = (apply_filter_frames_cuda, cpe_coeffs_cuda, interp_rotate_cuda, rotate_cuda)
+    for fn in counters:
+        fn.launches = 0
+    (dr, di), info = chain.planes(tx.planes[:2], tx.planes[2:])
+    assert [fn.launches for fn in counters] == [1, 1, 1, 0]
+    (tr, ti), _ = chain.tracking_planes(tx.planes[:2], tx.planes[2:], info["taps"],
+                                        info["shift"], info["mode_order"])
+    assert torch.equal(tr, dr) and torch.equal(ti, di)
+    cpu = make_pilot_rx_chain(tx.pilot_seq, tx.ph_pilots, 2 ** 16, 8, **cfg, device="cpu")
+    (cr, ci), cinfo = cpu.planes(tx.planes[:2].cpu(), tx.planes[2:].cpu())
+    assert cinfo["shift"].tolist() == info["shift"].tolist()
+    assert cinfo["mode_order"].tolist() == info["mode_order"].tolist()
+    assert float(cinfo["sync_corr"]) == pytest.approx(float(info["sync_corr"]), rel=1e-4)
+    gate = ber_gate(dr, di, tx, info["sync_corr"])
+    assert gate["ok"] == ber_gate(cr.to(dev), ci.to(dev), tx, cinfo["sync_corr"])["ok"]
+    got, want = torch.complex(dr, di).cpu(), torch.complex(cr, ci)
+    assert float((decide(got, tx.coded) == decide(want, tx.coded)).double().mean()) >= 0.999
 
 
 @pytest.mark.parametrize("adaptive", [False, True])

@@ -161,6 +161,37 @@ def test_port_capture_through_reference_chain():
     assert pinfo["shift"].tolist() == np.asarray(info["shift"]).tolist()
 
 
+def test_frames_of_more_than_4096_cpe_pilots():
+    """SignalWithPilots(64, 2**15, 1024, 4): 7,936 CPE pilots per frame, more than kernel B5
+    first took on the card. The port's CPU chain beside the JAX chain on frame 0."""
+    frame, ins = 2 ** 15, 4
+    sig = qt.SignalWithPilots(64, frame, 1024, ins, nframes=3, nmodes=2, fb=24e9, seed=3)
+    s2 = sig.resample(2 * sig.fb, beta=0.1, renormalise=True)
+    s2 = qt.impairments.simulate_transmission(s2, snr=30, dgd=20e-12, theta=np.pi / 4.7,
+                                              lwdth=20e3, roll_frame_sync=True,
+                                              key=jr.PRNGKey(5))
+    E = np.asarray(s2.samples).astype(np.complex64)
+    pr, pi = np.ascontiguousarray(E.real), np.ascontiguousarray(E.imag)
+    seq, ph = np.asarray(sig.pilot_seq), np.asarray(sig.ph_pilots)
+    cfg = dict(CFG, frames=(0,))
+    fwd = jax_make_pilot_rx_chain(seq, ph, frame, ins, pallas=True, return_phase=False, **cfg)
+    (dr, di), info = jax.jit(fwd.planes)(pr, pi)
+    chain = make_pilot_rx_chain(seq, ph, frame, ins, return_phase=False,
+                                **dict(cfg, device="cpu"))
+    assert chain.kernel_interp and chain.nblk == 7936
+    (tr, ti), tinfo = chain.planes(torch.as_tensor(pr), torch.as_tensor(pi))
+    assert tinfo["shift"].tolist() == np.asarray(info["shift"]).tolist()
+    assert tinfo["mode_order"].tolist() == np.asarray(info["mode_order"]).tolist()
+    coded = np.asarray(sig.coded_symbols).astype(np.complex64)
+    tx_idx = _decide(np.asarray(sig.get_data(frames=[0]).samples), coded)
+    dec = _decide(torch.complex(tr, ti).numpy(), coded)
+    jdec = _decide(np.asarray(dr) + 1j * np.asarray(di), coded)
+    assert dec.shape == jdec.shape == tx_idx.shape == (2, 3 * 7936)
+    assert np.mean(dec == jdec) >= AGREE_MIN
+    for d in (dec, jdec):
+        assert np.all(np.mean(d != tx_idx, axis=-1) < SER_MAX)
+
+
 @pytest.mark.parametrize("kwargs, item", [
     (dict(eq_trainer="lms"), "A6b"), (dict(foe_comp=True), "A6b"),
     (dict(cpe_pilot_rat=2), "A6b"), (dict(pallas=False), "A6b")])

@@ -17,8 +17,10 @@ from qampy_tpu_torch.ops.phase_cuda import cpe_coeffs_plain, rotate_plain
 from qampy_tpu_torch.ops.pilot_chain import unwrap
 from test_torch_kernels import rotation_error_bound
 
-# (frame_len, seq_len, ins_rat): the bench's frame and the tests' short frame
-GEOMETRIES = {"bench": (2 ** 16, 1024, 32), "test": (2 ** 14, 512, 32)}
+# (frame_len, seq_len, ins_rat): the bench's frame, the tests' short frame, and two frames of
+# more than 4,096 CPE pilots: 2^15 symbols at ratio 4 (7,936) and 2^18 at ratio 32 (8,160)
+GEOMETRIES = {"bench": (2 ** 16, 1024, 32), "test": (2 ** 14, 512, 32),
+              "ratio4": (2 ** 15, 1024, 4), "long": (2 ** 18, 1024, 32)}
 
 
 def _cpe_geometry(frame_len, seq_len, R, cpe_avg=3):
@@ -53,7 +55,8 @@ class TestB5CpeCoeffs:
     # atan2 may differ by an ulp, which moves the unwrapped phases (a few
     # rad) by ~1e-6 and the slopes by ~1e-7
     @pytest.mark.parametrize("form", ["res_ph", "atan2"])
-    @pytest.mark.parametrize("geometry, rows", [("bench", 2), ("bench", 8), ("test", 6)])
+    @pytest.mark.parametrize("geometry, rows", [("bench", 2), ("bench", 8), ("test", 6),
+                                                ("ratio4", 2), ("long", 2)])
     def test_against_pallas(self, geometry, rows, form):
         frame_len, seq_len, R = GEOMETRIES[geometry]
         npil, n_head, npts, nbt = _cpe_geometry(frame_len, seq_len, R)
@@ -70,7 +73,7 @@ class TestB5CpeCoeffs:
         ref_a, ref_b = (np.asarray(x) for x in ref)
         a, b = cpe_coeffs_plain(*(torch.as_tensor(x) for x in (symr, symi, pil_r, pil_i)),
                                 seq_len, R, n_head, npts, R, 3, nbt)
-        assert a.shape == b.shape == ref_a.shape == (rows, nbt)
+        assert a.shape == b.shape == ref_a.shape == (rows, nbt) and npil == zr.shape[1]
         assert np.abs(a.numpy() - ref_a).max() <= 1e-5
         assert np.abs(b.numpy() - ref_b).max() <= 1e-6
 
@@ -169,6 +172,22 @@ class TestB2FrameEntry:
             rms = np.sqrt(np.mean(ref ** 2))
             assert np.abs(got[0, :, f] - ref[:n]).max() <= 1e-5 * rms
             assert np.abs(got[1, :, f] - ref[n:]).max() <= 1e-5 * rms
+
+
+    @pytest.mark.parametrize("poff, pstride", [(1024, 32), (0, 1), (37, 5)])
+    def test_pilot_side_output_is_the_pilot_columns(self, poff, pstride):
+        """The side output is the main output's columns poff + p*pstride, bit for bit."""
+        rng = np.random.default_rng(31)
+        frame_len, ntaps, os_, n = 4096, 17, 2, 2
+        P = torch.as_tensor(rng.standard_normal((2 * n, 5 * frame_len * os_)).astype(np.float32))
+        w = torch.as_tensor(((rng.standard_normal((n, n, ntaps))
+                              + 1j * rng.standard_normal((n, n, ntaps))) / 8).astype(np.complex64))
+        offs = torch.tensor([[37, 37 + 8192, 37 + 16384], [21, 21 + 8192, 21 + 16384]])
+        npil = (frame_len - 1 - poff) // pstride + 1
+        out, side = apply_filter_frames_plain(P, os_, w, offs, frame_len, (poff, pstride, npil))
+        assert torch.equal(out, apply_filter_frames_plain(P, os_, w, offs, frame_len))
+        assert side.shape == (2, n, 3, npil) and side.is_contiguous()
+        assert torch.equal(side, out[..., poff::pstride][..., :npil])
 
 
 class TestUnwrap:

@@ -29,8 +29,9 @@ variants, each into a library of its own under ``build/filter_split/``, all
   see which way they move the time. The busiest loop of each B2 instance of
   every whole build is counted from ``cuobjdump -sass``.
 
-Each variant's ``qtt_apply_filter`` and ``qtt_apply_filter_frames`` (the same
-C signatures in every state of B2) are timed at the paths' shapes: the blind
+Each variant's ``qtt_apply_filter`` and ``qtt_apply_filter_frames`` (the frame
+entry without its pilot side output, in sources that have one) are timed at the
+paths' shapes: the blind
 planes (4, 2^21) with 17 taps and the stride-16 side output, the same
 without it, the equaliser's (4, 2^19), and the pilot frame entry over the
 pilot capture's (4, 31,981,568) planes with 45 taps, at 240 and 8 frames of
@@ -56,6 +57,10 @@ from qampy_tpu_torch.ops.equaliser_cuda import apply_filter_frames_plain, apply_
 SPACER_CYCLES = 200_000_000
 OUT = pathlib.Path(__file__).resolve().parents[1] / "build" / "filter_split"
 TOL_FILTER_REL = 1e-5
+# the frame entry's C signature before its pilot side output (poff, pstride, npil, pout)
+OLD_FRAMES = (ctypes.c_int, [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
+                             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                             ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p])
 PILOT_L, FRAME, FRAME_STRIDE = 31_981_568, 2 ** 16, 131_072
 # variant: replacements (old text, new text), for B2 before its redesign and as it is now; a
 # variant applies those whose old text the sources hold, and at least one; every occurrence
@@ -156,6 +161,9 @@ def build_all(variants):
         for name in NAMES:
             fn = getattr(lib, name)
             fn.restype, fn.argtypes = _build.SIGNATURES[name]
+        lib.side = "int poff" in (d / "equaliser.cu").read_text()
+        if not lib.side:
+            lib.qtt_apply_filter_frames.restype, lib.qtt_apply_filter_frames.argtypes = OLD_FRAMES
         libs[tag] = lib
         log = (d / "build.log").read_text()
         entries = re.findall(r"Compiling entry function '(\S+)'.*?(\d+) bytes spill stores, "
@@ -284,7 +292,8 @@ def main(argv):
             rc = lib.qtt_apply_filter_frames(src.data_ptr(), 2, PILOT_L,
                                              wt45[interleaved_taps(lib)].data_ptr(),
                                              offs.data_ptr(), 2, nframes, 45, 2, FRAME,
-                                             out.data_ptr(), stream)
+                                             out.data_ptr(),
+                                             *((0, 1, 0, None) if lib.side else ()), stream)
             if rc:
                 raise RuntimeError("qtt_apply_filter_frames returned CUDA error %d" % rc)
             return (out,)
