@@ -67,6 +67,23 @@ result line):
    tracking bit-exact, its kernels against their plain versions, and the
    capture of seed 3, whose frame sync fails in the reference too, held to
    the plain CPU chain (shift, mode_order, sync_corr, the gate's outcome);
+12b. the pilot chain's other configurations, each counted, gated and held to
+   its plain versions: "pilot lms", the bench's LMS chain (``eq_trainer="lms"``,
+   mu (1e-3, 1e-3), Niter 30) over the same 240 frames, launches B1 = 3 (one
+   batched launch a stage, a row per output mode), B2 frames, B5, B4 = 1,
+   tracking bit-exact, B1 batched against the plain trainer's batch and
+   each row bit-equal to a launch of its own, beside its chain bound, the
+   dispatch timed and its LMS training beside the LS solve; "pilot
+   non-blocked", ``cpe_pilot_rat=2`` over 16 frames (the general frame body:
+   B2 frames and B6 once), and its card chain against the CPU's on a small
+   capture; "pilot foe", ``make_pilot_tx(20, freq_off=20e6)`` through the
+   LMS chain with ``foe_comp=True`` (B1 3, B2 frames, B5, B4), tracking with
+   ``foe=info["foe_pil"]`` bit-exact, held to the plain CPU chain (seeds
+   taken in order until one passes the gate; a capture whose frame sync
+   fails must fail on the CPU too); "pilot granular", ``ops/pilots.py`` step
+   by step on a small capture (``frame_sync``: B9 once a window, B2;
+   ``equalize_pilot_sequence``: B1 a stage, B2; the frames filtered, B2;
+   ``pilot_based_cpe``), under the BER gate, the search held to the CPU's;
 13. per-symbol trainer: B9 (one warp per output mode, a kernel instance per
    taps per lane, method and adaptive step) against its plain version on
    ``make_tx(2**13)`` (17 taps, TrSyms 4096) for cma, mcma and rde with and
@@ -143,7 +160,9 @@ from qampy_tpu_torch.ops import equaliser as eqops
 from qampy_tpu_torch.ops import phase as phops
 from qampy_tpu_torch.ops.chain import (TWOSTAGE_B, TWOSTAGE_N1, cma_singularity_guard,
                                        decimated_derotation_inputs, make_rx_chain)
-from qampy_tpu_torch.ops.equaliser_cuda import (apply_filter_cuda, apply_filter_frames_cuda,
+from qampy_tpu_torch.ops import pilots
+from qampy_tpu_torch.ops.equaliser_cuda import (apply_filter_cuda, apply_filter_frames,
+                                                apply_filter_frames_cuda,
                                                 apply_filter_frames_plain, apply_filter_plain,
                                                 chain_latencies, div_check, filter_plan,
                                                 train_block_cuda,
@@ -157,7 +176,8 @@ from qampy_tpu_torch.ops.phase_cuda import (bps_fine, bps_fine_cuda, bps_fine_pl
                                             interp_rotate_plain, quarter_unwrap, rotate_cuda,
                                             rotate_plain, unwrap_derotate_cuda,
                                             unwrap_derotate_plain, unwrap_plan)
-from qampy_tpu_torch.ops.pilot_chain import make_pilot_rx_chain
+from qampy_tpu_torch.ops.pilot_chain import derotate_planes, make_pilot_rx_chain
+from qampy_tpu_torch.signals import cal_pilot_idx
 from qampy_tpu_torch.theory import cal_scaling_factor_qam, cal_symbols_qam
 from qampy_tpu_torch.workload import (GATE_TRIM, apsk_const, ber_gate, decide, make_pilot_tx,
                                       make_tx, ser_gate, shared_decisions, warped_qam)
@@ -227,6 +247,15 @@ LONG_AGREE = 0.999       # card vs CPU decisions on that capture (the card test'
 TOL_CPE_A = 1e-5         # B5 a: the same float32 formula; atan2 may differ by an ulp,
 TOL_CPE_B = 1e-6         # which moves a (a few rad) by ~1e-6 and the slopes b by ~1e-7
 TOL_PAYLOAD = 1e-4       # return_phase on/off, the reference's bound (test_pilot_chain.py:543)
+# the pilot chain's other configurations. "pilot lms": the bench's LMS attempt
+# (bench.py:428-435, 700-701) on the pilot cell's capture; "pilot foe": a 20 MHz carrier
+# offset taken out by foe_comp; "pilot non-blocked": every other CPE pilot (cpe_pilot_rat=2),
+# which the general frame body demodulates; "pilot granular": ops/pilots.py step by step
+PILOT_LMS_CFG = dict(PILOT_CFG, eq_trainer="lms", mu=(1e-3, 1e-3), Niter=30)
+PILOT_FOE = dict(tx_frames=20, frames=16, freq_off=20e6, seeds=(3, 1, 2, 4))
+PILOT_NB = dict(frames=16, cpe_pilot_rat=2)
+PILOT_GRAN = dict(tx_frames=6, frames=3, frame_len=2 ** 14, seq_len=512, Ntaps=45)
+TOL_FOE = 1e-6           # card vs CPU pilot FOE, cycles per symbol (the CPU tests' bound)
 # the granular equaliser (examples/64_qam_equalisation.py): 2^18 symbols, trained over
 # the whole capture, then the single-grid carrier recovery and the bench's gate for it
 EQ_NSYM = 2 ** 18
@@ -277,7 +306,8 @@ OPS_UNWRAP = 6           # difference, quarter-turn count, prefix sum
 OPS_CPE_PILOT = 20       # conjugate product, atan2, unwrap, average, coefficients
 # the paths in the order they run; each is counted on its own (see counted())
 PATHS = ("blind", "blind twostage", "blind single", "pilot", "pilot return_phase",
-         "pilot long frames", "equaliser seq", "equaliser block") + tuple(
+         "pilot long frames", "pilot lms", "pilot foe", "pilot non-blocked", "pilot granular",
+         "equaliser seq", "equaliser block") + tuple(
              p for p, _, _ in GRID_PATHS)
 # kernel: (wrapper name, CUDA source, the TPU kernel it replaces)
 KERNELS = {
@@ -1163,24 +1193,45 @@ def syncs_in(fn):
 def pilot_stages(chain, pr, pi):
     """The pilot chain's stages run one by one: a dict of every stage's inputs and outputs.
 
-    ``cargs`` are B5's arguments as the chain gives them (the frame filter's
-    pilot side output, read contiguous); ``sargs`` the same pilots read
-    strided from the filter output (B5's other form).
+    ``segs`` are the pilot segments the trainer takes, ``P`` the capture the
+    frame body reads (derotated by the pilot FOE on a ``foe_comp`` chain).
+    In the serving form ``cargs`` are B5's arguments as the chain gives them
+    (the frame filter's pilot side output, read contiguous) and ``sargs`` the
+    same pilots read strided from the filter output (B5's other form).
     """
     P = chain._planes(pr, pi)
     wxs, best_w = chain.sync_search(P)
     mode_order, shift, _, _ = chain.align(P, wxs, best_w)
     eqsh = chain._eq_shift(shift)
-    taps = chain.ls_taps(P, eqsh, mode_order).index_select(1, torch.argsort(mode_order))
-    out, side = chain.frame_filter(P, eqsh, taps)
+    segs = chain.segments(P, eqsh, mode_order)
+    if chain.eq_trainer == "ls":
+        w, foe = chain.ls_taps(segs), None
+    else:
+        w, foe = chain.lms_taps(segs)
+    if chain.foe_comp:
+        P = derotate_planes(P, foe, chain.os)
+    taps = w.index_select(1, torch.argsort(mode_order))
+    offs = chain.frame_offsets(P, eqsh)
+    st = dict(P=P, wxs=wxs, best_w=best_w, mode_order=mode_order, eqsh=eqsh, segs=segs,
+              taps=taps, foe=foe, offs=offs)
+    if not chain.kernel_interp:
+        out = apply_filter_frames(P, chain.os, taps, offs, chain.frame_len)
+        return dict(st, out=out, rows=out.shape[1] * out.shape[2])
+    out, side = apply_filter_frames(P, chain.os, taps, offs, chain.frame_len, pilot_side(chain))
     rows = out.shape[1] * out.shape[2]
     symr, symi = out[0].reshape(rows, -1), out[1].reshape(rows, -1)
     zr, zi = side[0].reshape(rows, -1), side[1].reshape(rows, -1)
     tail = (chain.n_head, chain.npts, chain.cpe_dx, chain.cpe_avg, chain.nbt)
     cargs = (zr, zi, chain.pil_r, chain.pil_i, 0, 1, *tail)
     sargs = (symr, symi, chain.pil_r, chain.pil_i, chain.seq_len, chain.ins_rat, *tail)
-    return dict(P=P, wxs=wxs, best_w=best_w, mode_order=mode_order, eqsh=eqsh, taps=taps,
-                rows=rows, out=out, side=side, symr=symr, symi=symi, cargs=cargs, sargs=sargs)
+    return dict(st, rows=rows, out=out, side=side, symr=symr, symi=symi, cargs=cargs,
+                sargs=sargs)
+
+
+def plain_trace(chain, zr, zi):
+    """The plain CPE trace of (rows, frame_len) planes whose rows run (mode, frame)."""
+    n, F_ = chain.nmodes, chain.frame_len
+    return chain.cpe_trace(zr.reshape(n, -1, F_), zi.reshape(n, -1, F_)).reshape(zr.shape)
 
 
 def pilot_side(chain):
@@ -1385,7 +1436,7 @@ def check_pilot_kernels(chain, st, card):
     sub = out[:, :, :nr].reshape(2, n * nr, F)
     for what, (zr, zi) in (("%d rows" % rows, (symr, symi)),
                            ("%d rows" % (n * nr), (sub[0].contiguous(), sub[1].contiguous()))):
-        sargs = (zr, zi, chain.cpe_trace(zr, zi), -1)
+        sargs = (zr, zi, plain_trace(chain, zr, zi), -1)
         r_p, i_p = rotate_plain(*sargs)
         r_k, i_k = rotate_cuda(*sargs)
         d_s = max(float((r_k - r_p).abs().max()), float((i_k - i_p).abs().max()))
@@ -1645,8 +1696,34 @@ def equaliser_phases(dev, card, seq_check, lat):
     return rec, path_launches
 
 
-def pilot_phases(dev, card):
-    """Phases 9-12: the pilot serving chain. Returns (kernel records, launches per path)."""
+def small_pilot_check(path, cfg, dev):
+    """A path's pilot chain on the card against the plain CPU chain on a small capture.
+
+    ``make_pilot_tx(6, 2**14, 512)`` on the CPU, frames 0-2, 17 taps, the
+    path's other settings ``cfg``: the same shift and mode order, and the
+    decisions shared at least ``SMALL_AGREE``.
+    """
+    small = make_pilot_tx(6, frame_len=2 ** 14, seq_len=512, device="cpu")
+    scfg = dict(cfg, Ntaps=17, frames=(0, 1, 2))
+    runs = []
+    for d in ("cpu", dev):
+        sch = make_pilot_rx_chain(small.pilot_seq, small.ph_pilots, 2 ** 14, PILOT_RAT, **scfg,
+                                  device=d)
+        (sr, si), sinfo = sch.planes(small.planes[:2].to(d), small.planes[2:].to(d))
+        runs.append((torch.complex(sr, si).cpu(), {k: v.cpu() for k, v in sinfo.items()}))
+    coded = torch.as_tensor(small.coded)
+    agree = float((decision_idx(runs[0][0], coded) == decision_idx(runs[1][0], coded))
+                  .double().mean())
+    same_state = all(torch.equal(runs[0][1][k], runs[1][1][k]) for k in ("shift", "mode_order"))
+    print("%s, small capture (2^14 frame, 512 sequence, 3 frames, 17 taps): card vs plain CPU "
+          "chain agree on %.6f of decisions (min %.3f); shift/mode_order equal: %s; max|d| %.3e"
+          % (path, agree, SMALL_AGREE, same_state, float((runs[0][0] - runs[1][0]).abs().max())))
+    require(agree >= SMALL_AGREE and same_state,
+            "the card's %s chain disagrees with the CPU's" % path)
+
+
+def pilot_phases(dev, card, lat):
+    """Phases 9-12: the pilot chains. Returns (kernel records, launches per path)."""
     t0 = time.perf_counter()
     tx = make_pilot_tx(PILOT_TX_FRAMES, frame_len=PILOT_FRAME, seq_len=PILOT_SEQ,
                        ins_rat=PILOT_RAT)   # no device named: the card
@@ -1701,23 +1778,7 @@ def pilot_phases(dev, card):
     print("pilot tracking_planes == planes payload: %s" % exact)
     require(exact, "pilot tracking output differs from the full chain")
 
-    small = make_pilot_tx(6, frame_len=2 ** 14, seq_len=512, device="cpu")
-    scfg = dict(PILOT_CFG, Ntaps=17, frames=(0, 1, 2), return_phase=False)
-    runs = []
-    for d in ("cpu", dev):
-        sch = make_pilot_rx_chain(small.pilot_seq, small.ph_pilots, 2 ** 14, PILOT_RAT, **scfg,
-                                  device=d)
-        (sr, si), sinfo = sch.planes(small.planes[:2].to(d), small.planes[2:].to(d))
-        runs.append((torch.complex(sr, si).cpu(), {k: v.cpu() for k, v in sinfo.items()}))
-    coded = torch.as_tensor(small.coded)
-    agree = float((decision_idx(runs[0][0], coded) == decision_idx(runs[1][0], coded))
-                  .double().mean())
-    same_state = all(torch.equal(runs[0][1][k], runs[1][1][k]) for k in ("shift", "mode_order"))
-    print("small pilot capture (2^14 frame, 512 sequence, 3 frames, 17 taps): card vs plain "
-          "CPU chain agree on %.6f of decisions (min %.3f); shift/mode_order equal: %s; "
-          "max|d| %.3e" % (agree, SMALL_AGREE, same_state,
-                           float((runs[0][0] - runs[1][0]).abs().max())))
-    require(agree >= SMALL_AGREE and same_state, "the card's pilot chain disagrees with the CPU's")
+    small_pilot_check("pilot", dict(PILOT_CFG, return_phase=False), dev)
 
     # phase 12: times
     npay = 2 * PILOT_FRAMES * nd
@@ -1743,16 +1804,19 @@ def pilot_phases(dev, card):
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / 3
     for name_k, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         print("time pilot dispatch device op %.4f ms per call: %s [%s]" % (ms, name_k[:90], card))
-    P, wxs, best_w, mode_order, eqsh, taps, symr, symi, cargs = (st[k] for k in (
-        "P", "wxs", "best_w", "mode_order", "eqsh", "taps", "symr", "symi", "cargs"))
+    P, wxs, best_w, mode_order, eqsh, segs, taps, offs, symr, symi, cargs = (st[k] for k in (
+        "P", "wxs", "best_w", "mode_order", "eqsh", "segs", "taps", "offs", "symr", "symi",
+        "cargs"))
     a, b = cpe_coeffs(*cargs)
     outr, outi = interp_rotate(symr, symi, a, b, chain.cpe_dx, -1)
     stages = {
         "sync search (%d windows, batched CMA)" % chain.W: lambda: chain.sync_search(P),
         "alignment (filter, FOE, xcorr, assignment)": lambda: chain.align(P, wxs, best_w),
-        "LS solve": lambda: chain.ls_taps(P, eqsh, mode_order),
+        "pilot segments": lambda: chain.segments(P, eqsh, mode_order),
+        "LS solve": lambda: chain.ls_taps(segs),
         "frame filter (B2 frames, with the pilot side output)":
-            lambda: chain.frame_filter(P, eqsh, taps),
+            lambda: apply_filter_frames(P, chain.os, taps, offs, chain.frame_len,
+                                        pilot_side(chain)),
         "CPE coefficients (B5, from the side output)": lambda: cpe_coeffs(*cargs),
         "derotation (B4)": lambda: interp_rotate(symr, symi, a, b, chain.cpe_dx, -1),
         "payload extraction": lambda: chain.payload(outr, outi),
@@ -1767,11 +1831,41 @@ def pilot_phases(dev, card):
               % (k, st_busy, st_nk, 100 * st_busy / busy, st_wall, card))
     print("time pilot stages' device busy sum: %.4f ms vs the dispatch's %.4f ms busy, %.4f ms "
           "stream time [%s]" % (total, busy, t_full, card))
-    del st, stages, outr, outi, a, b
-    long_rec, long_launches = pilot_long_path(card)
+    payload_forms(chain, outr, outi, card)
+    del st, stages, outr, outi, a, b, P, wxs, segs, symr, symi, cargs
+    launches_all = {"pilot": launches, "pilot return_phase": launches_rp}
+    lms_rec, launches_all["pilot lms"] = pilot_lms_path(tx, chain, card, lat)
+    rec.update(lms_rec)
+    nb_rec, launches_all["pilot non-blocked"] = pilot_nonblocked_path(tx, card)
+    rec.update(nb_rec)
+    del tx, chain, dr, di, pdr, pdi
+    long_rec, launches_all["pilot long frames"] = pilot_long_path(card)
     rec.update(long_rec)
-    return rec, {"pilot": launches, "pilot return_phase": launches_rp,
-                 "pilot long frames": long_launches}
+    foe_rec, launches_all["pilot foe"] = pilot_foe_path(card, lat)
+    rec.update(foe_rec)
+    gran_rec, launches_all["pilot granular"] = pilot_granular_path(dev, card, lat)
+    rec.update(gran_rec)
+    return rec, launches_all
+
+
+def payload_forms(chain, outr, outi, card, rounds=3):
+    """The payload of the blocked layout two ways, alternated: the gather at the data positions
+    (the chain's form for every layout) and a strided reshape that drops each block's pilot."""
+    n, F_ = chain.nmodes, chain.frame_len
+
+    def gather(x):
+        return x.reshape(n, -1, F_).index_select(-1, chain.dat_idx).reshape(n, -1)
+
+    def strided(x):
+        x = x.reshape(n, -1, F_)[..., chain.seq_len:]
+        return x.reshape(n, -1, chain.nblk, chain.ins_rat)[..., 1:].reshape(n, -1)
+    require(torch.equal(gather(outr), strided(outr)), "the two payload forms differ")
+    for r in range(rounds):
+        for name, f in (("gather", gather), ("strided reshape", strided)):
+            fn = lambda: (f(outr), f(outi))   # noqa: E731
+            b, nk, _ = device_busy(fn, 3)
+            print("time pilot payload form %s (round %d): device busy %.4f ms in %d device ops, "
+                  "stream time alone %.4f ms [%s]" % (name, r, b, nk, cuda_ms(fn, 5), card))
 
 
 def pilot_long_path(card):
@@ -1865,6 +1959,393 @@ def pilot_long_path(card):
     require(same_state and d_corr <= TOL_SYNC_CORR * abs(float(cinfo["sync_corr"]))
             and cgate["ok"] == gate["ok"] and agree >= LONG_AGREE,
             "the card's %s chain disagrees with the plain CPU chain on seed %d" % (path, seed))
+    return rec, launches
+
+
+def b1_batch_record(chain, segs, path, card, lat):
+    """B1 at the LMS pilot trainer's shape: each stage as one launch over the output modes.
+
+    One batch row per output mode (its own segment and taps), against the
+    plain block trainer with the same batch and against one launch per row,
+    bit for bit; every stage from the kernel's taps of the stage before. The
+    first stage is timed beside its bound and its chain bound.
+    """
+    n, rows = chain.nmodes, segs.shape[0]
+    w = chain.w0_eq
+    d_taps = d_err = d_mu = 0.0
+    per_row_same = True
+    for k in range(3):
+        spec = chain.stage_specs[k]
+        require(spec is not None, "B1 does not take LMS stage %d of the %s path" % (k, path))
+        args = (segs, chain.TrS_eq, chain.Niter, chain.os, chain.stages[k][0], w, spec, True,
+                chain.block_size)
+        e_p, w_p, mu_p = train_block_plain(*args)
+        e_k, w_k, mu_k = train_block_cuda(*args)
+        for r in range(rows):
+            one = train_block_cuda(segs[r], *args[1:5], w[r], *args[6:])
+            per_row_same &= all(torch.equal(x, y[r]) for x, y in zip(one, (e_k, w_k, mu_k)))
+        d_taps = max(d_taps, float((w_k - w_p).abs().max()))
+        d_err = max(d_err, float((e_k - e_p).abs().max()))
+        d_mu = max(d_mu, float(((mu_k - mu_p) / mu_p).abs().max()))
+        if k == 0:
+            args0 = args
+        w = w_k
+    S, nb = min(chain.block_size, chain.TrS_eq), chain.TrS_eq // min(chain.block_size,
+                                                                     chain.TrS_eq)
+    steps = chain.Niter * nb
+    print("B1 train_block batched (%s): %d rows x 1 output x %d taps, %d blocks of %d, 3 stages: "
+          "taps max|d| %.3e (tol %.0e), mu rel %.3e (tol %.0e), err max|d| %.3e (tol %.0e) "
+          "against the plain trainer's batch; each row bit-equal to its own launch: %s"
+          % (path, rows, n * chain.Ntaps, steps, S, d_taps, TOL_TAPS, d_mu, TOL_SEQ_MU_REL,
+             d_err, TOL_SEQ_ERR, per_row_same))
+    require(d_taps <= TOL_TAPS and d_mu <= TOL_SEQ_MU_REL and d_err <= TOL_SEQ_ERR,
+            "batched B1 disagrees with the plain trainer (%s)" % path)
+    require(per_row_same, "a batched B1 row differs from its own launch (%s)" % path)
+    K, Ts = n * chain.Ntaps, nb * S
+    moved = 4 * (rows * 2 * n * chain.seg_len + 2 * rows * Ts * chain.Niter + 4 * rows * K)
+    rec = dict(**bound(moved, chain.Niter * Ts * rows * (OPS_TRAIN_TAP * K + OPS_TRAIN_ERR)),
+               err=d_taps, ms=device_ms(lambda: train_block_cuda(*args0), 10),
+               plain_ms=device_ms(lambda: train_block_plain(*args0), 2),
+               shape="%d rows x 1 output x %d taps, %d blocks of %d, one stage"
+                     % (rows, K, steps, S))
+    print_chain("B1 train_block batched (%s)" % path, lat, steps, block_chain_cycles(lat, K, S),
+                rec["ms"], card, "block")
+    return rec
+
+
+def frames_check(chain, st, path, nframes=PHASE_FRAMES):
+    """B2's frame entry against its plain version on a path's first ``nframes`` frames: max|d|."""
+    o = st["offs"][:, :nframes].contiguous()
+    ref = apply_filter_frames_plain(st["P"], chain.os, st["taps"], o, chain.frame_len)
+    d = float((st["out"][:, :, :nframes] - ref).abs().max())
+    rms = float(ref.pow(2).mean().sqrt())
+    print("B2 frames (%s): first %d frames max|d| %.3e against the plain version (tol %.0e x "
+          "rms %.3f)" % (path, nframes, d, TOL_FILTER_REL, rms))
+    require(d <= TOL_FILTER_REL * rms, "B2's frame entry disagrees on the %s path" % path)
+    return d
+
+
+def pilot_lms_path(tx, ls_chain, card, lat):
+    """The path "pilot lms": the bench's LMS pilot chain over the pilot cell's 240 frames.
+
+    Counted (B1 3, one batched launch a stage; B2 frames, B5, B4 once), under
+    the BER gate, tracking bit-exact; B1 batched against the plain trainer
+    and against one launch per row; the frame body's kernels against their
+    plain versions on this path's own inputs, and timed there; the
+    dispatch, its LMS training beside the LS solve, and the tracking entry
+    timed.
+    """
+    path = "pilot lms"
+    pr, pi = tx.planes[:2], tx.planes[2:]
+    chain = make_pilot_rx_chain(tx.pilot_seq, tx.ph_pilots, PILOT_FRAME, PILOT_RAT,
+                                frames=range(PILOT_FRAMES), return_phase=False, **PILOT_LMS_CFG)
+    ((dr, di), info), launches = counted(lambda: chain.planes(pr, pi))
+    print("%s launches: %s" % (path, launches))
+    require(launches == expected({"B1": 3, "B2 frames": 1, "B5": 1, "B4": 1}),
+            "the %s path did not launch each kernel as expected" % path)
+    nd = tx.idx_tx.shape[-1]
+    require(tuple(dr.shape) == (2, PILOT_FRAMES * nd) and dr.shape == di.shape
+            and bool(torch.isfinite(dr).all() and torch.isfinite(di).all()),
+            "%s payload of shape %s, or not finite" % (path, tuple(dr.shape)))
+    gate = ber_gate(dr, di, tx, info["sync_corr"])
+    print("%s: BER %.3e SER %.3e over 2 x %d x %d payload symbols, sync_corr %.1f, shift %s, "
+          "mode_order %s" % (path, gate["ber"], gate["ser"], PILOT_FRAMES, nd,
+                             gate["sync_corr"], info["shift"].tolist(),
+                             info["mode_order"].tolist()))
+    require(gate["ok"], "the %s BER gate failed (BER <= 1e-5 and sync_corr >= 120)" % path)
+    trk = (info["taps"], info["shift"], info["mode_order"])
+    (tr, ti), _ = chain.tracking_planes(pr, pi, *trk)
+    exact = bool(torch.equal(tr, dr) and torch.equal(ti, di))
+    print("%s tracking_planes == planes payload: %s" % (path, exact))
+    require(exact, "the %s tracking output differs from the full chain" % path)
+    del tr, ti
+    syncs = syncs_in(lambda: chain.planes(pr, pi))
+    print("%s dispatch: %d synchronising calls under torch.cuda.set_sync_debug_mode('warn')%s"
+          % (path, len(syncs), "".join("\n  " + s for s in syncs)))
+
+    st = pilot_stages(chain, pr, pi)
+    rec = {("B1", path): b1_batch_record(chain, st["segs"], path, card, lat)}
+    rec["B2 frames", path] = b2_frames_record(chain, st, st["offs"], path,
+                                              frames_check(chain, st, path))
+    rec["B5", path] = b5_record(chain, st, card, path)
+    rec["B4", path] = b4_pilot_record(chain, st, path)
+    print_times(rec, card)
+    small_pilot_check(path, dict(PILOT_LMS_CFG, return_phase=False), pr.device)
+
+    npay = dr.numel()
+    t_full = cuda_ms(lambda: chain.planes(pr, pi), 5)
+    t_trk = cuda_ms(lambda: chain.tracking_planes(pr, pi, *trk), 10)
+    busy, nk, _ = device_busy(lambda: chain.planes(pr, pi), 2)
+    busy_trk, nk_trk, _ = device_busy(lambda: chain.tracking_planes(pr, pi, *trk), 3)
+    print("time %s chain.planes (%d frames): %.4f ms, %.1f payload Msym/s; device busy %.4f ms in "
+          "%d device ops per call, busy share %.3f [%s]"
+          % (path, PILOT_FRAMES, t_full, npay / t_full / 1e3, busy, nk, busy / t_full, card))
+    print("time %s chain.tracking_planes (%d frames): %.4f ms, %.1f payload Msym/s; device busy "
+          "%.4f ms in %d device ops per call, busy share %.3f [%s]"
+          % (path, PILOT_FRAMES, t_trk, npay / t_trk / 1e3, busy_trk, nk_trk, busy_trk / t_trk,
+             card))
+    segs = st["segs"]
+    for what, fn in (("LMS training (3 B1 stages)", lambda: chain.lms_taps(segs)),
+                     ("LS solve (the pilot path's trainer)", lambda: ls_chain.ls_taps(segs))):
+        st_busy, st_nk, _ = device_busy(fn, 3)
+        print("time %s stage %s: device busy %.4f ms in %d device ops, stream time alone %.4f ms "
+              "[%s]" % (path, what, st_busy, st_nk, cuda_ms(fn, 5), card))
+    return rec, launches
+
+
+def pilot_nonblocked_path(tx, card):
+    """The path "pilot non-blocked": every other CPE pilot, the general frame body.
+
+    The pilot cell's settings with ``cpe_pilot_rat=2`` over the capture's
+    first 16 frames: B2's frame entry without the side output and B6 once
+    each, under the BER gate, tracking bit-exact; B2 frames and B6 against
+    their plain versions on this path's inputs and timed; the card's chain
+    against the plain CPU chain on a small capture.
+    """
+    path, nf = "pilot non-blocked", PILOT_NB["frames"]
+    pr, pi = tx.planes[:2], tx.planes[2:]
+    cfg = dict(PILOT_CFG, cpe_pilot_rat=PILOT_NB["cpe_pilot_rat"], return_phase=False)
+    chain = make_pilot_rx_chain(tx.pilot_seq, tx.ph_pilots, PILOT_FRAME, PILOT_RAT,
+                                frames=range(nf), **cfg)
+    require(not chain.kernel_interp and not chain.blocked, "the %s chain is blocked" % path)
+    ((dr, di), info), launches = counted(lambda: chain.planes(pr, pi))
+    print("%s launches: %s" % (path, launches))
+    require(launches == expected({"B2 frames": 1, "B6": 1}),
+            "the %s path did not launch each kernel as expected" % path)
+    nd = tx.idx_tx.shape[-1]
+    require(tuple(dr.shape) == (2, nf * nd) and bool(torch.isfinite(dr).all()
+                                                     and torch.isfinite(di).all()),
+            "%s payload of shape %s, or not finite" % (path, tuple(dr.shape)))
+    gate = ber_gate(dr, di, tx, info["sync_corr"])
+    print("%s: %d CPE pilots a row (every %d-th symbol), BER %.3e SER %.3e over 2 x %d x %d "
+          "payload symbols, sync_corr %.1f" % (path, chain.ph_idx.numel(), chain.cpe_dx,
+                                               gate["ber"], gate["ser"], nf, nd,
+                                               gate["sync_corr"]))
+    require(gate["ok"], "the %s BER gate failed (BER <= 1e-5 and sync_corr >= 120)" % path)
+    trk = (info["taps"], info["shift"], info["mode_order"])
+    (tr, ti), _ = chain.tracking_planes(pr, pi, *trk)
+    exact = bool(torch.equal(tr, dr) and torch.equal(ti, di))
+    print("%s tracking_planes == planes payload: %s" % (path, exact))
+    require(exact, "the %s tracking output differs from the full chain" % path)
+
+    st = pilot_stages(chain, pr, pi)
+    d2 = frames_check(chain, st, path, nf)
+    o, n, F_ = st["offs"], chain.nmodes, chain.frame_len
+    fargs = (st["P"], chain.os, st["taps"], o, F_)
+    plan = filter_plan(n, n, chain.Ntaps, chain.os, F_, nf)
+    span = int(o.max() - o.min()) + chain.fr_len
+    rec = {("B2 frames", path): dict(
+        **bound(4 * 2 * n * span + nbytes(st["taps"], o, st["out"]),
+                OPS_FILTER_TAP * n * chain.Ntaps * n * nf * F_),
+        err=d2, ms=device_ms(lambda: apply_filter_frames_cuda(*fargs), 20),
+        plain_ms=device_ms(lambda: apply_filter_frames_plain(*fargs), 3),
+        shape="%d frames, no side output; %s" % (nf, plan_text(plan)))}
+    rec["B2 frames", path]["library_ms"] = frames_library(*fargs[:4], chain.fr_len, st["out"])
+    zr, zi = st["out"][0].reshape(-1, F_), st["out"][1].reshape(-1, F_)
+    sargs = (zr, zi, plain_trace(chain, zr, zi), -1)
+    r_p, i_p = rotate_plain(*sargs)
+    r_k, i_k = rotate_cuda(*sargs)
+    d6 = max(float((r_k - r_p).abs().max()), float((i_k - i_p).abs().max()))
+    print("B6 rotate (%s): %s max|d| %.3e (tol %.0e)" % (path, tuple(r_k.shape), d6, TOL_ROTATE))
+    require(d6 <= TOL_ROTATE, "B6 disagrees with its plain version on the %s path" % path)
+    rec["B6", path] = dict(**bound(nbytes(zr, zi, sargs[2], r_k, i_k), OPS_ROTATE * zr.numel()),
+                           err=d6, ms=device_ms(lambda: rotate_cuda(*sargs), 50),
+                           plain_ms=device_ms(lambda: rotate_plain(*sargs), 10),
+                           shape="%d rows" % zr.shape[0])
+    npay = dr.numel()
+    t_trk = cuda_ms(lambda: chain.tracking_planes(pr, pi, *trk), 10)
+    print("time %s chain.tracking_planes (%d frames): %.4f ms, %.1f payload Msym/s [%s]"
+          % (path, nf, t_trk, npay / t_trk / 1e3, card))
+    print_times(rec, card)
+
+    small_pilot_check(path, cfg, pr.device)
+    return rec, launches
+
+
+def pilot_foe_path(card, lat):
+    """The path "pilot foe": a 20 MHz carrier offset, taken out by the LMS chain's pilot FOE.
+
+    ``make_pilot_tx(20, freq_off=20e6)``, 16 frames, ``foe_comp=True``:
+    counted (B1 3, B2 frames, B5, B4), under the BER gate, tracking with
+    ``foe=info["foe_pil"]`` bit-exact, held to the plain CPU chain on the
+    same capture (state, pilot FOE, decisions, the gate's outcome), and its
+    kernels against their plain versions on its own inputs. The seeds are
+    taken in order until one passes the gate: a capture whose frame sync
+    fails (ROADMAP C5) must fail in the plain CPU chain too.
+    """
+    path, cfg = "pilot foe", PILOT_FOE
+    kw = dict(PILOT_LMS_CFG, frames=range(cfg["frames"]), return_phase=False, foe_comp=True)
+    fo_sym = cfg["freq_off"] / 24e9
+    for seed in cfg["seeds"]:
+        t0 = time.perf_counter()
+        tx = make_pilot_tx(cfg["tx_frames"], frame_len=PILOT_FRAME, freq_off=cfg["freq_off"],
+                           seed=seed)   # on the card
+        chain = make_pilot_rx_chain(tx.pilot_seq, tx.ph_pilots, PILOT_FRAME, PILOT_RAT, **kw)
+        pr, pi = tx.planes[:2], tx.planes[2:]
+        ((dr, di), info), launches = counted(lambda: chain.planes(pr, pi))
+        gate = ber_gate(dr, di, tx, info["sync_corr"])
+        print("%s, seed %d: %d frames with a %.0f MHz offset (%.4e cycles per symbol), launches "
+              "%s; pilot FOE %.6e, coarse + pilot %.6e; BER %.3e SER %.3e, sync_corr %.1f, shift "
+              "%s (%.2f s with the capture)"
+              % (path, seed, cfg["frames"], cfg["freq_off"] / 1e6, fo_sym, launches,
+                 float(info["foe_pil"]), float(info["foe"]), gate["ber"], gate["ser"],
+                 gate["sync_corr"], info["shift"].tolist(), time.perf_counter() - t0))
+        require(launches == expected({"B1": 3, "B2 frames": 1, "B5": 1, "B4": 1}),
+                "the %s path did not launch each kernel as expected" % path)
+        t0 = time.perf_counter()
+        cpu = make_pilot_rx_chain(tx.pilot_seq, tx.ph_pilots, PILOT_FRAME, PILOT_RAT, **kw,
+                                  device="cpu")
+        (cr, ci), cinfo = cpu.planes(pr.cpu(), pi.cpu())
+        cgate = ber_gate(cr.to(dr.device), ci.to(dr.device), tx, cinfo["sync_corr"])
+        same_state = all(cinfo[k].tolist() == info[k].tolist() for k in ("shift", "mode_order"))
+        d_foe = abs(float(cinfo["foe_pil"]) - float(info["foe_pil"]))
+        agree = float((decide(torch.complex(dr, di).cpu(), tx.coded)
+                       == decide(torch.complex(cr, ci), tx.coded)).double().mean())
+        print("%s, seed %d: plain CPU chain (%.2f s): shift/mode_order equal: %s, pilot FOE |d| "
+              "%.3e (tol %.0e), decisions agree on %.6f (min %.3f), BER gate %s (card: %s)"
+              % (path, seed, time.perf_counter() - t0, same_state, d_foe, TOL_FOE, agree,
+                 LONG_AGREE, "held" if cgate["ok"] else "failed",
+                 "held" if gate["ok"] else "failed"))
+        require(same_state and d_foe <= TOL_FOE and agree >= LONG_AGREE
+                and cgate["ok"] == gate["ok"],
+                "the card's %s chain disagrees with the plain CPU chain (seed %d)" % (path, seed))
+        del cpu, cr, ci
+        if gate["ok"]:
+            break
+    require(gate["ok"], "the %s BER gate failed on every seed (BER <= 1e-5 and sync_corr >= "
+            "120)" % path)
+    trk = (info["taps"], info["shift"], info["mode_order"])
+    (tr, ti), _ = chain.tracking_planes(pr, pi, *trk, foe=info["foe_pil"])
+    exact = bool(torch.equal(tr, dr) and torch.equal(ti, di))
+    print("%s tracking_planes(foe=info['foe_pil']) == planes payload: %s" % (path, exact))
+    require(exact, "the %s tracking output differs from the full chain" % path)
+    del tr, ti
+
+    st = pilot_stages(chain, pr, pi)
+    rec = {("B1", path): b1_batch_record(chain, st["segs"], path, card, lat)}
+    ref = apply_filter_frames_plain(st["P"], chain.os, st["taps"], st["offs"], PILOT_FRAME)
+    d_f = float((st["out"] - ref).abs().max())
+    rms = float(ref.pow(2).mean().sqrt())
+    del ref
+    print("B2 frames (%s): %s max|d| %.3e against the plain version (tol %.0e x rms %.3f)"
+          % (path, tuple(st["out"].shape), d_f, TOL_FILTER_REL, rms))
+    require(d_f <= TOL_FILTER_REL * rms, "B2's frame entry disagrees on the %s path" % path)
+    rec["B2 frames", path] = b2_frames_record(chain, st, st["offs"], path, d_f)
+    rec["B5", path] = b5_record(chain, st, card, path)
+    rec["B4", path] = b4_pilot_record(chain, st, path)
+    npay = dr.numel()
+    t_trk = cuda_ms(lambda: chain.tracking_planes(pr, pi, *trk, foe=info["foe_pil"]), 5)
+    print("time %s chain.tracking_planes (%d frames, derotation included): %.4f ms, %.1f payload "
+          "Msym/s [%s]" % (path, cfg["frames"], t_trk, npay / t_trk / 1e3, card))
+    print_times(rec, card)
+    return rec, launches
+
+
+def pilot_granular_path(dev, card, lat):
+    """The path "pilot granular": ``ops/pilots.py`` step by step on a small capture.
+
+    ``frame_sync`` (B9 once a search window, B2 for each mode's segment),
+    ``equalize_pilot_sequence`` (``backend="auto"``: B1 a stage, B2 for its
+    first stage's output), the frames filtered with its taps (B2 a mode) and
+    ``pilot_based_cpe``; counted, the payload under the BER gate (sync_corr
+    standing for the search's own verdict), the search held to the plain
+    CPU search; B9 and B1 against their plain versions at this path's shapes.
+    """
+    path, cfg = "pilot granular", PILOT_GRAN
+    F_, seq_len, NT, nf = cfg["frame_len"], cfg["seq_len"], cfg["Ntaps"], cfg["frames"]
+    tx = make_pilot_tx(cfg["tx_frames"], frame_len=F_, seq_len=seq_len, device=dev)
+    E = torch.complex(tx.planes[:2], tx.planes[2:])
+    _, idx_dat, idx_pil = cal_pilot_idx(F_, seq_len, PILOT_RAT)
+    dat_idx = torch.as_tensor(np.nonzero(idx_dat)[0], device=dev)
+
+    def receive():
+        shift, foe, mo, _, ok = pilots.frame_sync(E, tx.pilot_seq, 2, frame_len=F_, device=dev)
+        E2 = E[torch.as_tensor(mo, device=dev)]
+        sh = pilots.correct_shifts(shift, (17, NT), 2)
+        sh = np.where(sh < 0, sh + F_ * 2, sh)
+        taps, _ = pilots.equalize_pilot_sequence(E2, tx.pilot_seq, sh, 2, Ntaps=NT)
+        w = torch.as_tensor(taps, device=dev)
+        sym = torch.cat([eqops.apply_filter(E2[:, sh[i]: sh[i] + nf * F_ * 2 + NT - 1], 2, w,
+                                            modes=[i]) for i in range(2)])
+        out, _ = pilots.pilot_based_cpe(sym, tx.ph_pilots, np.nonzero(idx_pil)[0][seq_len:], F_,
+                                        num_average=3, nframes=nf)
+        pay = out.reshape(2, nf, F_).index_select(-1, dat_idx).reshape(2, -1)
+        return pay, shift, mo, ok, sh, w
+
+    t0 = time.perf_counter()
+    (pay, shift, mo, ok, sh, w), launches = counted(receive)
+    t_call = time.perf_counter() - t0
+    W = (F_ * 2) // seq_len + 1 - 2
+    per_mode = len(set(sh.tolist())) > 1
+    want = {"B9": W, "B1": 6 if per_mode else 3, "B2": 2 + (2 if per_mode else 1) + 2}
+    gate = ber_gate(pay.real.contiguous(), pay.imag.contiguous(), tx,
+                    pilots.FRAME_SYNC_THRS if ok else 0.0)
+    print("%s: frame_sync -> equalize_pilot_sequence -> filter -> pilot_based_cpe on %d frames "
+          "of SignalWithPilots(64, %d, %d, %d) statistics: launches %s (expected %s), shift %s, "
+          "mode order %s, sync %s; BER %.3e SER %.3e (%.2f s host clock) [%s]"
+          % (path, nf, F_, seq_len, PILOT_RAT, launches, want, shift.tolist(), mo.tolist(), ok,
+             gate["ber"], gate["ser"], t_call, card))
+    require(launches == expected(want), "the %s path did not launch each kernel as expected"
+            % path)
+    require(gate["ok"], "the %s BER gate failed" % path)
+
+    # the search on the CPU: the plain per-symbol trainer in every window
+    t0 = time.perf_counter()
+    c = pilots.frame_sync(E.cpu(), tx.pilot_seq, 2, frame_len=F_, device="cpu")
+    g = pilots.frame_sync(E, tx.pilot_seq, 2, frame_len=F_, device=dev)
+    same = (np.array_equal(c[0], g[0]) and np.array_equal(c[2], g[2]) and c[4] == g[4]
+            and np.array_equal(c[1], g[1]))
+    d_w = float(np.abs(c[3] - g[3]).max())
+    print("%s: frame_sync on the card vs the plain CPU search (%.2f s): shift, mode order, flag "
+          "and coarse FOE equal: %s; taps max|d| %.3e (tol %.0e)"
+          % (path, time.perf_counter() - t0, same, d_w, TOL_SEQ_TAPS))
+    require(same and d_w <= TOL_SEQ_TAPS, "the card's frame_sync disagrees with the CPU's")
+
+    # B9 in the search's first window; B1 in the pilot equaliser's first stage
+    P = torch.cat([E.real, E.imag]).contiguous()
+    sw = seq_len * 2
+    trs = eqops._cal_training_symbol_len(2, 17, sw)
+    w0 = torch.as_tensor(eqops._init_taps(17, 2, 2, np.complex64), device=dev)
+    syms = eqops._reshape_symbols(None, "cma", 4, np.complex64, 2)
+    win = P[:, 2 * (sw // 2): 2 * (sw // 2) + sw].contiguous()
+    args = (win, trs, 1, 2, 1e-3, w0, syms, "cma", False)
+    e_p, w_p, mu_p = train_seq_plain(*args)
+    e_k, w_k, mu_k = train_seq_cuda(*args)
+    d9 = float((w_k - w_p).abs().max())
+    d9e = float((e_k - e_p).abs().max())
+    print("B9 train_seq (%s, one window of %d symbols, cma): taps max|d| %.3e (tol %.0e), err "
+          "max|d| %.3e (tol %.0e)" % (path, trs, d9, TOL_SEQ_TAPS, d9e, TOL_SEQ_ERR))
+    require(d9 <= TOL_SEQ_TAPS and d9e <= TOL_SEQ_ERR, "B9 disagrees on the %s path" % path)
+    rec = {("B9", path): dict(**trainer_bound(2, 2, 17, 2, trs, 1), err=d9,
+                              ms=device_ms(lambda: train_seq_cuda(*args), 20),
+                              plain_ms=device_ms(lambda: train_seq_plain(*args), 1),
+                              shape="one of %d windows, %d symbols, 2 x 2 x 17 taps" % (W, trs))}
+    print_chain("B9 train_seq (%s)" % path, lat, trs, seq_chain_cycles(lat, 34, "cma"),
+                rec["B9", path]["ms"], card, "symbol")
+    E2 = E[torch.as_tensor(mo, device=dev)]
+    seg = eqops.planes(E2[:, sh[0]: sh[0] + seq_len * 2 + NT - 1]).contiguous()
+    trs1 = eqops._cal_training_symbol_len(2, NT, seg.shape[-1])
+    wq = torch.as_tensor(eqops._init_taps(NT, 2, 2, np.complex64), device=dev)
+    spec = eqops.err_spec("cma", eqops._reshape_symbols(None, "cma", 4, np.complex64, 2))
+    b1 = (seg, trs1, 30, 2, 1e-4, wq, spec, True, 128)
+    e_p, w_p, mu_p = train_block_plain(*b1)
+    e_k, w_k, mu_k = train_block_cuda(*b1)
+    d1 = float((w_k - w_p).abs().max())
+    d1e = float((e_k - e_p).abs().max())
+    print("B1 train_block (%s, the pilot equaliser's first stage, 30 passes of %d blocks of 128): "
+          "taps max|d| %.3e (tol %.0e), err max|d| %.3e (tol %.0e)"
+          % (path, trs1 // 128, d1, TOL_TAPS, d1e, TOL_ERR))
+    require(d1 <= TOL_TAPS and d1e <= TOL_ERR, "B1 disagrees on the %s path" % path)
+    rec["B1", path] = dict(**trainer_bound(2, 2, NT, 2, (trs1 // 128) * 128, 30), err=d1,
+                           ms=device_ms(lambda: train_block_cuda(*b1), 10),
+                           plain_ms=device_ms(lambda: train_block_plain(*b1), 2),
+                           shape="2 x 2 x %d taps, 30 x %d blocks of 128" % (NT, trs1 // 128))
+    print_chain("B1 train_block (%s)" % path, lat, 30 * (trs1 // 128),
+                block_chain_cycles(lat, 2 * NT, 128), rec["B1", path]["ms"], card, "block")
+    Es = E2[:, sh[0]: sh[0] + nf * F_ * 2 + NT - 1]
+    rec["B2", path], _ = b2_record(eqops.planes(Es).contiguous(), 2, w[:1], None, path,
+                                   "%d frames of 2^14 symbols, one output mode" % nf)
+    print_times(rec, card)
     return rec, launches
 
 
@@ -1977,7 +2458,7 @@ def main():
             dict(seed=2), card)
         rec["B1", "blind " + mode] = rec["B1", "blind"]
 
-    prec, pilot_launches = pilot_phases(dev, card)
+    prec, pilot_launches = pilot_phases(dev, card, lat)
     rec.update(prec)
     path_launches.update(pilot_launches)
 

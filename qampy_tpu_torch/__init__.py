@@ -1,16 +1,20 @@
 """qampy_tpu_torch — the PyTorch/CUDA port of ``qampy_tpu`` for one NVIDIA H100.
 
 The port grows slice by slice beside the JAX package, which stays the
-reference it is held against. Three slices run:
+reference it is held against. Four slices run:
 
 - the blind dual-pol 64-QAM receiver in ``decimated[K]`` mode
   (``ops.chain.make_rx_chain``), carried by four hand-written CUDA kernels
   (``csrc/``): the block-LMS trainer, the strided MIMO filter, the blind
   phase search and the piecewise-linear derotation;
-- the LS pilot serving chain (``ops.pilot_chain.make_pilot_rx_chain``),
-  which batches the frames of a dispatch through the filter's frame entry,
-  the pilot CPE coefficients and the derotation (or, with the phase trace,
-  the rotation by a given phase);
+- the pilot serving chain (``ops.pilot_chain.make_pilot_rx_chain``) with
+  the LMS pilot trainer (the default; the block trainer, one batched launch
+  a stage) or the LS solve, pilot FOE compensation, and a frame body that
+  batches the frames of a dispatch through the filter's frame entry, the
+  pilot CPE coefficients and the derotation (or, with the phase trace or
+  any other pilot layout, the rotation by a given phase);
+- the granular pilot receiver (``ops.pilots``: frame sync on the
+  per-symbol trainer, pilot equalisation, pilot FOE and CPE);
 - the granular equaliser (``ops.equaliser.equalise_signal``,
   ``dual_mode_equalisation``, ``apply_filter``, ``CDcomp``): every error
   function, the exact per-symbol trainer and the block trainer in plain

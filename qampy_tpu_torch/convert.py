@@ -87,12 +87,14 @@ def planes_from_complex(E, device):
     return torch.as_tensor(np.concatenate([E.real, E.imag]).astype(np.float32), device=device)
 
 
-def pilot_state_from_jax(taps, shift, mode_order, device):
+def pilot_state_from_jax(taps, shift, mode_order, device, foe=None):
     """The pilot chain's acquired state, ``info`` of the JAX package's chain, as the port's.
 
     taps: complex (nmodes, nmodes, Ntaps); shift and mode_order: integer
     (nmodes,) arrays. Returns (taps complex64, shift int64, mode_order
-    int64) tensors on ``device``, ready for ``PilotRxChain.tracking_planes``.
+    int64) tensors on ``device``, ready for ``PilotRxChain.tracking_planes``;
+    with ``foe`` (a scalar, ``info["foe_pil"]`` of a ``foe_comp`` chain) a
+    fourth, the float32 0-d offset, which that entry takes after them.
     """
     shift, mode_order = np.asarray(shift), np.asarray(mode_order)
     if shift.ndim != 1 or mode_order.shape != shift.shape:
@@ -101,6 +103,12 @@ def pilot_state_from_jax(taps, shift, mode_order, device):
     if not (np.issubdtype(shift.dtype, np.integer)
             and np.issubdtype(mode_order.dtype, np.integer)):
         raise ValueError("shift and mode_order must be integer arrays")
-    return (taps_from_jax(taps, device),
-            torch.as_tensor(shift.astype(np.int64), device=device),
-            torch.as_tensor(mode_order.astype(np.int64), device=device))
+    state = (taps_from_jax(taps, device),
+             torch.as_tensor(shift.astype(np.int64), device=device),
+             torch.as_tensor(mode_order.astype(np.int64), device=device))
+    if foe is None:
+        return state
+    foe = np.asarray(foe)
+    if foe.ndim != 0:
+        raise ValueError("expected a scalar foe, got shape %s" % (foe.shape,))
+    return state + (torch.as_tensor(foe.astype(np.float32), device=device),)

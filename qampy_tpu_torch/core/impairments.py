@@ -45,6 +45,20 @@ def change_snr(sig, snr, fb, fs, generator):
     return add_awgn(sig, torch.sqrt(p) * n, generator)
 
 
+def add_carrier_offset(sig, fo, fs):
+    """Add a carrier frequency offset ``fo`` to a signal sampled at ``fs`` (reference :101-107).
+
+    sig * exp(2j pi t fo / fs), t = 0, ..., L-1 along the last axis. The
+    phase is reckoned in float64 cycles, reduced to [0, 1), and rounded to
+    float32 once: the reference forms it in float32, whose t and phase lose
+    precision over long captures (past 2^24 samples t itself rounds).
+    """
+    t = torch.arange(sig.shape[-1], dtype=torch.float64, device=sig.device)
+    cyc = torch.remainder(t * (float(fo) / float(fs)), 1.0)
+    ph = (2 * np.pi * cyc).to(torch.float32)
+    return sig * torch.polar(torch.ones_like(ph), ph)
+
+
 def _rotation(theta, dtype, device):
     return torch.tensor([[np.cos(theta), -np.sin(theta)], [np.sin(theta), np.cos(theta)]],
                         dtype=dtype, device=device)
@@ -83,14 +97,16 @@ def roll_frame_sync(sig, npilots):
     return torch.roll(sig, int(npilots), dims=-1)
 
 
-def simulate_transmission(sig, fb, fs, generator, snr=None, lwdth=None, dgd=None,
-                          theta=np.pi / 3.731, modal_delay=None):
-    """Phase noise, SNR, modal delay and PMD in the reference's order (reference :120-135).
+def simulate_transmission(sig, fb, fs, generator, snr=None, freq_off=None, lwdth=None,
+                          dgd=None, theta=np.pi / 3.731, modal_delay=None):
+    """Phase noise, carrier offset, SNR, modal delay and PMD in the reference's order.
 
-    The carrier-offset option of the reference is not ported (ROADMAP A9).
+    Reference :120-135.
     """
     if lwdth is not None:
         sig = apply_phase_noise(sig, lwdth, fs, generator)
+    if freq_off is not None:
+        sig = add_carrier_offset(sig, freq_off, fs)
     if snr is not None:
         sig = change_snr(sig, snr, fb, fs, generator)
     if modal_delay is not None:

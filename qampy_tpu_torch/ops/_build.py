@@ -30,7 +30,7 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 # (restype, argtypes) of every C entry point
 SIGNATURES = {
     "qtt_train_block_smem": (_LL, [_I, _I, _I, _I, _I, _I]),
-    "qtt_train_block": (_I, [_P, _I, _LL, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+    "qtt_train_block": (_I, [_P, _I, _LL, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                              _I, _F, _F, _F, _F, _I, _F, _F, _F, _F, _F, _P, _I, _P, _I, _I, _P]),
     "qtt_train_seq": (_I, [_P, _I, _LL, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                            _I, _P]),

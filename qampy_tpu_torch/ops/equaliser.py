@@ -601,12 +601,16 @@ def training_windows(P, Ts, os, ntaps):
 
 
 def _real_taps(wx, batch=()):
-    """(wr, wi) float32 (..., nout, K) copies of taps (nout, nmodes, ntaps); wi None if real."""
-    nout = wx.shape[0]
+    """(wr, wi) float32 (*batch, nout, K) copies of taps (..., nout, nmodes, ntaps).
+
+    wi is None for real taps. Taps without the batch axes are shared by
+    every row of the batch.
+    """
+    K = wx.shape[-2] * wx.shape[-1]
 
     def flat(w):
-        w = w.reshape(nout, -1).float()
-        return w.expand(*batch, *w.shape).clone()
+        w = w.reshape(*w.shape[:-2], K).float()
+        return w.expand(*batch, *w.shape[-2:]).clone()
     if wx.is_complex():
         return flat(wx.real), flat(wx.imag)
     return flat(wx), None
@@ -623,16 +627,18 @@ def train_block_planes(P, TrSyms, Niter, os, mu, wx, err, adaptive=False,
     sample 0 of each pass. Taps, mu and the last error carry across blocks.
 
     P: (..., 2*nmodes, L) float32, any leading batch axes (the pilot chain's
-    frame search trains its candidate windows as one batch, where the
-    reference vmaps); wx: (nout, nmodes, ntaps) complex64, shared by the
-    batch. ``err`` is an :class:`ErrSpec` or an error function (zr, zi,
+    frame search trains its candidate windows as one batch, and its LMS
+    trainer each output mode on its own segment, where the reference
+    vmaps); wx: (nout, nmodes, ntaps) complex64, shared by the batch, or
+    (..., nout, nmodes, ntaps) with the batch axes of P, one set per row.
+    ``err`` is an :class:`ErrSpec` or an error function (zr, zi,
     idxs) -> (er, ei), idxs the (S,) sample indices of the block in its
     pass. With ``real`` (the real-valued methods) P is the (..., nmodes, L)
     real signal, the taps are real and zi, ei are None.
     Returns (err (..., nout, Niter*Ts) complex64, taps (..., nout, nmodes,
     ntaps), mu (..., nout) float32); err and taps are float32 with ``real``.
     """
-    nout, nmodes, ntaps = wx.shape
+    nout, nmodes, ntaps = wx.shape[-3:]
     batch = P.shape[:-2]
     S = min(int(block_size), int(TrSyms))
     nblocks = int(TrSyms) // S

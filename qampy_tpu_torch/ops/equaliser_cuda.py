@@ -42,6 +42,7 @@ _SMEM_LIMIT = 227 * 1024         # shared memory one CTA may use on Hopper
 _BLOCK_THREADS = 256             # csrc/equaliser.cu kBlockThreads
 _RING = 3                        # csrc/equaliser.cu kRing
 _MAX_SLICES = 32                 # csrc/equaliser.cu kMaxSlices
+_MAX_BATCH = 65535               # B1's batch rows: the grid's y extent
 
 
 def filter_group(os, ntaps, nout):
@@ -86,9 +87,30 @@ def _codebook_len(rows):
     return k
 
 
+def _block_batch(P, wx):
+    """The batch rows B of a B1 launch.
+
+    Planes (2n, L) are one row, (B, 2n, L) B rows; taps (nout, n, t) are
+    shared by the rows, (B, nout, n, t) one set per row.
+    """
+    if (P.dim() not in (2, 3) or wx.dim() not in (3, P.dim() + 1)
+            or P.shape[-2] != 2 * wx.shape[-2]):
+        raise ValueError("planes of shape %s do not match taps %s"
+                         % (tuple(P.shape), tuple(wx.shape)))
+    nbatch = P.shape[0] if P.dim() == 3 else 1
+    if wx.dim() == 4 and wx.shape[0] != nbatch:
+        raise ValueError("taps of %d batch rows for planes of %d" % (wx.shape[0], nbatch))
+    if nbatch < 1 or nbatch > _MAX_BATCH:
+        raise KernelLimit("the trainer kernel takes 1 to %d batch rows (_MAX_BATCH), got %d; "
+                          "take backend 'block'" % (_MAX_BATCH, nbatch))
+    return nbatch
+
+
 def block_launch_shape(P, TrSyms, os, wx, block_size):
     """(S, nblocks) of a B1 launch; ``KernelLimit`` for what the kernel does not take.
 
+    P: (2*nmodes, L) planes, or (B, 2*nmodes, L) with a batch axis; wx:
+    (nout, nmodes, ntaps) taps, or (B, nout, nmodes, ntaps), one row each.
     Arguments that no backend takes (planes that do not match the taps, a
     capture shorter than the training) raise a plain ValueError. Looks at
     shapes only, so it holds for tensors on any device. The
@@ -96,10 +118,8 @@ def block_launch_shape(P, TrSyms, os, wx, block_size):
     that is shorter), a multiple of 32 up to 1024; its CTA has a fixed
     number of threads whatever S is.
     """
-    nout, nmodes, ntaps = wx.shape
-    if P.dim() != 2 or P.shape[0] != 2 * nmodes:
-        raise ValueError("planes of shape %s do not match taps %s"
-                         % (tuple(P.shape), tuple(wx.shape)))
+    _block_batch(P, wx)
+    nout, nmodes, ntaps = wx.shape[-3:]
     if nout > _MAX_OUT:
         raise KernelLimit("the trainer kernel takes at most %d output modes (_MAX_OUT), got %d; "
                           "take backend 'block' or 'seq'" % (_MAX_OUT, nout))
@@ -147,17 +167,18 @@ def check_block_launch(P, TrSyms, os, wx, block_size, spec):
     """
     S, nblocks = block_launch_shape(P, TrSyms, os, wx, block_size)
     method_code(spec.method)
+    nout, nmodes, ntaps = wx.shape[-3:]
     npts = 0
     if spec.method == "rde":
-        _codebook_len(spec_rows(spec, wx.shape[0]))
+        _codebook_len(spec_rows(spec, nout))
     elif (spec.method in DECISION_BLOCK_METHODS
           and phops.grid_decision_info(spec.consts)[0] == "gen"):
         npts = phops.gen_points(spec.consts).shape[0]
-    smem = block_smem_bytes(wx.shape[1], wx.shape[2], int(os), S, npts)
+    smem = block_smem_bytes(nmodes, ntaps, int(os), S, npts)
     if smem > _SMEM_LIMIT:
         raise KernelLimit("the trainer kernel needs %d bytes of shared memory for %d taps and "
                           "blocks of %d, a CTA has %d; take a shorter block or backend 'block'"
-                          % (smem, wx.shape[2], S, _SMEM_LIMIT))
+                          % (smem, ntaps, S, _SMEM_LIMIT))
     return S, nblocks, smem
 
 
@@ -178,19 +199,25 @@ def train_block_cuda(P, TrSyms, Niter, os, mu, wx, spec, adaptive=False, block_s
                      points=None):
     """Launch kernel B1; same contract as :func:`train_block_plain`.
 
-    P: (2*nmodes, L) float32 CUDA planes; wx: (nout, nmodes, ntaps)
-    complex64 taps on the same device; ``spec`` an ``ErrSpec``; ``points``
-    a general alphabet's table on the card for sbd, mddma and dd
-    (``ops.phase.points_tensor``; copied from the host if not given).
-    Returns (err (nout, Niter*Ts) complex64, taps, mu (nout,) float32).
+    P: (2*nmodes, L) float32 CUDA planes, or (B, 2*nmodes, L): B batch rows
+    in one launch, one CTA per (row, output mode); wx: (nout, nmodes, ntaps)
+    complex64 taps on the same device, shared by the rows, or (B, nout,
+    nmodes, ntaps), one set per row; ``spec`` an ``ErrSpec``, shared by the
+    rows; ``points`` a general alphabet's table on the card for sbd, mddma
+    and dd (``ops.phase.points_tensor``; copied from the host if not
+    given). Returns (err (nout, Niter*Ts) complex64, taps, mu (nout,)
+    float32), each with the leading batch axis of ``P`` if it has one. A
+    row's result does not depend on the other rows.
     """
     _build.require_cuda("train_block_cuda", P, dtype=torch.float32)
     _build.require_cuda("train_block_cuda", wx, dtype=torch.complex64,
                         contiguous=False)
     if wx.device != P.device:
         raise ValueError("train_block_cuda: taps and planes lie on different devices")
-    nout, nmodes, ntaps = wx.shape
     S, nblocks, smem = check_block_launch(P, TrSyms, os, wx, block_size, spec)
+    nbatch = _block_batch(P, wx)
+    nout, nmodes, ntaps = wx.shape[-3:]
+    lead = P.shape[:-2]
     Ts = nblocks * S
     L = P.shape[-1]
     code = method_code(spec.method)
@@ -210,20 +237,23 @@ def train_block_cuda(P, TrSyms, Niter, os, mu, wx, spec, adaptive=False, block_s
     if lib.qtt_train_block_smem(nmodes, nout, ntaps, os, S, dargs[7]) != smem:
         raise RuntimeError("block_smem_bytes and csrc/equaliser.cu block_layout disagree")
     K = nmodes * ntaps
-    wr = wx.real.reshape(nout, K).clone(memory_format=torch.contiguous_format)
-    wi = wx.imag.reshape(nout, K).clone(memory_format=torch.contiguous_format)
-    mu_t = torch.full((nout,), mu, dtype=torch.float32, device=P.device)
-    err_r = torch.empty((nout, int(Niter) * Ts), dtype=torch.float32, device=P.device)
+
+    def rows(x):
+        return x.reshape(*wx.shape[:-2], K).expand(*lead, nout, K).clone(
+            memory_format=torch.contiguous_format)
+    wr, wi = rows(wx.real), rows(wx.imag)
+    mu_t = torch.full((*lead, nout), mu, dtype=torch.float32, device=P.device)
+    err_r = torch.empty((*lead, nout, int(Niter) * Ts), dtype=torch.float32, device=P.device)
     err_i = torch.empty_like(err_r)
     rc = lib.qtt_train_block(P.data_ptr(), nmodes, L, wr.data_ptr(), wi.data_ptr(),
                              mu_t.data_ptr(), err_r.data_ptr(), err_i.data_ptr(), nout,
-                             ntaps, os, S, nblocks, int(Niter), code,
+                             nbatch, ntaps, os, S, nblocks, int(Niter), code,
                              *c, *dargs[:8], None if codes is None else codes.data_ptr(),
                              ncodes, int(bool(adaptive)), _build.stream_of(P))
     _build.check(rc, "train_block_cuda")
     train_block_cuda.launches += 1
-    return (torch.complex(err_r, err_i), torch.complex(wr, wi).reshape(nout, nmodes, ntaps),
-            mu_t)
+    return (torch.complex(err_r, err_i),
+            torch.complex(wr, wi).reshape(*lead, nout, nmodes, ntaps), mu_t)
 
 
 train_block_cuda.launches = 0
@@ -469,14 +499,24 @@ def filter_plan(nmodes, nout, ntaps, os, Lout, nframes=0):
     return plan
 
 
-def _checked_plan(lib, what, nmodes, nout, ntaps, os, Lout, nframes=0):
-    """The plan of a launch, refused if it does not fit a CTA or a grid, held against the card's."""
+def check_filter_plan(nmodes, nout, ntaps, os, Lout, nframes=0, what="B2"):
+    """The :class:`FilterPlan` of a launch, or ``KernelLimit`` if it fits no CTA or grid.
+
+    Decided on the host from the shapes alone, so a chain can ask when it is
+    built for the card.
+    """
     plan = filter_plan(nmodes, nout, ntaps, os, Lout, nframes)
     if plan.smem > _SMEM_LIMIT:
         raise KernelLimit("%s: filter too long for one CTA's shared memory (%d bytes for %d taps, "
                           "a CTA has %d)" % (what, plan.smem, ntaps, _SMEM_LIMIT))
     if plan.ctas > _MAX_GRID:
         raise KernelLimit("%s: %d CTAs, a grid takes at most %d" % (what, plan.ctas, _MAX_GRID))
+    return plan
+
+
+def _checked_plan(lib, what, nmodes, nout, ntaps, os, Lout, nframes=0):
+    """The plan of a launch, refused if it does not fit a CTA or a grid, held against the card's."""
+    plan = check_filter_plan(nmodes, nout, ntaps, os, Lout, nframes, what)
     built = (ctypes.c_longlong * len(plan))()
     lib.qtt_filter_plan(nmodes, nout, ntaps, os, Lout, nframes, ctypes.addressof(built))
     if tuple(built) != plan:

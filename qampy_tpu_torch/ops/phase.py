@@ -452,3 +452,63 @@ def bps_idx(E, testangles, symbols, N, grid=None):
     cos_t = torch.as_tensor(cos_h, device=E.device)
     sin_t = torch.as_tensor(sin_h, device=E.device)
     return bps_idx_planes(E.real.float(), E.imag.float(), cos_t, sin_t, grid, N)
+
+
+# ---------------------------------------------------------------------------
+# frequency offset (reference ops/phase.py:516-540)
+# ---------------------------------------------------------------------------
+
+#: 2*pi rounded to float32, the constant the reference's float32 phases are formed with
+TWO_PI = float(np.float32(2 * np.pi))
+
+
+def time_axis(L, device):
+    """t = 1, ..., L in float32, rounded as ``jnp.arange(1, L + 1, dtype=float32)`` rounds it.
+
+    That is float32(i) + 1 for i = 0, ..., L-1, each rounded. Past 2^24 it
+    is not the float32 cast of the integer i + 1: the two differ at
+    3,801,088 of the 31,981,568 samples of the pilot bench's capture.
+    """
+    return torch.arange(int(L), dtype=torch.int64, device=device).to(torch.float32) + 1.0
+
+
+def derotate(sig, ph):
+    """sig * exp(-1j ph) for a complex ``sig``, products taken on the real and imaginary parts."""
+    c, s = torch.cos(ph), torch.sin(ph)
+    return torch.complex(sig.real * c + sig.imag * s, sig.imag * c - sig.real * s)
+
+
+def find_freq_offset(sig, os=1, average_over_modes=True, fft_size=2 ** 16):
+    """Blind FOE: the peak of the spectrum of sig^4 (reference ops/phase.py:516-526).
+
+    sig: complex (nmodes, L) or (L,) tensor. The spectrum is ``fft_size``
+    points (rounded up to a power of 2) of the fourth power, the frequency
+    axis the reference's float32 ``fftfreq(fft_size, 1/os) / 4``. Returns
+    the (nmodes, 1) offsets in cycles per sample times ``os``, each the mean
+    over the modes with ``average_over_modes``.
+    """
+    sig = torch.atleast_2d(torch.as_tensor(sig))
+    n = int(2 ** np.ceil(np.log2(fft_size)))
+    s2 = sig * sig
+    spec = torch.fft.fft(s2 * s2, n, dim=-1).abs().pow(2)
+    k = torch.cat([torch.arange(0, (n - 1) // 2 + 1), torch.arange(-(n // 2), 0)])
+    fvec = (k.to(torch.float32) / np.float32(n / os)) / 4
+    fo = fvec.to(sig.device)[torch.argmax(spec, dim=-1)][:, None]
+    if average_over_modes:
+        fo = fo.mean() * torch.ones_like(fo)
+    return fo
+
+
+def comp_freq_offset(sig, freq_offset, os=1):
+    """Derotate a frequency offset (reference ops/phase.py:529-540).
+
+    sig * exp(-1j * 2 pi t fo / os), t = 1, ..., L in float32 (rounded as
+    the reference's ``jnp.arange``), ``freq_offset`` one value or one per
+    mode. The phase is ((2 pi t) fo) / os in float32, in that order.
+    """
+    sig = torch.as_tensor(sig)
+    sig2 = torch.atleast_2d(sig)
+    fo = torch.as_tensor(freq_offset, device=sig.device).to(torch.float32).reshape(-1, 1)
+    lin = ((TWO_PI * time_axis(sig2.shape[-1], sig.device))[None, :] * fo) / os
+    out = derotate(sig2, lin)
+    return out.reshape(sig.shape[-1]) if sig.dim() == 1 else out

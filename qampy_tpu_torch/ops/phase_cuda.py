@@ -211,7 +211,7 @@ def interp_rotate(er, ei, a, b, dx, sign=-1):
 # ---------------------------------------------------------------------------
 
 #: 2*pi and 1/(2*pi) rounded to float32, as the reference kernel holds them
-TWO_PI = float(np.float32(2 * np.pi))
+TWO_PI = phops.TWO_PI
 INV_TWO_PI = float(np.float32(1 / (2 * np.pi)))
 
 

@@ -230,7 +230,8 @@ class PilotTx(NamedTuple):
 
 
 def make_pilot_tx(nframes, M=64, frame_len=2 ** 16, seq_len=1024, ins_rat=32, snr=35,
-                  lwdth=20e3, dgd=20e-12, theta=np.pi / 4.3, seed=3, fb=24e9, device=None):
+                  lwdth=20e3, dgd=20e-12, theta=np.pi / 4.3, seed=3, fb=24e9, freq_off=None,
+                  device=None):
     """The pilot capture of ``bench.pilot_maketx`` (its 'qam' branch), made in torch on ``device``.
 
     Per mode one frame of ``SignalWithPilots(M, frame_len, seq_len,
@@ -238,7 +239,10 @@ def make_pilot_tx(nframes, M=64, frame_len=2 ** 16, seq_len=1024, ins_rat=32, sn
     Gray-coded payload, tiled ``nframes`` times; then 2x root-raised-cosine
     shaping at beta 0.1 as in :func:`make_tx`, a roll by the frame's pilot
     count (``roll_frame_sync``), Wiener phase noise of linewidth ``lwdth``,
-    the SNR and first-order PMD, in the reference's order. All draws come
+    a carrier frequency offset of ``freq_off`` Hz (None: none; the
+    reference's ``simulate_transmission(freq_off=)``, whose pilot chain
+    takes it out with ``foe_comp=True``), the SNR and first-order PMD, in
+    the reference's order. All draws come
     from one ``torch.Generator`` seeded with ``seed`` on ``device`` (None:
     the card; ``"cpu"`` for the CPU); the capture is not the JAX package's
     array but one of the same statistics.
@@ -266,8 +270,8 @@ def make_pilot_tx(nframes, M=64, frame_len=2 ** 16, seq_len=1024, ins_rat=32, sn
     del up, h
     sig = sig / torch.sqrt(torch.mean(sig.abs() ** 2, dim=-1, keepdim=True))
     sig = impairments.roll_frame_sync(sig, npil)
-    sig = impairments.simulate_transmission(sig, fb, os * fb, g, snr=snr, lwdth=lwdth,
-                                            dgd=dgd, theta=theta)
+    sig = impairments.simulate_transmission(sig, fb, os * fb, g, snr=snr, freq_off=freq_off,
+                                            lwdth=lwdth, dgd=dgd, theta=theta)
     planes = torch.cat([sig.real, sig.imag]).contiguous()
     pil_h = pil.cpu().numpy()
     return PilotTx(planes, pil_h[:, :seq_len], pil_h[:, seq_len:], idx_tx, bits, coded)

@@ -590,6 +590,91 @@ def test_pilot_chain_of_more_than_4096_cpe_pilots(dev):
     assert float((decide(got, tx.coded) == decide(want, tx.coded)).double().mean()) >= 0.999
 
 
+@pytest.mark.parametrize("ntaps", [17, 45])
+@pytest.mark.parametrize("method", ["cma", "mcma", "sbd"])
+def test_b1_batch_rows_equal_their_own_launches(dev, method, ntaps):
+    """B1 with a batch axis (the LMS pilot trainer's launch): each row, with its own segment and
+    taps, bit-equal to a launch of that row alone, and within float32 reach of the plain
+    trainer's batch."""
+    rng = np.random.default_rng(ntaps)
+    L = {17: 2067, 45: 2096}[ntaps]      # rows by 4-byte copies, and 16-byte aligned bulk copies
+    P = torch.as_tensor(rng.standard_normal((3, 4, L)).astype(np.float32) * 0.7, device=dev)
+    w = torch.as_tensor(np.stack([teq._init_taps(ntaps, 2, 2, np.complex64)[i:i + 1]
+                                  for i in (0, 1, 0)]), device=dev)
+    syms = teq._reshape_symbols(None, method, 4 if method == "cma" else 64, np.complex64, 1)
+    spec = teq.err_spec(method, syms)
+    trs = teq._cal_training_symbol_len(2, ntaps, L)
+    args = (trs, 3, 2, 1e-3, w, spec, True, 128)
+    got = train_block_cuda(P, *args)
+    assert got[0].shape == (3, 1, 3 * (trs // 128) * 128) and got[1].shape == (3, 1, 2, ntaps)
+    for r in range(3):
+        one = train_block_cuda(P[r], *args[:4], w[r], *args[5:])
+        assert all(torch.equal(x, y[r]) for x, y in zip(one, got))
+    want = train_block_plain(P, *args)
+    assert float((got[1] - want[1]).abs().max()) <= 1e-4
+    shared = train_block_cuda(P, *args[:4], w[0], *args[5:])    # taps shared by the rows
+    assert torch.equal(shared[1][0], got[1][0]) and torch.equal(shared[1][2], got[1][2])
+
+
+def _small_pilot(freq_off=None, seed=3):
+    return make_pilot_tx(6, frame_len=2 ** 14, seq_len=512, freq_off=freq_off, seed=seed,
+                         device="cpu")
+
+
+@pytest.mark.parametrize("variant", ["lms", "foe", "non_blocked", "xla_body"])
+def test_pilot_chain_variants_against_the_cpu(dev, variant):
+    """The LMS, FOE and general-body chains on the card against the port's plain CPU chain on one
+    small capture: launches, shift and mode order equal, decisions shared >= 0.999, tracking
+    bit-exact."""
+    base = dict(os=2, nmodes=2, Ntaps=17, sync_mu=5e-3, cpe_avg=3, frames=(0, 1, 2),
+                block_size=256, return_phase=False, eq_trainer="lms")
+    kw, tx, want = {
+        "lms": (dict(), _small_pilot(), {"B1": 3, "B2 frames": 1, "B5": 1, "B4": 1}),
+        "foe": (dict(foe_comp=True), _small_pilot(20e6, seed=1),
+                {"B1": 3, "B2 frames": 1, "B5": 1, "B4": 1}),
+        "non_blocked": (dict(cpe_pilot_rat=2), _small_pilot(), {"B1": 3, "B2 frames": 1, "B6": 1}),
+        "xla_body": (dict(pallas=False, return_phase=True), _small_pilot(),
+                     {"B1": 3, "B2 frames": 1, "B6": 1}),
+    }[variant]
+    cfg = dict(base, **kw)
+    counters = {"B1": train_block_cuda, "B2 frames": apply_filter_frames_cuda,
+                "B5": cpe_coeffs_cuda, "B4": interp_rotate_cuda, "B6": rotate_cuda,
+                "B2": apply_filter_cuda}
+    chain = make_pilot_rx_chain(tx.pilot_seq, tx.ph_pilots, 2 ** 14, 32, **cfg, device=dev)
+    pr, pi = tx.planes[:2].to(dev), tx.planes[2:].to(dev)
+    for fn in counters.values():
+        fn.launches = 0
+    (dr, di), info = chain.planes(pr, pi)
+    assert {k: fn.launches for k, fn in counters.items()} == {k: want.get(k, 0) for k in counters}
+    assert ber_gate(dr.cpu(), di.cpu(), tx, info["sync_corr"])["ok"]
+    foe = info["foe_pil"] if cfg.get("foe_comp") else None
+    (tr, ti), _ = chain.tracking_planes(pr, pi, info["taps"], info["shift"], info["mode_order"],
+                                        foe=foe)
+    assert torch.equal(tr, dr) and torch.equal(ti, di)
+    cpu = make_pilot_rx_chain(tx.pilot_seq, tx.ph_pilots, 2 ** 14, 32, **cfg, device="cpu")
+    (cr, ci), cinfo = cpu.planes(tx.planes[:2], tx.planes[2:])
+    assert cinfo["shift"].tolist() == info["shift"].tolist()
+    assert cinfo["mode_order"].tolist() == info["mode_order"].tolist()
+    assert abs(float(cinfo["foe_pil"]) - float(info["foe_pil"])) <= 1e-6
+    got, ref = torch.complex(dr, di).cpu(), torch.complex(cr, ci)
+    assert float((decide(got, tx.coded) == decide(ref, tx.coded)).double().mean()) >= 0.999
+
+
+def test_frame_sync_against_the_cpu(dev):
+    """``ops.pilots.frame_sync``: B9 once a window on the card; the plain CPU search's shift, mode
+    order, flag and coarse FOE, and its taps within 1e-5."""
+    from qampy_tpu_torch.ops import pilots
+    tx = _small_pilot()
+    E = torch.complex(tx.planes[:2], tx.planes[2:])
+    train_seq_cuda.launches = 0
+    g = pilots.frame_sync(E.to(dev), tx.pilot_seq, 2, frame_len=2 ** 14, device=dev)
+    assert train_seq_cuda.launches == 63
+    c = pilots.frame_sync(E, tx.pilot_seq, 2, frame_len=2 ** 14, device="cpu")
+    assert np.array_equal(g[0], c[0]) and np.array_equal(g[2], c[2]) and g[4] == c[4] is True
+    assert np.array_equal(g[1], c[1])
+    assert np.abs(g[3] - c[3]).max() <= 1e-5
+
+
 @pytest.mark.parametrize("adaptive", [False, True])
 @pytest.mark.parametrize("method", ["cma", "mcma", "rde"])
 def test_b9_train_seq(dev, capture, method, adaptive):

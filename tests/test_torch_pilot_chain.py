@@ -192,23 +192,6 @@ def test_frames_of_more_than_4096_cpe_pilots():
         assert np.all(np.mean(d != tx_idx, axis=-1) < SER_MAX)
 
 
-@pytest.mark.parametrize("kwargs, item", [
-    (dict(eq_trainer="lms"), "A6b"), (dict(foe_comp=True), "A6b"),
-    (dict(cpe_pilot_rat=2), "A6b"), (dict(pallas=False), "A6b")])
-def test_unported_options_raise(capture, kwargs, item):
-    cfg = dict(CPU, **kwargs)
-    with pytest.raises(NotImplementedError, match=item):
-        make_pilot_rx_chain(capture["seq"], capture["ph"], FRAME, INS, **cfg)
-
-
-@pytest.mark.parametrize("kwargs", [dict(M=64), dict(mu=(1e-3, 1e-3)), dict(Niter=30),
-                                    dict(methods=("cma", "cma"))])
-def test_lms_settings_are_not_taken(capture, kwargs):
-    """The LMS trainer's settings come with it (A6b): the LS chain refuses them, not ignores."""
-    with pytest.raises(TypeError):
-        make_pilot_rx_chain(capture["seq"], capture["ph"], FRAME, INS, **dict(CPU, **kwargs))
-
-
 def test_prefix_sharded_raises(runs):
     with pytest.raises(NotImplementedError, match="A10"):
         runs["chain"].prefix_sharded(None, None, "x", 8)

@@ -12,7 +12,8 @@ the centre taps, rde from the mcma taps) and over 4,096 symbols, B1 over 64
 blocks of 256 on ``make_tx(2**20)`` and over 1,023 blocks of 256 (mcma, rde).
 Device times with the host hidden behind a spacer kernel; every line ends
 with the card's name and power limit. An entry point that an older library
-lacks is left out of its binding.
+lacks is left out of its binding; sources whose B1 entry has no batch count
+are refused.
 """
 import pathlib
 import subprocess
@@ -35,6 +36,9 @@ def use(csrc):
     _build.library.cache_clear()
     _build.CSRC = pathlib.Path(csrc).resolve()
     text = "".join(p.read_text() for p in _build.CSRC.glob("*.cu"))
+    if "qtt_train_block(" in text and "int nbatch" not in text:
+        raise SystemExit("%s: B1's C entry there takes no batch count, which the launcher passes; "
+                         "sources older than B1's batch axis cannot be timed here" % csrc)
     _build.SIGNATURES.clear()
     _build.SIGNATURES.update({k: v for k, v in SIGNATURES.items() if k + "(" in text})
     _build.library()
