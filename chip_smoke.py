@@ -126,6 +126,26 @@ result line):
    bit-exact, decisions shared with the plain CPU chain on a small capture,
    timed with its stage split, and each of its kernels against its plain
    version on that path's own inputs.
+18. phase recovery (BASELINE config 3, ``examples/phase_recovery.py``) on the
+   port's signal objects at 2 x 2^20 symbols, built on the card
+   (``SignalQAMGrayCoded(..., fb=40e9)``: the bits on the host, the symbols,
+   and ``core.impairments`` on the card's generator): "phase bps",
+   ``phaserec.bps(sig, 64, 14)`` on 64-QAM at 30 dB and a 100 kHz linewidth
+   (B3 and B6 once each, no synchronising call, SER <= 1e-4 per mode after
+   20 edge symbols); "phase twostage", ``phaserec.bps_twostage(sig, 32, 14,
+   B=8)`` on the same capture (B3, B8 and B6 once each, no synchronising
+   call, the same gate); "phase vv", QPSK at 25 dB, 100 Hz and a 50 MHz
+   offset through ``find_freq_offset(fft_size=2**16)`` (within 2 fb / 2^16),
+   ``comp_freq_offset`` and ``viterbiviterbi(N=11)`` (SER <= 1e-3); "phase
+   partition", 16-QAM at 30 dB and 50 Hz through
+   ``phase_partition_16qam(Nblock=128)`` (SER <= 1e-2 after 200); "phase
+   metrics", 16-QAM at 12 dB, noise only: ``cal_ser`` within 5 % of
+   ``theory.ser_vs_es_over_n0_qam`` and ``est_snr`` within 0.3 dB, with
+   ``cal_ber``, ``cal_evm`` and ``cal_gmi`` printed; each sub-path counted
+   (the last three launch no kernel) and timed (CUDA events, and the device
+   busy share from the profiler), B3 (A = 64 and 32, N = 14), B8 (B = 8, N =
+   14) and B6 (full rate) against their plain versions on the path's own
+   inputs (B6 bit for bit), and the plain unwrap timed.
 
 Beside every kernel's time stand its bound (the larger of its bytes over
 the card's 3.35 TB/s and its operations over the card's 67 TFLOP/s in
@@ -176,8 +196,10 @@ from qampy_tpu_torch.ops.phase_cuda import (bps_fine, bps_fine_cuda, bps_fine_pl
                                             interp_rotate_plain, quarter_unwrap, rotate_cuda,
                                             rotate_plain, unwrap_derotate_cuda,
                                             unwrap_derotate_plain, unwrap_plan)
+from qampy_tpu_torch import helpers, phaserec, theory
+from qampy_tpu_torch.core import impairments as core_impairments
 from qampy_tpu_torch.ops.pilot_chain import derotate_planes, make_pilot_rx_chain
-from qampy_tpu_torch.signals import cal_pilot_idx
+from qampy_tpu_torch.signals import SignalQAMGrayCoded, cal_pilot_idx
 from qampy_tpu_torch.theory import cal_scaling_factor_qam, cal_symbols_qam
 from qampy_tpu_torch.workload import (GATE_TRIM, apsk_const, ber_gate, decide, make_pilot_tx,
                                       make_tx, ser_gate, shared_decisions, warped_qam)
@@ -305,10 +327,20 @@ OPS_INTERP = 2           # a + b j
 OPS_UNWRAP = 6           # difference, quarter-turn count, prefix sum
 OPS_CPE_PILOT = 20       # conjugate product, atan2, unwrap, average, coefficients
 # the paths in the order they run; each is counted on its own (see counted())
+# phase 18, BASELINE config 3 at the blind cells' size (examples/phase_recovery.py,
+# tests/test_phaserec.py:81-125): (M, SNR dB, linewidth Hz, carrier offset Hz, gate, edges)
+PHASE_NSYM, PHASE_FB, PHASE_SEED = 2 ** 20, 40e9, 3
+PHASE_SIGS = {"bps": (64, 30, 100e3, None, 1e-4, 20), "vv": (4, 25, 100, 50e6, 1e-3, 20),
+              "partition": (16, 30, 50, None, 1e-2, 200), "metrics": (16, 12, None, None, None, 0)}
+PHASE_BPS = (64, 14)             # phaserec.bps(sig, 64, 14)
+PHASE_TWOSTAGE = (32, 14, 8)     # phaserec.bps_twostage(sig, 32, 14, B=8)
+VV_N, VV_FFT, PART_BLOCK = 11, 2 ** 16, 128
+METRIC_SER_REL, METRIC_SNR_DB = 0.05, 0.3   # the verify skill's theory anchors
 PATHS = ("blind", "blind twostage", "blind single", "pilot", "pilot return_phase",
          "pilot long frames", "pilot lms", "pilot foe", "pilot non-blocked", "pilot granular",
          "equaliser seq", "equaliser block") + tuple(
-             p for p, _, _ in GRID_PATHS)
+             p for p, _, _ in GRID_PATHS) + ("phase bps", "phase twostage", "phase vv",
+                                             "phase partition", "phase metrics")
 # kernel: (wrapper name, CUDA source, the TPU kernel it replaces)
 KERNELS = {
     "B1": ("train_block", "qampy_tpu_torch/csrc/equaliser.cu",
@@ -2349,6 +2381,190 @@ def pilot_granular_path(dev, card, lat):
     return rec, launches
 
 
+def phase_signal(kind, dev):
+    """The capture of one phase sub-path, made by the port on the card: a signal object.
+
+    ``SignalQAMGrayCoded(M, PHASE_NSYM, nmodes=2, fb=PHASE_FB, seed=PHASE_SEED)`` (the bits
+    on the host, the symbols on the card), then ``core.impairments`` on the card's generator:
+    the SNR, the laser phase noise, the carrier offset.
+    """
+    M, snr, lw, fo, _, _ = PHASE_SIGS[kind]
+    sig = SignalQAMGrayCoded(M, PHASE_NSYM, nmodes=2, fb=PHASE_FB, seed=PHASE_SEED)
+    gen = torch.Generator(device=dev).manual_seed(PHASE_SEED)
+    x = core_impairments.change_snr(sig.samples, snr, sig.fb, sig.fs, gen)
+    if lw is not None:
+        x = core_impairments.apply_phase_noise(x, lw, sig.fs, gen)
+    if fo is not None:
+        x = core_impairments.add_carrier_offset(x, fo, sig.fs)
+    return sig.replace(samples=x)
+
+
+def gated_ser(rec, edges):
+    """Per-mode SER of a recovered signal after ``edges`` symbols at each end, as a list."""
+    return rec.replace(samples=helpers.dump_edges(rec.samples, edges)).cal_ser().tolist()
+
+
+def driver_times(path, fn, card):
+    """A driver's time per call (CUDA events, back to back) and its device busy share."""
+    ms = cuda_ms(fn, 10)
+    busy, nk, _ = device_busy(fn, 3)
+    print("time %s: %.4f ms per call, %.1f Msym/s, device busy %.4f ms (%.1f%%, %.1f device "
+          "ops per call) [%s]" % (path, ms, 2 * PHASE_NSYM / ms / 1e3, busy, 100 * busy / ms, nk,
+                                  card))
+    return ms
+
+
+def b6_record(er, ei, ph, what):
+    """B6 at full rate against its plain version, bit for bit."""
+    r_p, i_p = rotate_plain(er, ei, ph, 1)
+    r_k, i_k = rotate_cuda(er, ei, ph, 1)
+    same = bool(torch.equal(r_k, r_p) and torch.equal(i_k, i_p))
+    d = max(float((r_k - r_p).abs().max()), float((i_k - i_p).abs().max()))
+    print("B6 rotate (%s): %s bit-equal to its plain version: %s (max|d| %.3e), |phase| up to "
+          "%.2f rad" % (what, tuple(r_k.shape), same, d, float(ph.abs().max())))
+    require(same, "B6 differs from its plain version (%s)" % what)
+    return dict(**bound(nbytes(er, ei, ph, r_k, i_k), OPS_ROTATE * er.numel()), err=d,
+                ms=device_ms(lambda: rotate_cuda(er, ei, ph, 1), 50),
+                plain_ms=device_ms(lambda: rotate_plain(er, ei, ph, 1), 10),
+                shape="2 x %d samples, full rate" % er.shape[-1])
+
+
+def phase_search_path(path, rx, fn, want, card):
+    """"phase bps" or "phase twostage": counted, checked for synchronising calls, gated, timed."""
+    gate, edges = PHASE_SIGS["bps"][4:]
+    (rec, ph), launches = counted(fn)
+    syncs = syncs_in(fn)
+    ser = gated_ser(rec, edges)
+    print("%s: launches %s (expected %s), synchronising calls %d %s, SER per mode %s (gate %.0e "
+          "after %d edge symbols), recovered %s, M %d, fb %.0f [%s]"
+          % (path, launches, want, len(syncs), syncs[:3], ser, gate, edges,
+             type(rec).__name__, rec.M, rec.fb, card))
+    require(launches == expected(want), "the %s path did not launch each kernel as expected"
+            % path)
+    require(not syncs, "the %s driver synchronised the host: %s" % (path, syncs[:3]))
+    require(all(x <= gate for x in ser), "the %s SER gate failed: %s" % (path, ser))
+    require(isinstance(rec, SignalQAMGrayCoded) and rec.M == 64 and rec.fb == PHASE_FB,
+            "the %s path lost the signal's attributes" % path)
+    require(bool(torch.isfinite(ph).all()) and tuple(ph.shape) == (2, PHASE_NSYM),
+            "the %s phase is not finite of shape (2, %d)" % (path, PHASE_NSYM))
+    driver_times(path, fn, card)
+    return launches, ph
+
+
+def phase_phases(dev, card):
+    """Phase 18: phase recovery on the port's signal objects (BASELINE config 3).
+
+    Returns records keyed by (kernel, path) and each sub-path's launch counts.
+    """
+    t0 = time.perf_counter()
+    rx = phase_signal("bps", dev)
+    torch.cuda.synchronize()
+    print("phase: SignalQAMGrayCoded(64, %d, nmodes=2, fb=%.0f, seed=%d) with 30 dB and a "
+          "100 kHz linewidth built on the card in %.2f s (host clock)"
+          % (PHASE_NSYM, PHASE_FB, PHASE_SEED, time.perf_counter() - t0))
+    const = rx.coded_symbols_host
+    grid = phops.search_grid(const)
+    er, ei = rx.samples.real.contiguous(), rx.samples.imag.contiguous()
+    rec, launches = {}, {}
+
+    A, N = PHASE_BPS
+    launches["phase bps"], ph = phase_search_path(
+        "phase bps", rx, lambda: phaserec.bps(rx, A, N), {"B3": 1, "B6": 1}, card)
+    ang = np.linspace(-np.pi / 4, np.pi / 4, A, endpoint=False, dtype=np.float32)
+    cos_t, sin_t = (torch.as_tensor(t, device=dev) for t in phops.bps_tables(ang, grid))
+    rec["B3", "phase bps"], idx = b3_record(er, ei, cos_t, sin_t, grid, N, None, "phase bps")
+    raw = -np.pi / 4 + (np.pi / 2 / A) * idx.to(torch.float32)
+    raw[:, N:-N] = phops.unwrap(raw[:, N:-N] * 4) / 4
+    d_ph = float((raw - ph).abs().max())
+    print("phase bps: the driver's phase against B3's indices mapped and unwrapped by hand: "
+          "max|d| %.3e" % d_ph)
+    require(d_ph == 0.0, "the bps driver's phase differs from its steps")
+    rec["B6", "phase bps"] = b6_record(er, ei, ph, "phase bps")
+    t_unwrap = device_ms(lambda: phops.unwrap(ph * 4) / 4, 20)
+    print("time plain unwrap (phase bps, device, 2 x %d samples): %.4f ms [%s]"
+          % (PHASE_NSYM, t_unwrap, card))
+
+    A, N, B = PHASE_TWOSTAGE
+    launches["phase twostage"], ph2 = phase_search_path(
+        "phase twostage", rx, lambda: phaserec.bps_twostage(rx, A, N, B=B),
+        {"B3": 1, "B8": 1, "B6": 1}, card)
+    ang = np.linspace(-np.pi / 4, np.pi / 4, A, endpoint=False, dtype=np.float32)
+    cos1, sin1 = (torch.as_tensor(t, device=dev) for t in phops.bps_tables(ang, grid))
+    rec["B3", "phase twostage"], idx1 = b3_record(er, ei, cos1, sin1, grid, N, None,
+                                                  "phase twostage")
+    cd_h, sd_h, d0f, ddf = phops.fine_tables(A, B, grid)
+    cd, sd = torch.as_tensor(cd_h, device=dev), torch.as_tensor(sd_h, device=dev)
+    ph1 = -np.pi / 4 + (np.pi / 2 / A) * idx1.to(torch.float32)
+    rec["B8", "phase twostage"], phf = b8_record(er, ei, ph1, cd, sd, grid, N, d0f, ddf, None,
+                                                 "phase twostage")
+    d_ph = float((phops.unwrap(phf * 4) / 4 - ph2).abs().max())
+    print("phase twostage: the driver's phase against B3 and B8 unwrapped by hand: max|d| %.3e"
+          % d_ph)
+    require(d_ph == 0.0, "the bps_twostage driver's phase differs from its steps")
+    rec["B6", "phase twostage"] = b6_record(er, ei, ph2, "phase twostage")
+    t_unwrap = device_ms(lambda: phops.unwrap(ph2 * 4) / 4, 20)
+    print("time plain unwrap (phase twostage, device, 2 x %d samples): %.4f ms [%s]"
+          % (PHASE_NSYM, t_unwrap, card))
+    del rx, er, ei
+
+    # Viterbi-Viterbi after the blind FOE, on QPSK with a 50 MHz offset
+    path = "phase vv"
+    M, snr, lw, fo, gate, edges = PHASE_SIGS["vv"]
+    q = phase_signal("vv", dev)
+
+    def vv():
+        est = phaserec.find_freq_offset(q, fft_size=VV_FFT)
+        return phaserec.viterbiviterbi(phaserec.comp_freq_offset(q, est), VV_N), est
+    ((rec_vv, _), est), launches[path] = counted(vv)
+    est_hz = (est.cpu().numpy()[:, 0] * PHASE_FB).tolist()
+    ser = gated_ser(rec_vv, edges)
+    print("%s: QPSK, %d dB, %d Hz, offset %.0f Hz found as %s Hz (within %.0f Hz), VV N=%d: SER "
+          "per mode %s (gate %.0e after %d), launches %s [%s]"
+          % (path, snr, lw, fo, est_hz, 2 * PHASE_FB / VV_FFT, VV_N, ser, gate, edges,
+             launches[path], card))
+    require(all(abs(f - fo) < 2 * PHASE_FB / VV_FFT for f in est_hz),
+            "the FOE missed the %.0f Hz offset: %s" % (fo, est_hz))
+    require(all(x <= gate for x in ser), "the %s SER gate failed: %s" % (path, ser))
+    require(launches[path] == expected({}), "the %s path launched a kernel" % path)
+    driver_times(path, vv, card)
+    del q
+
+    # the 16-QAM partition
+    path = "phase partition"
+    M, snr, lw, fo, gate, edges = PHASE_SIGS["partition"]
+    q = phase_signal("partition", dev)
+    (rec_p, _), launches[path] = counted(lambda: phaserec.phase_partition_16qam(q, PART_BLOCK))
+    ser = gated_ser(rec_p, edges)
+    print("%s: 16-QAM, %d dB, %d Hz, Nblock %d: SER per mode %s (gate %.0e after %d), launches "
+          "%s [%s]" % (path, snr, lw, PART_BLOCK, ser, gate, edges, launches[path], card))
+    require(all(x <= gate for x in ser), "the %s SER gate failed: %s" % (path, ser))
+    require(launches[path] == expected({}), "the %s path launched a kernel" % path)
+    driver_times(path, lambda: phaserec.phase_partition_16qam(q, PART_BLOCK), card)
+    del q
+
+    # the metrics against theory: 16-QAM at 12 dB, noise only
+    path = "phase metrics"
+    M, snr = PHASE_SIGS["metrics"][:2]
+    q = phase_signal("metrics", dev)
+
+    def metrics():
+        return (q.cal_ser(), q.est_snr(), q.cal_ber(), q.cal_evm(), q.cal_gmi()[0])
+    (ser, snr_lin, ber, evm, gmi), launches[path] = counted(metrics)
+    ser_th = float(theory.ser_vs_es_over_n0_qam(10 ** (snr / 10), M))
+    snr_db = (10 * torch.log10(snr_lin)).tolist()
+    print("%s: 16-QAM at %d dB: SER %s (theory %.4e, within %.0f%%), est_snr %s dB (within %.1f "
+          "dB), BER %s, EVM %s, GMI %s bits, launches %s [%s]"
+          % (path, snr, ser.tolist(), ser_th, 100 * METRIC_SER_REL, snr_db, METRIC_SNR_DB,
+             ber.tolist(), evm.tolist(), gmi.tolist(), launches[path], card))
+    require(all(abs(x - ser_th) / ser_th < METRIC_SER_REL for x in ser.tolist()),
+            "cal_ser is not within %.0f%% of theory" % (100 * METRIC_SER_REL))
+    require(all(abs(x - snr) < METRIC_SNR_DB for x in snr_db), "est_snr misses %d dB" % snr)
+    require(launches[path] == expected({}), "the %s path launched a kernel" % path)
+    driver_times(path, metrics, card)
+    print_times(rec, card)
+    return rec, launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on a card",
@@ -2474,6 +2690,11 @@ def main():
     grec, grid_launches = grid_phases(dev, card)
     rec.update(grec)
     path_launches.update(grid_launches)
+
+    # phase 18: phase recovery on the signal objects
+    prec, phase_launches = phase_phases(dev, card)
+    rec.update(prec)
+    path_launches.update(phase_launches)
     print("launches per path: %s" % path_launches)
     # one record per kernel and path that launched it: that path's count and
     # the error and times measured at that path's shapes

@@ -1,7 +1,7 @@
 """qampy_tpu_torch — the PyTorch/CUDA port of ``qampy_tpu`` for one NVIDIA H100.
 
 The port grows slice by slice beside the JAX package, which stays the
-reference it is held against. Four slices run:
+reference it is held against. Five slices run:
 
 - the blind dual-pol 64-QAM receiver in ``decimated[K]`` mode
   (``ops.chain.make_rx_chain``), carried by four hand-written CUDA kernels
@@ -19,7 +19,14 @@ reference it is held against. Four slices run:
   ``dual_mode_equalisation``, ``apply_filter``, ``CDcomp``): every error
   function, the exact per-symbol trainer and the block trainer in plain
   PyTorch (``backend="seq"``, ``"block"``) and as kernels
-  (``backend="cuda"``, ``"cuda_block"``).
+  (``backend="cuda"``, ``"cuda_block"``);
+- the signal objects (``signals``: ``SignalQAMGrayCoded`` and its PSK,
+  BERT and symbol-only siblings, ``TDHQAMSymbols``, ``SignalWithPilots``)
+  with their metrics (``core.metrics``, ``core.sync``), ``theory``,
+  ``helpers``, ``prbs``, and the rest of carrier recovery on them
+  (``phaserec``: the blind phase search and its two-stage form on the
+  search, fine-stage and rotation kernels, Viterbi-Viterbi, the 16-QAM
+  partition, FOE and the pilot CPE).
 
 Entry points run on the card unless the caller names another device
 (``device="cpu"``); on a machine without a card they raise.
@@ -31,6 +38,11 @@ and numpy only, never ``jax``.
 from qampy_tpu_torch.ops.chain import RxChain, make_rx_chain
 from qampy_tpu_torch.ops.equaliser import dual_mode_equalisation, equalise_signal
 from qampy_tpu_torch.ops.pilot_chain import PilotRxChain, make_pilot_rx_chain
+from qampy_tpu_torch.signals import (PRBSBits, QPSKfromBERT, RandomBits, ResampledQAM, Signal,
+                                     SignalBase, SignalPSKGrayCoded, SignalQAMGrayCoded,
+                                     SignalWithPilots, SymbolOnlySignal, TDHQAMSymbols)
 
 __all__ = ["RxChain", "make_rx_chain", "PilotRxChain", "make_pilot_rx_chain",
-           "equalise_signal", "dual_mode_equalisation"]
+           "equalise_signal", "dual_mode_equalisation", "Signal", "SignalBase",
+           "SignalQAMGrayCoded", "SignalPSKGrayCoded", "QPSKfromBERT", "SymbolOnlySignal",
+           "TDHQAMSymbols", "SignalWithPilots", "ResampledQAM", "RandomBits", "PRBSBits"]

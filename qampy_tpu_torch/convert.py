@@ -112,3 +112,49 @@ def pilot_state_from_jax(taps, shift, mode_order, device, foe=None):
     if foe.ndim != 0:
         raise ValueError("expected a scalar foe, got shape %s" % (foe.shape,))
     return state + (torch.as_tensor(foe.astype(np.float32), device=device),)
+
+
+def signal_from_jax(fields, device):
+    """The port's signal object of a JAX signal, from its arrays and metadata.
+
+    ``fields``: a dict of plain values (what ``np.asarray`` gives for a JAX
+    array) with the keys ``class`` (the class's name in
+    ``qampy_tpu_torch.signals``), ``samples``, ``symbols``, ``fb``, ``fs``
+    and ``M``; for the classes with bits also ``coded_symbols`` and
+    ``bits``; for ``SymbolOnlySignal`` ``coded_symbols``; for
+    ``SignalWithPilots`` ``frame_len``, ``pilot_seq_len``,
+    ``pilot_ins_rat``, ``pilot_scale``, and ``payload`` and ``pilots``, each
+    a dict of these keys of its own. The Gray encoding and the bit map are
+    rebuilt from the coded alphabet, as the reference builds them. Returns
+    the signal on ``device``.
+    """
+    from qampy_tpu_torch import signals as sig_mod
+    cls = getattr(sig_mod, fields["class"])
+    obj = object.__new__(cls)
+    if issubclass(cls, sig_mod.SignalWithPilots):
+        payload = signal_from_jax(fields["payload"], device)
+        pilots = signal_from_jax(fields["pilots"], device)
+        sig_mod.Signal.__init__(obj, np.asarray(fields["samples"]), fb=fields["fb"],
+                                fs=fields["fs"], device=device)
+        _, idx_dat, _ = sig_mod.cal_pilot_idx(fields["frame_len"], fields["pilot_seq_len"],
+                                              fields["pilot_ins_rat"])
+        obj._set_frame(fields["frame_len"], fields["pilot_seq_len"], fields["pilot_ins_rat"],
+                       payload, pilots, idx_dat, fields["pilot_scale"])
+        return obj
+    coded = fields.get("coded_symbols")
+    sig_mod.Signal.__init__(obj, np.asarray(fields["samples"]), np.asarray(fields["symbols"]),
+                            None if coded is None else np.asarray(coded), fb=fields["fb"],
+                            fs=fields["fs"], M=fields["M"], device=device)
+    if issubclass(cls, sig_mod.SignalQAMGrayCoded):
+        coded = np.asarray(coded)
+        M = int(fields["M"])
+        nbits = int(np.log2(M))
+        encoding = ((np.arange(M)[:, None] >> np.arange(nbits - 1, -1, -1)) & 1).astype(bool)
+        obj._encoding = encoding
+        obj._code = np.asarray([v ^ (v >> 1) for v in range(M)]) \
+            if issubclass(cls, sig_mod.SignalPSKGrayCoded) else sig_mod.gray_code_qam(M)
+        obj._bits = np.asarray(fields["bits"])
+        from qampy_tpu_torch.core.metrics import generate_bitmapping_mtx
+        obj._bitmap_mtx = torch.as_tensor(
+            generate_bitmapping_mtx(coded, encoding, M, dtype=coded.dtype), device=obj.device)
+    return obj

@@ -235,12 +235,22 @@ def gen_points(grid):
     kind, p = grid_decision_info(grid)
     if kind != "gen":
         raise ValueError("gen_points takes a general alphabet's grid spec, got kind %r" % kind)
-    sr, si = (np.asarray(x, dtype=np.float64) for x in p)
-    if sr.size > MAX_GEN_POINTS:
+    if len(p[0]) > MAX_GEN_POINTS:
         raise KernelLimit("a general alphabet of %d points: the searches and the block trainer's "
                           "decision take at most %d (MAX_GEN_POINTS); the 'seq' and 'block' "
-                          "equaliser backends take any alphabet" % (sr.size, MAX_GEN_POINTS))
+                          "equaliser backends take any alphabet" % (len(p[0]), MAX_GEN_POINTS))
+    return _gen_table(grid)
+
+
+def _gen_table(grid):
+    """:func:`gen_points` for an alphabet of any size: the plain searches take any."""
+    sr, si = (np.asarray(x, dtype=np.float64) for x in grid[1:])
     return np.stack([2.0 * sr, 2.0 * si, sr ** 2 + si ** 2], axis=1).astype(np.float32)
+
+
+def _table_scale(grid):
+    """The scale the searches fold into their rotation tables (:attr:`GridConsts.scale`)."""
+    return 1.0 if grid_decision_info(grid)[0] == "gen" else grid_consts(grid).scale
 
 
 def grid_consts(grid, what="bps"):
@@ -288,7 +298,7 @@ def bps_tables(testangles, grid):
     of the level spacing: rotate + normalise is four products. A general
     alphabet is searched in its own units (scale 1).
     """
-    scale = grid_consts(grid).scale
+    scale = _table_scale(grid)
     ang = np.asarray(testangles, dtype=np.float64).reshape(-1)
     return ((np.cos(ang) * scale).astype(np.float32),
             (np.sin(ang) * scale).astype(np.float32))
@@ -317,32 +327,32 @@ def _rotated_distances(er, ei, ca, sa, grid):
     one per sample. Every product and sum is rounded on its own, in the
     order of the reference's ``_make_dist_fn`` and of the kernels B3 and B8.
     """
-    gc = grid_consts(grid)
-    g = gc.scaled
     er = er.unsqueeze(-1)
     ei = ei.unsqueeze(-1)
     xr = er * ca - ei * sa
     xi = er * sa + ei * ca
+    if grid_decision_info(grid)[0] == "gen":
+        # point by point from the host table, so that no (L, A, M) tensor exists
+        best = None
+        for a, b, c in _gen_table(grid).tolist():
+            t = xr * a
+            t += xi * b
+            t -= c
+            best = t if best is None else torch.maximum(best, t, out=best)
+        return best.neg_()
+    gc = grid_consts(grid)
+    g = gc.scaled
     if gc.code == KIND_CODE["r"]:
         fr = _axis_distance(xr - g[0], g[2])
         fi = _axis_distance(xi - g[1], g[3])
         return fr * fr + fi * fi
-    if gc.kind == "x":
-        # the cross is the union of two rectangles: the closer of the two clamps
-        nm1, cc, ccm = g[2], g[3], g[2] - g[3]
-        ur, ui = xr - g[0], xi - g[1]
-        rx, ry = torch.floor(ur + 0.5), torch.floor(ui + 0.5)
-        far, fai = ur - torch.clamp(rx, 0.0, nm1), ui - torch.clamp(ry, cc, ccm)
-        fbr, fbi = ur - torch.clamp(rx, cc, ccm), ui - torch.clamp(ry, 0.0, nm1)
-        return torch.minimum(far * far + fai * fai, fbr * fbr + fbi * fbi)
-    # gen: point by point from the host table, so that no (L, A, M) tensor exists
-    best = None
-    for a, b, c in gc.points.tolist():
-        t = xr * a
-        t += xi * b
-        t -= c
-        best = t if best is None else torch.maximum(best, t, out=best)
-    return best.neg_()
+    # the cross is the union of two rectangles: the closer of the two clamps
+    nm1, cc, ccm = g[2], g[3], g[2] - g[3]
+    ur, ui = xr - g[0], xi - g[1]
+    rx, ry = torch.floor(ur + 0.5), torch.floor(ui + 0.5)
+    far, fai = ur - torch.clamp(rx, 0.0, nm1), ui - torch.clamp(ry, cc, ccm)
+    fbr, fbi = ur - torch.clamp(rx, cc, ccm), ui - torch.clamp(ry, 0.0, nm1)
+    return torch.minimum(far * far + fai * fai, fbr * fbr + fbi * fbi)
 
 
 def _select_angle_index(x, N2):
@@ -381,7 +391,7 @@ def fine_tables(Mtestangles, B, grid):
     does), and the affine map of the offset index, delta_b = d0f + ddf * b,
     as float32 values.
     """
-    scale = grid_consts(grid, "bps_fine").scale
+    scale = _table_scale(grid)
     bvals = np.linspace(-B / 2, B / 2, B)
     deltas = bvals / (B * Mtestangles) * np.pi / 2
     ddf = deltas[1] - deltas[0] if B > 1 else 0.0
@@ -460,6 +470,8 @@ def bps_idx(E, testangles, symbols, N, grid=None):
 
 #: 2*pi rounded to float32, the constant the reference's float32 phases are formed with
 TWO_PI = float(np.float32(2 * np.pi))
+_PERIOD = TWO_PI                         # jnp.unwrap promotes its period to float32
+_INTERVAL = _PERIOD / 2                  # exact: halving a float32
 
 
 def time_axis(L, device):
@@ -512,3 +524,278 @@ def comp_freq_offset(sig, freq_offset, os=1):
     lin = ((TWO_PI * time_axis(sig2.shape[-1], sig.device))[None, :] * fo) / os
     out = derotate(sig2, lin)
     return out.reshape(sig.shape[-1]) if sig.dim() == 1 else out
+
+
+# ---------------------------------------------------------------------------
+# the tensor-level drivers (reference ops/phase.py:336-513)
+# ---------------------------------------------------------------------------
+
+def to_device(a, device):
+    """A host array on ``device`` without synchronising the host: a pinned, non-blocking copy."""
+    t = torch.as_tensor(np.asarray(a))
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def search_grid(symbols):
+    """:func:`detect_grid` of an alphabet, and the raw points where it classifies none.
+
+    ``symbols``: best a host array; a card tensor is read back.
+    """
+    s = np.asarray(symbols.cpu() if torch.is_tensor(symbols) else symbols).reshape(-1)
+    grid = detect_grid(s)
+    if grid is None:
+        grid = ("gen", tuple(float(x) for x in s.real), tuple(float(x) for x in s.imag))
+    return grid
+
+
+def use_kernels(grid, method, device):
+    """Whether a search runs the kernels B3, B8 and B6 (reference ``_use_pallas_bps``, :345-364).
+
+    ``method="pallas"`` runs them (on CPU tensors their plain versions),
+    ``"pyt"`` or any other name takes the plain tensor path, and None runs
+    them on the card where the reference takes Pallas on its accelerator:
+    an analytic grid, or a general alphabet of at most ``MAX_GEN_POINTS``.
+    Decided from the alphabet alone, before any launch.
+    """
+    if method == "pallas":
+        return True
+    if method is not None or device.type == "cpu":
+        return False
+    kind, p = grid_decision_info(grid)
+    return kind != "gen" or len(p[0]) <= MAX_GEN_POINTS
+
+
+def unwrap(p, dim=-1):
+    """``jnp.unwrap(p, axis=dim)`` for float32 phases (period 2*pi), in its arithmetic.
+
+    A step d is corrected by ((d + pi) mod 2*pi) - pi - d unless |d| < pi,
+    with the mod taken with the divisor's sign as ``jnp.remainder`` does. A
+    step of exactly +pi keeps +pi and one of exactly -pi keeps -pi (the
+    reference's tie rule), so neither is corrected. As jnp.unwrap(4 ph) / 4
+    in the BPS drivers it keeps a phase step of exactly +-pi/4, where the
+    floor rule of B7 (``phase_cuda.quarter_unwrap``) counts a jump at +pi/4.
+    """
+    n = p.shape[dim]
+    if n == 0:
+        return p
+    dd = torch.diff(p, dim=dim)
+    r = torch.fmod(dd + _INTERVAL, _PERIOD)
+    ddmod = torch.where(r < 0, r + _PERIOD, r) - _INTERVAL
+    ddmod = torch.where((ddmod == -_INTERVAL) & (dd > 0), _INTERVAL, ddmod)
+    corr = torch.where(dd.abs() < _INTERVAL, 0.0, ddmod - dd)
+    csum = torch.movedim(row_cumsum(torch.movedim(corr, dim, -1)), -1, dim)
+    return torch.cat([p.narrow(dim, 0, 1), p.narrow(dim, 1, n - 1) + csum], dim=dim)
+
+
+#: rows at least this long are scanned in blocks (see :func:`row_cumsum`)
+LONG_ROW = 2 ** 16
+SCAN_BLOCK = 1024
+
+
+def row_cumsum(x):
+    """``torch.cumsum(x, -1)``; a row of at least ``LONG_ROW`` values is scanned in two levels.
+
+    On the card a scan along the last axis of a few long rows runs a few
+    threads per row (1.46 ms for 2 x 2^20 float32 on the H100), and a row
+    scanned alone (one device-wide scan) sums in an order that changes
+    from run to run. So a long row is cut into blocks of ``SCAN_BLOCK``:
+    each block is scanned, the blocks' totals are scanned, and each block
+    adds the sum of the blocks before it. Every sum has a fixed order, the
+    same on every device.
+    """
+    L = x.shape[-1]
+    if L < LONG_ROW:
+        return torch.cumsum(x, dim=-1)
+    nb = -(-L // SCAN_BLOCK)
+    xb = torch.nn.functional.pad(x, (0, nb * SCAN_BLOCK - L)).reshape(
+        x.shape[:-1] + (nb, SCAN_BLOCK))
+    inner = torch.cumsum(xb, dim=-1)
+    before = torch.nn.functional.pad(torch.cumsum(inner[..., :-1, -1], dim=-1), (1, 0))
+    return (inner + before[..., None]).reshape(x.shape[:-1] + (nb * SCAN_BLOCK,))[..., :L]
+
+
+def _planes(E):
+    """A complex (nmodes, L) or (L,) signal as contiguous float32 (nmodes, L) planes."""
+    Ew = torch.atleast_2d(E)
+    return Ew.real.float().contiguous(), Ew.imag.float().contiguous()
+
+
+def _rotated(E, er, ei, ph, kernels):
+    """E exp(+j ph) by B6 (``kernels``) or its plain version, shaped as E."""
+    from qampy_tpu_torch.ops import phase_cuda
+    outr, outi = (phase_cuda.rotate if kernels else phase_cuda.rotate_plain)(er, ei, ph, 1)
+    out = torch.complex(outr, outi)
+    if E.dim() == 1:
+        return out.reshape(-1), ph.reshape(-1)
+    return out, ph
+
+
+def select_angles(angles, idx):
+    """The chosen angle per sample (reference :336-342, pythran_dsp.py:137-153).
+
+    angles: (1, A) shared or (L, A) per sample; idx: (L,) indices.
+    """
+    angles = torch.as_tensor(angles)
+    idx = torch.as_tensor(idx, device=angles.device).long()
+    if angles.shape[0] > 1:
+        return angles[torch.arange(angles.shape[0], device=angles.device), idx[:angles.shape[0]]]
+    return angles[0][idx]
+
+
+def bps(E, Mtestangles, symbols, N, method=None, **kwargs):
+    """Blind phase search after Pfau et al. (reference :367-397): (E derotated, phase).
+
+    E: complex (nmodes, L) or (L,); ``symbols`` the alphabet, best a host
+    array (a card tensor is read back). ``Mtestangles`` angles over
+    [-pi/4, pi/4) in float32; the best angle of each 2N window is searched
+    by B3 (or its plain version, see :func:`use_kernels`), its index taken
+    to the phase -pi/4 + (pi/2/A) idx, the phase at [N, L-N) unwrapped by
+    :func:`unwrap` (4 ph) / 4 while the first and last N keep index 0's
+    -pi/4, and E turned by exp(+j ph) by B6. Outputs of E's dimension.
+    Other keyword arguments are taken and ignored, as by the reference.
+    """
+    from qampy_tpu_torch.ops import phase_cuda
+    E = torch.as_tensor(E)
+    er, ei = _planes(E)
+    grid = search_grid(symbols)
+    kernels = use_kernels(grid, method, er.device)
+    angles = np.linspace(-np.pi / 4, np.pi / 4, Mtestangles, endpoint=False, dtype=np.float32)
+    cos_t, sin_t = (to_device(t, er.device) for t in bps_tables(angles, grid))
+    if kernels:
+        points = to_device(gen_points(grid), er.device) if grid[0] == "gen" else None
+        idx = phase_cuda.bps_search(er, ei, cos_t, sin_t, grid, N, points)
+    else:
+        idx = bps_idx_planes(er, ei, cos_t, sin_t, grid, N)
+    ph = (-np.pi / 4) + (np.pi / 2 / Mtestangles) * idx.to(torch.float32)
+    mid = slice(N, -N)
+    ph[:, mid] = unwrap(ph[:, mid] * 4) / 4
+    return _rotated(E, er, ei, ph, kernels)
+
+
+def bps_twostage(E, Mtestangles, symbols, N, B=4, method=None, N1=None, **kwargs):
+    """Two-stage BPS: a coarse search, then B offsets around each angle (reference :400-444).
+
+    The coarse stage searches ``Mtestangles`` angles with half-window N1
+    (N where None, as in the reference), the fine stage B offsets spanning
+    one coarse step with half-window N: B3 then B8 (``phase_cuda.bps_twostage``)
+    or their plain versions. The whole phase is unwrapped by
+    :func:`unwrap` (4 ph) / 4 and E turned by exp(+j ph) by B6.
+    """
+    from qampy_tpu_torch.ops import phase_cuda
+    E = torch.as_tensor(E)
+    er, ei = _planes(E)
+    grid = search_grid(symbols)
+    kernels = use_kernels(grid, method, er.device)
+    dev = er.device
+    coarse = np.linspace(-np.pi / 4, np.pi / 4, Mtestangles, endpoint=False, dtype=np.float32)
+    cos1, sin1 = (to_device(t, dev) for t in bps_tables(coarse, grid))
+    cd_h, sd_h, d0f, ddf = fine_tables(Mtestangles, B, grid)
+    cd, sd = to_device(cd_h, dev), to_device(sd_h, dev)
+    n1 = N if N1 is None else N1
+    if kernels:
+        points = to_device(gen_points(grid), dev) if grid[0] == "gen" else None
+        phf = phase_cuda.bps_twostage(er, ei, cos1, sin1, n1, cd, sd, grid, N, d0f, ddf,
+                                      points=points)
+    else:
+        idx1 = bps_idx_planes(er, ei, cos1, sin1, grid, n1)
+        ph1 = -np.pi / 4 + np.pi / 2 / Mtestangles * idx1.to(torch.float32)
+        phf = phase_cuda.bps_fine_plain(er, ei, ph1, cd, sd, grid, N, d0f, ddf)
+    return _rotated(E, er, ei, unwrap(phf * 4) / 4, kernels)
+
+
+def _window_sums(x, N):
+    """sum(x[..., l:l+N]) for l = 0 .. L-N: a cumulative sum in float64, each sum rounded once.
+
+    The reference sums each (L-N+1, N) ``segment_axis`` window directly;
+    that view of 2 x 2^20 samples at N = 41 would hold 688 MB.
+    """
+    c = row_cumsum(x.to(torch.complex128))
+    c = torch.nn.functional.pad(c, (1, 0))
+    return (c[..., N:] - c[..., :-N]).to(x.dtype)
+
+
+def ipow(x, n):
+    """x ** n for an integer n >= 1 by XLA's ``integer_pow``: squarings, products in its order."""
+    acc = None
+    while n > 0:
+        if n & 1:
+            acc = x if acc is None else acc * x
+        n >>= 1
+        if n > 0:
+            x = x * x
+    return acc
+
+
+def viterbiviterbi(E, N, M):
+    """Viterbi-Viterbi blind phase recovery for M-PSK (reference :447-465): (E derotated, phase).
+
+    The phase of the N-sample sum of exp(j angle E)^M, unwrapped, less pi
+    and over M; E out at [lo, hi) derotated by it and zero elsewhere (lo =
+    (N-1)/2 for odd N, N/2 - 1 for even, hi = L - lo - (1 if N even)).
+    """
+    E = torch.as_tensor(E)
+    E2d = torch.atleast_2d(E)
+    L = E2d.shape[-1]
+    E_raised = ipow(torch.polar(torch.ones_like(E2d.real), torch.angle(E2d)), int(M))
+    phase_est = (unwrap(torch.angle(_window_sums(E_raised, N))) - np.pi) / M
+    lo, hi = ((N - 1) // 2, L - (N - 1) // 2) if N % 2 else (N // 2 - 1, L - N // 2)
+    Eout = torch.zeros_like(E2d)
+    Eout[:, lo:hi] = E2d[:, lo:hi] * torch.polar(torch.ones_like(phase_est), -phase_est)
+    if E.dim() == 1:
+        return Eout.reshape(-1), phase_est.reshape(-1)
+    return Eout, phase_est
+
+
+def partition_16qam(E):
+    """Partition 16-QAM into the middle ring and the inner and outer rings (reference :468-476).
+
+    Returns (class1, class2) masks: class 1 the samples below the inner or
+    above the outer threshold, from the blind S0 with gamma 1/1.32.
+    """
+    from qampy_tpu_torch.core.metrics import cal_s0
+    E = torch.as_tensor(E)
+    S0 = cal_s0(E, 1.32)
+    inner = (torch.sqrt(S0 / 5) + torch.sqrt(S0)) / 2.
+    outer = (torch.sqrt(9 * S0 / 5) + torch.sqrt(S0)) / 2.
+    Ea = E.abs()
+    class1 = (Ea < inner) | (Ea > outer)
+    return class1, ~class1
+
+
+def phase_partition_16qam(E, Nblock):
+    """16-QAM QPSK-partitioning phase recovery (reference :479-513): (E derotated, phase).
+
+    Per block of Nblock samples, S1 sums the fourth powers of class 1; each
+    class-2 sample adds whichever of S1 - (e exp(+-j dphi))^4 has the smaller
+    real part (the first on a tie); the block's phase is the angle of the
+    total. The L - Lb samples after the last whole block repeat its phase;
+    the row is unwrapped, over 4, less pi/4.
+    """
+    E = torch.as_tensor(E)
+    E2d = torch.atleast_2d(E)
+    dphi = np.pi / 4 + np.arctan(1 / 3)
+    modes, L = E2d.shape
+    nblocks = L // Nblock
+    Lb = nblocks * Nblock
+    rows = []
+    for e in E2d:
+        c1, c2 = partition_16qam(e)
+        zero = torch.zeros((), dtype=e.dtype, device=e.device)
+        Sx = torch.where(c2, ipow(e * complex(np.exp(1.j * dphi)), 4), zero)
+        So = torch.where(c2, ipow(e * complex(np.exp(-1.j * dphi)), 4), zero)
+        S1 = torch.where(c1, ipow(e, 4), zero)
+        S1_sum = S1[:Lb].reshape(nblocks, Nblock).sum(-1, keepdim=True)
+        ax = S1_sum - Sx[:Lb].reshape(nblocks, Nblock)
+        ao = S1_sum - So[:Lb].reshape(nblocks, Nblock)
+        pick = torch.where(ax.real <= ao.real, ax, ao)
+        sx = torch.where(c2[:Lb].reshape(nblocks, Nblock), pick, zero)
+        phi_blk = torch.angle(S1_sum[:, 0] + sx.sum(-1))
+        phi_est = torch.cat([phi_blk.repeat_interleave(Nblock), phi_blk[-1:].expand(L - Lb)])
+        rows.append(unwrap(phi_est) / 4 - np.pi / 4)
+    phi_out = torch.stack(rows)
+    out = E2d * torch.polar(torch.ones_like(phi_out), -phi_out)
+    if E.dim() == 1:
+        return out.reshape(-1), phi_out.reshape(-1)
+    return out, phi_out

@@ -55,7 +55,7 @@ from torch import nn
 from qampy_tpu_torch.ops import equaliser as eqops
 from qampy_tpu_torch.ops.equaliser_cuda import (apply_filter_frames, check_block_launch,
                                                 check_filter_plan, train_block)
-from qampy_tpu_torch.ops.phase import TWO_PI, time_axis
+from qampy_tpu_torch.ops.phase import TWO_PI, time_axis, unwrap
 from qampy_tpu_torch.ops.phase_cuda import (check_cpe_plan, cpe_coeffs, interp_rotate,
                                             moving_average, rotate)
 from qampy_tpu_torch.signals import cal_pilot_idx
@@ -64,26 +64,6 @@ from qampy_tpu_torch.utils import resolve_device
 __all__ = ["PilotRxChain", "make_pilot_rx_chain", "unwrap", "derotate_planes", "phase_slopes"]
 
 FOE_FFT = 2 ** 16
-_PERIOD = float(np.float32(2 * np.pi))   # jnp.unwrap promotes its period to float32
-_INTERVAL = _PERIOD / 2                  # exact: halving a float32
-
-
-def unwrap(p, dim=-1):
-    """``jnp.unwrap(p, axis=dim)`` for float32 phases (period 2*pi).
-
-    A step d is corrected by ((d + pi) mod 2*pi) - pi - d unless |d| < pi,
-    with the mod taken with the divisor's sign as ``jnp.remainder`` does. A
-    step of exactly +pi keeps +pi and one of exactly -pi keeps -pi (the
-    reference's tie rule), so neither is corrected.
-    """
-    dd = torch.diff(p, dim=dim)
-    r = torch.fmod(dd + _INTERVAL, _PERIOD)
-    ddmod = torch.where(r < 0, r + _PERIOD, r) - _INTERVAL
-    ddmod = torch.where((ddmod == -_INTERVAL) & (dd > 0), _INTERVAL, ddmod)
-    corr = torch.where(dd.abs() < _INTERVAL, 0.0, ddmod - dd)
-    n = p.shape[dim]
-    return torch.cat([p.narrow(dim, 0, 1),
-                      p.narrow(dim, 1, n - 1) + torch.cumsum(corr, dim=dim)], dim=dim)
 
 
 def derotate_planes(P, foe, os):

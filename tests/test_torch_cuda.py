@@ -1164,3 +1164,71 @@ def test_b9_cut_into_launches_equals_the_whole(dev, capture, method):
                                   mu, w, syms, method, False)
         errs.append(e)
     assert _same(whole, (torch.cat(errs, dim=-1), w, mu))
+
+
+# ---------------------------------------------------------------------------
+# the phase drivers and the signal objects on the card
+# ---------------------------------------------------------------------------
+
+def _phase_capture(dev, M=64, N=2 ** 16, seed=3, snr=30, lw=100e3):
+    """A signal object built on the card with ``snr`` dB and a ``lw`` Hz linewidth."""
+    from qampy_tpu_torch.core import impairments as timp
+    from qampy_tpu_torch.signals import SignalQAMGrayCoded
+    sig = SignalQAMGrayCoded(M, N, nmodes=2, fb=40e9, seed=seed, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = timp.change_snr(sig.samples, snr, sig.fb, sig.fs, gen)
+    if lw:
+        x = timp.apply_phase_noise(x, lw, sig.fs, gen)
+    return sig.replace(samples=x)
+
+
+@pytest.mark.parametrize("dim", [2, 1])
+@pytest.mark.parametrize("M, fn, A, B", [(64, "bps", 64, None), (64, "bps", 32, None),
+                                         (4, "bps", 4, None), (64, "bps_twostage", 32, 8),
+                                         (4, "bps_twostage", 4, 4)])
+def test_phase_driver_routes(dev, M, fn, A, B, dim):
+    """The kernel route (B3, then B8, then B6; no synchronising call) against the plain route.
+
+    Phases equal except where a near-tie moved an index (at most 1e-3 of the
+    positions), both routes under the 1e-4 SER gate after 20 edge symbols.
+    The reference's tests search QPSK with 4 angles and 64-QAM with 32 and 64.
+    """
+    sig = _phase_capture(dev, M=M)
+    E = sig.samples if dim == 2 else sig.samples[1]
+    const = sig.coded_symbols_host
+    kw = {} if B is None else dict(B=B)
+    counters = (bps_search_cuda, bps_fine_cuda, rotate_cuda)
+    for c in counters:
+        c.launches = 0
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out_k, ph_k = getattr(tph, fn)(E, A, const, 14, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert [c.launches for c in counters] == [1, 1 if B else 0, 1]
+    out_p, ph_p = getattr(tph, fn)(E, A, const, 14, method="pyt", **kw)
+    assert [c.launches for c in counters] == [1, 1 if B else 0, 1]
+    assert out_k.shape == out_p.shape == E.shape and ph_k.is_cuda
+    same = ph_k == ph_p
+    assert float(same.double().mean()) >= 1 - 1e-3
+    assert torch.equal(out_k[same], out_p[same])
+    rec = sig.replace(samples=torch.atleast_2d(out_k)[:, 20:-20],
+                      symbols=torch.atleast_2d(sig.symbols if dim == 2 else sig.symbols[1]))
+    assert float(rec.cal_ser().max()) <= 1e-4
+
+
+def test_signal_metrics_card_against_cpu(dev):
+    """A signal's metrics on the card equal (counts) or match the CPU's.
+
+    16-QAM at 12 dB, noise only. The SNR within 1e-5 (sums in another
+    order); the GMI within 1e-4: a mean of 2^15 terms log2(1 + exp(+-L))
+    whose L-values the card's and the CPU's logsumexp round differently.
+    """
+    sig = _phase_capture(dev, M=16, N=2 ** 15, seed=2, snr=12, lw=None)
+    cpu = sig.to("cpu")
+    rx = torch.roll(sig.samples, 77, -1) * 1j
+    assert torch.equal(sig.cal_ser(rx).cpu(), cpu.cal_ser(rx.cpu()))
+    assert torch.equal(sig.cal_ber(rx).cpu(), cpu.cal_ber(rx.cpu()))
+    np.testing.assert_allclose(sig.est_snr().cpu().numpy(), cpu.est_snr().numpy(), rtol=1e-5)
+    np.testing.assert_allclose(sig.cal_gmi()[0], cpu.cal_gmi()[0], rtol=1e-4)
+    assert torch.equal(sig.demodulate(sig.symbols).cpu(), cpu.demodulate(cpu.symbols))
