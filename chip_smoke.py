@@ -146,6 +146,26 @@ result line):
    busy share from the profiler), B3 (A = 64 and 32, N = 14), B8 (B = 8, N =
    14) and B6 (full rate) against their plain versions on the path's own
    inputs (B6 bit for bit), and the plain unwrap timed.
+19. the BASELINE configurations that start on the transmitter side, built
+   by the port's signal objects and impairments on the card: "baseline cma"
+   (config 1, ``examples/cma_equaliser.py``: QPSK at 2 x 2^20 symbols,
+   ``resample(2 fb, beta=0.1)``, ``impairments.change_snr(14)``,
+   ``apply_PMD(pi/5.65, 100 ps)``, then ``equalisation.equalise_signal(...,
+   method="cma", adaptive_stepsize=True, apply=True)``: B1 and B2 once,
+   SER <= 1e-4); "baseline pilot" (config 4, ``examples/sim_pilot_txrx.py``
+   with 16 frames: ``simulate_transmission``, ``sync2frame`` (B9 a search
+   window, B2), ``corr_foe``, ``pilot_equaliser`` (B1 a stage, B2 frames
+   once), ``pilot_cpe``; then ``pilot_equaliser_nframes`` over frames 0-14,
+   B2 frames once a frame) and "baseline tx" (config 5, the chain of
+   ``examples/tx_impairment_simulation.py`` with 16 frames: the DAC's Bessel
+   IIR, amplifier and modulator on 2 x 2^21 samples, then the same
+   receiver). The pilot paths take the first seed that syncs and are gated
+   at BER <= max(2 b, 1e-5), b the JAX example's mean BER, and GMI per mode
+   (5.5; 5.4 for config 5, whose reference reaches 5.49). Each path runs
+   under the sync debug mode (syncs reported), is counted, timed by stage
+   (the DAC's IIR beside its byte bounds), held to the port's plain CPU run
+   on a small capture (decisions shared >= 99.9 %, both under the gates),
+   and each kernel it launched against its plain version at its first call.
 
 Beside every kernel's time stand its bound (the larger of its bytes over
 the card's 3.35 TB/s and its operations over the card's 67 TFLOP/s in
@@ -171,6 +191,7 @@ import time
 import warnings
 
 import numpy as np
+import scipy.signal as scisig
 import torch
 import torch.nn.functional as F
 
@@ -180,6 +201,7 @@ from qampy_tpu_torch.ops import equaliser as eqops
 from qampy_tpu_torch.ops import phase as phops
 from qampy_tpu_torch.ops.chain import (TWOSTAGE_B, TWOSTAGE_N1, cma_singularity_guard,
                                        decimated_derotation_inputs, make_rx_chain)
+from qampy_tpu_torch.ops import equaliser_cuda as eqcuda
 from qampy_tpu_torch.ops import pilots
 from qampy_tpu_torch.ops.equaliser_cuda import (apply_filter_cuda, apply_filter_frames,
                                                 apply_filter_frames_cuda,
@@ -196,10 +218,12 @@ from qampy_tpu_torch.ops.phase_cuda import (bps_fine, bps_fine_cuda, bps_fine_pl
                                             interp_rotate_plain, quarter_unwrap, rotate_cuda,
                                             rotate_plain, unwrap_derotate_cuda,
                                             unwrap_derotate_plain, unwrap_plan)
-from qampy_tpu_torch import helpers, phaserec, theory
+from qampy_tpu_torch import equalisation, helpers, phaserec, theory
+from qampy_tpu_torch import impairments as port_imp
 from qampy_tpu_torch.core import impairments as core_impairments
+from qampy_tpu_torch.core.filter import prefix_powers
 from qampy_tpu_torch.ops.pilot_chain import derotate_planes, make_pilot_rx_chain
-from qampy_tpu_torch.signals import SignalQAMGrayCoded, cal_pilot_idx
+from qampy_tpu_torch.signals import SignalQAMGrayCoded, SignalWithPilots, cal_pilot_idx
 from qampy_tpu_torch.theory import cal_scaling_factor_qam, cal_symbols_qam
 from qampy_tpu_torch.workload import (GATE_TRIM, apsk_const, ber_gate, decide, make_pilot_tx,
                                       make_tx, ser_gate, shared_decisions, warped_qam)
@@ -336,11 +360,40 @@ PHASE_BPS = (64, 14)             # phaserec.bps(sig, 64, 14)
 PHASE_TWOSTAGE = (32, 14, 8)     # phaserec.bps_twostage(sig, 32, 14, B=8)
 VV_N, VV_FFT, PART_BLOCK = 11, 2 ** 16, 128
 METRIC_SER_REL, METRIC_SNR_DB = 0.05, 0.3   # the verify skill's theory anchors
+# phase 19, BASELINE configs 1, 4 and 5 on the port's own signals: examples/cma_equaliser.py
+# with 2^20 symbols (the example's 2^16 raised to the blind cells' size),
+# examples/sim_pilot_txrx.py and the chain of examples/tx_impairment_simulation.py with 16
+# frames (the examples' 3 and 2 raised); nothing else changed. The pilot paths gate the first
+# seed whose frame sync succeeds (ROADMAP C5), the example's own first
+BASE_CMA = dict(N=2 ** 20, fb=40e9, beta=0.1, snr=14, pmd=(np.pi / 5.65, 100e-12), seed=1,
+                small_N=2 ** 17)
+BASE_CMA_SER = 1e-4              # the equaliser path's gate
+BASE_PILOT = dict(frame_len=2 ** 16, seq_len=2 ** 10, ins=32, nframes=16, fb=24e9, beta=0.01,
+                  snr=25, dgd=10e-12, freq_off=100e6, lwdth=100e3, modal_delay=(2000, 2000),
+                  seeds=(4, 1, 2, 3), nframes_eq=15, small_frames=3)
+BASE_TX = dict(frame_len=2 ** 16, seq_len=1024, ins=32, nframes=16, fb=40e9, beta=0.5,
+               roll=10000, enob=6, cutoff=16e9, volt=1.0, snr=35, seeds=(2, 1, 3, 4),
+               small_frames=3)
+# b: the JAX examples' mean BER per mode at these settings over seeds 1-5 on the CPU
+# (tools/baseline_reference_ber.py, its output in CHANGES.md); config 5 over two runs, since
+# its pilots are drawn unseeded (from_symbol_array, as in the example), so each run is new
+# captures. The gate is max(2 b, 1e-5) per mode
+BASE_REF_BER = {"baseline pilot": 2.2951e-03, "baseline tx": 1.6355e-02}
+# GMI per mode: config 4 the reference's pilot-equaliser tolerance (test/test_equalisation.py:164).
+# Config 5's chain stays under it in the JAX package too: its 20 per-mode readings of the same
+# runs span 5.4612-5.5089, so its path is held to their least less their spread, a reading
+# further below the reference's range than the range is wide
+BASE_REF_GMI_TX = (5.461239801479016, 5.508876266482114)
+BASE_GMI = {"baseline pilot": 5.5,
+            "baseline tx": BASE_REF_GMI_TX[0] - (BASE_REF_GMI_TX[1] - BASE_REF_GMI_TX[0])}
+BASE_BLOCK = 128                 # the block size of "auto" on the card, which the CPU run takes
 PATHS = ("blind", "blind twostage", "blind single", "pilot", "pilot return_phase",
          "pilot long frames", "pilot lms", "pilot foe", "pilot non-blocked", "pilot granular",
          "equaliser seq", "equaliser block") + tuple(
              p for p, _, _ in GRID_PATHS) + ("phase bps", "phase twostage", "phase vv",
-                                             "phase partition", "phase metrics")
+                                             "phase partition", "phase metrics", "baseline cma",
+                                             "baseline pilot", "baseline pilot nframes",
+                                             "baseline tx")
 # kernel: (wrapper name, CUDA source, the TPU kernel it replaces)
 KERNELS = {
     "B1": ("train_block", "qampy_tpu_torch/csrc/equaliser.cu",
@@ -364,6 +417,9 @@ COUNTERS = {"B1": train_block_cuda, "B2": apply_filter_cuda, "B3": bps_search_cu
             "B4": interp_rotate_cuda, "B2 frames": apply_filter_frames_cuda,
             "B5": cpe_coeffs_cuda, "B6": rotate_cuda, "B7": unwrap_derotate_cuda,
             "B8": bps_fine_cuda, "B9": train_seq_cuda}
+
+
+CARD = []                        # nvidia-smi's name and power limit, read once in main()
 
 
 class SmokeFailure(Exception):
@@ -1208,18 +1264,23 @@ def grid_phases(dev, card):
     return rec, path_launches
 
 
-def syncs_in(fn):
-    """How many synchronising calls ``fn`` makes, as the CUDA sync debug mode reports them."""
+def with_syncs(fn):
+    """(``fn()``, the synchronising calls it made as the CUDA sync debug mode reports them)."""
     torch.cuda.synchronize()
     with warnings.catch_warnings(record=True) as seen:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            fn()
+            res = fn()
         finally:
             torch.cuda.set_sync_debug_mode(0)
-    return [str(w.message).splitlines()[0] for w in seen
-            if "Synchronization debug mode is a prototype" not in str(w.message)]
+    return res, [str(w.message).splitlines()[0] for w in seen
+                 if "Synchronization debug mode is a prototype" not in str(w.message)]
+
+
+def syncs_in(fn):
+    """How many synchronising calls ``fn`` makes, as the CUDA sync debug mode reports them."""
+    return with_syncs(fn)[1]
 
 
 def pilot_stages(chain, pr, pi):
@@ -1510,7 +1571,9 @@ def check_seq_kernel(dev, card):
     ``make_tx(2**13)``, 17 taps, 2 samples per symbol, 64-QAM constants; the
     plain version is a Python loop of a few dozen small launches per symbol,
     so the length is cut to 4096 symbols. Returns (the worst differences, the
-    kernel's and the plain version's time at that length).
+    plain version's time at that length). The kernel's time printed here is one
+    call's, the host's dispatch and a first launch included; the equaliser
+    phase times it over repeated calls with the host hidden (``device_ms``).
     """
     E, _, _ = make_tx(SEQ_NSYM)
     P = torch.as_tensor(np.concatenate([E.real, E.imag]).astype(np.float32), device=dev)
@@ -1522,7 +1585,7 @@ def check_seq_kernel(dev, card):
     cases += [("rde", True, "converged taps", w_conv, SEQ_TRS, 1),
               ("cma", True, "centre tap", w0, 1024, 3)]
     worst = dict(taps=0.0, mu=0.0, err=0.0)
-    t_k = t_p = 0.0
+    t_p = 0.0
     for method, adaptive, start, w, trs, niter in cases:
         args = (P, trs, niter, 2, 1e-3, w, syms[method], method, adaptive)
         (e_p, w_p, mu_p), ms_p = timed(lambda: train_seq_plain(*args))
@@ -1542,10 +1605,10 @@ def check_seq_kernel(dev, card):
                 and d["err"] <= TOL_SEQ_ERR, "B9 disagrees with its plain version")
         worst = {k: max(worst[k], d[k]) for k in worst}
         if (method, adaptive, start) == ("mcma", True, "centre tap"):
-            t_k, t_p = ms_k, ms_p
+            t_p = ms_p
     print("B9 worst over %d cases: taps %.3e, mu rel %.3e, err %.3e [%s]"
           % (len(cases), worst["taps"], worst["mu"], worst["err"], card))
-    return worst, t_k, t_p
+    return worst, t_p
 
 
 def timed(fn):
@@ -1598,7 +1661,7 @@ def equaliser_phases(dev, card, seq_check, lat):
 
     Returns (kernel records keyed by (kernel, path), launches per path).
     """
-    worst, t_k4096, t_p4096 = seq_check
+    worst, t_p4096 = seq_check
     t0 = time.perf_counter()
     E_h, syms_h, const = make_tx(EQ_NSYM)
     E = torch.as_tensor(E_h, device=dev)
@@ -1680,6 +1743,18 @@ def equaliser_phases(dev, card, seq_check, lat):
               % (m, trs, t, t / trs * 1e6, card))
         print_chain("B9 train_seq %s" % m, lat, trs, seq_chain_cycles(lat, 2 * ntaps, m), t, card,
                     "symbol")
+    # B9's bound at each shape the table keeps (the same for either stage's method) and its
+    # chain bound at the 4096-symbol launch held against the plain version
+    b_path, b_head = (trainer_bound(2, 2, ntaps, 2, n, 1) for n in (trs, SEQ_TRS))
+    print("bound B9 train_seq (equaliser seq): %d symbols %.5f ms by %s, %d symbols %.7f ms by "
+          "%s" % (trs, b_path["bound_ms"], b_path["bound_by"], SEQ_TRS, b_head["bound_ms"],
+                  b_head["bound_by"]))
+    t_k4096 = device_ms(lambda: train_seq_cuda(*head), 10)
+    busy4096, ops4096, _ = device_busy(lambda: train_seq_cuda(*head), 10)
+    print("time B9 train_seq %s adaptive, %d symbols: %.4f ms with the host hidden, device busy "
+          "%.4f ms in %.1f ops a call [%s]" % (m1, SEQ_TRS, t_k4096, busy4096, ops4096, card))
+    print_chain("B9 train_seq %s at %d symbols" % (m1, SEQ_TRS), lat, SEQ_TRS,
+                seq_chain_cycles(lat, 2 * ntaps, m1), t_k4096, card, "symbol")
     rec["B9", "equaliser seq"] = dict(
         **trainer_bound(2, 2, ntaps, 2, trs, 1), err=max(worst["taps"], d_head),
         ms=t_b9[m1], plain_ms=t_p4096, ms_at_plain_shape=t_k4096,
@@ -2565,6 +2640,440 @@ def phase_phases(dev, card):
     return rec, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 19: BASELINE configs 1, 4 and 5 on the port's own signal objects
+# ---------------------------------------------------------------------------
+
+class recording:
+    """Keep the arguments of every call of the named ``equaliser_cuda`` launchers.
+
+    Each launcher is replaced by a recorder that appends (args, kwargs) to
+    ``calls[name]`` and calls it: the launches are counted as before, on the
+    launchers themselves. Restored on exit.
+    """
+
+    def __init__(self, *names):
+        self.names, self.calls, self.saved = names, {n: [] for n in names}, {}
+
+    class _Recorder:
+        """A launcher that records its arguments; ``launches`` is the launcher's own count,
+        which the launcher adds to through its module's name, now this object."""
+
+        def __init__(self, fn, calls):
+            self.fn, self.calls = fn, calls
+
+        def __call__(self, *a, **k):
+            self.calls.append((a, k))
+            return self.fn(*a, **k)
+
+        @property
+        def launches(self):
+            return self.fn.launches
+
+        @launches.setter
+        def launches(self, value):
+            self.fn.launches = value
+
+    def __enter__(self):
+        for n in self.names:
+            self.saved[n] = getattr(eqcuda, n)
+            setattr(eqcuda, n, self._Recorder(self.saved[n], self.calls[n]))
+        return self.calls
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(eqcuda, n, fn)
+
+
+def counted_syncs(fn):
+    """``fn`` counted (:func:`counted`) under the sync debug mode: (result, counts, syncs)."""
+    (res, syncs), launches = counted(lambda: with_syncs(fn))
+    return res, launches, syncs
+
+
+def base_b1_record(call, path, lat):
+    """B1 at a path's first training over its whole length against the plain block trainer
+    (taps within TOL_TAPS, step within TOL_SEQ_MU_REL, errors within TOL_ERR), timed there."""
+    (P, trs, niter, os_, mu, wx, spec, adaptive, bs, points), _ = call
+    full = (P, trs, niter, os_, mu, wx, spec, adaptive, bs)
+    (e_p, w_p, mu_p), plain_ms = timed(lambda: train_block_plain(*full))
+    e_k, w_k, mu_k = train_block_cuda(*full, points)
+    d_t, d_e = float((w_k - w_p).abs().max()), float((e_k - e_p).abs().max())
+    d_mu = float(((mu_k - mu_p) / mu_p).abs().max())
+    nb = trs // bs
+    print("B1 train_block (%s, %s, %d x %d blocks of %d, %d taps), every block against the plain "
+          "trainer: taps max|d| %.3e (tol %.0e), mu rel %.3e (tol %.0e), err max|d| %.3e (tol %.0e)"
+          % (path, spec.method, niter, nb, bs, wx.shape[-1], d_t, TOL_TAPS, d_mu, TOL_SEQ_MU_REL,
+             d_e, TOL_ERR))
+    require(d_t <= TOL_TAPS and d_mu <= TOL_SEQ_MU_REL and d_e <= TOL_ERR,
+            "B1 disagrees on the %s path" % path)
+    r = dict(**trainer_bound(wx.shape[1], wx.shape[0], wx.shape[-1], os_, nb * bs, niter),
+             err=d_t, ms=device_ms(lambda: train_block_cuda(*full, points), 3), plain_ms=plain_ms,
+             shape="%s, %d x %d blocks of %d, %d x %d x %d taps"
+                   % (spec.method, niter, nb, bs, *wx.shape))
+    print_chain("B1 train_block (%s)" % path, lat, niter * nb,
+                block_chain_cycles(lat, wx.shape[1] * wx.shape[-1], bs), r["ms"], CARD[0],
+                "block")
+    return r
+
+
+def base_b9_record(call, path, lat):
+    """B9 in a path's first frame-search window against its plain version, timed there."""
+    a, _ = call
+    P, trs, niter, os_, mu, wx, syms, method, adaptive = a
+    (e_p, w_p, _), plain_ms = timed(lambda: train_seq_plain(*a))
+    e_k, w_k, _ = train_seq_cuda(*a)
+    d_t, d_e = float((w_k - w_p).abs().max()), float((e_k - e_p).abs().max())
+    print("B9 train_seq (%s, one search window: %d symbols x %d passes, %s): taps max|d| %.3e "
+          "(tol %.0e), err max|d| %.3e (tol %.0e)"
+          % (path, trs, niter, method, d_t, TOL_SEQ_TAPS, d_e, TOL_SEQ_ERR))
+    require(d_t <= TOL_SEQ_TAPS and d_e <= TOL_SEQ_ERR, "B9 disagrees on the %s path" % path)
+    r = dict(**trainer_bound(wx.shape[1], wx.shape[0], wx.shape[-1], os_, trs, niter), err=d_t,
+             ms=device_ms(lambda: train_seq_cuda(*a), 10), plain_ms=plain_ms,
+             shape="one search window, %d symbols x %d passes, %s" % (trs, niter, method))
+    print_chain("B9 train_seq (%s)" % path, lat, trs * niter,
+                seq_chain_cycles(lat, wx.shape[1] * wx.shape[-1], method), r["ms"],
+                CARD[0], "symbol")
+    return r
+
+
+def base_frames_record(call, path):
+    """B2's frame entry at a path's call: against its plain version, two launches bit-equal,
+    timed beside its bound, the plain version and the grouped ``conv1d``."""
+    (P, os_, wx, offs, F_, *rest), _ = call
+    got = apply_filter_frames_cuda(P, os_, wx, offs, F_)
+    again = apply_filter_frames_cuda(P, os_, wx, offs, F_)
+    want = apply_filter_frames_plain(P, os_, wx, offs, F_)
+    rms = float(want.pow(2).mean().sqrt())
+    d = float((got - want).abs().max())
+    nout, nmodes, ntaps = wx.shape
+    nf = offs.shape[1]
+    print("B2 frames (%s, %d output modes x %d frames of %d): max|d| %.3e (tol %.0e x rms %.3f), "
+          "two launches bit-equal: %s" % (path, nout, nf, F_, d, TOL_FILTER_REL, rms,
+                                         torch.equal(got, again)))
+    require(d <= TOL_FILTER_REL * rms and torch.equal(got, again),
+            "B2's frame entry disagrees on the %s path" % path)
+    fr_len = (F_ - 1) * os_ + ntaps
+    span = int(offs.max() - offs.min()) + fr_len
+    fargs = (P, os_, wx, offs, F_)
+    r = dict(**bound(4 * 2 * nmodes * span + nbytes(wx, offs, got),
+                     OPS_FILTER_TAP * nmodes * ntaps * nout * nf * F_),
+             err=d, ms=device_ms(lambda: apply_filter_frames_cuda(*fargs), 20),
+             plain_ms=device_ms(lambda: apply_filter_frames_plain(*fargs), 3),
+             shape="%d output modes x %d frames of %d, %d taps" % (nout, nf, F_, ntaps))
+    r["library_ms"] = frames_library(P, os_, wx, offs, fr_len, got)
+    return r
+
+
+def base_records(calls, path, lat, what, frame=0, nframes=1):
+    """The records of every kernel a path launched, at its first call of each in frame
+    ``frame`` of the ``nframes`` whose calls ``calls`` holds (each frame makes as many)."""
+    def first(name):
+        c = calls.get(name, [])
+        require(len(c) % nframes == 0, "the %s path's frames launch %s unevenly" % (path, name))
+        return c[frame * len(c) // nframes] if c else None
+    rec, b1, b9, b2, fr = {}, *map(first, BASE_LAUNCHERS)
+    if b1:
+        rec["B1", path] = base_b1_record(b1, path, lat)
+    if b9:
+        rec["B9", path] = base_b9_record(b9, path, lat)
+    if b2:
+        (P, os_, w, dec), _ = b2
+        rec["B2", path], _ = b2_record(P, os_, w, dec, path, what)
+    if fr:
+        rec["B2 frames", path] = base_frames_record(fr, path)
+    return rec
+
+
+BASE_LAUNCHERS = ("train_block_cuda", "train_seq_cuda", "apply_filter_cuda",
+                  "apply_filter_frames_cuda")
+
+
+def stage(what, fn, card):
+    """A stage's time for one call (CUDA events, the host's dispatch included), then its
+    device busy time and ops over one more call (the profiler)."""
+    _, ms = timed(fn)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    print("time stage %s: %.4f ms, device busy %.4f ms in %d ops [%s]"
+          % (what, ms, sum(e.time_range.elapsed_us() for e in dev) / 1e3, len(dev), card))
+    return ms
+
+
+def base_cma_capture(N, dev):
+    """Config 1's capture on ``dev``: QPSK at 2 x N symbols, resampled to 2 fb, noise, PMD."""
+    c = BASE_CMA
+    sig = SignalQAMGrayCoded(4, N, nmodes=2, fb=c["fb"], seed=c["seed"], device=dev)
+    sig = sig.resample(2 * c["fb"], beta=c["beta"])
+    gen = torch.Generator(device=dev).manual_seed(c["seed"])
+    sig = port_imp.change_snr(sig, c["snr"], generator=gen)
+    return port_imp.apply_PMD(sig, *c["pmd"])
+
+
+def base_cma_receive(sig, **kw):
+    """Config 1's receiver: CMA with the adaptive step over the whole capture, normalised."""
+    E, w, _ = equalisation.equalise_signal(sig, 1e-3, Ntaps=17, method="cma",
+                                           adaptive_stepsize=True, apply=True, **kw)
+    return helpers.normalise_and_center(E), w
+
+
+def base_cma_path(dev, card, lat):
+    """"baseline cma" (BASELINE config 1, examples/cma_equaliser.py) at 2 x 2^20 symbols."""
+    path, c = "baseline cma", BASE_CMA
+    t0 = time.perf_counter()
+    sig = base_cma_capture(c["N"], dev)
+    torch.cuda.synchronize()
+    print("%s: SignalQAMGrayCoded(4, %d, nmodes=2, fb=%.0f) resampled to 2 fb (beta %.2f), %d dB, "
+          "PMD pi/5.65 with %.0f ps DGD, built on the card in %.2f s (host clock); samples %s"
+          % (path, c["N"], c["fb"], c["beta"], c["snr"], c["pmd"][1] * 1e12,
+             time.perf_counter() - t0, sig.shape))
+    with recording(*BASE_LAUNCHERS) as calls:
+        (E, w), launches, syncs = counted_syncs(lambda: base_cma_receive(sig))
+    ser, evm = E.cal_ser().tolist(), (20 * torch.log10(E.cal_evm())).tolist()
+    print("%s: equalise_signal(sig, 1e-3, Ntaps=17, method='cma', adaptive_stepsize=True, "
+          "apply=True): launches %s, synchronising calls %d %s; SER per mode %s (gate %.0e), "
+          "EVM %s dB; out %s, fb %.0f, fs %.0f [%s]"
+          % (path, launches, len(syncs), syncs[:2], ser, BASE_CMA_SER, evm, E.shape, E.fb, E.fs,
+             card))
+    require(launches == expected({"B1": 1, "B2": 1}), "the %s path did not launch B1 and B2 "
+            "once each" % path)
+    Lout = (2 * c["N"] - 17) // 2 + 1
+    require(E.shape == (2, Lout) and bool(torch.isfinite(torch.view_as_real(E.samples)).all()),
+            "the %s output is not finite of shape (2, %d)" % (path, Lout))
+    require(all(x <= BASE_CMA_SER for x in ser), "the %s SER gate failed: %s" % (path, ser))
+    src = SignalQAMGrayCoded(4, c["N"], nmodes=2, fb=c["fb"], seed=c["seed"], device=dev)
+    stage("%s resample (2 x %d symbols to 2 fb)" % (path, c["N"]),
+          lambda: src.resample(2 * c["fb"], beta=c["beta"]), card)
+    stage("%s equalise_signal (B1 + B2)" % path, lambda: base_cma_receive(sig), card)
+    t = cuda_ms(lambda: base_cma_receive(sig), 2)
+    print("time %s: %.4f ms per call, %.1f Msym/s [%s]" % (path, t, 2 * c["N"] / t / 1e3, card))
+    stage("%s metrics (cal_ser, cal_evm)" % path, lambda: (E.cal_ser(), E.cal_evm()), card)
+
+    # the same recipe at a small size on the card, then its capture on the CPU through the
+    # plain version of the card's route (the block trainer, blocks of 128)
+    small = base_cma_capture(c["small_N"], dev)
+    e_g, _ = base_cma_receive(small)
+    e_c, _ = base_cma_receive(small.to("cpu"), backend="block", block_size=BASE_BLOCK)
+    coded = torch.as_tensor(small.coded_symbols_host)
+    agree = float((decision_idx(e_g.samples.cpu(), coded) == decision_idx(e_c.samples, coded))
+                  .double().mean())
+    sers = [e_g.cal_ser().tolist(), e_c.cal_ser().tolist()]
+    print("%s, small capture (2 x %d symbols): card vs plain CPU run agree on %.6f of decisions "
+          "(min %.3f); SER card %s, cpu %s" % (path, c["small_N"], agree, SMALL_AGREE, *sers))
+    require(agree >= SMALL_AGREE and max(sers[0] + sers[1]) <= BASE_CMA_SER,
+            "the card's %s run disagrees with the CPU's" % path)
+    return base_records(calls, path, lat, "2 x %d samples in, no side output" % (2 * c["N"])), \
+        launches
+
+
+def base_pilot_capture(seed, nframes, dev):
+    """Config 4's capture: SignalWithPilots at 2 fb through simulate_transmission."""
+    c = BASE_PILOT
+    sig = SignalWithPilots(64, c["frame_len"], c["seq_len"], c["ins"], nmodes=2, Mpilots=4,
+                           nframes=nframes, fb=c["fb"], seed=seed, device=dev)
+    sig = sig.resample(2 * c["fb"], beta=c["beta"])
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return port_imp.simulate_transmission(sig, snr=c["snr"], dgd=c["dgd"],
+                                          freq_off=c["freq_off"], lwdth=c["lwdth"],
+                                          modal_delay=c["modal_delay"], generator=gen)
+
+
+def base_tx_frame(seed, nframes, dev):
+    """Config 5's frame: a 64-QAM payload framed with pilots (``from_symbol_array``)."""
+    c = BASE_TX
+    F_, P_, R_ = c["frame_len"], c["seq_len"], c["ins"]
+    payload = SignalQAMGrayCoded(64, (F_ - P_) * (R_ - 1) // R_, nmodes=2, fb=c["fb"], seed=seed,
+                                 device=dev)
+    return SignalWithPilots.from_symbol_array(payload, F_, P_, R_, nframes=nframes)
+
+
+def base_tx_capture(seed, nframes, dev):
+    """Config 5's capture: a 64-QAM payload framed with pilots, resampled, rolled, then the
+    DAC (6-bit ENOB, 16 GHz Bessel), the amplifier, the modulator and 35 dB of noise."""
+    c = BASE_TX
+    sig = base_tx_frame(seed, nframes, dev).resample(2 * c["fb"], beta=c["beta"],
+                                                      renormalise=True)
+    sig = sig.replace(samples=torch.roll(sig.samples, c["roll"], dims=-1))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = core_impairments.sim_DAC_response(sig.samples, sig.fs, enob=c["enob"], generator=gen,
+                                          cutoff=c["cutoff"])
+    x = core_impairments.modulator_response(core_impairments.ideal_amplifier_response(
+        x, c["volt"]))
+    return port_imp.change_snr(sig.replace(samples=x), c["snr"], generator=gen)
+
+
+def base_sync(cap, tx):
+    """The pilot receiver's front: (config 5: resample, normalise), sync2frame, corr_foe."""
+    rx = cap.replace()
+    if tx:
+        rx = rx.resample(2 * BASE_TX["fb"], beta=BASE_TX["beta"], renormalise=True)
+        rx = helpers.normalise_and_center(rx)
+    ok = rx.sync2frame()
+    rx.corr_foe()
+    return rx, ok
+
+
+def base_equalise(rx, tx, **eqkw):
+    """pilot_equaliser on frame 0 and the pilot CPE: (taps, recovered signal, its payload)."""
+    taps, eq = equalisation.pilot_equaliser(rx, (1e-3, 1e-3), 45, foe_comp=False,
+                                            methods=("cma", "sbd"), **eqkw)
+    cpe, _ = phaserec.pilot_cpe(eq, N=5, use_seq=False) if tx else phaserec.pilot_cpe(eq, N=5)
+    return taps, cpe, cpe.get_data()
+
+
+def base_metrics(cpe, pay, tx):
+    """(BER, GMI) per mode, as the example reads them."""
+    sig = pay if tx else cpe
+    return sig.cal_ber().tolist(), sig.cal_gmi()[0].tolist()
+
+
+def base_pilot_path(path, dev, card, lat):
+    """"baseline pilot" (config 4) or "baseline tx" (config 5) on 16 frames of 2^16 symbols.
+
+    The first seed whose frame sync succeeds is gated (the sync fails on some captures in
+    the reference too, ROADMAP C5); BER <= max(2 b, 1e-5) with b the JAX example's mean BER,
+    GMI per mode >= the path's bound; the card's run held to the plain CPU run on a small
+    capture of the same seed. "baseline pilot" also runs pilot_equaliser_nframes over frames
+    0-14 (one pilot equalisation and one B2 frames launch a frame).
+    """
+    tx = path == "baseline tx"
+    c = BASE_TX if tx else BASE_PILOT
+    make = base_tx_capture if tx else base_pilot_capture
+    ber_gate_, gmi_gate = max(2 * BASE_REF_BER[path], 1e-5), BASE_GMI[path]
+    rec, launches_all = {}, {}
+    for seed in c["seeds"]:
+        t0 = time.perf_counter()
+        cap = make(seed, c["nframes"], dev)
+        torch.cuda.synchronize()
+        print("%s: seed %d, %d frames built on the card in %.2f s (host clock); samples %s"
+              % (path, seed, c["nframes"], time.perf_counter() - t0, cap.shape))
+
+        def receive():
+            rx, ok = base_sync(cap, tx)
+            return (rx, ok) + base_equalise(rx, tx)
+        with recording(*BASE_LAUNCHERS) as calls:
+            (rx, ok, taps, cpe, pay), launches, syncs = counted_syncs(receive)
+        ber, gmi = base_metrics(cpe, pay, tx)
+        print("%s: seed %d: sync %s, shifts %s; launches %s (synchronising calls %d %s); BER per "
+              "mode %s (gate %.3e), GMI %s bits (gate %.4f) [%s]"
+              % (path, seed, ok, np.asarray(rx.shiftfctrs).tolist(), launches, len(syncs),
+                 syncs[:2], ber, ber_gate_, gmi, gmi_gate, card))
+        if ok:
+            break
+    require(ok, "no seed of %s synced the %s capture" % (c["seeds"], path))
+    require(launches["B2 frames"] == 1 and all(launches[k] for k in ("B9", "B1", "B2")),
+            "the %s path did not launch B9, B1, B2 and B2 frames (once) as expected: %s"
+            % (path, launches))
+    require(all(b <= ber_gate_ for b in ber) and all(g >= gmi_gate for g in gmi),
+            "the %s gates failed: BER %s, GMI %s" % (path, ber, gmi))
+    require(bool(torch.isfinite(torch.view_as_real(cpe.samples)).all())
+            and cpe.shape == (2, c["frame_len"]),
+            "the %s output is not finite of one frame" % path)
+    launches_all[path] = launches
+    rec.update(base_records(calls, path, lat, "the pilot sequence's segment"))
+
+    # stage times
+    if tx:
+        base_dac_times(cap, card)
+        frame = base_tx_frame(seed, c["nframes"], dev)
+        stage("%s resample (%d frames to 2 fb, renormalised)" % (path, c["nframes"]),
+              lambda: frame.resample(2 * c["fb"], beta=c["beta"], renormalise=True), card)
+    else:
+        frame = SignalWithPilots(64, c["frame_len"], c["seq_len"], c["ins"], nmodes=2, Mpilots=4,
+                                 nframes=c["nframes"], fb=c["fb"], seed=seed, device=dev)
+        stage("%s resample (%d frames to 2 fb)" % (path, c["nframes"]),
+              lambda: frame.resample(2 * c["fb"], beta=c["beta"]), card)
+    stage("%s sync2frame + corr_foe" % path, lambda: base_sync(cap, tx), card)
+    stage("%s pilot_equaliser + pilot_cpe" % path, lambda: base_equalise(rx, tx), card)
+    stage("%s metrics (cal_ber, cal_gmi)" % path, lambda: base_metrics(cpe, pay, tx), card)
+
+    # the card's run against the plain CPU run on a small capture of the same seed: the
+    # receiver after the card's frame sync (whose search the granular path holds to the CPU)
+    small = make(seed, c["small_frames"], dev)
+    srx, sok = base_sync(small, tx)
+    _, g_cpe, g_pay = base_equalise(srx, tx)
+    _, c_cpe, c_pay = base_equalise(srx.to("cpu"), tx, backend="block", block_size=BASE_BLOCK)
+    a, b = ((g_pay, c_pay) if tx else (g_cpe.get_data(), c_cpe.get_data()))
+    coded = torch.as_tensor(a.coded_symbols_host)
+    agree = float((decision_idx(a.samples.cpu(), coded) == decision_idx(b.samples, coded))
+                  .double().mean())
+    m_g, m_c = base_metrics(g_cpe, g_pay, tx), base_metrics(c_cpe, c_pay, tx)
+    print("%s, small capture (%d frames, seed %d, sync %s): card vs plain CPU receiver agree on "
+          "%.6f of payload decisions (min %.3f); BER card %s, cpu %s; GMI card %s, cpu %s"
+          % (path, c["small_frames"], seed, sok, agree, SMALL_AGREE, m_g[0], m_c[0], m_g[1],
+             m_c[1]))
+    require(sok and agree >= SMALL_AGREE
+            and max(m_g[0] + m_c[0]) <= ber_gate_ and min(m_g[1] + m_c[1]) >= gmi_gate,
+            "the card's %s run disagrees with the CPU's" % path)
+
+    if not tx:
+        p2 = path + " nframes"
+        nf = c["nframes_eq"]
+
+        def nframes_run():
+            taps_n, sout, _ = equalisation.pilot_equaliser_nframes(
+                rx, (1e-3, 1e-3), 45, foe_comp=False, frames=range(nf), methods=("cma", "sbd"))
+            out, _ = phaserec.pilot_cpe(sout, N=5, nframes=nf)
+            return out
+        t0 = time.perf_counter()
+        with recording(*BASE_LAUNCHERS) as calls_n:
+            out, launches, _ = counted_syncs(nframes_run)
+        t_n = time.perf_counter() - t0
+        ber_n, gmi_n = out.cal_ber().tolist(), out.cal_gmi()[0].tolist()
+        print("%s: pilot_equaliser_nframes over frames 0-%d: launches %s (B2 frames %d, one a "
+              "frame); BER per mode %s (gate %.3e), GMI %s [%s]"
+              % (p2, nf - 1, launches, launches["B2 frames"], ber_n, ber_gate_, gmi_n, card))
+        require(launches["B2 frames"] == nf and launches["B1"] >= nf,
+                "pilot_equaliser_nframes did not launch B2's frame entry once a frame")
+        require(all(b <= ber_gate_ for b in ber_n) and all(g >= gmi_gate for g in gmi_n),
+                "the %s gates failed: BER %s, GMI %s" % (p2, ber_n, gmi_n))
+        print("time stage %s (%d frames, the counted call, host clock): %.1f ms [%s]"
+              % (p2, nf, 1e3 * t_n, card))
+        launches_all[p2] = launches
+        # the kernels at frame 1's calls: its training starts from frame 0's taps
+        for k, r in base_records(calls_n, p2, lat, "the pilot sequence's segment", frame=1,
+                                 nframes=nf).items():
+            rec[k] = dict(r, shape=r["shape"] + "; frame 1 of %d, from frame 0's taps" % nf)
+    return rec, launches_all
+
+
+def base_dac_times(cap, card):
+    """The DAC's Bessel IIR on the capture: time beside two byte bounds (the function's input
+    and output once; each doubling pass reading and writing its (N, 2, columns) states)."""
+    c = BASE_TX
+    x = cap.samples
+    fs = cap.fs
+    ms = device_ms(lambda: core_impairments.apply_DAC_filter(x, fs, cutoff=c["cutoff"]), 5)
+    sos = scisig.bessel(2, c["cutoff"], 'low', norm='mag', analog=False, output='sos', fs=fs)
+    b0, b1, b2, _, a1, a2 = sos[0]
+    N, cols = x.shape[-1], 2 * x.shape[0]
+    passes = len(prefix_powers(np.array([[-a1, 1.0], [-a2, 0.0]]), N, torch.float32))
+    full = int(np.ceil(np.log2(N)))
+    b_fn = 2 * nbytes(x) / HBM_BYTES_PER_S * 1e3
+    b_pass = 2 * N * 2 * cols * 4 / HBM_BYTES_PER_S * 1e3
+    print("time stage baseline tx DAC IIR (2nd-order Bessel at %.0f GHz on %s complex64): %.4f ms "
+          "device; %d doubling passes run (ceil(log2 N) = %d; later powers round to 0 in "
+          "float32); byte bound %.5f ms for the function, %.5f ms for %d passes over (N, 2, %d), "
+          "%.5f ms for %d [%s]" % (c["cutoff"] / 1e9, tuple(x.shape), ms, passes, full, b_fn,
+                                   passes * b_pass, passes, cols, full * b_pass, full, card))
+
+
+def baseline_phases(dev, card, lat):
+    """Phase 19: BASELINE configs 1, 4 and 5 on the port's own signal objects."""
+    rec, launches = {}, {}
+    r, launches["baseline cma"] = base_cma_path(dev, card, lat)
+    rec.update(r)
+    for path in ("baseline pilot", "baseline tx"):
+        r, lc = base_pilot_path(path, dev, card, lat)
+        rec.update(r)
+        launches.update(lc)
+    print_times(rec, card)
+    return rec, launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on a card",
@@ -2576,6 +3085,7 @@ def main():
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
     card = card_line()
+    CARD.append(card)
     print("device: %s (torch %s, CUDA %s)" % (name, torch.__version__, torch.version.cuda))
     print(card)
 
@@ -2695,6 +3205,11 @@ def main():
     prec, phase_launches = phase_phases(dev, card)
     rec.update(prec)
     path_launches.update(phase_launches)
+
+    # phase 19: BASELINE configs 1, 4 and 5 on the signal objects
+    brec, base_launches = baseline_phases(dev, card, lat)
+    rec.update(brec)
+    path_launches.update(base_launches)
     print("launches per path: %s" % path_launches)
     # one record per kernel and path that launched it: that path's count and
     # the error and times measured at that path's shapes

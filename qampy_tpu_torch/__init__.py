@@ -1,7 +1,7 @@
 """qampy_tpu_torch — the PyTorch/CUDA port of ``qampy_tpu`` for one NVIDIA H100.
 
 The port grows slice by slice beside the JAX package, which stays the
-reference it is held against. Five slices run:
+reference it is held against. It runs:
 
 - the blind dual-pol 64-QAM receiver in ``decimated[K]`` mode
   (``ops.chain.make_rx_chain``), carried by four hand-written CUDA kernels
@@ -26,7 +26,17 @@ reference it is held against. Five slices run:
   ``helpers``, ``prbs``, and the rest of carrier recovery on them
   (``phaserec``: the blind phase search and its two-stage form on the
   search, fine-stage and rotation kernels, Viterbi-Viterbi, the 16-QAM
-  partition, FOE and the pilot CPE).
+  partition, FOE and the pilot CPE);
+- the transmitter side and the signal-object adapters: filters (FFT,
+  root-raised cosine, the Bessel and Butterworth IIR filters in one
+  doubling form of their recurrence) and resampling (``core.filter``,
+  ``core.resample``, ``Signal.resample``, ``ResampledQAM``), the
+  transmitter's models and pre-compensation (``core.impairments``,
+  ``core.digital_pre_compensation``), ``core.analog_frontend``,
+  ``core.pilotbased_transmitter``, saving and loading (``core.io``), and on
+  signal objects ``equalisation`` (a pilot signal's frames filtered by the
+  filter's frame entry), ``impairments``, ``filtering``,
+  ``analog_frontend`` and ``io``.
 
 Entry points run on the card unless the caller names another device
 (``device="cpu"``); on a machine without a card they raise.
@@ -41,8 +51,13 @@ from qampy_tpu_torch.ops.pilot_chain import PilotRxChain, make_pilot_rx_chain
 from qampy_tpu_torch.signals import (PRBSBits, QPSKfromBERT, RandomBits, ResampledQAM, Signal,
                                      SignalBase, SignalPSKGrayCoded, SignalQAMGrayCoded,
                                      SignalWithPilots, SymbolOnlySignal, TDHQAMSymbols)
+from qampy_tpu_torch import core, helpers, prbs, theory, utils  # noqa: E402
+from qampy_tpu_torch import (analog_frontend, equalisation, filtering,  # noqa: E402
+                             impairments, io, phaserec)
 
 __all__ = ["RxChain", "make_rx_chain", "PilotRxChain", "make_pilot_rx_chain",
            "equalise_signal", "dual_mode_equalisation", "Signal", "SignalBase",
            "SignalQAMGrayCoded", "SignalPSKGrayCoded", "QPSKfromBERT", "SymbolOnlySignal",
-           "TDHQAMSymbols", "SignalWithPilots", "ResampledQAM", "RandomBits", "PRBSBits"]
+           "TDHQAMSymbols", "SignalWithPilots", "ResampledQAM", "RandomBits", "PRBSBits",
+           "core", "helpers", "prbs", "theory", "utils", "equalisation", "phaserec",
+           "impairments", "filtering", "analog_frontend", "io"]

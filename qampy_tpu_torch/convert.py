@@ -124,7 +124,9 @@ def signal_from_jax(fields, device):
     ``bits``; for ``SymbolOnlySignal`` ``coded_symbols``; for
     ``SignalWithPilots`` ``frame_len``, ``pilot_seq_len``,
     ``pilot_ins_rat``, ``pilot_scale``, and ``payload`` and ``pilots``, each
-    a dict of these keys of its own. The Gray encoding and the bit map are
+    a dict of these keys of its own, and for a signal that ``sync2frame``
+    synced its state: ``shiftfctrs``, ``synctaps`` and the coarse FOE
+    ``foe`` (absent or None for an unsynced one). The Gray encoding and the bit map are
     rebuilt from the coded alphabet, as the reference builds them. Returns
     the signal on ``device``.
     """
@@ -140,6 +142,10 @@ def signal_from_jax(fields, device):
                                               fields["pilot_ins_rat"])
         obj._set_frame(fields["frame_len"], fields["pilot_seq_len"], fields["pilot_ins_rat"],
                        payload, pilots, idx_dat, fields["pilot_scale"])
+        if fields.get("shiftfctrs") is not None:
+            obj._shiftfctrs = np.asarray(fields["shiftfctrs"]).astype(np.int64)
+            obj._synctaps = int(fields["synctaps"])
+            obj._foe = np.asarray(fields["foe"])
         return obj
     coded = fields.get("coded_symbols")
     sig_mod.Signal.__init__(obj, np.asarray(fields["samples"]), np.asarray(fields["symbols"]),

@@ -202,14 +202,15 @@ def shift_signal(sig, shift_factors, device=None):
 def equalize_pilot_sequence(rx_signal, ref_symbs, shift_fctrs, os, foe_comp=False,
                             mu=(1e-4, 1e-4), M_pilot=4, Ntaps=45, Niter=30,
                             adaptive_stepsize=True, methods=("cma", "cma"), wxinit=None,
-                            backend="auto", device=None):
+                            backend="auto", block_size=None, device=None):
     """Two-stage data-aided equalisation over the pilot sequence (reference :164-228).
 
     ``rx_signal``: the complex (nmodes, L) signal, taken to ``device``
     (None: the card); the trainings run there through :func:`equaliser.equalise_signal` with ``backend`` (on
     the card "auto" takes kernel B1 where it takes the method and the
     launch, else the plain block trainer; on the CPU the exact per-symbol
-    trainer, as in the reference). A warm-up of ``methods[0]`` on each
+    trainer, as in the reference) and ``block_size`` (None: the trainer's
+    default). A warm-up of ``methods[0]`` on each
     mode's segment (one training per mode where the shifts differ), with
     ``foe_comp`` the pilot FOE of its output (:func:`pilot_based_foe`) and
     the segments derotated by it, then ``methods[0]`` and ``methods[1]``
@@ -223,7 +224,8 @@ def equalize_pilot_sequence(rx_signal, ref_symbs, shift_fctrs, os, foe_comp=Fals
     if (methods[0] in eqops.REAL_VALUED) != (methods[1] in eqops.REAL_VALUED):
         raise ValueError("Using a complex and real-valued equalisation method is not supported")
     shift_fctrs = np.asarray(shift_fctrs)
-    kw = dict(adaptive_stepsize=adaptive_stepsize, backend=backend, device=E.device)
+    kw = dict(adaptive_stepsize=adaptive_stepsize, backend=backend, block_size=block_size,
+              device=E.device)
     seg_len = seq_len * os + Ntaps - 1
     per_mode = np.unique(shift_fctrs).shape[0] > 1
 

@@ -14,9 +14,9 @@ reference's bits, and the symbols are mapped from them on the device. The
 metrics read their result once a call; the phase drivers take the
 alphabet's host copy and so read nothing back.
 
-Not yet ported (ROADMAP A9b, with ``core/filter``, ``core/resample`` and
-``core/io``): ``ResampledQAM``, ``Signal.resample`` and ``save_to_file``,
-which raise ``NotImplementedError``.
+``Signal.resample`` shapes and resamples on the signal's device
+(``core.resample.rrcos_resample``); ``save_to_file`` writes the host form
+(``core.io.save_signal``).
 
 Also here: the pilot frame layout (:func:`cal_pilot_idx`) and the Gray
 mapping (:func:`generate_mapping`) that the pilot chain and the workload use.
@@ -40,7 +40,6 @@ from qampy_tpu_torch.theory import (cal_scaling_factor_qam, cal_symbols_psk, cal
 from qampy_tpu_torch.utils import as_tensor, resolve_device
 
 DEFAULT_DTYPE = np.complex64
-_A9B = "not ported yet: ROADMAP A9b brings core/resample, core/filter and core/io"
 
 
 def cal_pilot_idx(frame_len, pilot_seq_len, pilot_ins_rat):
@@ -323,14 +322,25 @@ class Signal:
         """The coded alphabet on the host, which the phase drivers classify without a read-back."""
         return self._coded_host
 
-    # -- not ported yet ------------------------------------------------------
+    # -- resampling and saving ----------------------------------------------
     def resample(self, fnew, **kwargs):
-        """RRC-filtered rational resampling (signals.py:307-314): not ported yet."""
-        raise NotImplementedError("Signal.resample is " + _A9B)
+        """RRC-filtered rational resampling to the rate ``fnew`` (signals.py:307-314).
+
+        ``kwargs`` go to ``core.resample.rrcos_resample`` (``beta``,
+        ``taps``, ``renormalise``; ``Ts`` defaults to 1/fb). A rate within
+        ``np.isclose`` of the present one returns a copy.
+        """
+        from qampy_tpu_torch.core import resample as _resample
+        if np.isclose(fnew / self._fs, 1):
+            return self.replace()
+        Ts = kwargs.pop("Ts", 1 / self._fb)
+        new = _resample.rrcos_resample(self.samples, self._fs, fnew, Ts=Ts, **kwargs)
+        return self.replace(samples=new.to(self.dtype), _fs=fnew)
 
     def save_to_file(self, fn, lvl=5):
-        """Save to a file (signals.py:444-445): not ported yet."""
-        raise NotImplementedError("Signal.save_to_file is " + _A9B)
+        """Save the signal's host form as a zlib-compressed pickle (``core.io.save_signal``)."""
+        from qampy_tpu_torch.core.io import save_signal
+        save_signal(fn, self, lvl)
 
     # -- sync helpers ------------------------------------------------------
     def _signal_present(self, signal):
@@ -435,6 +445,17 @@ class Signal:
         s = self.samples - torch.mean(self.samples, dim=-1, keepdim=True)
         p = self.est_snr(synced=synced, verbose=True)[1]
         return self.replace(samples=s / torch.sqrt(p)[:, None].to(s.dtype))
+
+
+def samples_of(sig):
+    """The samples of a signal object, or the argument as a tensor (the adapters' input)."""
+    return sig.samples if isinstance(sig, Signal) else torch.as_tensor(sig)
+
+
+def rewrap(sig, arr):
+    """``arr`` as a copy of the signal ``sig`` in its dtype, or ``arr`` itself where ``sig``
+    is no signal object (the adapters' output)."""
+    return sig.replace(samples=arr.to(sig.dtype)) if isinstance(sig, Signal) else arr
 
 
 # ---------------------------------------------------------------------------
@@ -691,10 +712,22 @@ class SymbolOnlySignal(Signal):
 
 
 class ResampledQAM(SignalQAMGrayCoded):
-    """QAM generated at another sampling rate (signals.py:749-766): not ported yet."""
+    """Gray-coded QAM made at the symbol rate and resampled to ``fs`` (signals.py:749-766)."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError("ResampledQAM is " + _A9B)
+    def __init__(self, M, N, fb=1, fs=1, resamplekwargs={"beta": 0.1}, **kwargs):
+        super().__init__(M, N, fb=fb, **kwargs)
+        if not np.isclose(fs / fb, 1):
+            from qampy_tpu_torch.core import resample as _resample
+            new = _resample.rrcos_resample(self.samples, fb, fs, Ts=1 / fb, **resamplekwargs)
+            self.samples = new.to(self._symbols.dtype)
+        self._fs = fs
+
+    @classmethod
+    def from_symbol_array(cls, array, fs, **kwargs):
+        """A signal object resampled to ``fs`` (``array.resample``); anything else raises."""
+        if not isinstance(array, Signal):
+            raise ValueError("from_symbol_array requires a Signal object")
+        return array.resample(fs, **kwargs)
 
 
 # ---------------------------------------------------------------------------

@@ -1232,3 +1232,99 @@ def test_signal_metrics_card_against_cpu(dev):
     np.testing.assert_allclose(sig.est_snr().cpu().numpy(), cpu.est_snr().numpy(), rtol=1e-5)
     np.testing.assert_allclose(sig.cal_gmi()[0], cpu.cal_gmi()[0], rtol=1e-4)
     assert torch.equal(sig.demodulate(sig.symbols).cpu(), cpu.demodulate(cpu.symbols))
+
+
+# ---------------------------------------------------------------------------
+# the TX side and the signal-object adapters (A9b)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("N, order, analog", [(5000, 2, False), (2 ** 20, 2, False),
+                                              (9000, 4, True), (9000, 6, True)])
+def test_iir_doubling_form_on_the_card(dev, N, order, analog):
+    """The IIR recurrence's doubling passes on the card against the CPU within float32's
+    rounding (rtol 1e-5 of the output's peak), and two calls on the card bit-equal."""
+    from qampy_tpu_torch.core import filter as tfilter
+    rng = np.random.default_rng(N + order)
+    x = torch.as_tensor((rng.standard_normal((2, N)) + 1j * rng.standard_normal((2, N)))
+                        .astype(np.complex64))
+    # the analog prototypes at the reference tests' normalised rates (a transfer function at
+    # 2 pi 16 GHz has coefficients past float32's range, in both packages)
+    rates = (4.0, 0.3) if analog else (80e9, 16e9)
+    kw = dict(ftype="bessel", order=order, analog=analog)
+    want = tfilter.filter_signal(x, *rates, **kw)
+    got = tfilter.filter_signal(x.to(dev), *rates, **kw)
+    again = tfilter.filter_signal(x.to(dev), *rates, **kw)
+    assert torch.equal(got, again)
+    assert float((got.cpu() - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+def _synced_pilot_signal(dev, shifts):
+    from qampy_tpu_torch import signals as tsig
+    sig = tsig.SignalWithPilots(64, 2 ** 12, 256, 32, nframes=6, nmodes=2, fb=24e9, seed=3,
+                                device=dev)
+    sig = sig.resample(2 * sig.fb, beta=0.1)
+    sig.shiftfctrs = np.asarray(shifts)
+    sig.synctaps = 17
+    return sig
+
+
+@pytest.mark.parametrize("shifts, frames", [((40, 40), (0, 1, 2)), ((40, 57), (1, 2)),
+                                            ((40, 57), (0, 2, 3)), ((40, 40), (1, 3))])
+def test_apply_to_pilotsignal_is_one_frames_launch(dev, shifts, frames):
+    """``_apply_to_pilotsignal``: B2's frame entry once for the two output modes, against the
+    reference-shaped loop of ``apply_filter`` calls (one a mode where the shifts differ,
+    one a frame where the frames are not contiguous) within 1e-5 of the rms."""
+    from qampy_tpu_torch import equalisation as teqz
+    sig = _synced_pilot_signal(dev, shifts)
+    rng = np.random.default_rng(1)
+    w = torch.as_tensor((rng.standard_normal((2, 2, 21)) + 1j * rng.standard_normal((2, 2, 21)))
+                        .astype(np.complex64) / 8, device=dev)
+    apply_filter_frames_cuda.launches = 0
+    got = teqz.apply_filter(sig, w, frames=frames)
+    assert apply_filter_frames_cuda.launches == 1
+    sh = np.asarray(shifts) - (21 - 17) // 2
+    step = sig.os * sig.frame_len
+    rows = []
+    for i in range(2):
+        seg = [teq.apply_filter(sig.samples[:, sh[i] + f * step: sh[i] + (f + 1) * step + 20],
+                                2, w, modes=[i]) for f in frames]
+        rows.append(torch.cat(seg, dim=-1)[0])
+    want = torch.stack(rows)
+    assert got.shape == want.shape == (2, len(frames) * sig.frame_len)
+    rms = float(want.abs().pow(2).mean().sqrt())
+    assert float((got.samples - want).abs().max()) <= 1e-5 * rms
+
+
+def test_cal_lut_avg_is_bit_equal_across_calls(dev):
+    """The pattern table's segment sums run in a fixed order on the card: two calls bit-equal
+    (``index_add_`` of float32 would not be), and within 1e-6 of the CPU's."""
+    from qampy_tpu_torch.core import digital_pre_compensation as tdpc
+    rng = np.random.default_rng(2)
+    err = torch.as_tensor((rng.standard_normal(2 ** 18) + 1j * rng.standard_normal(2 ** 18))
+                          .astype(np.complex64))
+    iI = torch.as_tensor(rng.integers(0, 512, 2 ** 18))
+    iQ = torch.as_tensor(rng.integers(0, 512, 2 ** 18))
+    a = tdpc.cal_lut_avg(err.to(dev), iI.to(dev), iQ.to(dev), 512)
+    b = tdpc.cal_lut_avg(err.to(dev), iI.to(dev), iQ.to(dev), 512)
+    assert torch.equal(a, b)
+    assert float((a.cpu() - tdpc.cal_lut_avg(err, iI, iQ, 512)).abs().max()) <= 1e-6
+
+
+def test_save_and_load_a_signal_from_the_card(dev, tmp_path):
+    """The file holds no tensor (numpy only), loads on the CPU and back on the card with every
+    tensor equal."""
+    import pickle
+    import zlib
+    from qampy_tpu_torch import io as tio
+    from qampy_tpu_torch import signals as tsig
+    sig = _synced_pilot_signal(dev, (40, 57))
+    fn = tmp_path / "sig.qz"
+    sig.save_to_file(fn)
+    raw = pickle.loads(zlib.decompress(fn.read_bytes()))
+    assert not any(torch.is_tensor(v) for v in raw.__dict__.values())
+    cpu = tio.load_signal(fn, device="cpu")
+    card = tio.load_signal(fn)
+    assert isinstance(card, tsig.SignalWithPilots) and card.device.type == "cuda"
+    assert cpu.device.type == "cpu"
+    assert torch.equal(card.samples, sig.samples) and torch.equal(cpu.samples, sig.samples.cpu())
+    assert torch.equal(card.pilots, sig.pilots) and np.array_equal(card.shiftfctrs, sig.shiftfctrs)

@@ -298,15 +298,22 @@ def test_symbol_only_and_hybrid_metrics():
     assert np.array_equal(_np(hy.samples), _np(th.samples))
 
 
-def test_deferred_methods_raise():
-    """The parts that wait for core/resample, core/filter and core/io say so."""
+def test_deferred_methods_raise(tmp_path):
+    """The parts that waited for core/resample, core/filter and core/io (ROADMAP A9b) run now,
+    as the JAX package's do: ``resample`` and ``ResampledQAM`` within 1e-5 of the rms (float32
+    FFTs of other libraries), ``save_to_file`` read back equal."""
+    from qampy_tpu_torch.io import load_signal
     s = tsig.SignalQAMGrayCoded(4, 100, seed=1, device=CPU)
-    with pytest.raises(NotImplementedError, match="A9b"):
-        s.resample(2)
-    with pytest.raises(NotImplementedError, match="A9b"):
-        s.save_to_file("x")
-    with pytest.raises(NotImplementedError, match="A9b"):
-        tsig.ResampledQAM(16, 100, fs=2, seed=0, device=CPU)
+    r = rsig.SignalQAMGrayCoded(4, 100, seed=1)
+    for t, j in ((s.resample(2, beta=0.1), r.resample(2, beta=0.1)),
+                 (tsig.ResampledQAM(16, 100, fs=2, seed=0, device=CPU),
+                  rsig.ResampledQAM(16, 100, fs=2, seed=0))):
+        want = np.asarray(j.samples)
+        assert t.fs == j.fs == 2 and t.shape == want.shape
+        assert np.abs(_np(t.samples) - want).max() <= 1e-5 * np.sqrt(np.mean(np.abs(want) ** 2))
+    s.save_to_file(tmp_path / "x")
+    back = load_signal(tmp_path / "x", device=CPU)
+    assert torch.equal(back.samples, s.samples) and np.array_equal(back.bits, s.bits)
 
 
 def test_card_is_the_default_device(monkeypatch):
