@@ -183,10 +183,15 @@ launched it, with the kind of constellation it decided on (``grid``), that
 path's launch count and the error, times and bound at that path's shapes;
 the last line is the device record ``{"ok": true, "device": {...}}``.
 """
+import gc
 import json
+import os
 import re
+import shutil
+import socket
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -202,6 +207,7 @@ from qampy_tpu_torch.ops import phase as phops
 from qampy_tpu_torch.ops.chain import (TWOSTAGE_B, TWOSTAGE_N1, cma_singularity_guard,
                                        decimated_derotation_inputs, make_rx_chain)
 from qampy_tpu_torch.ops import equaliser_cuda as eqcuda
+from qampy_tpu_torch.ops import phase_cuda as phcuda
 from qampy_tpu_torch.ops import pilots
 from qampy_tpu_torch.ops.equaliser_cuda import (apply_filter_cuda, apply_filter_frames,
                                                 apply_filter_frames_cuda,
@@ -223,6 +229,7 @@ from qampy_tpu_torch import impairments as port_imp
 from qampy_tpu_torch.core import impairments as core_impairments
 from qampy_tpu_torch.core.filter import prefix_powers
 from qampy_tpu_torch.ops.pilot_chain import derotate_planes, make_pilot_rx_chain
+from qampy_tpu_torch.parallel import init_distributed, make_mesh, sharded
 from qampy_tpu_torch.signals import SignalQAMGrayCoded, SignalWithPilots, cal_pilot_idx
 from qampy_tpu_torch.theory import cal_scaling_factor_qam, cal_symbols_qam
 from qampy_tpu_torch.workload import (GATE_TRIM, apsk_const, ber_gate, decide, make_pilot_tx,
@@ -393,7 +400,38 @@ PATHS = ("blind", "blind twostage", "blind single", "pilot", "pilot return_phase
              p for p, _, _ in GRID_PATHS) + ("phase bps", "phase twostage", "phase vv",
                                              "phase partition", "phase metrics", "baseline cma",
                                              "baseline pilot", "baseline pilot nframes",
-                                             "baseline tx")
+                                             "baseline tx", "sharded blind nccl1",
+                                             "sharded blind gloo4", "sharded blind gloo4 single",
+                                             "sharded pilot gloo4",
+                                             "sharded pilot gloo4 shard_prefix")
+# phase 20, the multi-device receivers: "sharded blind nccl1" is the blind decimated16 cell's
+# chain over one NCCL rank (rounds=1: one round of each training, as the single-card chain);
+# the gloo paths run four ranks on the one card, 2^18 symbols a shard, rounds=2, and the
+# single mode at bps_N=14 (the bench's attempt 4), under the tighter gate SER <= 1e-4 per mode
+# (the reference's own multi-process leg gates at 1e-3); the sweep: the same chain at shorter
+# shards, trained over at most the shard; the pilot path: 60 frames a rank of the pilot cell
+SHARD_CFG = dict(os=2, mu1=1.9e-3, mu2=1.9e-3, M=64, Ntaps=17, methods=("mcma", "mddma"),
+                 TrSyms_loc=2 ** 14, Niter=1, rounds=1, bps_angles=64, bps_N=12, block_size=256,
+                 bps_mode="decimated16")
+SHARD_GLOO = dict(SHARD_CFG, rounds=2)
+SHARD_SINGLE = dict(SHARD_GLOO, bps_mode="single", bps_N=14)
+SHARD_RANKS, SHARD_SER_GLOO, SHARD_PILOT_K = 4, 1e-4, 60
+# the reference's multi-process leg's gate (__graft_entry__.py:199). Both gates are printed for
+# the data-parallel chains as they hold or fail, their SER recorded: on make_tx(2^20) the
+# reference's own sharded chain reads SER 0.90 on mode 1 at these settings (the mddma stage
+# of ranks 1 and 3 locks onto a lattice of gain ~0.8, and the average inherits it), as the
+# port does on the CPU and the card. The tracking entries, with the single-card chain's taps,
+# are held to 1e-4: they run every exchange of the shards
+SHARD_SER_REF = 1e-3
+SHARD_SWEEP = (2 ** 11, 2 ** 13, 2 ** 15)     # symbols a rank, beside the gloo path's 2^18
+SHARD_EDGE = 512         # symbols off each shard boundary that the sweep's interior SER leaves
+SHARD_CALLS = 5          # calls timed by the host clock, between two barriers
+SHARD_TIMEOUT = 900      # seconds the four ranks may take in all
+NCCL1_AGREE = 0.9999     # decisions shared with RxChain off the edges (near-ties of B3 only)
+TOL_NCCL1_TAPS = 1e-6    # taps against RxChain's where its CMA guard does not fire
+PILOT_TAPS_REL = 1e-3    # the sharded prefix's LS taps against the replicated prefix's, relative
+                         # to the largest tap: one system a rank against a batch of two
+REPO = os.path.dirname(os.path.abspath(__file__))
 # kernel: (wrapper name, CUDA source, the TPU kernel it replaces)
 KERNELS = {
     "B1": ("train_block", "qampy_tpu_torch/csrc/equaliser.cu",
@@ -922,18 +960,7 @@ def b4_record(eqp, idxd, chain, what):
     no = eqp.shape[0] // 2
     er_p, ei_p, a, b = decimated_derotation_inputs(eqp[:no], eqp[no:], idxd, chain.lo_a,
                                                    chain.step_a, chain.dec)
-    rargs = (er_p, ei_p, a, b, chain.dec, 1)
-    r_p, i_p = interp_rotate_plain(*rargs)
-    r_k, i_k = interp_rotate_cuda(*rargs)
-    d_rot = max(float((r_k - r_p).abs().max()), float((i_k - i_p).abs().max()))
-    print("B4 interp_rotate (%s): %s max|d| %.3e (tol %.0e), |phase| up to %.2f rad"
-          % (what, tuple(r_k.shape), d_rot, TOL_ROTATE, float(a.abs().max())))
-    require(d_rot <= TOL_ROTATE, "B4 disagrees with its plain version (%s)" % what)
-    return dict(**bound(nbytes(er_p, ei_p, a, b, r_k, i_k),
-                        (OPS_INTERP + OPS_ROTATE) * er_p.numel()),
-                err=d_rot, ms=device_ms(lambda: interp_rotate_cuda(*rargs), 50),
-                plain_ms=device_ms(lambda: interp_rotate_plain(*rargs), 10),
-                shape="2 x %d samples, stride %d" % (eqp.shape[-1], chain.dec))
+    return args_b4_record((er_p, ei_p, a, b, chain.dec, 1), what)
 
 
 def check_sample_kernels(P, w, card):
@@ -1409,20 +1436,8 @@ def b5_record(chain, st, card, what):
 
 def b4_pilot_record(chain, st, what):
     """B4 (sign -1) against its plain version with the coefficients B5 builds on the path."""
-    symr, symi = st["symr"], st["symi"]
     a, b = cpe_coeffs_cuda(*st["cargs"])
-    rargs = (symr, symi, a, b, chain.cpe_dx, -1)
-    r_p, i_p = interp_rotate_plain(*rargs)
-    r_k, i_k = interp_rotate_cuda(*rargs)
-    d_r = max(float((r_k - r_p).abs().max()), float((i_k - i_p).abs().max()))
-    print("B4 interp_rotate (%s, pilot CPE): %s max|d| %.3e (tol %.0e)"
-          % (what, tuple(r_k.shape), d_r, TOL_ROTATE))
-    require(d_r <= TOL_ROTATE, "B4 disagrees with its plain version on the %s path" % what)
-    return dict(**bound(nbytes(symr, symi, a, b, r_k, i_k),
-                        (OPS_INTERP + OPS_ROTATE) * symr.numel()),
-                err=d_r, ms=device_ms(lambda: interp_rotate_cuda(*rargs), 50),
-                plain_ms=device_ms(lambda: interp_rotate_plain(*rargs), 10),
-                shape="%d rows" % st["rows"])
+    return args_b4_record((st["symr"], st["symi"], a, b, chain.cpe_dx, -1), what + ", pilot CPE")
 
 
 def synth_cpe_rows(dev, rows, npil, seed, R=PILOT_RAT, seq_len=PILOT_SEQ):
@@ -2645,7 +2660,7 @@ def phase_phases(dev, card):
 # ---------------------------------------------------------------------------
 
 class recording:
-    """Keep the arguments of every call of the named ``equaliser_cuda`` launchers.
+    """Keep the arguments of every call of the named launchers (``equaliser_cuda``, ``phase_cuda``).
 
     Each launcher is replaced by a recorder that appends (args, kwargs) to
     ``calls[name]`` and calls it: the launches are counted as before, on the
@@ -2674,15 +2689,19 @@ class recording:
         def launches(self, value):
             self.fn.launches = value
 
+    @staticmethod
+    def _module(name):
+        return eqcuda if hasattr(eqcuda, name) else phcuda
+
     def __enter__(self):
         for n in self.names:
-            self.saved[n] = getattr(eqcuda, n)
-            setattr(eqcuda, n, self._Recorder(self.saved[n], self.calls[n]))
+            self.saved[n] = getattr(self._module(n), n)
+            setattr(self._module(n), n, self._Recorder(self.saved[n], self.calls[n]))
         return self.calls
 
     def __exit__(self, *exc):
         for n, fn in self.saved.items():
-            setattr(eqcuda, n, fn)
+            setattr(self._module(n), n, fn)
 
 
 def counted_syncs(fn):
@@ -3074,6 +3093,432 @@ def baseline_phases(dev, card, lat):
     return rec, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the multi-device receivers (parallel/) on torch.distributed
+# ---------------------------------------------------------------------------
+
+def free_port():
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        return sk.getsockname()[1]
+
+
+def args_b4_record(args, what):
+    """B4 against its plain version on the arguments (er, ei, a, b, dx, sign) of a call."""
+    r_p, i_p = interp_rotate_plain(*args)
+    r_k, i_k = interp_rotate_cuda(*args)
+    d_r = max(float((r_k - r_p).abs().max()), float((i_k - i_p).abs().max()))
+    er, ei, a, b, dx, _ = args
+    print("B4 interp_rotate (%s): %s, stride %d, max|d| %.3e (tol %.0e), |phase| up to %.2f rad"
+          % (what, tuple(r_k.shape), dx, d_r, TOL_ROTATE, float(a.abs().max())))
+    require(d_r <= TOL_ROTATE, "B4 disagrees with its plain version (%s)" % what)
+    return dict(**bound(nbytes(er, ei, a, b, r_k, i_k), (OPS_INTERP + OPS_ROTATE) * er.numel()),
+                err=d_r, ms=device_ms(lambda: interp_rotate_cuda(*args), 50),
+                plain_ms=device_ms(lambda: interp_rotate_plain(*args), 10),
+                shape="%d x %d, stride %d" % (*er.shape, dx))
+
+
+def args_b5_record(args, what):
+    """B5 against its plain version on a recorded call's arguments (the chain's form)."""
+    a_p, b_p = cpe_coeffs_plain(*args)
+    a_k, b_k = cpe_coeffs_cuda(*args)
+    d_a, d_b = float((a_k - a_p).abs().max()), float((b_k - b_p).abs().max())
+    rows, npil = args[0].shape
+    print("B5 cpe_coeffs (%s): %d rows x %d pilots, max|da| %.3e (tol %.0e), max|db| %.3e "
+          "(tol %.0e)" % (what, rows, npil, d_a, TOL_CPE_A, d_b, TOL_CPE_B))
+    require(d_a <= TOL_CPE_A and d_b <= TOL_CPE_B, "B5 disagrees with its plain version (%s)"
+            % what)
+    rest = nbytes(args[2], args[3], a_k, b_k)
+    return dict(**bound(2 * 4 * rows * npil + rest, OPS_CPE_PILOT * rows * npil),
+                err=max(d_a, d_b), ms=device_ms(lambda: cpe_coeffs_cuda(*args), 50),
+                plain_ms=device_ms(lambda: cpe_coeffs_plain(*args), 10),
+                shape="%d rows x %d pilots" % (rows, npil))
+
+
+def shard_records(calls, path, lat, timing):
+    """Each kernel a sharded path launched, at its first call on this rank, against its plain
+    version (fatal if it disagrees); timed only where ``timing`` (one rank at a time)."""
+    rec = {}
+    for name, call in ((n, c[0]) for n, c in calls.items() if c):
+        a = call[0]
+        if name == "train_block_cuda":
+            r = base_b1_record(call, path, lat)
+        elif name == "apply_filter_cuda":
+            P, os_, w, dec = (a + (None,))[:4]
+            r, _ = b2_record(P, os_, w, dec, path, "shard %s" % (tuple(P.shape),))
+        elif name == "bps_search_cuda":
+            r, _ = b3_record(*a[:6], a[6] if len(a) > 6 else None, path, (20, 3))
+        elif name == "interp_rotate_cuda":
+            r = args_b4_record(a, path)
+        elif name == "rotate_cuda":
+            r = b6_record(a[0], a[1], a[2], path)
+        elif name == "apply_filter_frames_cuda":
+            r = base_frames_record(call, path)
+        else:
+            r = args_b5_record(a, path)
+        rec[SHARD_LAUNCHERS[name], path] = r
+    if not timing:
+        for r in rec.values():
+            for key in ("ms", "plain_ms", "library_ms", "ms_without_side"):
+                r.pop(key, None)
+    return rec
+
+
+def shard_records_in_turn(mesh, calls, path, lat, timing):
+    """:func:`shard_records` on every rank, the timing rank last and alone on the card."""
+    rec = {} if timing else shard_records(calls, path, lat, False)
+    mesh.barrier()
+    if timing:
+        rec = shard_records(calls, path, lat, True)
+    mesh.barrier()
+    return rec
+
+
+#: the launchers a sharded path's records are taken from, and their kernels
+SHARD_LAUNCHERS = {"train_block_cuda": "B1", "apply_filter_cuda": "B2",
+                   "bps_search_cuda": "B3", "interp_rotate_cuda": "B4", "rotate_cuda": "B6",
+                   "apply_filter_frames_cuda": "B2 frames", "cpe_coeffs_cuda": "B5"}
+
+
+def mode_sers(out, ref, const):
+    """Per-mode SER of a gathered output under the bench's gate (its 200-symbol trim)."""
+    return [ser_gate(out[m:m + 1], ref, const) for m in range(out.shape[0])]
+
+
+def interior_sers(out, ref, const, size):
+    """Per-mode SER of the shards' interiors: ``SHARD_EDGE`` symbols off each shard boundary."""
+    edge, L = SHARD_EDGE, out.shape[-1] // size
+    errs = []
+    for m in range(out.shape[0]):
+        s = [ser_gate(out[m:m + 1, d * L + edge - GATE_TRIM:(d + 1) * L - edge + GATE_TRIM],
+                      ref[:, d * L + edge - GATE_TRIM:(d + 1) * L - edge + GATE_TRIM], const)
+             for d in range(size)]
+        errs.append(float(np.mean(s)))
+    return errs
+
+
+def sharded_blind(path, mesh, cfg, E, ref, const, lat, timing, w_track=None):
+    """One sharded blind chain on this rank: counted, gathered and gated, its collectives
+    counted and timed, its kernels held to their plain versions; with ``w_track``, its tracking
+    entry with those taps gathered and gated too. Returns (launches, records, summary)."""
+    chain = sharded.make_sharded_rx_chain(mesh, **cfg)
+    E_loc = sharded.shard_signal(E, mesh)
+    with recording(*SHARD_LAUNCHERS) as calls:
+        (Eout, ph, evm), launches = counted(lambda: chain(E_loc))
+    rounds = cfg["rounds"]
+    want = {"B1": 2 * rounds, "B2": 1, "B3": 1,
+            "B4" if cfg["bps_mode"].startswith("decimated") else "B6": 1}
+    require(launches == expected(want), "%s launches %s on rank %d" % (path, launches, mesh.rank))
+    out = torch.as_tensor(sharded.fetch_global(Eout, mesh), device=ref.device)
+    require(bool(torch.isfinite(out.real).all() and torch.isfinite(out.imag).all()),
+            "non-finite %s output" % path)
+    sers = mode_sers(out, ref, const)
+    offs = chain.offsets.cpu().tolist()
+    gain = out[:, GATE_TRIM:-GATE_TRIM].abs().pow(2).mean(dim=-1).sqrt().tolist()
+    track = None
+    if w_track is not None:
+        trk = torch.as_tensor(sharded.fetch_global(chain.tracking(E_loc, w_track)[0], mesh),
+                              device=ref.device)
+        track = mode_sers(trk, ref, const)
+    torch.cuda.synchronize()
+    mesh.barrier()
+    h0 = time.perf_counter()
+    for _ in range(SHARD_CALLS):
+        chain(E_loc)
+    torch.cuda.synchronize()
+    mesh.barrier()
+    call_ms = (time.perf_counter() - h0) / SHARD_CALLS * 1e3
+    mesh.reset_stats()
+    mesh.timed = True
+    chain(E_loc)
+    mesh.timed = False
+    stats = dict(mesh.stats)
+    rec = shard_records_in_turn(mesh, calls, path, lat, timing)
+    return launches, rec, dict(path=path, sers=sers, evm=float(evm), offsets=offs, rms=gain,
+                               track=track, call_ms=call_ms, stats=stats,
+                               shard=list(E_loc.shape), out=list(Eout.shape))
+
+
+def sharded_sweep(mesh):
+    """The 4-rank decimated16 chain at shorter shards: SER per mode over the whole capture
+    and over the shards' interiors (to tell training length from the boundaries)."""
+    res = []
+    for n in SHARD_SWEEP:
+        E, syms, const = make_tx(mesh.size * n, seed=1)
+        ref = torch.as_tensor(syms, device=mesh.device)
+        cfg = dict(SHARD_GLOO, TrSyms_loc=min(SHARD_GLOO["TrSyms_loc"], (2 * n - 17) // 2))
+        chain = sharded.make_sharded_rx_chain(mesh, **cfg)
+        out = torch.as_tensor(sharded.fetch_global(chain(sharded.shard_signal(E, mesh))[0],
+                                                   mesh), device=mesh.device)
+        res.append(dict(nsym=n, TrSyms_loc=cfg["TrSyms_loc"], sers=mode_sers(out, ref, const),
+                        interior=interior_sers(out, ref, const, mesh.size)))
+    return res
+
+
+def sharded_pilot(mesh, lat, timing):
+    """"sharded pilot gloo4": frames_per_device=60 over the pilot cell's capture, with the
+    prefix replicated and spread over the ranks. Returns (launches, records, summary)."""
+    tx = make_pilot_tx(PILOT_TX_FRAMES)
+    sums = mesh.all_gather(tx.planes.double().sum(dim=-1))
+    require(bool((sums == sums[0]).all()), "the ranks made different pilot captures")
+    E = torch.complex(tx.planes[:2], tx.planes[2:])
+    k = SHARD_PILOT_K
+    nd = tx.idx_tx.shape[-1]
+    cfg = dict(PILOT_CFG, return_phase=False)
+    single = make_pilot_rx_chain(tx.pilot_seq, tx.ph_pilots, PILOT_FRAME, PILOT_RAT,
+                                 frames=tuple(range(mesh.size * k)), **cfg)
+    (sdr, sdi), sinfo = single.planes(tx.planes[:2], tx.planes[2:])
+    mine = slice(mesh.rank * k * nd, (mesh.rank + 1) * k * nd)
+    launches, rec, summ = {}, {}, {}
+    for sp in (False, True):
+        path = "sharded pilot gloo4" + (" shard_prefix" if sp else "")
+        rx = sharded.make_sharded_pilot_rx(mesh, tx.pilot_seq, tx.ph_pilots, PILOT_FRAME,
+                                           PILOT_RAT, k, shard_prefix=sp, **cfg)
+        with recording(*SHARD_LAUNCHERS) as calls:
+            (data, shift, sc), launches[path] = counted(lambda: rx(E))
+        require(launches[path] == expected({"B2 frames": 1, "B5": 1, "B4": 1}),
+                "%s launches %s on rank %d" % (path, launches[path], mesh.rank))
+        dr, di = data.real.contiguous(), data.imag.contiguous()
+        g = ber_gate(dr, di, tx, sc)
+        nbits = 2 * k * nd * tx.bits.shape[1]
+        errs = mesh.sum(torch.tensor([round(g["ber"] * nbits)], dtype=torch.float64,
+                                     device=mesh.device))
+        ber = float(errs[0]) / (nbits * mesh.size)
+        s = dict(path=path, shift=shift.tolist(), sync_corr=float(sc), ber=ber,
+                 ber_rank=g["ber"])
+        taps, shift_p, mo, sc_p = rx.prefix(E)
+        s["mode_order"] = mo.tolist()
+        if sp:
+            d_taps = float((taps - sinfo["taps"]).abs().max())
+            scale = float(sinfo["taps"].abs().max())
+            s.update(taps_dev=d_taps, taps_scale=scale,
+                     same_state=bool(torch.equal(shift, sinfo["shift"])
+                                     and torch.equal(mo, sinfo["mode_order"])),
+                     agree=shared_decisions(torch.complex(sdr[:, mine], sdi[:, mine]), data,
+                                            tx.coded))
+        else:
+            s["bit_equal"] = bool(torch.equal(dr, sdr[:, mine]) and torch.equal(di, sdi[:, mine]))
+            s["payload_dev"] = max(float((dr - sdr[:, mine]).abs().max()),
+                                   float((di - sdi[:, mine]).abs().max()))
+        summ[path] = s
+        rec.update(shard_records_in_turn(mesh, calls, path, lat, timing))
+    return launches, rec, summ
+
+
+def shard_worker(rank, size, addr, lat_path, out_path):
+    """One rank of phase 20's gloo paths: four processes on the one card, a gloo group with
+    CUDA tensors. Writes its launch counts, records and summaries as JSON to ``out_path``."""
+    with open(lat_path) as f:
+        lat = json.load(f)
+    CARD.append(card_line())
+    init_distributed(addr, size, rank, backend="gloo")
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        mesh = make_mesh()
+        E, syms, const = make_tx(NSYM)
+        ref = torch.as_tensor(syms, device=mesh.device)
+        # the single-card chain's taps (its trainings on the capture's first 2^14 symbols), with
+        # which the ranks' tracking entries demodulate: the shards' exchanges held apart from
+        # the data-parallel trainings
+        P = torch.as_tensor(np.concatenate([E.real, E.imag]).astype(np.float32),
+                            device=mesh.device)
+        w_rx = make_rx_chain(**CFG).train_taps(P)
+        del P
+        launches, rec, summ = {}, {}, {}
+        for path, cfg in (("sharded blind gloo4", SHARD_GLOO),
+                          ("sharded blind gloo4 single", SHARD_SINGLE)):
+            launches[path], r, summ[path] = sharded_blind(path, mesh, cfg, E, ref, const, lat,
+                                                          rank == 0, w_rx)
+            rec.update(r)
+        summ["sweep"] = sharded_sweep(mesh)
+        pl, pr, ps = sharded_pilot(mesh, lat, rank == 0)
+        launches.update(pl)
+        rec.update(pr)
+        summ.update(ps)
+        res = dict(rank=rank, launches=launches, summary=summ,
+                   records=[[k, p, v] for (k, p), v in rec.items()])
+        with open(out_path, "w") as f:
+            json.dump(res, f)
+        mesh.barrier()
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def run_shard_workers(lat, card):
+    """Start the four ranks of phase 20's gloo paths and wait for them; the first that fails
+    stops the others. Returns each rank's JSON."""
+    tmp = tempfile.mkdtemp(prefix="shard_")
+    lat_path = os.path.join(tmp, "lat.json")
+    with open(lat_path, "w") as f:
+        json.dump(lat, f)
+    addr = "localhost:%d" % free_port()
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    outs = [os.path.join(tmp, "rank%d.json" % r) for r in range(SHARD_RANKS)]
+    logs = [open(os.path.join(tmp, "rank%d.log" % r), "w+") for r in range(SHARD_RANKS)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--shard-rank", str(r),
+                               str(SHARD_RANKS), addr, lat_path, outs[r]],
+                              stdout=logs[r], stderr=subprocess.STDOUT, env=env)
+             for r in range(SHARD_RANKS)]
+    t0 = time.perf_counter()
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs):
+                break
+            require(time.perf_counter() - t0 < SHARD_TIMEOUT, "phase 20's ranks timed out")
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        log.seek(0)
+        text = log.read()
+        log.close()
+        if r == 0 or p.returncode:
+            print("---- rank %d of %d (rc %s) ----\n%s" % (r, SHARD_RANKS, p.returncode,
+                                                         text[-20000:]))
+    require(all(p.returncode == 0 for p in procs), "a rank of phase 20 failed")
+    print("phase 20 ranks: %.1f s from spawn to the last exit [%s]"
+          % (time.perf_counter() - t0, card))
+    res = []
+    for o in outs:
+        with open(o) as f:
+            res.append(json.load(f))
+    shutil.rmtree(tmp, ignore_errors=True)
+    return res
+
+
+def sharded_nccl1(E, syms, const, lat, card):
+    """"sharded blind nccl1": one rank in an NCCL group of world size 1, in this process."""
+    init_distributed("localhost:%d" % free_port(), 1, 0)
+    try:
+        mesh = make_mesh()
+        path = "sharded blind nccl1"
+        ref = torch.as_tensor(syms, device=mesh.device)
+        launches, rec, s = sharded_blind(path, mesh, SHARD_CFG, E, ref, const, lat, True)
+        print("%s: SER per mode %s (gate %.0e), EVM %.4f, unwrap offsets %s [%s]"
+              % (path, s["sers"], SER_LIMIT, s["evm"], s["offsets"], card))
+        require(max(s["sers"]) <= SER_LIMIT, "%s SER gate failed" % path)
+        # held against RxChain: the same taps where the CMA guard does not fire, the same
+        # outputs off the circular edges and off near-ties of the search
+        dev = mesh.device
+        P = torch.as_tensor(np.concatenate([E.real, E.imag]).astype(np.float32), device=dev)
+        rx = make_rx_chain(**CFG)
+        (rr, ri), w_rx = rx.planes_with_taps(P)
+        chain = sharded.make_sharded_rx_chain(mesh, **SHARD_CFG)
+        w_sh = chain.train_taps(P)
+        w1 = train_block_cuda(P, CFG["TrSyms"], 1, CFG["os"], CFG["mu"], rx.w0, rx.specs[0],
+                              True, CFG["block_size"])[1]
+        fired = not torch.equal(cma_singularity_guard(w1), w1)
+        (sr, si), _ = chain.demod(P, w_sh)
+        Lout = rr.shape[-1]
+        edge = CFG["bps_N"] * 16 + GATE_TRIM
+        a = torch.complex(rr, ri)[:, edge:Lout - edge]
+        b = torch.complex(sr, si)[:, edge:Lout - edge]
+        agree = shared_decisions(a, b, const)
+        d_out = float((a - b).abs().max())
+        d_taps = float((w_sh - w_rx).abs().max())
+        print("%s against RxChain on the same capture: CMA guard fired %s, taps bit-equal %s, "
+              "max|d| %.3e (tol %.0e: the phase alignment to rank 0 turns by inner/|inner|, 1 "
+              "to rounding); outputs over [%d, %d): decisions shared %.6f (min %.4f), max|d| "
+              "%.3e [%s]" % (path, fired, bool(torch.equal(w_sh, w_rx)), d_taps, TOL_NCCL1_TAPS,
+                             edge, Lout - edge, agree, NCCL1_AGREE, d_out, card))
+        require(fired or d_taps <= TOL_NCCL1_TAPS, "%s trains other taps than RxChain" % path)
+        require(agree >= NCCL1_AGREE, "%s disagrees with RxChain" % path)
+        E_loc = sharded.shard_signal(E, mesh)
+        t_chain = cuda_ms(lambda: chain(E_loc), 10)
+        coll = 1e3 * s["stats"]["seconds"]
+        (er, ei), _ = chain.demod(P, w_sh)
+        for what, fn in (("call", lambda: chain(E_loc)), ("train_taps", lambda: chain.train_taps(P)),
+                         ("demod", lambda: chain.demod(P, w_sh)), ("evm", lambda: chain.evm(er, ei))):
+            busy, nops, _ = device_busy(fn, 3)
+            print("time %s stage %s: device busy %.4f ms in %.1f device ops a call [%s]"
+                  % (path, what, busy, nops, card))
+        print("time %s: %.4f ms a call by CUDA events (host clock %.4f ms), %.1f Msym/s; "
+              "collectives %d calls, %d bytes, %.4f ms between synchronisations, %.1f%% of the "
+              "call [%s]" % (path, t_chain, s["call_ms"], 2 * NSYM / t_chain / 1e3,
+                             s["stats"]["calls"], s["stats"]["bytes"], coll,
+                             100 * coll / t_chain, card))
+        print_times({k: v for k, v in rec.items() if "ms" in v}, card)
+    finally:
+        torch.distributed.destroy_process_group()
+    return {path: launches}, rec
+
+
+def sharded_phase(E, syms, const, lat, card):
+    """Phase 20: "sharded blind nccl1" here, then the gloo paths in four ranks."""
+    path_launches, rec = sharded_nccl1(E, syms, const, lat, card)
+    # the four ranks share the card with this process: hand back what its allocator keeps
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("phase 20: this process holds %.2f GB allocated, %.2f GB reserved on the card before "
+          "the ranks start [%s]" % (torch.cuda.memory_allocated() / 1e9,
+                                    torch.cuda.memory_reserved() / 1e9, card))
+    ranks = run_shard_workers(lat, card)
+    r0 = ranks[0]
+    for r in ranks:
+        require(r["launches"] == r0["launches"], "the ranks launched differently: %s, %s"
+                % (r0["launches"], r["launches"]))
+    path_launches.update(r0["launches"])
+    per_rank = [{(k, p): v for k, p, v in r["records"]} for r in ranks]
+    for key, v in per_rank[0].items():
+        rec[key] = dict(v, err=max(pr[key]["err"] for pr in per_rank))
+    print_times({k: v for k, v in rec.items() if k[1] != "sharded blind nccl1"}, card)
+    print("(the gloo paths' times: four ranks share the one card's SMs; none is a scaling "
+          "figure) [%s]" % card)
+    for path in ("sharded blind gloo4", "sharded blind gloo4 single"):
+        s = r0["summary"][path]
+        print("%s: shard %s -> %s, SER per mode %s (gate %.0e), EVM %.4f, call %.4f ms host "
+              "clock; unwrap offsets per rank %s; collectives per call %d, %d bytes a rank, "
+              "%d through host memory, %.4f ms between synchronisations [%s]"
+              % (path, s["shard"], s["out"], s["sers"], SHARD_SER_GLOO, s["evm"], s["call_ms"],
+                 s["offsets"], s["stats"]["calls"], s["stats"]["bytes"],
+                 s["stats"]["host_bytes"], 1e3 * s["stats"]["seconds"], card))
+        for gate in (SHARD_SER_GLOO, SHARD_SER_REF):
+            print("%s, the data-parallel trainings: the gate SER <= %.0e per mode %s; output rms "
+                  "per mode %s [%s]" % (path, gate, "holds" if max(s["sers"]) <= gate else
+                                        "FAILS (recorded, not loosened)", s["rms"], card))
+        print("%s tracking with the single-card chain's taps (the shards' halos, unwrap and "
+              "slopes): SER per mode %s (gate %.0e) [%s]" % (path, s["track"], SHARD_SER_GLOO, card))
+        require(max(s["track"]) <= SHARD_SER_GLOO, "%s tracking SER gate failed: %s"
+                % (path, s["track"]))
+    for s in r0["summary"]["sweep"]:
+        print("sharded decimated16 sweep, 4 ranks x %d symbols (TrSyms_loc %d): SER per mode %s, "
+              "shard interiors (%d symbols off each boundary) %s [%s]"
+              % (s["nsym"], s["TrSyms_loc"], s["sers"], SHARD_EDGE, s["interior"], card))
+    for path in ("sharded pilot gloo4", "sharded pilot gloo4 shard_prefix"):
+        s = r0["summary"][path]
+        print("%s: shift %s, mode order %s, sync_corr %.3f, BER %.3e (gate %.0e with sync_corr "
+              ">= %d) [%s]" % (path, s["shift"], s["mode_order"], s["sync_corr"], s["ber"],
+                               1e-5, 120, card))
+        require(s["ber"] <= 1e-5 and s["sync_corr"] >= 120, "%s BER gate failed" % path)
+        for r in ranks:
+            sr = r["summary"][path]
+            require(sr["shift"] == s["shift"] and sr["mode_order"] == s["mode_order"],
+                    "the ranks acquired different states (%s)" % path)
+            if "bit_equal" in sr:
+                require(sr["bit_equal"], "rank %d's payload differs from its frames of the single "
+                        "dispatch by up to %.3e" % (r["rank"], sr["payload_dev"]))
+            else:
+                print("%s rank %d: state equal to the replicated prefix %s, taps max|d| %.3e "
+                      "(bound %.0e x %.3f), decisions shared %.6f [%s]"
+                      % (path, r["rank"], sr["same_state"], sr["taps_dev"], PILOT_TAPS_REL,
+                         sr["taps_scale"], sr["agree"], card))
+                require(sr["same_state"] and sr["taps_dev"] <= PILOT_TAPS_REL * sr["taps_scale"]
+                        and sr["agree"] >= SMALL_AGREE, "%s differs from the replicated prefix"
+                        % path)
+        if "bit_equal" in s:
+            print("%s: every rank's payload bit-equal to its frames of the single %d-frame "
+                  "dispatch: %s [%s]" % (path, SHARD_RANKS * SHARD_PILOT_K,
+                                         all(r["summary"][path]["bit_equal"] for r in ranks),
+                                         card))
+    return rec, path_launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on a card",
@@ -3210,6 +3655,11 @@ def main():
     brec, base_launches = baseline_phases(dev, card, lat)
     rec.update(brec)
     path_launches.update(base_launches)
+
+    # phase 20: the multi-device receivers
+    srec, shard_launches = sharded_phase(E, syms, const, lat, card)
+    rec.update(srec)
+    path_launches.update(shard_launches)
     print("launches per path: %s" % path_launches)
     # one record per kernel and path that launched it: that path's count and
     # the error and times measured at that path's shapes
@@ -3228,6 +3678,9 @@ def main():
 
 if __name__ == "__main__":
     try:
+        if len(sys.argv) > 1 and sys.argv[1] == "--shard-rank":
+            r_, n_, addr_, lat_, out_ = sys.argv[2:7]
+            sys.exit(shard_worker(int(r_), int(n_), addr_, lat_, out_))
         sys.exit(main())
     except SmokeFailure as e:
         print("chip_smoke FAILED: %s" % e, file=sys.stderr)

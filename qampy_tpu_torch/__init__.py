@@ -36,7 +36,10 @@ reference it is held against. It runs:
   ``core.pilotbased_transmitter``, saving and loading (``core.io``), and on
   signal objects ``equalisation`` (a pilot signal's frames filtered by the
   filter's frame entry), ``impairments``, ``filtering``,
-  ``analog_frontend`` and ``io``.
+  ``analog_frontend`` and ``io``;
+- the multi-device receivers (``parallel``): the blind receiver sharded over
+  the time axis and the frame-parallel pilot receiver, one process a rank on
+  ``torch.distributed`` (NCCL across cards, gloo for several ranks on one).
 
 Entry points run on the card unless the caller names another device
 (``device="cpu"``); on a machine without a card they raise.
@@ -53,11 +56,11 @@ from qampy_tpu_torch.signals import (PRBSBits, QPSKfromBERT, RandomBits, Resampl
                                      SignalWithPilots, SymbolOnlySignal, TDHQAMSymbols)
 from qampy_tpu_torch import core, helpers, prbs, theory, utils  # noqa: E402
 from qampy_tpu_torch import (analog_frontend, equalisation, filtering,  # noqa: E402
-                             impairments, io, phaserec)
+                             impairments, io, parallel, phaserec)
 
 __all__ = ["RxChain", "make_rx_chain", "PilotRxChain", "make_pilot_rx_chain",
            "equalise_signal", "dual_mode_equalisation", "Signal", "SignalBase",
            "SignalQAMGrayCoded", "SignalPSKGrayCoded", "QPSKfromBERT", "SymbolOnlySignal",
            "TDHQAMSymbols", "SignalWithPilots", "ResampledQAM", "RandomBits", "PRBSBits",
            "core", "helpers", "prbs", "theory", "utils", "equalisation", "phaserec",
-           "impairments", "filtering", "analog_frontend", "io"]
+           "impairments", "filtering", "analog_frontend", "io", "parallel"]

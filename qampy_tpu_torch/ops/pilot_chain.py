@@ -40,9 +40,10 @@ fallback.
 The reference's ``pallas`` switch picks between two frame filters that
 compute one function (its Pallas filter contracts in bf16, its XLA filter
 in float32); the port's filter sums in float32 either way, so the port
-takes ``pallas`` and ignores it. The mesh-sharded prefix raises
-``NotImplementedError`` (ROADMAP A10); frame modes other than the batched
-one and frame packing are not to be ported and raise ``ValueError``.
+takes ``pallas`` and ignores it. The cold-start prefix also runs spread
+over the ranks of a mesh (:meth:`PilotRxChain.prefix_sharded`, used by
+``parallel.sharded.make_sharded_pilot_rx``). Frame modes other than the
+batched one and frame packing are not to be ported and raise ``ValueError``.
 """
 from __future__ import annotations
 
@@ -236,23 +237,32 @@ class PilotRxChain(nn.Module):
 
     # -- cold-start prefix ----------------------------------------------------
 
-    def sync_search(self, P):
-        """Frame search (reference :240-262, 341-344): (taps (W, n, n, t), best window (n,)).
+    def sync_windows(self, P, wlo, wcount):
+        """Train candidate windows [wlo, wlo + wcount) of the frame search (reference :248-262).
 
         Window w covers [(2+w)*step, (4+w)*step): two shifted views of one
         contiguous slice, trained as one batch of the plain block trainer.
+        Returns (taps (wcount, n, n, t), error variances (wcount, n)).
         """
-        n, W, step = self.nmodes, self.W, self.step
-        blk = P[:, 2 * step:(W + 3) * step].reshape(2 * n, W + 1, step)
-        win = torch.cat([blk[:, :W], blk[:, 1:]], dim=-1).transpose(0, 1)   # (W, 2n, sw)
+        n, step = self.nmodes, self.step
+        blk = P[:, (2 + wlo) * step:(wlo + wcount + 3) * step].reshape(2 * n, wcount + 1, step)
+        win = torch.cat([blk[:, :wcount], blk[:, 1:]], dim=-1).transpose(0, 1)   # (wc, 2n, sw)
         err, wxs, _ = eqops.train_block_planes(
             win, self.TrS_sync, self.sync_Niter, self.os, self.sync_mu, self.w0_sync,
             self.spec_sync, adaptive=True, block_size=self.block_size)
-        evars = (err - err.mean(dim=-1, keepdim=True)).abs().pow(2).mean(dim=-1)   # (W, n)
+        return wxs, (err - err.mean(dim=-1, keepdim=True)).abs().pow(2).mean(dim=-1)
+
+    def sync_search(self, P):
+        """Frame search (reference :240-262, 341-344): (taps (W, n, n, t), best window (n,)).
+
+        Every one of the W candidate windows trained as one batch
+        (:meth:`sync_windows`); the least error variance wins for each mode.
+        """
+        wxs, evars = self.sync_windows(P, 0, self.W)
         return wxs, torch.argmin(evars, dim=0)
 
-    def _align_heavy(self, P, wxs, iw, l):
-        """Alignment inputs of output mode ``l`` from window ``iw`` (reference :264-288).
+    def _align_heavy(self, P, w_iw, iw, l):
+        """Alignment inputs of output mode ``l`` from window ``iw`` and its taps (reference :264-288).
 
         Returns (acm2 (2, n) correlation peaks, delays2 (2, n), foe_l) for the
         raw and the FOE-derotated hypothesis.
@@ -260,7 +270,7 @@ class PilotRxChain(nn.Module):
         n, sw = self.nmodes, self.sw
         seg0 = (_take(self.starts, iw) - sw).clamp(0, P.shape[-1] - 2 * sw)
         seg = P[:, seg0 + torch.arange(2 * sw, device=P.device)]
-        syp = eqops.apply_filter_planes(seg, self.os, _take(wxs, iw))   # (2n, Ls)
+        syp = eqops.apply_filter_planes(seg, self.os, w_iw)   # (2n, Ls)
         sy = torch.complex(syp[:n], syp[n:])
         s2 = sy * sy
         f4 = torch.fft.fft(s2 * s2, FOE_FFT, dim=-1).abs().pow(2)
@@ -280,11 +290,17 @@ class PilotRxChain(nn.Module):
         Returns (mode_order (n,), shift (n,) in capture samples, wrapped into
         [0, frame_len*os) and ordered by mode_order, sync_corr, foe_coarse).
         """
-        n = self.nmodes
-        rows = [self._align_heavy(P, wxs, best_w[l], l) for l in range(n)]
-        found = torch.zeros(n, dtype=torch.bool, device=P.device)
-        lanes = torch.arange(n, device=P.device)
-        foe_coarse = torch.zeros((), dtype=torch.float32, device=P.device)
+        rows = [self._align_heavy(P, _take(wxs, best_w[l]), best_w[l], l)
+                for l in range(self.nmodes)]
+        return self._assign(rows, best_w)
+
+    def _assign(self, rows, best_w):
+        """The greedy mode assignment (reference :290-314) from each output mode's
+        (acm2, delays2, foe_l): (mode_order, shift, sync_corr, foe_coarse) as :meth:`align`."""
+        n, dev = self.nmodes, best_w.device
+        found = torch.zeros(n, dtype=torch.bool, device=dev)
+        lanes = torch.arange(n, device=dev)
+        foe_coarse = torch.zeros((), dtype=torch.float32, device=dev)
         mode_order, shifts, peaks = [], [], []
         for l, (acm2, delays2, foe_l) in enumerate(rows):
             hyp = torch.argmax(acm2, dim=0)
@@ -321,20 +337,23 @@ class PilotRxChain(nn.Module):
         rows = torch.cat([mode_order, mode_order + n])
         return seg.index_select(0, rows).transpose(0, 1).contiguous()
 
-    def ls_taps(self, segs):
+    def ls_taps(self, segs, mode=None):
         """Closed-form data-aided taps, all output modes at once (reference :201-238).
 
         Output mode i fits w_i = argmin ||X_i w - pilot_seq_i||^2 with
         X_i[k, (p, t)] = segs[i, p, k*os + t], by the Tikhonov-regularised
         (1e-4 of the mean diagonal) normal equations in real block form.
-        Returns (n, n, Ntaps) complex64 taps over the mode-ordered inputs.
+        Returns (n, n, Ntaps) complex64 taps over the mode-ordered inputs;
+        with ``mode``, ``segs`` is that output mode's segment alone and the
+        result its (1, n, Ntaps) row.
         """
         n, Nt, K = self.nmodes, self.Ntaps, self.TrS_eq
-        Pn = n * Nt
+        Pn, nr = n * Nt, segs.shape[0]
+        rows = slice(None) if mode is None else slice(mode, mode + 1)
 
         def windows(x):   # (n_out, n_in, seg) -> (n_out, K, n_in*Ntaps)
             U = x.unfold(-1, Nt, self.os)[:, :, :K]
-            return U.permute(0, 2, 1, 3).reshape(n, K, Pn)
+            return U.permute(0, 2, 1, 3).reshape(nr, K, Pn)
 
         Xr, Xi = windows(segs[:, :n]), windows(segs[:, n:])
         XrT, XiT = Xr.transpose(-1, -2), Xi.transpose(-1, -2)
@@ -343,12 +362,12 @@ class PilotRxChain(nn.Module):
         lam = 1e-4 * S.diagonal(dim1=-2, dim2=-1).sum(-1) / Pn
         S = S + lam[:, None, None] * torch.eye(Pn, device=segs.device)
         A = torch.cat([torch.cat([S, -T], dim=-1), torch.cat([T, S], dim=-1)], dim=-2)
-        dr, di = self.seq_r[:, :K, None], self.seq_i[:, :K, None]
+        dr, di = self.seq_r[rows, :K, None], self.seq_i[rows, :K, None]
         b = torch.cat([XrT @ dr + XiT @ di, XrT @ di - XiT @ dr], dim=-2)
         s = torch.linalg.solve_ex(A, b).result[..., 0]
-        return torch.complex(s[:, :Pn], s[:, Pn:]).reshape(n, n, Nt)
+        return torch.complex(s[:, :Pn], s[:, Pn:]).reshape(nr, n, Nt)
 
-    def train_stage(self, segs, w, k):
+    def train_stage(self, segs, w, k, mode=None):
         """LMS stage ``k`` (0: the blind warm-up) on all output modes: taps (n, 1, n, Ntaps).
 
         One batch row per output mode, its own segment and taps (the
@@ -356,14 +375,16 @@ class PilotRxChain(nn.Module):
         method it computes (its plain version on CPU tensors), the plain
         block trainer for the others (``sbd_data`` reads each mode's own
         pilot sequence). What B1's launch does not take raises
-        ``KernelLimit`` when the chain is built for the card.
+        ``KernelLimit`` when the chain is built for the card. With
+        ``mode``, the one row is that output mode's.
         """
         mu, method = self.stages[k]
         args = (self.TrS_eq, self.Niter, self.os, mu, w)
         spec = self.stage_specs[k]
         if spec is not None:
             return train_block(segs, *args, spec, True, self.block_size)[1]
-        errfn = eqops.planes_errfn(method, getattr(self, "stage_syms%d" % k))
+        rows = slice(None) if mode is None else slice(mode, mode + 1)
+        errfn = eqops.planes_errfn(method, getattr(self, "stage_syms%d" % k)[rows])
         return eqops.train_block_planes(segs, *args, errfn, adaptive=True,
                                         block_size=self.block_size)[1]
 
@@ -380,20 +401,23 @@ class PilotRxChain(nn.Module):
         slope, _ = phase_slopes(y[:, 0, :L], y[:, 1, :L], self.seq_r, self.seq_i)
         return (slope / TWO_PI).mean()
 
-    def lms_taps(self, segs):
+    def lms_taps(self, segs, mode=None):
         """Three-stage LMS pilot equalisation (reference :403-445): (taps (n, n, Ntaps), foe_pil).
 
         Stage 1 trains from centre-tap taps on the pilot alphabet; with
         ``foe_comp`` its taps give the pilot FOE and the segments are
-        derotated by it; stages 2 and 3 train on from the warm taps.
+        derotated by it; stages 2 and 3 train on from the warm taps. With
+        ``mode`` (a chain without ``foe_comp``), ``segs`` is that output
+        mode's segment alone and the taps its (1, n, Ntaps) row.
         """
-        w = self.train_stage(segs, self.w0_eq, 0)
+        rows = slice(None) if mode is None else slice(mode, mode + 1)
+        w = self.train_stage(segs, self.w0_eq[rows], 0, mode)
         foe_pil = torch.zeros((), dtype=torch.float32, device=segs.device)
         if self.foe_comp:
             foe_pil = self.pilot_foe(segs, w)
             segs = derotate_planes(segs, foe_pil, self.os)
-        w = self.train_stage(segs, w, 1)
-        return self.train_stage(segs, w, 2)[:, 0], foe_pil
+        w = self.train_stage(segs, w, 1, mode)
+        return self.train_stage(segs, w, 2, mode)[:, 0], foe_pil
 
     # -- frame body -------------------------------------------------------------
 
@@ -487,15 +511,25 @@ class PilotRxChain(nn.Module):
             info["phase"] = trace.reshape(self.nmodes, -1)
         return info
 
-    def _fwd(self, P):
+    def prefix(self, P):
+        """The cold-start prefix on planes ``P``: frame sync, alignment and pilot training.
+
+        Returns (taps (n, n, Ntaps) over the mode-ordered inputs, shift,
+        mode_order, sync_corr, foe_coarse, foe_pil): the state the tracking
+        entries take.
+        """
         wxs, best_w = self.sync_search(P)
         mode_order, shift, sync_corr, foe_coarse = self.align(P, wxs, best_w)
-        eqsh = self._eq_shift(shift)
-        segs = self.segments(P, eqsh, mode_order)
+        segs = self.segments(P, self._eq_shift(shift), mode_order)
         if self.eq_trainer == "ls":
             taps, foe_pil = self.ls_taps(segs), torch.zeros_like(foe_coarse)
         else:
             taps, foe_pil = self.lms_taps(segs)
+        return taps, shift, mode_order, sync_corr, foe_coarse, foe_pil
+
+    def _fwd(self, P):
+        taps, shift, mode_order, sync_corr, foe_coarse, foe_pil = self.prefix(P)
+        eqsh = self._eq_shift(shift)
         if self.foe_comp:
             P = derotate_planes(P, foe_pil, self.os)
         # the mode order folds into the taps' input axis (reference :1063-1069)
@@ -558,9 +592,60 @@ class PilotRxChain(nn.Module):
         (dr, di), info = self.tracking_planes(E.real, E.imag, wxy, shift, mode_order, foe)
         return torch.complex(dr, di), info
 
-    def prefix_sharded(self, *args, **kwargs):
-        """The mesh-sharded cold-start prefix of the reference (:513-578)."""
-        raise NotImplementedError("the mesh-sharded prefix is ROADMAP item A10")
+    def check_prefix_sharded(self, mesh):
+        """Refuse what :meth:`prefix_sharded` does not take, as the reference asserts it."""
+        if self.foe_comp:
+            raise ValueError("prefix_sharded takes foe_comp=False chains (the pilot FOE's "
+                             "average couples the modes; train replicated for foe_comp=True)")
+        if mesh.size < self.nmodes:
+            raise ValueError("prefix_sharded needs at least as many ranks as modes, got %d < %d"
+                             % (mesh.size, self.nmodes))
+
+    def prefix_sharded(self, P, mesh):
+        """The cold-start prefix spread over the ranks of ``mesh`` (reference :513-578).
+
+        Every rank holds the whole capture planes ``P``.
+
+        - The W sync windows split into contiguous chunks of ceil(W / size)
+          per rank (the last clamped into [0, W): a window trained twice
+          gives the same result); each rank's least error variance per mode
+          and its window, then the tap stack, are gathered, and the first
+          rank with the least variance names the window, as the argmin over
+          all W does.
+        - The alignment's heavy part for output mode ``rank % nmodes`` on
+          each rank, its (acm2, delays2, foe) gathered; the greedy
+          assignment on the gathered rows, equal on every rank.
+        - The pilot training (LS or LMS) of output mode ``rank % nmodes``,
+          the tap rows gathered.
+
+        Returns (taps, shift, mode_order, sync_corr, foe_coarse), equal on
+        every rank: the state ``tracking`` takes.
+        """
+        self.check_prefix_sharded(mesh)
+        n, W = self.nmodes, self.W
+        chunk = -(-W // mesh.size)
+        wlo = min(mesh.rank * chunk, W - chunk)
+        wxs_l, evars_l = self.sync_windows(P, wlo, chunk)
+        # values and window indices in one gather: the indices (< W) are exact in float32
+        loc = torch.stack([evars_l.amin(dim=0),
+                           (wlo + torch.argmin(evars_l, dim=0)).to(torch.float32)])
+        g = mesh.all_gather(loc)                                  # (size, 2, n)
+        dev_best = torch.argmin(g[:, 0], dim=0)                   # (n,)
+        best_w = g[:, 1].gather(0, dev_best[None])[0].to(torch.int64)
+        wxs_all = mesh.all_gather(wxs_l)                          # (size, chunk, n, n, t)
+        off = best_w - torch.clamp(dev_best * chunk, max=W - chunk)
+        l = mesh.rank % n
+        w_l = _take(_take(wxs_all, dev_best[l]), off[l])
+        acm2, delays2, foe_l = self._align_heavy(P, w_l, best_w[l], l)
+        g = mesh.all_gather(torch.cat([acm2.reshape(-1), delays2.reshape(-1).to(torch.float32),
+                                       foe_l.reshape(1)]))       # (size, 4n + 1)
+        rows = [(g[m, :2 * n].reshape(2, n), g[m, 2 * n:4 * n].reshape(2, n).to(torch.int64),
+                 g[m, 4 * n]) for m in range(n)]                  # rank m computed mode m
+        mode_order, shift, sync_corr, foe_coarse = self._assign(rows, best_w)
+        seg = self.segments(P, self._eq_shift(shift), mode_order)[l:l + 1]
+        w_row = self.ls_taps(seg, l) if self.eq_trainer == "ls" else self.lms_taps(seg, l)[0]
+        taps = mesh.all_gather(w_row[0])[:n]
+        return taps, shift, mode_order, sync_corr, foe_coarse
 
 
 def make_pilot_rx_chain(pilot_seq, ph_pilots, frame_len, pilot_ins_rat, os=2, M=64, nmodes=2,

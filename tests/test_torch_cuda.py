@@ -7,6 +7,8 @@ skip. The module imports no JAX, so it runs on a machine that has none:
 
 (``--noconftest`` because ``tests/conftest.py`` configures JAX.)
 """
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -1328,3 +1330,141 @@ def test_save_and_load_a_signal_from_the_card(dev, tmp_path):
     assert cpu.device.type == "cpu"
     assert torch.equal(card.samples, sig.samples) and torch.equal(cpu.samples, sig.samples.cpu())
     assert torch.equal(card.pilots, sig.pilots) and np.array_equal(card.shiftfctrs, sig.shiftfctrs)
+
+
+# ---------------------------------------------------------------------------
+# the multi-device receivers (parallel/)
+# ---------------------------------------------------------------------------
+
+SHARD_CFG = dict(os=2, mu1=1.9e-3, mu2=1.9e-3, M=64, Ntaps=17, methods=("mcma", "mddma"),
+                 TrSyms_loc=2 ** 14, Niter=1, rounds=1, bps_angles=64, bps_N=12,
+                 block_size=256, bps_mode="decimated16")
+TWO_RANKS = 2
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+@pytest.fixture(scope="module")
+def nccl1(dev):
+    """A one-rank NCCL group in this process, and its mesh on the card."""
+    import torch.distributed as dist
+    from qampy_tpu_torch.parallel import init_distributed, make_mesh
+    init_distributed("localhost:%d" % _free_port(), 1, 0)
+    yield make_mesh()
+    dist.destroy_process_group()
+
+
+def test_sharded_chain_on_one_nccl_rank(nccl1, capture):
+    """The sharded decimated16 chain over one NCCL rank: B1/B2/B3/B4 = 2/1/1/1, the taps of
+    the single-card chain (its CMA guard does not fire on this capture; the phase alignment
+    to rank 0 turns by inner/|inner|, 1 to rounding), its decisions off the circular edges."""
+    from qampy_tpu_torch.ops.chain import cma_singularity_guard
+    from qampy_tpu_torch.parallel import sharded
+    E, syms, const, P = capture
+    chain = sharded.make_sharded_rx_chain(nccl1, **SHARD_CFG)
+    rx = make_rx_chain(**CFG, methods=SHARD_CFG["methods"], mu=SHARD_CFG["mu1"])
+    counters = (train_block_cuda, apply_filter_cuda, bps_search_cuda, interp_rotate_cuda)
+    for k in counters:
+        k.launches = 0
+    Eout, ph, evm = chain(sharded.shard_signal(E, nccl1))
+    torch.cuda.synchronize()
+    assert [k.launches for k in counters] == [2, 1, 1, 1]
+    assert Eout.shape == (2, E.shape[-1] // 2) and ph.shape == (2, E.shape[-1] // 32)
+    (rr, ri), w_rx = rx.planes_with_taps(P)
+    w1 = train_block_cuda(P, 2 ** 14, 1, 2, SHARD_CFG["mu1"], rx.w0, rx.specs[0], True, 256)[1]
+    assert torch.equal(cma_singularity_guard(w1), w1)
+    assert float((chain.train_taps(P) - w_rx).abs().max()) <= 1e-6
+    edge = GATE_TRIM
+    a = torch.complex(rr, ri)[:, edge:-edge].cpu()
+    b = Eout[:, edge:rr.shape[-1] - edge].cpu()
+    assert shared_decisions(a, b, const) >= 0.999
+    assert ser_gate(Eout, torch.as_tensor(syms, device=Eout.device), const) <= 1e-4
+
+
+def test_sharded_chain_kernel_limit_named(nccl1):
+    """A block B1 does not take raises KernelLimit when the chain is built for the card."""
+    from qampy_tpu_torch.ops._build import KernelLimit
+    from qampy_tpu_torch.parallel import sharded
+    with pytest.raises(KernelLimit, match="multiple of 32"):
+        sharded.make_sharded_rx_chain(nccl1, **dict(SHARD_CFG, block_size=48))
+
+
+def _two_ranks_main(rank, addr, out):
+    """A rank of test_two_gloo_ranks_on_one_card: the exchanges, the filter, the unwrap and
+    the derotations on CUDA tensors and on CPU tensors over the same gloo group."""
+    import torch.distributed as dist
+    from qampy_tpu_torch.parallel import init_distributed, make_mesh, sharded
+    init_distributed(addr, TWO_RANKS, rank, backend="gloo")
+    card, cpu = make_mesh(), make_mesh(device="cpu")
+    E, _, _ = make_tx(2 ** 13, seed=5)
+    w = torch.as_tensor(teq._init_taps(17, 2, 2, np.complex64))
+    rng = np.random.default_rng(3)
+    ph4 = torch.as_tensor(np.cumsum(rng.normal(0, 0.4, (2, 2 ** 12)), -1).astype(np.float32))
+    res = {}
+    for name, m in (("card", card), ("cpu", cpu)):
+        P = teq.planes(sharded.shard_signal(E, m))
+        x = sharded.shard_signal(ph4, m)
+        loc = tph.unwrap(x)
+        eqp = sharded._apply_filter_local(P, 2, w.to(m.device), m)
+        ph = sharded._unwrap_across_shards(x, m)[0] / 4
+        b = sharded._slopes(ph[:, ::16].contiguous(), m, 16)
+        a = ph[:, ::16].contiguous()
+        er, ei = eqp[:2, :2 ** 11].contiguous(), eqp[2:, :2 ** 11].contiguous()
+        b6 = (er, ei, ph[:, :2 ** 11].contiguous(), 1)
+        b4 = (er, ei, a[:, :128].contiguous(), b[:, :128].contiguous(), 16, 1)
+        res[name] = dict(halo=m.halos(P, 7), eqp=eqp, offs=sharded._shard_offsets(loc, m), loc=loc)
+        if m.device.type == "cuda":
+            res[name].update(b6=torch.stack(rotate_cuda(*b6)),
+                             b6_plain=torch.stack(rotate_plain(*b6)),
+                             b4=torch.stack(interp_rotate_cuda(*b4)),
+                             b4_plain=torch.stack(interp_rotate_plain(*b4)))
+    if rank == TWO_RANKS - 1:
+        torch.save({k: {kk: v.cpu() for kk, v in d.items()} for k, d in res.items()}, out)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def test_two_gloo_ranks_on_one_card(dev, tmp_path):
+    """Two gloo ranks on the one card against the same ranks on CPU tensors: the halo
+    exchange and the cross-shard unwrap's offsets bit-equal, the filter within B2's tolerance,
+    the local unwrap within 1e-4 rad (plain torch on both, its scans summed in other orders);
+    and on the card B6 and B4, on the sharded phase and slopes, bit-equal to their plain
+    versions on the same card tensors (the CPU's sin and cos round otherwise)."""
+    import os
+    import subprocess
+    import sys
+    out = str(tmp_path / "ranks.pt")
+    addr = "localhost:%d" % _free_port()
+    env = dict(os.environ)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env["PYTHONPATH"] = os.pathsep.join([root, os.path.join(root, "tests"),
+                                         env.get("PYTHONPATH", "")])
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--two-ranks", str(r),
+                               addr, out], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True, env=env) for r in range(TWO_RANKS)]
+    try:
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert all(p.returncode == 0 for p in procs), "\n".join(l[-3000:] for l in logs)
+    res = torch.load(out)
+    c, h = res["card"], res["cpu"]
+    assert torch.equal(c["halo"], h["halo"])
+    rms = float(h["eqp"].pow(2).mean().sqrt())
+    assert float((c["eqp"] - h["eqp"]).abs().max()) <= 1e-5 * rms
+    assert torch.equal(c["offs"], h["offs"])
+    assert float((c["loc"] - h["loc"]).abs().max()) <= 1e-4
+    assert torch.equal(c["b6"], c["b6_plain"]) and torch.equal(c["b4"], c["b4_plain"])
+
+
+if __name__ == "__main__" and sys.argv[1] == "--two-ranks":
+    sys.exit(_two_ranks_main(int(sys.argv[2]), sys.argv[3], sys.argv[4]))

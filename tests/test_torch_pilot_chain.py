@@ -192,11 +192,6 @@ def test_frames_of_more_than_4096_cpe_pilots():
         assert np.all(np.mean(d != tx_idx, axis=-1) < SER_MAX)
 
 
-def test_prefix_sharded_raises(runs):
-    with pytest.raises(NotImplementedError, match="A10"):
-        runs["chain"].prefix_sharded(None, None, "x", 8)
-
-
 @pytest.mark.parametrize("kwargs", [dict(frames_mode="span"), dict(frames_mode="vmap"),
                                     dict(frames_pack=2), dict(eq_trainer="newton")])
 def test_not_to_port_options_are_refused(capture, kwargs):
