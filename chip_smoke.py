@@ -166,6 +166,26 @@ result line):
    (the DAC's IIR beside its byte bounds), held to the port's plain CPU run
    on a small capture (decisions shared >= 99.9 %, both under the gates),
    and each kernel it launched against its plain version at its first call.
+20. the multi-device receivers on ``torch.distributed`` (see ``sharded_phase``).
+21. profiling: ``profiling.run_benchmarks()`` at the reference's 2^18 symbols,
+   each group's Msym/s with its route (B1 once a ``train_<method>``, B2
+   once for ``apply_filter``, B3 once for ``bps``, no kernel in
+   ``decision``, ``soft_llr``, ``select_angles``: counted), and B1 (40
+   taps, os 2, blocks of 64: every method over 8 blocks within 3e-7, cma
+   and mcma over the group's 1,023), B2 (within 1e-6 of the rms) and B3
+   (equal off near-ties) against their plain versions at the groups'
+   shapes; and the host's numpy PRBS at 2^20 bits.
+22. long capture: tests/test_long_capture.py at its own size. "long blind":
+   2^22 symbols of 16-QAM in 4 dispatches of 2^20 with the halo, one
+   alignment for every chunk and SER < 5e-3 a chunk, launches B1/B2/B3/B7 =
+   2/1/1/1 a dispatch; "long pilot": a 69-frame capture, the LMS chain in
+   full over frames 0-16, then 3 tracking dispatches at ``_frame_base = d
+   17 2^16 2``, each with launches B2 frames/B5/B4 = 1/1/1, no
+   synchronising call, bit-equal to a chain built over its own frames, SER
+   < 1e-2 on the first and last frame of every dispatch; times by CUDA
+   events and each kernel at those shapes against its plain version.
+23. examples: every ``examples_torch`` script's ``main`` on the card at its
+   own sizes, its gated figures and wall time printed, failing on any gate.
 
 Beside every kernel's time stand its bound (the larger of its bytes over
 the card's 3.35 TB/s and its operations over the card's 67 TFLOP/s in
@@ -224,7 +244,7 @@ from qampy_tpu_torch.ops.phase_cuda import (bps_fine, bps_fine_cuda, bps_fine_pl
                                             interp_rotate_plain, quarter_unwrap, rotate_cuda,
                                             rotate_plain, unwrap_derotate_cuda,
                                             unwrap_derotate_plain, unwrap_plan)
-from qampy_tpu_torch import equalisation, helpers, phaserec, theory
+from qampy_tpu_torch import equalisation, helpers, phaserec, prbs, profiling, theory
 from qampy_tpu_torch import impairments as port_imp
 from qampy_tpu_torch.core import impairments as core_impairments
 from qampy_tpu_torch.core.filter import prefix_powers
@@ -403,7 +423,10 @@ PATHS = ("blind", "blind twostage", "blind single", "pilot", "pilot return_phase
                                              "baseline tx", "sharded blind nccl1",
                                              "sharded blind gloo4", "sharded blind gloo4 single",
                                              "sharded pilot gloo4",
-                                             "sharded pilot gloo4 shard_prefix")
+                                             "sharded pilot gloo4 shard_prefix") + tuple(
+             "profiling " + g for g in ("bps", "apply_filter") + tuple(
+                 "train_" + m for m in profiling.GROUP_METHODS)) + ("long blind", "long pilot",
+                                                                     "long pilot full")
 # phase 20, the multi-device receivers: "sharded blind nccl1" is the blind decimated16 cell's
 # chain over one NCCL rank (rounds=1: one round of each training, as the single-card chain);
 # the gloo paths run four ranks on the one card, 2^18 symbols a shard, rounds=2, and the
@@ -870,10 +893,14 @@ def b2_record(P, os_, w, dec, what, shape):
     return rec, outs_k
 
 
-def b3_record(er, ei, cos_t, sin_t, grid, N, points, what, reps=(20, 5)):
-    """B3 against its plain version off near-ties; returns (record, the kernel's indices)."""
+def b3_record(er, ei, cos_t, sin_t, grid, N, points, what, reps=(20, 5), share_max=None):
+    """B3 against its plain version off near-ties; returns (record, the kernel's indices).
+
+    ``share_max``: the share of near-tied positions allowed, if not the grid's (:func:`tie_rule`).
+    """
     A, L = cos_t.shape[0], er.shape[-1]
-    rel, share_max = tie_rule(grid)
+    rel, share_grid = tie_rule(grid)
+    share_max = share_grid if share_max is None else share_max
     idx_p = bps_search_plain(er, ei, cos_t, sin_t, grid, N)
     idx_k = bps_search_cuda(er, ei, cos_t, sin_t, grid, N, points)
     ties = phops.bps_near_ties(er, ei, cos_t, sin_t, grid, N, rel)
@@ -1310,7 +1337,7 @@ def syncs_in(fn):
     return with_syncs(fn)[1]
 
 
-def pilot_stages(chain, pr, pi):
+def pilot_stages(chain, pr, pi, frame_base=0):
     """The pilot chain's stages run one by one: a dict of every stage's inputs and outputs.
 
     ``segs`` are the pilot segments the trainer takes, ``P`` the capture the
@@ -1331,7 +1358,7 @@ def pilot_stages(chain, pr, pi):
     if chain.foe_comp:
         P = derotate_planes(P, foe, chain.os)
     taps = w.index_select(1, torch.argsort(mode_order))
-    offs = chain.frame_offsets(P, eqsh)
+    offs = chain.frame_offsets(P, eqsh, frame_base)
     st = dict(P=P, wxs=wxs, best_w=best_w, mode_order=mode_order, eqsh=eqsh, segs=segs,
               taps=taps, foe=foe, offs=offs)
     if not chain.kernel_interp:
@@ -3519,6 +3546,309 @@ def sharded_phase(E, syms, const, lat, card):
     return rec, path_launches
 
 
+# ---------------------------------------------------------------------------
+# phases 21-23: profiling, long captures, the examples
+# ---------------------------------------------------------------------------
+
+PROF_NSYMS = 2 ** 18             # the reference's run_benchmarks default
+PROF_ROUTE = {"bps": "B3", "apply_filter": "B2"}     # train_<method>: B1; the rest plain
+TOL_PROF_FILTER_REL = 1e-6       # B2 at the profiling shape, relative to the output's rms
+PROF_TIES_MAX = 1e-2             # B3 on the groups' noise (not a signal): more near-tied windows
+                                 # (1.55e-3 on the H100; < 1e-2 in tests/test_torch_profiling.py)
+PRBS_BITS = 2 ** 20              # the host PRBS (native/ is not ported), timed at 2^20 bits
+LONG_NSYM, LONG_CHUNK, LONG_HALO = 2 ** 22, 2 ** 20, 96     # tests/test_long_capture.py
+LONG_BLIND_SER = 5e-3            # its gate, per chunk under one alignment
+LONG_PILOT = dict(n_per=17, ndisp=4, frame_len=2 ** 16)     # 68 frames served of 69
+LONG_PILOT_SER = 1e-2            # its gate, first and last frame of each dispatch
+
+
+def examples_module():
+    """``examples_torch/_common.py``, which puts the examples' directory on ``sys.path``."""
+    path = os.path.join(REPO, "examples_torch")
+    if path not in sys.path:
+        sys.path.insert(0, path)
+    import _common
+    return _common
+
+
+def once_ms(fn):
+    """ms of one call of ``fn`` by CUDA events (a plain version's long host loop)."""
+    return timed(fn)[1]
+
+
+def profiling_b1(g, method, lat, card):
+    """B1 at a profiling group's shape against the plain block trainer.
+
+    Over ``GRID_BLOCKS`` blocks within ``TOL_GRID_TAPS`` for every method,
+    and over the group's whole training within ``TOL_TAPS`` for the modulus
+    methods (cma, mcma): rde expands rounding differences and a decision
+    method's long runs part at a decision boundary (mddma read 1.35e-4
+    over the 1,023 blocks on the H100), so those are held over the short
+    run only; two launches bit-equal. The input is the reference's noise,
+    not a signal.
+    """
+    deep = method not in eqops.DECISION_BLOCK_METHODS and method != "rde"
+    P, trs, niter, os_, mu, w0, spec = g.args
+    S = profiling.TRAIN_BLOCK
+    short = (P, GRID_BLOCKS * S, 1, os_, mu, w0, spec, True, S)
+    _, w_p, _ = train_block_plain(*short)
+    _, w_k, _ = train_block_cuda(*short)
+    d_short = float((w_k - w_p).abs().max())
+    full = (P, trs, niter, os_, mu, w0, spec, True, S)
+    (e_p, w_fp, _), plain_ms = timed(lambda: train_block_plain(*full))
+    got = train_block_cuda(*full)
+    again = train_block_cuda(*full)
+    d_full = float((got[1] - w_fp).abs().max())
+    print("B1 train_block (profiling train_%s: 40 taps, os 2, blocks of %d): taps over %d blocks "
+          "max|d| %.3e (tol %.0e); over the group's %d blocks %.3e (tol %s); two launches "
+          "bit-equal: %s" % (method, S, GRID_BLOCKS, d_short, TOL_GRID_TAPS, trs // S, d_full,
+                             "%.0e" % TOL_TAPS if deep else "none, %s" % method,
+                             all(torch.equal(a, b) for a, b in zip(got, again))))
+    require(d_short <= TOL_GRID_TAPS, "B1 %s disagrees with its plain version over %d blocks "
+            "(profiling)" % (method, GRID_BLOCKS))
+    require(not deep or d_full <= TOL_TAPS,
+            "B1 %s disagrees with its plain version over the group (profiling)" % method)
+    require(all(torch.equal(a, b) for a, b in zip(got, again)),
+            "two B1 launches differ (profiling %s)" % method)
+    decide = OPS_DECIDE["sq"] if method in eqops.DECISION_BLOCK_METHODS else 0
+    ms = device_ms(lambda: train_block_cuda(*full), 5)
+    K = 2 * w0.shape[-1]
+    print_chain("B1 train_block (profiling train_%s)" % method, lat, trs // S,
+                block_chain_cycles(lat, K, S), ms, card, "block")
+    return dict(**trainer_bound(2, 2, w0.shape[-1], os_, trs, niter, decide),
+                err=d_full if deep else d_short, ms=ms, plain_ms=plain_ms,
+                shape="%s, 40 taps, os 2, %d blocks of %d on 2 x %d samples of noise; "
+                      "max_abs_err: taps over %s" % (method, trs // S, S, P.shape[-1],
+                                                     "the group" if deep
+                                                     else "%d blocks" % GRID_BLOCKS))
+
+
+def profiling_phase(dev, card, lat):
+    """Phase 21: ``profiling.run_benchmarks`` at the reference's 2^18 symbols on the card.
+
+    Each group counted (B1 once a ``train_<method>``, B2 once, B3 once, no
+    kernel in the plain groups) and routed as it reports; its Msym/s with
+    the card; B1, B2 and B3 held to their plain versions at the groups'
+    shapes. Also the host's numpy PRBS (``native/`` is not ported).
+    """
+    for order in (15, 23):
+        t0 = time.perf_counter()
+        bits = prbs.make_prbs_extXOR(order, PRBS_BITS, seed=1)
+        print("host: prbs.make_prbs_extXOR(%d, 2^20) %.4f s (host clock, %d bits)"
+              % (order, time.perf_counter() - t0, bits.size))
+    groups = profiling.benchmark_groups(PROF_NSYMS, device=dev)
+    launches = {}
+    for name, g in groups.items():
+        want = PROF_ROUTE.get(name, "B1" if name.startswith("train_") else "plain")
+        _, counts = counted(lambda: g.fn(*g.args))
+        launches["profiling " + name] = counts
+        print("profiling %s: route %s, launches %s" % (name, g.route, counts))
+        require(g.route == want and counts == expected({} if want == "plain" else {want: 1}),
+                "the profiling group %s did not launch as its route %s says" % (name, g.route))
+    res, routes = profiling.run_benchmarks(nsyms=PROF_NSYMS, device=dev, routes=True)
+    for name, v in res.items():
+        print("time profiling %s: %.2f Msym/s, route %s (run_benchmarks, median of 5 "
+              "synchronised calls) [%s]" % (name, v, routes[name], card))
+    require(routes == {n: g.route for n, g in groups.items()} and all(v > 0 for v in res.values()),
+            "run_benchmarks reports other routes or no rate")
+    rec = {}
+    er, ei, cos_t, sin_t, grid, N, pts = groups["bps"].args
+    rec["B3", "profiling bps"] = b3_record(er, ei, cos_t, sin_t, grid, N, pts, "profiling bps",
+                                           share_max=PROF_TIES_MAX)[0]
+    P2, os_, wx = groups["apply_filter"].args
+    out_k, out_p = apply_filter_cuda(P2, os_, wx), apply_filter_plain(P2, os_, wx)
+    rms = float(out_p.pow(2).mean().sqrt())
+    d = float((out_k - out_p).abs().max())
+    print("B2 apply_filter (profiling apply_filter: 17 taps, 2 x %d samples): max|d| %.3e (tol "
+          "%.0e x rms %.3f)" % (P2.shape[-1], d, TOL_PROF_FILTER_REL, rms))
+    require(d <= TOL_PROF_FILTER_REL * rms, "B2 disagrees with its plain version (profiling)")
+    rec["B2", "profiling apply_filter"] = b2_record(P2, os_, wx, None, "profiling apply_filter",
+                                                    "2 x %d samples, 17 identity taps"
+                                                    % P2.shape[-1])[0]
+    for name, g in groups.items():
+        if name.startswith("train_"):
+            rec["B1", "profiling " + name] = profiling_b1(g, name[len("train_"):], lat, card)
+    print_times(rec, card)
+    return rec, launches
+
+
+def long_blind(dev, card, ex):
+    """"long blind": 2^22 symbols of 16-QAM in 4 dispatches of 2^20 through ``RxChain.planes``."""
+    path = "long blind"
+    t0 = time.perf_counter()
+    sig, Pp = ex.blind_capture(dev, LONG_NSYM)
+    chain = ex.blind_chain(dev, block_size=128)
+    torch.cuda.synchronize()
+    print("%s: SignalQAMGrayCoded(16, 2^22, nmodes=2) at 2 samples a symbol, PMD, 25 dB, built on "
+          "the card in %.2f s (host clock); planes %s with the halo; %s"
+          % (path, time.perf_counter() - t0, tuple(Pp.shape), chain.backend_info))
+    outs, counts = [], None
+    for c in range(LONG_NSYM // LONG_CHUNK):
+        seg = ex.blind_segment(Pp, c, LONG_CHUNK)
+        o, n = counted(lambda: chain.planes(seg))
+        outs.append(torch.complex(*o)[:, LONG_HALO:LONG_HALO + LONG_CHUNK])
+        print("%s dispatch %d: launches %s" % (path, c, n))
+        require(n == expected({"B1": 2, "B2": 1, "B3": 1, "B7": 1}),
+                "a %s dispatch did not launch each kernel as expected" % path)
+        counts = n
+    sers, same = ex.blind_check(sig, outs, LONG_CHUNK)
+    print("%s: SER per chunk under its alignment %s (gate %.0e), one delay and pairing: %s"
+          % (path, sers, LONG_BLIND_SER, same))
+    require(same and max(sers) < LONG_BLIND_SER, "the %s gate failed" % path)
+    seg = ex.blind_segment(Pp, 1, LONG_CHUNK).contiguous()
+    t = cuda_ms(lambda: chain.planes(seg), 10)
+    print("time %s: %.4f ms a dispatch of 2 x %d symbols, %.1f Msym/s [%s]"
+          % (path, t, LONG_CHUNK, 2 * LONG_CHUNK / t / 1e3, card))
+    # the kernels at a dispatch's shapes
+    rec = {}
+    s1, s2 = chain.specs
+    trs, S, os_, mu = chain.TrSyms, chain.block_size, chain.os, chain.mu
+    w0 = chain.w0
+    _, w_p, _ = train_block_plain(seg, trs, 1, os_, mu, w0, s1, True, S)
+    _, w_k, _ = train_block_cuda(seg, trs, 1, os_, mu, w0, s1, True, S)
+    w1 = cma_singularity_guard(w_k)
+    b8 = (seg, GRID_BLOCKS * S, 1, os_, mu, w1, s2, True, S)
+    d1 = float((w_k - w_p).abs().max())
+    d2 = float((train_block_cuda(*b8)[1] - train_block_plain(*b8)[1]).abs().max())
+    print("B1 train_block (%s: 16-QAM, 11 taps, blocks of 128): cma over %d blocks max|d| %.3e "
+          "(tol %.0e); sbd over %d blocks %.3e (tol %.0e)"
+          % (path, trs // S, d1, TOL_TAPS, GRID_BLOCKS, d2, TOL_GRID_TAPS))
+    require(d1 <= TOL_TAPS and d2 <= TOL_GRID_TAPS, "B1 disagrees with its plain version (%s)"
+            % path)
+    b1 = (seg, trs, 1, os_, mu, w0, s1, True, S)
+    rec["B1"] = dict(**trainer_bound(2, 2, chain.Ntaps, os_, trs, 1), err=d1,
+                     ms=device_ms(lambda: train_block_cuda(*b1), 10),
+                     plain_ms=device_ms(lambda: train_block_plain(*b1), 2),
+                     shape="cma, 16-QAM, 11 taps, %d blocks of %d (sbd over %d blocks: %.3e)"
+                           % (trs // S, S, GRID_BLOCKS, d2))
+    w = chain.train_taps(seg)
+    rec["B2"], (eqp,) = b2_record(seg, os_, w, None, path,
+                                  "2 x %d samples in (a dispatch), 11 taps" % seg.shape[-1])
+    no = eqp.shape[0] // 2
+    er, ei = eqp[:no].contiguous(), eqp[no:].contiguous()
+    rec["B3"], idx = b3_record(er, ei, chain.bps_cos, chain.bps_sin, chain.search_grid,
+                               chain.search_N, None, path)
+    rec["B7"] = b7_record(er, ei, chain.lo_a + chain.step_a * idx.to(torch.float32), path)
+    rec = {(k, path): v for k, v in rec.items()}
+    print_times(rec, card)
+    return rec, counts
+
+
+def long_pilot(dev, card, ex, lat):
+    """"long pilot": a 69-frame capture, the full LMS chain over frames 0-16, then 3 tracking
+    dispatches at ``_frame_base = d 17 2^16 2``; each bit-equal to a chain over its own frames."""
+    path = "long pilot"
+    c = LONG_PILOT
+    n_per, ndisp, F_ = c["n_per"], c["ndisp"], c["frame_len"]
+    t0 = time.perf_counter()
+    sig, E = ex.pilot_capture(dev, n_per * ndisp + 1, F_=F_)
+    chain = ex.pilot_chain(sig, n_per, dev)
+    torch.cuda.synchronize()
+    print("%s: SignalWithPilots(64, 2^16, 1024, 32, nframes=%d), 28 dB, built on the card in "
+          "%.2f s (host clock); the LMS chain (45 taps, blocks of 128) over frames 0-%d"
+          % (path, n_per * ndisp + 1, time.perf_counter() - t0, n_per - 1))
+    pr, pi = E.real.contiguous(), E.imag.contiguous()
+    ((d0r, d0i), info), full_counts = counted(lambda: chain.planes(pr, pi))
+    print("%s full dispatch: launches %s, sync_corr %.3f" % (path, full_counts,
+                                                           float(info["sync_corr"])))
+    require(full_counts == expected({"B1": 3, "B2 frames": 1, "B5": 1, "B4": 1}),
+            "the %s full dispatch did not launch each kernel as expected" % path)
+    state = (info["taps"], info["shift"], info["mode_order"])
+    datas, counts, sers = [torch.complex(d0r, d0i)], None, []
+    for d in range(1, ndisp):
+        base = d * n_per * F_ * 2
+        ((dr, di), _), n = counted(lambda: chain.tracking_planes(pr, pi, *state, _frame_base=base))
+        syncs = syncs_in(lambda: chain.tracking_planes(pr, pi, *state, _frame_base=base))
+        other = ex.pilot_chain(sig, n_per, dev, first=d * n_per)
+        (orr, ori), _ = other.tracking_planes(pr, pi, *state)
+        same = bool(torch.equal(orr, dr) and torch.equal(ori, di))
+        print("%s dispatch %d (_frame_base %d): launches %s, synchronising calls %d %s, "
+              "bit-equal to a chain over frames %d-%d: %s"
+              % (path, d, base, n, len(syncs), syncs[:2], d * n_per, (d + 1) * n_per - 1, same))
+        require(n == expected({"B2 frames": 1, "B5": 1, "B4": 1}) and not syncs and same,
+                "the %s tracking dispatch at an offset failed its launches, syncs or equality"
+                % path)
+        datas.append(torch.complex(dr, di))
+        counts = n
+    for d, dat in enumerate(datas):
+        s = [ex.frame_ser(sig, dat, d * n_per + k, k) for k in (0, n_per - 1)]
+        sers.append(s)
+        print("%s dispatch %d: SER of frames %d and %d: %s (gate %.0e)"
+              % (path, d, d * n_per, d * n_per + n_per - 1, s, LONG_PILOT_SER))
+    require(max(max(s) for s in sers) < LONG_PILOT_SER, "the %s gate failed" % path)
+    base = n_per * F_ * 2
+    t_full = cuda_ms(lambda: chain.planes(pr, pi), 3)
+    t_trk = cuda_ms(lambda: chain.tracking_planes(pr, pi, *state, _frame_base=base), 10)
+    npay = datas[0].shape[-1] * 2
+    print("time %s: full dispatch %.4f ms, tracking dispatch at an offset %.4f ms (%d frames, "
+          "%.1f payload Msym/s) [%s]" % (path, t_full, t_trk, n_per, npay / t_trk / 1e3, card))
+    # the kernels at a tracking dispatch's shapes
+    st = pilot_stages(chain, pr, pi, base)
+    offs, taps = st["offs"], st["taps"]
+    plain = apply_filter_frames_plain(st["P"], chain.os, taps, offs, F_)
+    err = float((st["out"] - plain).abs().max())
+    rms = float(plain.pow(2).mean().sqrt())
+    del plain
+    print("B2 frames (%s, %d frames at _frame_base %d): max|d| %.3e (tol %.0e x rms %.3f)"
+          % (path, n_per, base, err, TOL_FILTER_REL, rms))
+    require(err <= TOL_FILTER_REL * rms, "B2's frame entry disagrees with its plain version (%s)"
+            % path)
+    rec = {("B2 frames", path): b2_frames_record(chain, st, offs, path, err),
+           ("B5", path): b5_record(chain, st, card, path),
+           ("B4", path): b4_pilot_record(chain, st, path)}
+    # the full dispatch: B1's three batched LMS stages, and the frame body at the same shapes
+    full = path + " full"
+    rec["B1", full] = b1_batch_record(chain, st["segs"], full, card, lat)
+    for k in ("B2 frames", "B5", "B4"):
+        rec[k, full] = dict(rec[k, path], shape=rec[k, path]["shape"] + " (at frames 0-16)")
+    print_times(rec, card)
+    return rec, counts, full_counts
+
+
+def long_capture_phase(dev, card, lat):
+    """Phase 22: tests/test_long_capture.py's captures, served in dispatches, on the card."""
+    ex = examples_module().load("long_capture_serving")
+    rec, launches = {}, {}
+    r, launches["long blind"] = long_blind(dev, card, ex)
+    rec.update(r)
+    gc.collect()
+    torch.cuda.empty_cache()
+    r, launches["long pilot"], launches["long pilot full"] = long_pilot(dev, card, ex, lat)
+    rec.update(r)
+    return rec, launches
+
+
+def examples_phase(card):
+    """Phase 23: every ``examples_torch`` script's ``main`` on the card at its own sizes, gated.
+
+    No size is cut; ``64qam_data_test`` reads a matlab file of 2^15 random
+    64-QAM symbols written here, the repository holding no capture.
+    """
+    common = examples_module()
+    failed = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in common.NAMES:
+            mod = common.load(name)
+            kw = {}
+            if name == "64qam_data_test":
+                kw["mat"] = mod.write_test_file(os.path.join(tmp, "x_symbs.mat"))
+            if name == "multichip_scaling":
+                gc.collect()
+                torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            res = mod.main(**kw)
+            torch.cuda.synchronize()
+            t = time.perf_counter() - t0
+            bad = common.gate_failures(mod.GATES, res)
+            figs = {k: res[k] for k in mod.GATES}
+            print("example %s: %.2f s wall (host clock), its own sizes; gated figures %s; gates "
+                  "%s: %s [%s]" % (name, t, json.dumps(figs), json.dumps(mod.GATES),
+                                   "pass" if not bad else bad, card))
+            if bad:
+                failed.append(name)
+    require(not failed, "examples missed their gates: %s" % failed)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on a card",
@@ -3660,6 +3990,17 @@ def main():
     srec, shard_launches = sharded_phase(E, syms, const, lat, card)
     rec.update(srec)
     path_launches.update(shard_launches)
+
+    # phases 21-23: profiling, long captures, the examples
+    gc.collect()
+    torch.cuda.empty_cache()
+    frec, prof_launches = profiling_phase(dev, card, lat)
+    rec.update(frec)
+    path_launches.update(prof_launches)
+    lrec, long_launches = long_capture_phase(dev, card, lat)
+    rec.update(lrec)
+    path_launches.update(long_launches)
+    examples_phase(card)
     print("launches per path: %s" % path_launches)
     # one record per kernel and path that launched it: that path's count and
     # the error and times measured at that path's shapes

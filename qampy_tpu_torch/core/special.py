@@ -1,8 +1,8 @@
 """Pulse shapes and special functions on tensors (counterpart of ``qampy_tpu/core/special.py``).
 
 Each takes a tensor (or numbers, which become a float32 tensor) and
-computes in its dtype. ``torch.special.erfc`` stands in for
-``jax.scipy.special.erfc``.
+computes in its dtype. ``erfc`` is ``torch.special.erfc`` on such a
+tensor, standing in for ``jax.scipy.special.erfc``.
 """
 from __future__ import annotations
 
@@ -82,6 +82,11 @@ def rrcos_time(t, beta, T):
     return torch.where(t.abs() < eps, torch.full_like(gen, at0), gen)
 
 
+def erfc(x):
+    """The complementary error function of a tensor or of numbers (the reference's import)."""
+    return torch.special.erfc(_t(x))
+
+
 def q_function(x):
     """Gaussian tail probability (special.py:76-78)."""
-    return 0.5 * torch.special.erfc(_t(x) / np.sqrt(2))
+    return 0.5 * erfc(_t(x) / np.sqrt(2))

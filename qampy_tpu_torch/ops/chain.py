@@ -63,9 +63,56 @@ TWOSTAGE_N1 = 60
 #: per-sample offsets of the fine stage (reference chain.py:414)
 TWOSTAGE_B = 8
 
-__all__ = ["RxChain", "make_rx_chain", "decimated_derotation_inputs", "cma_singularity_guard"]
+__all__ = ["RxChain", "make_rx_chain", "pallas_eligibility", "decimated_derotation_inputs",
+           "cma_singularity_guard"]
 
 _HALF_PI = float(np.float32(np.pi / 2))
+
+
+def pallas_eligibility(grid, methods, block_size=None, bps_tile=None):
+    """Whether the chain's CUDA kernels take this: (ok, reasons tuple).
+
+    The reference's name (``qampy_tpu/ops/chain.py:34``), which asks the
+    same of its Pallas kernels. This asks the launch rules the port already
+    has, on the host, and adds none:
+
+    - the constellation: ``grid_decision_info`` of an ``ops.phase.detect_grid``
+      spec; B1, B3 and B8 decide on a square, cross or rectangular grid and
+      on a general alphabet of up to ``ops.phase.MAX_GEN_POINTS`` points;
+    - the methods: those B1 trains (``ops.equaliser.BLOCK_METHODS``);
+    - ``block_size``: B1's block, as its launcher takes it
+      (``equaliser_cuda.block_launch_shape``: a multiple of 32 up to 1024);
+    - ``bps_tile`` is taken and asks nothing: B3 tiles by its own launch
+      plan (``phase_cuda.bps_plan``), whatever the caller's tile.
+
+    Where the rules differ from the reference's: a general alphabet (a ring,
+    a warped grid) is eligible here and not there, a block of 32 or 64 is
+    eligible here and not there (its 128-lane rule), and ``bps_tile`` is
+    never a reason here. Unlike the reference, an ineligible chain does not
+    fall back: on the card the chain raises where a kernel refuses.
+    """
+    from qampy_tpu_torch.ops._build import KernelLimit
+    from qampy_tpu_torch.ops.equaliser_cuda import block_launch_shape
+    reasons = []
+    kind = grid_decision_info(grid)[0]
+    if kind == "none":
+        reasons.append("constellation of fewer than two points")
+    elif kind == "gen" and len(phops.gen_points(grid)) > phops.MAX_GEN_POINTS:
+        reasons.append("general alphabet of %d points: the kernels search at most %d"
+                       % (len(phops.gen_points(grid)), phops.MAX_GEN_POINTS))
+    bad = [m for m in methods if m not in eqops.BLOCK_METHODS]
+    if bad:
+        reasons.append("method(s) %s not trained by the block trainer kernel (%s)"
+                       % (bad, ", ".join(eqops.BLOCK_METHODS)))
+    if block_size is not None:
+        S, ntaps = int(block_size), 17
+        like_P = torch.empty((4, 2 * S + ntaps), device="meta")
+        like_w = torch.empty((2, 2, ntaps), dtype=torch.complex64, device="meta")
+        try:
+            block_launch_shape(like_P, S, 2, like_w, S)
+        except KernelLimit as e:
+            reasons.append(str(e))
+    return not reasons, tuple(reasons)
 
 
 def decimated_derotation_inputs(eqr, eqi, idxd, lo_a, step_a, dec):

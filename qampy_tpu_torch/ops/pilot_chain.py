@@ -421,12 +421,15 @@ class PilotRxChain(nn.Module):
 
     # -- frame body -------------------------------------------------------------
 
-    def frame_offsets(self, P, eqsh):
+    def frame_offsets(self, P, eqsh, frame_base=0):
         """(n, nframes) window starts of every output mode's frames in the capture ``P``.
 
-        Clamped into the capture, as the reference's dynamic slices are.
+        ``frame_base`` (samples; a Python int or a 0-d integer tensor) moves
+        every window before the clamp into the capture, as the reference's
+        ``_frame_base`` moves its dynamic slices (pilot_chain.py:829-830).
         """
-        return (eqsh[:, None] + self.bases[None, :]).clamp(0, P.shape[-1] - self.fr_len)
+        return (eqsh[:, None] + (self.bases[None, :] + frame_base)).clamp(
+            0, P.shape[-1] - self.fr_len)
 
     def cpe_trace(self, symr, symi):
         """The per-symbol CPE phase of (n, nframes, frame_len) planes (reference :799-820).
@@ -462,10 +465,11 @@ class PilotRxChain(nn.Module):
             return x.reshape(n, -1)
         return take(outr), take(outi)
 
-    def demod(self, P, eqsh, taps):
+    def demod(self, P, eqsh, taps, frame_base=0):
         """Frame body over every frame of the dispatch: ((dr, di), trace or None).
 
-        ``taps`` act on the capture's own mode order. Both forms filter all
+        ``taps`` act on the capture's own mode order; ``frame_base`` moves the
+        frame windows (:meth:`frame_offsets`). Both forms filter all
         frames in one launch of kernel B2's frame entry. Serving form
         (``kernel_interp``): the entry's side output gathers the CPE pilots
         as (rows, nblk) planes, kernel B5 builds per-block (a, b)
@@ -473,7 +477,7 @@ class PilotRxChain(nn.Module):
         plain phase trace (:meth:`cpe_trace`) and kernel B6.
         """
         F = self.frame_len
-        offs = self.frame_offsets(P, eqsh)
+        offs = self.frame_offsets(P, eqsh, frame_base)
         if self.kernel_interp:
             out, side = apply_filter_frames(P, self.os, taps, offs, F,
                                             (self.seq_len, self.ins_rat, self.nblk))
@@ -527,25 +531,36 @@ class PilotRxChain(nn.Module):
             taps, foe_pil = self.lms_taps(segs)
         return taps, shift, mode_order, sync_corr, foe_coarse, foe_pil
 
-    def _fwd(self, P):
+    def _fwd(self, P, frame_base=0):
         taps, shift, mode_order, sync_corr, foe_coarse, foe_pil = self.prefix(P)
         eqsh = self._eq_shift(shift)
         if self.foe_comp:
             P = derotate_planes(P, foe_pil, self.os)
         # the mode order folds into the taps' input axis (reference :1063-1069)
-        data, trace = self.demod(P, eqsh, taps.index_select(1, torch.argsort(mode_order)))
+        data, trace = self.demod(P, eqsh, taps.index_select(1, torch.argsort(mode_order)),
+                                 frame_base)
         return data, self._info(shift, sync_corr, foe_coarse, foe_pil, taps, mode_order, trace)
 
-    def planes(self, pr, pi):
-        """Full chain on float32 planes pr/pi (n, L): ((dr, di), info)."""
-        return self._fwd(self._planes(pr, pi))
+    def planes(self, pr, pi, _frame_base=0):
+        """Full chain on float32 planes pr/pi (n, L): ((dr, di), info).
 
-    def forward(self, E):
+        ``_frame_base`` (samples, a Python int or a 0-d integer tensor) moves
+        every frame window of the frame body; the prefix (frame sync and
+        training) reads the capture's head as at 0. It is how one chain
+        serves frames past its ``frames``: ``d * len(frames) * frame_len *
+        os`` demodulates the frames of dispatch ``d`` (reference
+        ``_frame_base``, pilot_chain.py:467-483), with no rebuild and no
+        synchronisation. The windows are clamped into the capture after
+        the move, as in the reference.
+        """
+        return self._fwd(self._planes(pr, pi), _frame_base)
+
+    def forward(self, E, _frame_base=0):
         """Full chain on a complex (n, L) capture: (complex payload, info)."""
-        (dr, di), info = self._fwd(self._planes(E.real, E.imag))
+        (dr, di), info = self._fwd(self._planes(E.real, E.imag), _frame_base)
         return torch.complex(dr, di), info
 
-    def tracking_planes(self, pr, pi, wxy, shift, mode_order=None, foe=None):
+    def tracking_planes(self, pr, pi, wxy, shift, mode_order=None, foe=None, _frame_base=0):
         """Warm-start entry (reference :1021-1074): demodulate with an earlier dispatch's state.
 
         ``wxy``, ``shift`` and ``mode_order`` are ``info["taps"]``,
@@ -559,8 +574,11 @@ class PilotRxChain(nn.Module):
         ``info["foe"]``, which also holds the frame search's coarse
         estimate, not applied to the capture). Without ``foe`` such a chain
         warns and demodulates uncompensated, as the reference does; a chain
-        without ``foe_comp`` refuses ``foe``. ``info["sync_corr"]`` is +inf
-        to mark that sync did not run. Returns ((dr, di), info).
+        without ``foe_comp`` refuses ``foe``. ``_frame_base`` moves the frame
+        windows as in :meth:`planes`: a long capture is served by one full
+        call and tracking calls at ``d * len(frames) * frame_len * os``.
+        ``info["sync_corr"]`` is +inf to mark that sync did not run. Returns
+        ((dr, di), info).
         """
         if foe is not None and not self.foe_comp:
             raise ValueError("foe= supplied but the chain was built with foe_comp=False "
@@ -583,13 +601,14 @@ class PilotRxChain(nn.Module):
         foe_t = zero if foe is None else torch.as_tensor(foe, device=dev).to(torch.float32)
         if foe is not None:
             P = derotate_planes(P, foe_t, self.os)
-        data, trace = self.demod(P, self._eq_shift(shift), w_eff)
+        data, trace = self.demod(P, self._eq_shift(shift), w_eff, _frame_base)
         inf = torch.full((), np.inf, dtype=torch.float32, device=dev)
         return data, self._info(shift, inf, zero, foe_t, wxy, mo, trace)
 
-    def tracking(self, E, wxy, shift, mode_order=None, foe=None):
+    def tracking(self, E, wxy, shift, mode_order=None, foe=None, _frame_base=0):
         """Complex twin of :meth:`tracking_planes`: (complex payload, info)."""
-        (dr, di), info = self.tracking_planes(E.real, E.imag, wxy, shift, mode_order, foe)
+        (dr, di), info = self.tracking_planes(E.real, E.imag, wxy, shift, mode_order, foe,
+                                              _frame_base)
         return torch.complex(dr, di), info
 
     def check_prefix_sharded(self, mesh):

@@ -11,16 +11,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from qampy_tpu_torch.core.special import _t, q_function  # noqa: F401 (theory.q_function)
+from qampy_tpu_torch.core.special import _t, erfc, q_function  # noqa: F401 (theory.q_function)
 from qampy_tpu_torch.helpers import dB2lin, normalise_and_center
 from qampy_tpu_torch.utils import bin2gray
-
-_erfc = torch.special.erfc
 
 
 def ser_vs_es_over_n0_qam(snr, M):
     """SER of an M-QAM signal vs Es/N0 in linear units, valid for M > 4 (theory.py:22-29)."""
-    e = _erfc(torch.sqrt(3 * _t(snr) / (2 * (M - 1))))
+    e = erfc(torch.sqrt(3 * _t(snr) / (2 * (M - 1))))
     return 2 * (1 - 1 / np.sqrt(M)) * e - (1 - 2 / np.sqrt(M) + 1 / M) * e ** 2
 
 
@@ -41,12 +39,12 @@ def ber_vs_es_over_n0_qam(snr, M):
 
 def ser_vs_es_over_n0_psk(snr, M):
     """SER of an M-PSK signal vs Es/N0 in linear units (theory.py:48-50)."""
-    return _erfc(torch.sqrt(_t(snr)) * np.sin(np.pi / M))
+    return erfc(torch.sqrt(_t(snr)) * np.sin(np.pi / M))
 
 
 def ser_vs_es_over_n0_4pam(snr):
     """SER of a 4-PAM signal vs Es/N0 in linear units (theory.py:53-55)."""
-    return 0.75 * _erfc(torch.sqrt(_t(snr) / 5))
+    return 0.75 * erfc(torch.sqrt(_t(snr) / 5))
 
 
 def cal_symbols_qam(M):

@@ -1468,3 +1468,57 @@ def test_two_gloo_ranks_on_one_card(dev, tmp_path):
 
 if __name__ == "__main__" and sys.argv[1] == "--two-ranks":
     sys.exit(_two_ranks_main(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
+
+
+# ---------------------------------------------------------------------------
+# the last modules: profiling, the pilot chain's frame offset, the examples
+# ---------------------------------------------------------------------------
+
+def test_profiling_routes_on_the_card(dev):
+    from qampy_tpu_torch import profiling
+    from qampy_tpu_torch.ops import equaliser_cuda, phase_cuda
+    counters = {"B1": equaliser_cuda.train_block_cuda, "B2": equaliser_cuda.apply_filter_cuda,
+                "B3": phase_cuda.bps_search_cuda}
+    before = {k: f.launches for k, f in counters.items()}
+    res, routes = profiling.run_benchmarks(nsyms=2 ** 14, reps=2, methods=("cma", "sbd"),
+                                           device=dev, routes=True)
+    assert routes == {"decision": "plain", "bps": "B3", "train_cma": "B1", "train_sbd": "B1",
+                      "apply_filter": "B2", "soft_llr": "plain", "select_angles": "plain"}
+    assert all(v > 0 for v in res.values())
+    # each timed call after a warm-up call: 3 launches a group of its kernel
+    launched = {k: f.launches - before[k] for k, f in counters.items()}
+    assert launched == {"B1": 6, "B2": 3, "B3": 3}
+
+
+def test_pilot_tracking_at_a_frame_base(dev):
+    """A tracking dispatch at ``_frame_base`` is bit-equal to a chain over those frames."""
+    from qampy_tpu_torch.ops import phase_cuda
+    tx = make_pilot_tx(8, frame_len=2 ** 14, seq_len=512, seed=1, device=dev)
+    kw = dict(os=2, nmodes=2, Ntaps=17, cpe_avg=3, return_phase=False, eq_trainer="ls",
+              device=dev)
+    seq, ph = tx.pilot_seq, tx.ph_pilots
+    chain = make_pilot_rx_chain(seq, ph, 2 ** 14, 32, frames=(0, 1, 2), **kw)
+    pr, pi = tx.planes[:2].contiguous(), tx.planes[2:].contiguous()
+    _, info = chain.planes(pr, pi)
+    state = (info["taps"], info["shift"], info["mode_order"])
+    base = 3 * 2 ** 14 * 2
+    n0 = phase_cuda.cpe_coeffs_cuda.launches
+    (r, i), _ = chain.tracking_planes(pr, pi, *state, _frame_base=base)
+    assert phase_cuda.cpe_coeffs_cuda.launches == n0 + 1
+    other = make_pilot_rx_chain(seq, ph, 2 ** 14, 32, frames=(3, 4, 5), **kw)
+    (r2, i2), _ = other.tracking_planes(pr, pi, *state)
+    assert torch.equal(r, r2) and torch.equal(i, i2)
+    (r3, i3), _ = chain.tracking_planes(pr, pi, *state,
+                                        _frame_base=torch.tensor(base, device=dev))
+    assert torch.equal(r, r3) and torch.equal(i, i3)
+
+
+def test_example_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import pathlib
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1] / "examples_torch"))
+    import _common
+    mod = _common.load("phase_recovery")
+    res = mod.main()                       # no device named: the card
+    assert not _common.gate_failures(mod.GATES, res)
