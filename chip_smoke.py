@@ -43,6 +43,19 @@ result line):
    counts B1=2, B2=1, B3=1, B8=1 (twostage only), B7=1, tracking bit-exact,
    decisions shared with the plain CPU chain on a small capture, and times
    (chain, tracking, each stage);
+8b. the reference's last selectable modes on the same capture, each through
+   ``RxChain.planes`` as phase 8 runs its modes (counted, gated, tracking
+   bit-exact, shared with the plain CPU chain on a small capture, timed by
+   stage): "blind decimated16 bf16" (the bench's headline mode with
+   ``bps_win="bf16"``, SER <= 1e-5), "blind twostage bf16" (B3 and B8 with
+   bf16 windows, <= 1e-5), "blind twostage-dec" (``bps_N=14``, B2's stride-8
+   side output, <= 1e-4, the gate of ``single``), "blind fuse_derot off"
+   (decimated16, whose derotation is B4 either way: bit-equal to phase 4's
+   output, <= 1e-5) and "blind pallas off" (decimated16 without the kernels'
+   filter: the reference's warning, then single with the unfused unwrap and
+   B6, <= 1e-4); B3 and B8 with bf16 windows bit-equal to their bf16 twins at
+   each path's shape, beside the float32 kernel's time and a bound in which
+   the window adds count at the packed-bf16 rate;
 9. pilot kernels: ``workload.make_pilot_tx(244)`` built on the card; B2's
    frame entry (every one of the 240 frames; with its pilot side output the
    main output bit-equal to the entry's without it, and the side output
@@ -84,6 +97,15 @@ result line):
    by step on a small capture (``frame_sync``: B9 once a window, B2;
    ``equalize_pilot_sequence``: B1 a stage, B2; the frames filtered, B2;
    ``pilot_based_cpe``), under the BER gate, the search held to the CPU's;
+12c. the pilot chain's frame schedules on the 240-frame cell, each timed
+   beside ``"scan"`` in turn (scan, schedule, schedule, scan): "pilot span"
+   (``frames_mode="span"``: the batched frame body, B2 frames, B5 and B4
+   once each, on windows cut from one clamped span; payload within 1e-4 of
+   the scan's, the reference's bound) and "pilot frames_pack 2" (the
+   batched body over all the frames; payload bit-equal to the scan's);
+   BER <= 1e-5 with sync_corr >= 120, no synchronising call, the tracking
+   entry bit-exact; the kernels run at the scan's shapes, whose records
+   phase 12 holds;
 13. per-symbol trainer: B9 (one warp per output mode, a kernel instance per
    taps per lane, method and adaptive step) against its plain version on
    ``make_tx(2**13)`` (17 taps, TrSyms 4096) for cma, mcma and rde with and
@@ -189,7 +211,8 @@ result line):
 
 Beside every kernel's time stand its bound (the larger of its bytes over
 the card's 3.35 TB/s and its operations over the card's 67 TFLOP/s in
-float32, both counted from this run's shapes) and, where one PyTorch call
+float32, both counted from this run's shapes; bf16 window adds at two per
+float32 operation, the packed rate) and, where one PyTorch call
 computes the same function (the filters: ``conv1d``), that call's time. The
 trainers B1 and B9 are chains of dependent steps that no roofline bound
 describes: beside their times stands a chain bound as well, the steps times
@@ -414,7 +437,23 @@ BASE_REF_GMI_TX = (5.461239801479016, 5.508876266482114)
 BASE_GMI = {"baseline pilot": 5.5,
             "baseline tx": BASE_REF_GMI_TX[0] - (BASE_REF_GMI_TX[1] - BASE_REF_GMI_TX[0])}
 BASE_BLOCK = 128                 # the block size of "auto" on the card, which the CPU run takes
-PATHS = ("blind", "blind twostage", "blind single", "pilot", "pilot return_phase",
+# phase 8b: (path, chain arguments, SER gate, launches): the reference's last selectable modes
+MODE_PATHS = (
+    ("blind decimated16 bf16", dict(CFG, bps_win="bf16"), SER_LIMIT,
+     {"B1": 2, "B2": 1, "B3": 1, "B4": 1}),
+    ("blind twostage bf16", dict(SAMPLE_CFG, bps_mode="twostage", bps_win="bf16"), 1e-5,
+     {"B1": 2, "B2": 1, "B3": 1, "B8": 1, "B7": 1}),
+    ("blind twostage-dec", dict(SAMPLE_CFG, bps_mode="twostage-dec"), 1e-4,
+     {"B1": 2, "B2": 1, "B3": 1, "B8": 1, "B7": 1}),
+    ("blind fuse_derot off", dict(CFG, fuse_derot=False), SER_LIMIT,
+     {"B1": 2, "B2": 1, "B3": 1, "B4": 1}),
+    ("blind pallas off", dict(CFG, pallas=False), 1e-4, {"B1": 2, "B2": 1, "B3": 1, "B6": 1}),
+)
+BF16_WIDEN = 1.5         # per sample and angle: round to bf16 (packed: 0.5), widen to compare (1)
+PACK = 2                 # phase 12c: frames a pack
+TOL_SPAN = 1e-4          # span against scan, the reference's bound (test_pilot_chain.py:126-129)
+PATHS = ("blind", "blind twostage", "blind single") + tuple(p for p, _, _, _ in MODE_PATHS) + (
+         "pilot", "pilot return_phase", "pilot span", "pilot frames_pack %d" % PACK,
          "pilot long frames", "pilot lms", "pilot foe", "pilot non-blocked", "pilot granular",
          "equaliser seq", "equaliser block") + tuple(
              p for p, _, _ in GRID_PATHS) + ("phase bps", "phase twostage", "phase vv",
@@ -810,9 +849,10 @@ def print_times(rec, card):
     """One line per record: the kernel's time beside its bound, plain version and library call."""
     for (k, path), v in rec.items():
         lib = "none" if v["library_ms"] is None else "%.4f ms" % v["library_ms"]
-        print("time %s (%s path, device, %s): kernel %.4f ms, bound %.5f ms by %s, plain %.4f ms, "
-              "library call %s [%s]" % (k, path, v["shape"], v["ms"], v["bound_ms"],
-                                        v["bound_by"], v["plain_ms"], lib, card))
+        f32 = ", float32 windows %.4f ms" % v["f32_ms"] if "f32_ms" in v else ""
+        print("time %s (%s path, device, %s): kernel %.4f ms%s, bound %.5f ms by %s, plain "
+              "%.4f ms, library call %s [%s]" % (k, path, v["shape"], v["ms"], f32, v["bound_ms"],
+                                                 v["bound_by"], v["plain_ms"], lib, card))
 
 
 def counted(fn):
@@ -1017,23 +1057,34 @@ def check_sample_kernels(P, w, card):
     return rec
 
 
-def chain_path(path, cfg, gate, P, ref, const, small_tx, card):
-    """One blind chain counted, gated, compared and timed: phase 8, and phase 17 per path.
+def quiet_chain(cfg, device):
+    """``make_rx_chain(**cfg)`` on ``device`` and the fallback warning it gave, if any."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        chain = make_rx_chain(**cfg, device=device)
+    fell = [str(c.message) for c in caught if "falling back" in str(c.message)]
+    return chain, fell[0] if fell else None
+
+
+def chain_path(path, cfg, gate, P, ref, const, small_tx, card, want=None):
+    """One blind chain counted, gated, compared and timed: phases 8 and 8b, and 17 per path.
 
     ``cfg``: the arguments of ``make_rx_chain``; ``small_tx``: the arguments
     (alphabet and seed) of the 2^15-symbol capture on which the card's
-    chain is held against the plain chain on the CPU. Returns (launch
-    counts, the chain, its taps).
+    chain is held against the plain chain on the CPU; ``want``: the
+    launches, if not the mode's own. Returns (launch counts, the chain, its
+    taps, its output planes).
     """
     dev = P.device
-    chain = make_rx_chain(**cfg, device=dev)
+    chain, fell = quiet_chain(cfg, dev)
     mode = chain.mode
-    print("%s: %s" % (path, chain.backend_info))
+    print("%s: %s%s" % (path, chain.backend_info, "; warned: " + fell if fell else ""))
     (outr, outi), launches = counted(lambda: chain.planes(P))
     print("%s launches: %s" % (path, launches))
-    want = {"B1": 2, "B2": 1, "B3": 1, "B4" if mode == "decimated" else "B7": 1}
-    if mode == "twostage":
-        want["B8"] = 1
+    if want is None:
+        want = {"B1": 2, "B2": 1, "B3": 1, "B4" if mode == "decimated" else "B7": 1}
+        if mode in ("twostage", "twostage-dec"):
+            want["B8"] = 1
     require(launches == expected(want), "the %s path did not launch each kernel as expected"
             % path)
     Lout = (P.shape[-1] - cfg["Ntaps"]) // cfg["os"] + 1
@@ -1053,7 +1104,7 @@ def chain_path(path, cfg, gate, P, ref, const, small_tx, card):
     require(exact, "%s tracking output differs from the full chain" % path)
 
     Es, syms_s, _ = make_tx(2 ** 15, **small_tx)
-    o_cpu = make_rx_chain(**cfg, device="cpu").forward(torch.as_tensor(Es))
+    o_cpu = quiet_chain(cfg, "cpu")[0].forward(torch.as_tensor(Es))
     o_gpu = chain.forward(torch.as_tensor(Es, device=dev)).cpu()
     trim = slice(GATE_TRIM, -GATE_TRIM)
     agree = shared_decisions(o_cpu[:, trim], o_gpu[:, trim], const)
@@ -1073,13 +1124,15 @@ def chain_path(path, cfg, gate, P, ref, const, small_tx, card):
           % (path, t_trk, nsym_tot / t_trk / 1e3, card))
     eqp, decp = chain.equalise(P, w)
     no = eqp.shape[0] // 2
-    searched = decp if mode == "decimated" else eqp
+    searched = eqp if decp is None else decp
     idx = chain.phase_search(searched)
+    bf16 = chain.bps_win == "bf16"
     stages = {
         "train (2x B1 + guard)": device_ms(lambda: chain.train_taps(P), 10),
         "filter (B2)": device_ms(lambda: chain.equalise(P, w), 20),
-        "bps (B3, grid %s, A=%d, N=%d)" % (phops.grid_decision_info(chain.search_grid)[0],
-                                           chain.bps_cos.shape[0], chain.search_N):
+        "bps (B3, grid %s, A=%d, N=%d%s)" % (phops.grid_decision_info(chain.search_grid)[0],
+                                             chain.bps_cos.shape[0], chain.search_N,
+                                             ", bf16 windows" if bf16 else ""):
             device_ms(lambda: chain.phase_search(searched), 20),
     }
     if mode == "decimated":
@@ -1090,22 +1143,169 @@ def chain_path(path, cfg, gate, P, ref, const, small_tx, card):
         stages["interp-rotate (B4)"] = device_ms(
             lambda: interp_rotate(er_p, ei_p, a, b, chain.dec, 1), 20)
     else:
-        ph1 = chain.lo_a + chain.step_a * idx.to(torch.float32)
-        ph = chain.carrier_phase(eqp)
-        stages["index to phase (plain)"] = device_ms(
-            lambda: chain.lo_a + chain.step_a * idx.to(torch.float32), 20)
-        if mode == "twostage":
-            stages["fine bps (B8, grid %s)" % phops.grid_decision_info(chain.fine_grid)[0]] = \
+        ph1 = coarse_phase(chain, idx, eqp)
+        ph = chain.carrier_phase(eqp, decp)
+        stages["index to phase (plain)"] = device_ms(lambda: coarse_phase(chain, idx, eqp), 20)
+        if mode in ("twostage", "twostage-dec"):
+            stages["fine bps (B8, grid %s%s)" % (phops.grid_decision_info(chain.fine_grid)[0],
+                                                 ", bf16 windows" if bf16 else "")] = \
                 device_ms(lambda: bps_fine(eqp[:no], eqp[no:], ph1, chain.fine_cos,
                                            chain.fine_sin, chain.fine_grid, chain.bps_N,
-                                           chain.fine_d0, chain.fine_step, chain.gen_points), 20)
-        stages["unwrap-derotate (B7)"] = device_ms(lambda: chain.unwrap_derotate(eqp, ph), 20)
+                                           chain.fine_d0, chain.fine_step, chain.gen_points,
+                                           chain._bf16(chain.bps_tile)), 20)
+        fused = chain.pallas and chain.fuse_derot
+        stages["unwrap-derotate (B7)" if fused else "unwrap (plain) and rotation (B6)"] = \
+            device_ms(lambda: chain.unwrap_derotate(eqp, ph), 20)
     for k, v in stages.items():
         print("time %s stage %s: %.4f ms device (%.1f%% of the chain's stream time) [%s]"
               % (path, k, v, 100 * v / t_full, card))
     print("time %s stages' device sum: %.4f ms vs chain stream time %.4f ms [%s]"
           % (path, sum(stages.values()), t_full, card))
-    return launches, chain, w
+    return launches, chain, w, (outr, outi)
+
+
+def coarse_phase(chain, idx, eqp):
+    """The phase around which B8 searches, from B3's indices: lo + step idx, held over the side
+    output's stride in twostage-dec (reference chain.py:377-383)."""
+    ph = chain.lo_a + chain.step_a * idx.to(torch.float32)
+    if chain.mode != "twostage-dec":
+        return ph
+    no = ph.shape[0]
+    return ph[:, :, None].expand(-1, -1, chain.dec).reshape(no, -1)[:, :eqp.shape[-1]].contiguous()
+
+
+def bps_ops_bf16(grid, A, samples, N, fine=False):
+    """:func:`bps_ops` with bf16 windows: the rotation, distance and compare in float32, the
+    bf16 rounding and widening, and the window's adds (the doubling levels to the largest
+    power of two in 2N, then one per further component) at two per float32 operation, the
+    packed-bf16 rate."""
+    kind, p = phops.grid_decision_info(grid)
+    N2 = 2 * N
+    adds = N2.bit_length() - 1 + bin(N2).count("1") - 1
+    per_angle = (OPS_BPS_SEARCH - 2 + BF16_WIDEN + adds / 2
+                 + (OPS_GEN_POINT * len(p[0]) if kind == "gen" else OPS_DECIDE[kind])
+                 + (OPS_FINE_ANGLE if fine else 0))
+    return per_angle * A * samples
+
+
+def b3_bf16_record(er, ei, cos_t, sin_t, grid, N, T, points, what, reps=(20, 5)):
+    """B3 with bf16 windows at tile T against its bf16 twin, bit for bit; beside it the float32
+    kernel's time and the share of positions where the two window types choose apart."""
+    A, (nmodes, L) = cos_t.shape[0], er.shape
+    idx_p = bps_search_plain(er, ei, cos_t, sin_t, grid, N, T)
+    idx_k = bps_search_cuda(er, ei, cos_t, sin_t, grid, N, points, T)
+    same = bool(torch.equal(idx_k, idx_p))
+    f32 = bps_search_cuda(er, ei, cos_t, sin_t, grid, N, points)
+    kind = phops.grid_decision_info(grid)[0]
+    plan = phcuda.bf16_plan(nmodes, L, N, T, len(grid[1]) if kind == "gen" else 0)
+    print("B3 bps_search bf16 (%s: grid %s, A=%d, N=%d, T=%d): %s bit-equal to its bf16 twin: "
+          "%s; %.2e of the positions choose apart from the float32 windows; plan run %d, tile "
+          "%d, %d B shared, %d CTAs" % (what, kind, A, N, T, tuple(idx_k.shape), same,
+                                        float((idx_k != f32).double().mean()), plan.run,
+                                        plan.tile, plan.smem, plan.ctas))
+    require(same, "B3 with bf16 windows differs from its twin (%s)" % what)
+    rec = dict(**bound(nbytes(er, ei, idx_k), bps_ops_bf16(grid, A, er.numel(), N)), err=0.0,
+               ms=device_ms(lambda: bps_search_cuda(er, ei, cos_t, sin_t, grid, N, points, T),
+                            reps[0]),
+               f32_ms=device_ms(lambda: bps_search_cuda(er, ei, cos_t, sin_t, grid, N, points),
+                                reps[0]),
+               plain_ms=device_ms(lambda: bps_search_plain(er, ei, cos_t, sin_t, grid, N, T),
+                                  reps[1]),
+               shape="grid %s, A=%d N=%d, bf16 windows at T=%d, 2 x %d samples, tiles of %d"
+                     % (kind, A, N, T, L, plan.tile), grid=kind)
+    return rec, idx_k
+
+
+def b8_bf16_record(er, ei, ph1, cd, sd, grid, N, d0f, ddf, T, points, what, reps=(20, 5)):
+    """B8 with bf16 windows at tile T against its bf16 twin, bit for bit, as B3's."""
+    B, (nmodes, L) = cd.shape[0], er.shape
+    fargs = (er, ei, ph1, cd, sd, grid, N, d0f, ddf)
+    f_p = bps_fine_plain(*fargs, T)
+    f_k = bps_fine_cuda(*fargs, points, T)
+    same = bool(torch.equal(f_k, f_p))
+    f32 = bps_fine_cuda(*fargs, points)
+    kind = phops.grid_decision_info(grid)[0]
+    plan = phcuda.bf16_plan(nmodes, L, N, T, len(grid[1]) if kind == "gen" else 0, fine=True)
+    print("B8 bps_fine bf16 (%s: grid %s, B=%d, N=%d, T=%d): %s bit-equal to its bf16 twin: "
+          "%s; %.2e of the phases apart from the float32 windows'; plan run %d, tile %d, %d B "
+          "shared, %d CTAs" % (what, kind, B, N, T, tuple(f_k.shape), same,
+                               float((f_k != f32).double().mean()), plan.run, plan.tile,
+                               plan.smem, plan.ctas))
+    require(same, "B8 with bf16 windows differs from its twin (%s)" % what)
+    rec = dict(**bound(nbytes(er, ei, ph1, f_k), bps_ops_bf16(grid, B, er.numel(), N, fine=True)
+                       + OPS_ROTATE * er.numel()), err=0.0,
+               ms=device_ms(lambda: bps_fine_cuda(*fargs, points, T), reps[0]),
+               f32_ms=device_ms(lambda: bps_fine_cuda(*fargs, points), reps[0]),
+               plain_ms=device_ms(lambda: bps_fine_plain(*fargs, T), reps[1]),
+               shape="grid %s, B=%d N=%d, bf16 windows at T=%d, 2 x %d samples, tiles of %d"
+                     % (kind, B, N, T, L, plan.tile), grid=kind)
+    return rec, f_k
+
+
+def mode_paths(P, ref, const, card, rec, blind_out):
+    """Phase 8b: the reference's last selectable modes (``MODE_PATHS``) on the blind capture.
+
+    Each path through :func:`chain_path`; then its kernels against their plain versions at
+    its own inputs (B3 and B8 with bf16 windows bit-equal to their twins), or the record of
+    an earlier path where the inputs have its shapes. Returns (records, launches per path).
+    """
+    recs, launches_all = {}, {}
+    for path, cfg, gate, want in MODE_PATHS:
+        launches_all[path], chain, w, out = chain_path(path, cfg, gate, P, ref, const,
+                                                       dict(seed=2), card, want)
+        if path == "blind fuse_derot off":
+            same = bool(torch.equal(out[0], blind_out[0]) and torch.equal(out[1], blind_out[1]))
+            print("%s: output bit-equal to the blind path's (decimated16 derotates by B4 "
+                  "either way): %s" % (path, same))
+            require(same, "fuse_derot=False changed the decimated16 chain")
+        eqp, decp = chain.equalise(P, w)
+        no = eqp.shape[0] // 2
+        er, ei = eqp[:no], eqp[no:]
+        recs["B1", path] = rec["B1", "blind"]
+        if chain.dec == 8:
+            recs["B2", path], _ = b2_record(P, CFG["os"], w, 8, path,
+                                            "2 x 2^21 samples in, side output stride 8")
+        else:
+            recs["B2", path] = rec["B2", "blind" if chain.dec else "blind single"]
+        x = eqp if decp is None else decp
+        xr, xi = x[:no], x[no:]
+        if chain.bps_win == "bf16":
+            recs["B3", path], idx = b3_bf16_record(xr, xi, chain.bps_cos, chain.bps_sin,
+                                                   chain.search_grid, chain.search_N,
+                                                   chain.search_tile, None, path)
+        else:
+            recs["B3", path], idx = b3_record(xr, xi, chain.bps_cos, chain.bps_sin,
+                                              chain.search_grid, chain.search_N, None, path)
+        if chain.mode == "decimated":
+            recs["B4", path] = b4_record(eqp, idx, chain, path)
+            continue
+        ph = coarse_phase(chain, idx, eqp)
+        if chain.mode in ("twostage", "twostage-dec"):
+            fargs = (er, ei, ph, chain.fine_cos, chain.fine_sin, chain.fine_grid, chain.bps_N,
+                     chain.fine_d0, chain.fine_step)
+            if chain.bps_win == "bf16":
+                recs["B8", path], ph = b8_bf16_record(*fargs, chain.bps_tile, None, path)
+            else:
+                recs["B8", path], ph = b8_record(*fargs, None, path)
+            if chain.mode == "twostage-dec":
+                # its shapes with bf16 windows (no path launches them): bit-equal, timed
+                what = path + " shapes, bf16 windows"
+                r3, i3 = b3_bf16_record(xr, xi, chain.bps_cos, chain.bps_sin, chain.search_grid,
+                                        chain.search_N, chain.search_tile, None, what)
+                r8, _ = b8_bf16_record(er, ei, coarse_phase(chain, i3, eqp), *fargs[3:],
+                                       chain.bps_tile, None, what)
+                for k, r in (("B3", r3), ("B8", r8)):
+                    print("time %s (%s, device, %s): kernel %.4f ms, float32 %.4f ms, bound "
+                          "%.5f ms by %s, plain %.4f ms [%s]" % (k, what, r["shape"], r["ms"],
+                                                                r["f32_ms"], r["bound_ms"],
+                                                                r["bound_by"], r["plain_ms"],
+                                                                card))
+        if chain.pallas and chain.fuse_derot:
+            recs["B7", path] = rec["B7", "blind twostage"]
+        else:
+            recs["B6", path] = b6_record(er, ei, chain.unwrap_unfused(ph), path)
+    print_times(recs, card)
+    return recs, launches_all
 
 
 # ---------------------------------------------------------------------------
@@ -1311,8 +1511,9 @@ def grid_phases(dev, card):
                   % (key, NSYM, coded.size, time.perf_counter() - t0))
         P, ref, coded = captures[key]
         sel = dict(M=txkw["M"]) if "M" in txkw else dict(symbols=const)
-        launches, chain, w = chain_path(path, dict(GRID_CFG, **kw, **sel), GRID_SER_LIMIT, P, ref,
-                                        coded, dict(txkw, seed=SMALL_SEED.get(key, 2)), card)
+        launches, chain, w, _ = chain_path(path, dict(GRID_CFG, **kw, **sel), GRID_SER_LIMIT, P,
+                                           ref, coded, dict(txkw, seed=SMALL_SEED.get(key, 2)),
+                                           card)
         path_launches[path] = launches
         rec.update(grid_path_records(path, chain, P, w, coded, card))
     return rec, path_launches
@@ -1987,6 +2188,10 @@ def pilot_phases(dev, card, lat):
     rec.update(lms_rec)
     nb_rec, launches_all["pilot non-blocked"] = pilot_nonblocked_path(tx, card)
     rec.update(nb_rec)
+    sch_launches = pilot_schedule_paths(tx, chain, (dr, di), card)
+    launches_all.update(sch_launches)
+    for path in sch_launches:       # the scan's kernels at the scan's shapes: phase 12's records
+        rec.update({(k, path): rec[k, "pilot"] for k in ("B2 frames", "B5", "B4")})
     del tx, chain, dr, di, pdr, pdi
     long_rec, launches_all["pilot long frames"] = pilot_long_path(card)
     rec.update(long_rec)
@@ -1995,6 +2200,65 @@ def pilot_phases(dev, card, lat):
     gran_rec, launches_all["pilot granular"] = pilot_granular_path(dev, card, lat)
     rec.update(gran_rec)
     return rec, launches_all
+
+
+def pilot_schedule_paths(tx, scan, scan_out, card):
+    """Phase 12c: the frame schedules "span" and "pack" on the 240-frame cell, beside ``scan``.
+
+    Both run the batched frame body (B2 frames, B5 and B4 once each, at the scan's shapes):
+    span with its windows cut from one clamped span, a pack as the whole batch. Each: counted,
+    under the BER gate, its payload against the scan's (span within the reference's 1e-4, pack
+    bit for bit), no synchronising call, the tracking entry bit-exact (the complex one for
+    span: ``tracking_planes`` takes scan and vmap only), timed in turn with the scan. Returns
+    the launches per path.
+    """
+    pr, pi = tx.planes[:2], tx.planes[2:]
+    nd = tx.idx_tx.shape[-1]
+    npay = 2 * PILOT_FRAMES * nd
+    launches_all = {}
+    want = {"B2 frames": 1, "B5": 1, "B4": 1}
+    for path, kw in (("pilot span", dict(frames_mode="span")),
+                     ("pilot frames_pack %d" % PACK, dict(frames_pack=PACK))):
+        chain = make_pilot_rx_chain(tx.pilot_seq, tx.ph_pilots, PILOT_FRAME, PILOT_RAT,
+                                    frames=range(PILOT_FRAMES), return_phase=False,
+                                    **PILOT_CFG, **kw)
+        span = chain.schedule == "span"
+        ((dr, di), info), launches = counted(lambda: chain.planes(pr, pi))
+        print("%s (schedule %s) launches: %s" % (path, chain.schedule, launches))
+        require(launches == expected(want), "the %s path did not launch each kernel as expected"
+                % path)
+        gate = ber_gate(dr, di, tx, info["sync_corr"])
+        d = max(float((dr - scan_out[0]).abs().max()), float((di - scan_out[1]).abs().max()))
+        tol = TOL_SPAN if span else 0.0
+        print("%s: BER %.3e SER %.3e, sync_corr %.1f; payload against the scan's max|d| %.3e "
+              "(tol %.0e)" % (path, gate["ber"], gate["ser"], gate["sync_corr"], d, tol))
+        require(gate["ok"], "%s BER gate failed (BER <= 1e-5 and sync_corr >= 120)" % path)
+        require(d <= tol, "%s payload departs from the scan's" % path)
+        syncs = syncs_in(lambda: chain.planes(pr, pi))
+        print("%s dispatch: %d synchronising calls" % (path, len(syncs)))
+        require(not syncs, "%s synchronises the host" % path)
+        targs = (info["taps"], info["shift"], info["mode_order"])
+        E = torch.complex(pr, pi)
+        if span:
+            tout = chain.tracking(E, *targs)[0]
+            exact = bool(torch.equal(tout, torch.complex(dr, di)))
+        else:
+            tr, ti = chain.tracking_planes(pr, pi, *targs)[0]
+            exact = bool(torch.equal(tr, dr) and torch.equal(ti, di))
+        print("%s tracking == planes payload: %s" % (path, exact))
+        require(exact, "%s tracking output differs from the full chain" % path)
+        t = [cuda_ms(lambda: scan.planes(pr, pi), 5), cuda_ms(lambda: chain.planes(pr, pi), 5),
+             cuda_ms(lambda: chain.planes(pr, pi), 5), cuda_ms(lambda: scan.planes(pr, pi), 5)]
+        t_trk = [cuda_ms(lambda: scan.tracking_planes(pr, pi, *targs), 10),
+                 cuda_ms((lambda: chain.tracking(E, *targs)) if span
+                         else (lambda: chain.tracking_planes(pr, pi, *targs)), 10)]
+        print("time %s chain.planes: %.4f, %.4f ms (%.1f payload Msym/s) beside scan %.4f, %.4f "
+              "ms (%.1f); tracking %.4f ms beside scan's %.4f ms [%s]"
+              % (path, t[1], t[2], npay / min(t[1:3]) / 1e3, t[0], t[3],
+                 npay / min(t[0], t[3]) / 1e3, t_trk[1], t_trk[0], card))
+        launches_all[path] = launches
+        del dr, di, info, E
+    return launches_all
 
 
 def payload_forms(chain, outr, outi, card, rounds=3):
@@ -3146,11 +3410,12 @@ def args_b4_record(args, what):
 
 
 def args_b5_record(args, what):
-    """B5 against its plain version on a recorded call's arguments (the chain's form)."""
+    """B5 against its plain version on a recorded call's arguments (from contiguous pilot rows,
+    the chain's form, or strided from a filter output: the known pilots give the count)."""
     a_p, b_p = cpe_coeffs_plain(*args)
     a_k, b_k = cpe_coeffs_cuda(*args)
     d_a, d_b = float((a_k - a_p).abs().max()), float((b_k - b_p).abs().max())
-    rows, npil = args[0].shape
+    rows, npil = args[0].shape[0], args[2].shape[1]
     print("B5 cpe_coeffs (%s): %d rows x %d pilots, max|da| %.3e (tol %.0e), max|db| %.3e "
           "(tol %.0e)" % (what, rows, npil, d_a, TOL_CPE_A, d_b, TOL_CPE_B))
     require(d_a <= TOL_CPE_A and d_b <= TOL_CPE_B, "B5 disagrees with its plain version (%s)"
@@ -3954,10 +4219,13 @@ def main():
     rec.update(check_sample_kernels(P, w, card))
     path_launches = {"blind": launches}
     for mode in ("twostage", "single"):
-        path_launches["blind " + mode], _, _ = chain_path(
+        path_launches["blind " + mode] = chain_path(
             "blind " + mode, dict(SAMPLE_CFG, bps_mode=mode), SAMPLE_GATES[mode], P, ref, const,
-            dict(seed=2), card)
+            dict(seed=2), card)[0]
         rec["B1", "blind " + mode] = rec["B1", "blind"]
+    mrec, mode_launches = mode_paths(P, ref, const, card, rec, (outr, outi))
+    rec.update(mrec)
+    path_launches.update(mode_launches)
 
     prec, pilot_launches = pilot_phases(dev, card, lat)
     rec.update(prec)

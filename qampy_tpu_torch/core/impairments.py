@@ -31,20 +31,20 @@ def _randn(shape, generator, device):
     return torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
 
 
-def phase_noise(shape, df, fs, generator):
-    """Wiener phase noise, variance 2*pi*df/fs per step (reference :68-73).
+def phase_noise(sz, df, fs, generator):
+    """Wiener phase noise of shape ``sz``, variance 2*pi*df/fs per step (reference :68-73).
 
     The walk is summed in float64 and returned as float32.
     """
     dev = generator.device
-    steps = _randn(shape, generator, dev).double() * np.sqrt(2 * np.pi * df / fs)
+    steps = _randn(sz, generator, dev).double() * np.sqrt(2 * np.pi * df / fs)
     return torch.cumsum(steps, dim=-1).float()
 
 
-def apply_phase_noise(sig, df, fs, generator):
+def apply_phase_noise(signal, df, fs, generator):
     """Add laser phase noise to a complex signal (reference :76-80)."""
-    ph = phase_noise(sig.shape, df, fs, generator)
-    return sig * torch.polar(torch.ones_like(ph), ph)
+    ph = phase_noise(signal.shape, df, fs, generator)
+    return signal * torch.polar(torch.ones_like(ph), ph)
 
 
 def add_awgn(sig, strgth, generator):

@@ -134,6 +134,7 @@
 //     and reads the samples, their angle and the points where they lie, so
 //     that shared memory holds 4 bytes per staged sample, no more than the
 //     first design's table at B = 1.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -150,6 +151,9 @@ constexpr int kBpsFullWindow = 4; // B3, B8: windows of at most this many sample
 constexpr int kFineMaxRun = 8;    // B8: positions of a run, at most
 constexpr int kFineMaxRunGen = 8; // B8: the same on a general alphabet
 constexpr int kFineMaxRunNarrow = 4;   // B8: the same with slots of one offset
+constexpr int kBfMaxRun = 4;      // B3 with bf16 windows: positions of a run, at most
+constexpr int kBfFineMaxRun = 8;  // B8 with bf16 windows: the same (runs of 4 spill registers)
+constexpr int kBfLookback = 128;  // bf16 windows: the previous tile's columns a tail reads
 constexpr long long kSmemLimit = 227 * 1024;   // shared memory a CTA can have
 constexpr int kRotThreads = 256;
 constexpr long long kStaticSmem = 48 * 1024;   // shared memory a CTA has without opting in
@@ -248,6 +252,32 @@ struct alignas(sizeof(float) * C >= 16 ? 16 : sizeof(float) * C) Slot {
 };
 using BpsSlot = Slot<kBpsChunk>;
 
+// One slot of a bf16 table: the chunk's 4 angles as two packed pairs
+struct alignas(8) BfSlot {
+    __nv_bfloat162 v[2];
+};
+static_assert(kBpsChunk == 4, "a bf16 slot holds 4 angles");
+
+__device__ __forceinline__ BfSlot bf_round(const float (&d)[kBpsChunk]) {
+    BfSlot b;
+    b.v[0] = __floats2bfloat162_rn(d[0], d[1]);
+    b.v[1] = __floats2bfloat162_rn(d[2], d[3]);
+    return b;
+}
+
+__device__ __forceinline__ BfSlot bf_zero() {
+    BfSlot z;
+    z.v[0] = z.v[1] = __float2bfloat162_rn(0.f);
+    return z;
+}
+
+__device__ __forceinline__ BfSlot bf_add(BfSlot a, const BfSlot& b) {
+    a.v[0] = __hadd2(a.v[0], b.v[0]);
+    a.v[1] = __hadd2(a.v[1], b.v[1]);
+    return a;
+}
+
+
 // B3's launch: R positions per thread, a tile of T = kBpsThreads R positions
 // per CTA, kBpsChunk angles per pass, the CTA's shared-memory bytes (the gen
 // table as float4, the padded table of BpsSlot, the staged samples as
@@ -309,6 +339,37 @@ BpsPlan fine_plan(int nmodes, long long L, int N, int npts) {
     return p;
 }
 
+// The launch of B3 or B8 with bf16 windows at reference tile T (ops/phase_cuda.py
+// bf16_plan is the same rule): runs from kBfMaxRun (B8: kBfFineMaxRun) down by B3's rule, then halved while
+// the CTA would not fit kSmemLimit: the gen table as float4, the staged samples (float2 in
+// B3, float4 in B8), 1 + popcount(2N) padded tables of bf16 slots (bf_levels), and the
+// tails of the reference tiles that the CTA's windows cross, 2N slots each.
+long long bf_tables(int N) { return 1 + __builtin_popcount(2 * N); }
+
+long long bf_bounds(long long tile, int N, int T) { return (tile + 2LL * N - 2) / T + 1; }
+
+long long bf_smem(long long run, int N, int npts, int T, bool fine) {
+    const long long tile = kBpsThreads * run, W = tile + 2LL * N - 1;
+    return 16LL * npts + (fine ? 16 : 8) * W + 8 * bf_tables(N) * bps_slots(W, run) +
+           8 * 2LL * N * bf_bounds(tile, N, T);
+}
+
+BpsPlan bf_plan(int nmodes, long long L, int N, int npts, int T, bool fine) {
+    BpsPlan p;
+    for (p.run = bps_run(nmodes, L, fine ? kBfFineMaxRun : kBfMaxRun);; p.run /= 2) {
+        p.smem = bf_smem(p.run, N, npts, T, fine);
+        if (p.smem <= kSmemLimit || p.run == 1) break;
+    }
+    p.tile = kBpsThreads * p.run;
+    p.chunk = kBpsChunk;
+    p.ctas = nmodes * ((L + p.tile - 1) / p.tile);
+    return p;
+}
+
+// Whether a bf16 window launch takes (N, T): the reference's _windowed_sums needs
+// 2N <= 128 (its tails come from one lane tile), 2N < T, and T a multiple of 128.
+bool bf_takes(int N, int T) { return N >= 1 && 2 * N <= kBfLookback && 2 * N < T && T % 128 == 0; }
+
 // A general alphabet's distances of one sample at the chunk's C
 // rotations, in grid_dist<kGen>'s arithmetic: each float4 point, loaded once,
 // serves every angle.
@@ -354,11 +415,11 @@ __device__ __forceinline__ void chunk_dists(float x, float y, const float (&c)[C
 // The distance table of one chunk (angles ct[k], st[k] for k < na) for all W
 // staged samples: a thread takes one sample at a time and all its rotations,
 // and stores them as one slot.
-template <int KIND>
+template <int KIND, class TabSlot>
 __device__ __forceinline__ void bps_fill(const float2* xs, int W, int sh,
                                          const float* __restrict__ ct,
                                          const float* __restrict__ st, int na, const GridArgs& g,
-                                         const float4* pts, BpsSlot* tab) {
+                                         const float4* pts, TabSlot* tab) {
     float c[kBpsChunk], s[kBpsChunk];
 #pragma unroll
     for (int k = 0; k < kBpsChunk; ++k) {
@@ -371,7 +432,10 @@ __device__ __forceinline__ void bps_fill(const float2* xs, int W, int sh,
         const float2 z = xs[u];
         BpsSlot d;
         chunk_dists<KIND>(z.x, z.y, c, s, g, pts, nullptr, d.v);
-        tab[bps_pad(u, sh)] = d;
+        if constexpr (sizeof(TabSlot) == sizeof(BpsSlot))
+            tab[bps_pad(u, sh)] = d;
+        else
+            tab[bps_pad(u, sh)] = bf_round(d.v);   // bf16 windows: the distances rounded
     }
 }
 
@@ -436,17 +500,251 @@ __device__ __forceinline__ const int* bps_tile_indices(void* table, int sh, int 
     return idx;
 }
 
-template <int KIND>
+// ---- bf16 windows (B3 and B8 with a bf16 tile T) ----------------------------------
+//
+// The reference's _windowed_sums with win_dtype=bf16 (phase_pallas.py:39-80), in its
+// order: the row is cut into tiles of T columns; each distance is rounded to bf16; the
+// power-of-two running sums S_2w[c] = S_w[c] + S_w[c - w] (S_w[c - w] = 0 where c < w in
+// the tile) are built by doubling, every add rounded to bf16; the window ending at column c
+// is S_w1[c] + S_w2[c - w1] + S_w3[c - w1 - w2] + ..., the binary components w1 > w2 > ...
+// of 2N largest first, a term 0 where its column falls before the tile; the first 2N
+// columns then add the previous tile's tail, tail[c] = C[127] - C[128 - 2N + c], C the
+// doubling prefix sums of that tile's last 128 distances (0 for the first tile). A slot
+// holds a sample's 4 values as two packed pairs: every add is one __hadd2 for two angles.
+
+__device__ __forceinline__ BfSlot bf_shfl_up(BfSlot a, int d) {
+    unsigned x = *reinterpret_cast<unsigned*>(&a.v[0]), y = *reinterpret_cast<unsigned*>(&a.v[1]);
+    x = __shfl_up_sync(0xffffffffu, x, d);
+    y = __shfl_up_sync(0xffffffffu, y, d);
+    BfSlot b;
+    b.v[0] = *reinterpret_cast<__nv_bfloat162*>(&x);
+    b.v[1] = *reinterpret_cast<__nv_bfloat162*>(&y);
+    return b;
+}
+
+__device__ __forceinline__ BfSlot bf_shfl(BfSlot a, int lane) {
+    unsigned x = *reinterpret_cast<unsigned*>(&a.v[0]), y = *reinterpret_cast<unsigned*>(&a.v[1]);
+    x = __shfl_sync(0xffffffffu, x, lane);
+    y = __shfl_sync(0xffffffffu, y, lane);
+    BfSlot b;
+    b.v[0] = *reinterpret_cast<__nv_bfloat162*>(&x);
+    b.v[1] = *reinterpret_cast<__nv_bfloat162*>(&y);
+    return b;
+}
+
+// The table of level w (its S_w) among the 1 + popcount(2N) tables of stride ts slots:
+// tables 0 and 1 take turns for the levels no window reads; a component of 2N below the
+// top one has table 2 + (components below it); the top one stays where it was built.
+__device__ __forceinline__ int bf_table_of(int w, int N2, int top, int top_table) {
+    return w == top ? top_table : 2 + __popc(N2 & (w - 1));
+}
+
+constexpr int kBfGroup = 8;   // slots a thread builds in registers, the levels up to it
+
+// One level S_2w = S_w + S_w[-w] over a thread's group in registers: v[i] is slot g0 + i - 7,
+// colg the column of slot g0 in its tile; from the top down, so v[i - w] is still level w.
+template <int w>
+__device__ __forceinline__ void bf_group_level(BfSlot (&v)[2 * kBfGroup - 1], int g0, int colg,
+                                               int T) {
+#pragma unroll
+    for (int i = 2 * kBfGroup - 2; i >= w; --i) {
+        int c = colg + i - (kBfGroup - 1);
+        c = c < 0 ? c + T : c >= T ? c - T : c;
+        if (g0 + i - (kBfGroup - 1) - w >= 0 && c >= w) v[i] = bf_add(v[i], v[i - w]);
+    }
+}
+
+// The group's level w2 (slots g0 .. g0+7 of the table ``dst``) where a window or a later level
+// reads it: the top, the last level built in registers, a component of N2.
+__device__ __forceinline__ void bf_group_store(BfSlot* tabs, int ts, int sh, int W, int g0,
+                                               const BfSlot (&v)[2 * kBfGroup - 1], int w2,
+                                               int top, int wr, int N2) {
+    if (w2 != top && w2 != wr && !(N2 & w2)) return;
+    const int dst = w2 == top || !(N2 & w2) ? 1 : 2 + __popc(N2 & (w2 - 1));
+#pragma unroll
+    for (int i = 0; i < kBfGroup; ++i)
+        if (g0 + i < W) tabs[dst * ts + bps_pad(g0 + i, sh)] = v[i + kBfGroup - 1];
+}
+
+// The chunk's levels S_2 .. S_top (top = the largest power of two in N2) from the
+// distances in table 0, all threads; col0 is the column in its reference tile (of T >=
+// kBpsThreads) of staged slot 0. Levels up to 8 are built in registers, a thread taking 8
+// consecutive slots and the 7 before them (no barrier between them); the rest by passes over
+// the tables, a barrier each. Returns the table of S_top. Begins and ends with a barrier.
+__device__ __forceinline__ int bf_levels(BfSlot* tabs, int ts, int W, int sh, int col0, int T,
+                                         int N2) {
+    const int top = 1 << (31 - __clz(N2));
+    const int wr = top < kBfGroup ? top : kBfGroup;   // the last level built in registers
+    __syncthreads();   // the distances are written
+    for (int g0 = kBfGroup * threadIdx.x; g0 < W; g0 += kBfGroup * kBpsThreads) {
+        BfSlot v[2 * kBfGroup - 1];   // slot g0 + i - 7 at v[i]
+#pragma unroll
+        for (int i = 0; i < 2 * kBfGroup - 1; ++i) {
+            const int u = g0 + i - (kBfGroup - 1);
+            v[i] = u >= 0 && u < W ? tabs[bps_pad(u, sh)] : bf_zero();
+        }
+        const int colg = (col0 + g0) % T;
+        bf_group_level<1>(v, g0, colg, T);
+        bf_group_store(tabs, ts, sh, W, g0, v, 2, top, wr, N2);
+        if (wr >= 4) {
+            bf_group_level<2>(v, g0, colg, T);
+            bf_group_store(tabs, ts, sh, W, g0, v, 4, top, wr, N2);
+        }
+        if (wr >= 8) {
+            bf_group_level<4>(v, g0, colg, T);
+            bf_group_store(tabs, ts, sh, W, g0, v, 8, top, wr, N2);
+        }
+    }
+    if (wr == top) {
+        __syncthreads();
+        return 1;
+    }
+    int src = N2 & wr ? 2 + __popc(N2 & (wr - 1)) : 1;
+    int col_t = (col0 + (int)threadIdx.x) % T;
+    for (int w = wr; w < top; w *= 2) {
+        const int w2 = 2 * w;
+        const int dst = w2 != top && (N2 & w2) ? 2 + __popc(N2 & (w2 - 1)) : src == 0 ? 1 : 0;
+        __syncthreads();   // level w is written, and table 0 (the distances) read
+        const BfSlot* a = tabs + src * ts;
+        BfSlot* b = tabs + dst * ts;
+        int col = col_t;
+        for (int u = threadIdx.x; u < W; u += kBpsThreads) {
+            BfSlot x = a[bps_pad(u, sh)];
+            if (u >= w && col >= w) x = bf_add(x, a[bps_pad(u - w, sh)]);
+            b[bps_pad(u, sh)] = x;
+            col += kBpsThreads;
+            if (col >= T) col -= T;
+        }
+        src = dst;
+    }
+    __syncthreads();
+    return src;
+}
+
+// A tail of the reference tile that begins at b, from the distances c[q] (bf16) of samples
+// b - 128 + 4 lane + q at the chunk's angles, one warp: out[k] = C[127] - C[128 - N2 + k] for
+// k < N2, C the doubling prefix C[i] += C[i - sh] (sh = 1 .. 64), in registers and shuffles.
+__device__ __forceinline__ void bf_tail(BfSlot (&c)[4], BfSlot* out, int N2) {
+    const int lane = threadIdx.x & 31;
+    {   // sh = 1 and 2 within the lane's 4 columns (and the lane before)
+        const BfSlot p3 = bf_shfl_up(c[3], 1);
+        BfSlot n[4] = {c[0], bf_add(c[1], c[0]), bf_add(c[2], c[1]), bf_add(c[3], c[2])};
+        if (lane > 0) n[0] = bf_add(c[0], p3);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) c[q] = n[q];
+    }
+    {
+        const BfSlot p2 = bf_shfl_up(c[2], 1), p3 = bf_shfl_up(c[3], 1);
+        BfSlot n[4] = {c[0], c[1], bf_add(c[2], c[0]), bf_add(c[3], c[1])};
+        if (lane > 0) {
+            n[0] = bf_add(c[0], p2);
+            n[1] = bf_add(c[1], p3);
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q) c[q] = n[q];
+    }
+#pragma unroll
+    for (int dl = 1; dl < 32; dl *= 2) {   // sh = 4 dl
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+            const BfSlot p = bf_shfl_up(c[q], dl);
+            if (lane >= dl) c[q] = bf_add(c[q], p);
+        }
+    }
+    const BfSlot total = bf_shfl(c[3], 31);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+        const int k = 4 * lane + q - (kBfLookback - N2);
+        if (k >= 0) {
+            BfSlot t;
+            t.v[0] = __hsub2(total.v[0], c[q].v[0]);
+            t.v[1] = __hsub2(total.v[1], c[q].v[1]);
+            out[k] = t;
+        }
+    }
+}
+
+// The first reference-tile start b >= T whose tail a window ending in [e0, ...) may need:
+// the least multiple of T above e0 - N2, at least T.
+__device__ __forceinline__ long long bf_first_bound(long long e0, int N2, int T) {
+    const long long lo = e0 - N2 + 1;
+    const long long b = lo <= 0 ? T : (lo + T - 1) / T * T;
+    return b < T ? T : b;
+}
+
+// Where the thread's run starts in the reference tiling: the column c0 of its first window
+// end e0 = j0 + p0 + N, and the row of the tails that a tile starting at e0 - c0 reads.
+struct BfRunStart {
+    int c0;
+    long long tail0;
+};
+
+__device__ __forceinline__ BfRunStart bf_run_start(long long e0, long long b_lo, int T) {
+    const int c0 = (int)(e0 % T);
+    const long long b = e0 - c0;   // below b_lo, the next tile's row is 0
+    return {c0, b >= b_lo ? (b - b_lo) / T : -1};
+}
+
+// The bf16 windows of the thread's run (tile positions p0 .. p0+run-1, window ends
+// e = e0 + r at staged slot p0 + r + N2 - 1) at the chunk's angles a0 + k, k < na, into the
+// run's best sums and indices (float32 compare, strict <: the first minimum wins).
+template <int R>
+__device__ __forceinline__ void bf_run_sums(const BfSlot* tabs, int ts, int top_table,
+                                            const BfSlot* tails, BfRunStart st, long long e0,
+                                            int sh, int p0, int run, int N2, int T, int a0,
+                                            int na, float (&bs)[R], int (&bi)[R]) {
+    const int top = 1 << (31 - __clz(N2));
+    const BfSlot* t_top = tabs + top_table * ts;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+        if (r == run) break;
+        const int ue = p0 + r + N2 - 1;
+        int c = st.c0 + r;
+        long long tr = st.tail0;
+        if (c >= T) {   // the run crosses into the next tile (a run is shorter than a tile)
+            c -= T;
+            ++tr;
+        }
+        BfSlot acc = t_top[bps_pad(ue, sh)];
+        int off = top;
+        for (int w = top >> 1; w >= 2; w >>= 1) {
+            if (!(N2 & w)) continue;
+            if (c >= off)
+                acc = bf_add(acc, tabs[bf_table_of(w, N2, top, top_table) * ts +
+                                       bps_pad(ue - off, sh)]);
+            off += w;
+        }
+        if (c < N2 && e0 + r >= T) acc = bf_add(acc, tails[tr * N2 + c]);
+        const float v[kBpsChunk] = {__low2float(acc.v[0]), __high2float(acc.v[0]),
+                                    __low2float(acc.v[1]), __high2float(acc.v[1])};
+#pragma unroll
+        for (int k = 0; k < kBpsChunk; ++k) {
+            if (k < na && v[k] < bs[r]) {
+                bs[r] = v[k];
+                bi[r] = a0 + k;
+            }
+        }
+    }
+}
+
+template <int KIND, bool BF>
 __global__ void __launch_bounds__(kBpsThreads)
     bps_kernel(const float* __restrict__ er, const float* __restrict__ ei, long long L,
                const float* __restrict__ cos_t, const float* __restrict__ sin_t, int A, int N,
-               GridArgs g, const float* __restrict__ pts_g, int run, int* __restrict__ out) {
+               GridArgs g, const float* __restrict__ pts_g, int run, int T,
+               int* __restrict__ out) {
     extern __shared__ float4 bps_sm[];
     const int N2 = 2 * N, tile = kBpsThreads * run, W = tile + N2 - 1;
     const int sh = run > 1 ? __ffs(run) - 1 : 31;
+    const int ts = bps_pad(W - 1, sh) + 1;                   // slots of a table
     float4* pts = bps_sm;                                     // (npts,), kGen only
-    BpsSlot* tab = reinterpret_cast<BpsSlot*>(pts + g.npts);  // (bps_pad(W - 1, sh) + 1,)
-    float2* xs = reinterpret_cast<float2*>(tab + bps_pad(W - 1, sh) + 1);   // (W,) samples
+    // float32 windows: the slot table, then the samples; bf16 windows (T > 0): the samples,
+    // bf_tables(N) tables of bf16 slots, then the tails (bf_plan)
+    BpsSlot* tab = reinterpret_cast<BpsSlot*>(pts + g.npts);  // (ts,)
+    float2* xs = BF ? reinterpret_cast<float2*>(pts + g.npts)
+                    : reinterpret_cast<float2*>(tab + ts);    // (W,) samples
+    BfSlot* tabs = reinterpret_cast<BfSlot*>(xs + W);         // BF: (1 + popc(N2), ts)
+    BfSlot* tails = tabs + (1 + __popc(N2)) * ts;             // BF: (bounds, N2)
     const long long row = (long long)blockIdx.y * L;
     const long long j0 = (long long)blockIdx.x * tile;
     const long long s0 = j0 - N + 1;  // staged sample u is sample s0 + u of the row
@@ -457,64 +755,7 @@ __global__ void __launch_bounds__(kBpsThreads)
         const bool in = s >= 0 && s < L;
         xs[u] = make_float2(in ? er[row + s] : 0.f, in ? ei[row + s] : 0.f);
     }
-    constexpr int R = KIND == kGen ? kBpsMaxRunGen : kBpsMaxRun;   // registers of a run
-    float bs[R];
-    int bi[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-        bs[r] = INFINITY;
-        bi[r] = 0;
-    }
-    const int p0 = threadIdx.x * run;
-    for (int a0 = 0; a0 < A; a0 += kBpsChunk) {
-        const int na = min(kBpsChunk, A - a0);
-        __syncthreads();  // the samples are staged, the previous chunk's sums are done
-        bps_fill<KIND>(xs, W, sh, cos_t + a0, sin_t + a0, na, g, pts, tab);
-        __syncthreads();
-        bps_run_sums(tab, sh, p0, run, N2, a0, na, bs, bi);
-    }
-    const int* idx = bps_tile_indices(tab, sh, p0, run, j0, L, N, bi);
-    for (int p = threadIdx.x; p < tile; p += kBpsThreads) {
-        const long long j = j0 + p;
-        if (j < L) out[row + j] = idx[bps_pad(p, sh)];
-    }
-}
-
-// B8: B3's search with a per-sample angle. C: offsets per slot, kBpsChunk
-// with the samples (float4 [x, y, cos ph1, sin ph1]) and a general
-// alphabet's points staged, or 1 with nothing staged (fine_plan).
-template <int KIND, int C>
-__global__ void __launch_bounds__(kBpsThreads)
-    bps_fine_kernel(const float* __restrict__ er, const float* __restrict__ ei,
-                    const float* __restrict__ ph1, long long L, const float* __restrict__ cd,
-                    const float* __restrict__ sd, int B, int N, GridArgs g,
-                    const float* __restrict__ pts_g, int run, float d0f, float ddf,
-                    float* __restrict__ out) {
-    constexpr bool kStaged = C > 1;
-    extern __shared__ float4 bps_sm[];
-    const int N2 = 2 * N, tile = kBpsThreads * run, W = tile + N2 - 1;
-    const int sh = run > 1 ? __ffs(run) - 1 : 31;
-    float4* pts = bps_sm;                                     // (npts,), kGen and staged only
-    Slot<C>* tab = reinterpret_cast<Slot<C>*>(kStaged ? pts + g.npts : bps_sm);
-    float4* xs = reinterpret_cast<float4*>(tab + bps_pad(W - 1, sh) + 1);   // (W,), staged only
-    const long long row = (long long)blockIdx.y * L;
-    const long long j0 = (long long)blockIdx.x * tile;
-    const long long s0 = j0 - N + 1;  // staged sample u is sample s0 + u of the row
-
-    // sample u as [x, y, cos ph1, sin ph1]; outside the row a zero sample at angle 0
-    auto sample = [&](int u) {
-        const long long s = s0 + u;
-        const bool in = s >= 0 && s < L;
-        float sn, cs;
-        sincosf(in ? ph1[row + s] : 0.f, &sn, &cs);
-        return make_float4(in ? er[row + s] : 0.f, in ? ei[row + s] : 0.f, cs, sn);
-    };
-    if constexpr (kStaged) {
-        if constexpr (KIND == kGen) stage_points(pts, pts_g, g.npts);
-#pragma unroll 4
-        for (int u = threadIdx.x; u < W; u += kBpsThreads) xs[u] = sample(u);
-    }
-    constexpr int R = !kStaged ? kFineMaxRunNarrow : KIND == kGen ? kFineMaxRunGen : kFineMaxRun;
+    constexpr int R = BF ? kBfMaxRun : KIND == kGen ? kBpsMaxRunGen : kBpsMaxRun;
     float bs[R];   // the run's best sums and indices in registers
     int bi[R];
 #pragma unroll
@@ -523,6 +764,108 @@ __global__ void __launch_bounds__(kBpsThreads)
         bi[r] = 0;
     }
     const int p0 = threadIdx.x * run;
+    // bf16 windows: the first tile start whose tail the CTA reads, the column of staged
+    // slot 0, and where the thread's run starts in the tiling
+    const long long b_lo = BF ? bf_first_bound(j0 + N, N2, T) : 0;
+    const int col0 = BF ? (int)((s0 % T + T) % T) : 0;
+    const BfRunStart st = BF ? bf_run_start(j0 + p0 + N, b_lo, T) : BfRunStart{0, 0};
+    for (int a0 = 0; a0 < A; a0 += kBpsChunk) {
+        const int na = min(kBpsChunk, A - a0);
+        __syncthreads();  // the samples are staged, the previous chunk's sums are done
+        if constexpr (BF) {
+            bps_fill<KIND>(xs, W, sh, cos_t + a0, sin_t + a0, na, g, pts, tabs);
+            // the tails of the reference tiles the CTA's windows cross, a warp each, from the
+            // row's samples with the fill's arithmetic
+            float c[kBpsChunk], s[kBpsChunk];
+#pragma unroll
+            for (int k = 0; k < kBpsChunk; ++k) {
+                c[k] = k < na ? cos_t[a0 + k] : 0.f;
+                s[k] = k < na ? sin_t[a0 + k] : 0.f;
+            }
+            for (int i = threadIdx.x >> 5;; i += kBpsThreads / 32) {
+                const long long b = b_lo + (long long)i * T;
+                if (b >= j0 + tile + N) break;
+                BfSlot t[4];
+#pragma unroll
+                for (int q = 0; q < 4; ++q) {
+                    const long long x = b - kBfLookback + 4 * (threadIdx.x & 31) + q;
+                    BpsSlot d;
+                    chunk_dists<KIND>(x < L ? er[row + x] : 0.f, x < L ? ei[row + x] : 0.f, c, s,
+                                      g, pts, nullptr, d.v);
+                    t[q] = bf_round(d.v);
+                }
+                bf_tail(t, tails + (long long)i * N2, N2);
+            }
+            const int top_table = bf_levels(tabs, ts, W, sh, col0, T, N2);
+            bf_run_sums(tabs, ts, top_table, tails, st, j0 + p0 + N, sh, p0, run, N2, T, a0, na,
+                        bs, bi);
+        } else {
+            bps_fill<KIND>(xs, W, sh, cos_t + a0, sin_t + a0, na, g, pts, tab);
+            __syncthreads();
+            bps_run_sums(tab, sh, p0, run, N2, a0, na, bs, bi);
+        }
+    }
+    const int* idx = bps_tile_indices(BF ? (void*)tabs : (void*)tab, sh, p0, run, j0, L, N, bi);
+    for (int p = threadIdx.x; p < tile; p += kBpsThreads) {
+        const long long j = j0 + p;
+        if (j < L) out[row + j] = idx[bps_pad(p, sh)];
+    }
+}
+
+// B8: B3's search with a per-sample angle. C: offsets per slot, kBpsChunk
+// with the samples (float4 [x, y, cos ph1, sin ph1]) and a general
+// alphabet's points staged, or 1 with nothing staged (fine_plan). BF: bf16
+// windows at reference tile T (C = kBpsChunk; B3's bf16 layout, samples as float4).
+template <int KIND, int C, bool BF>
+__global__ void __launch_bounds__(kBpsThreads)
+    bps_fine_kernel(const float* __restrict__ er, const float* __restrict__ ei,
+                    const float* __restrict__ ph1, long long L, const float* __restrict__ cd,
+                    const float* __restrict__ sd, int B, int N, GridArgs g,
+                    const float* __restrict__ pts_g, int run, int T, float d0f, float ddf,
+                    float* __restrict__ out) {
+    constexpr bool kStaged = C > 1;
+    static_assert(!BF || C == kBpsChunk, "bf16 windows take slots of kBpsChunk offsets");
+    extern __shared__ float4 bps_sm[];
+    const int N2 = 2 * N, tile = kBpsThreads * run, W = tile + N2 - 1;
+    const int sh = run > 1 ? __ffs(run) - 1 : 31;
+    const int ts = bps_pad(W - 1, sh) + 1;                   // slots of a table
+    float4* pts = bps_sm;                                     // (npts,), kGen and staged only
+    Slot<C>* tab = reinterpret_cast<Slot<C>*>(kStaged ? pts + g.npts : bps_sm);
+    float4* xs = BF ? pts + g.npts : reinterpret_cast<float4*>(tab + ts);   // (W,), staged only
+    BfSlot* tabs = reinterpret_cast<BfSlot*>(xs + W);         // BF: (1 + popc(N2), ts)
+    BfSlot* tails = tabs + (1 + __popc(N2)) * ts;             // BF: (bounds, N2)
+    const long long row = (long long)blockIdx.y * L;
+    const long long j0 = (long long)blockIdx.x * tile;
+    const long long s0 = j0 - N + 1;  // staged sample u is sample s0 + u of the row
+
+    // row sample q as [x, y, cos ph1, sin ph1]; outside the row a zero sample at angle 0
+    auto sample_at = [=](long long q) {
+        const bool in = q >= 0 && q < L;
+        float sn, cs;
+        sincosf(in ? ph1[row + q] : 0.f, &sn, &cs);
+        return make_float4(in ? er[row + q] : 0.f, in ? ei[row + q] : 0.f, cs, sn);
+    };
+    auto sample = [=](int u) { return sample_at(s0 + u); };
+    if constexpr (kStaged) {
+        if constexpr (KIND == kGen) stage_points(pts, pts_g, g.npts);
+#pragma unroll 4
+        for (int u = threadIdx.x; u < W; u += kBpsThreads) xs[u] = sample(u);
+    }
+    constexpr int R = BF ? kBfFineMaxRun
+                         : !kStaged ? kFineMaxRunNarrow : KIND == kGen ? kFineMaxRunGen
+                                                                        : kFineMaxRun;
+    float bs[R];   // the run's best sums and indices in registers
+    int bi[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+        bs[r] = INFINITY;
+        bi[r] = 0;
+    }
+    const int p0 = threadIdx.x * run;
+    // bf16 windows: as in bps_kernel
+    const long long b_lo = BF ? bf_first_bound(j0 + N, N2, T) : 0;
+    const int col0 = BF ? (int)((s0 % T + T) % T) : 0;
+    const BfRunStart st = BF ? bf_run_start(j0 + p0 + N, b_lo, T) : BfRunStart{0, 0};
     for (int b0 = 0; b0 < B; b0 += C) {
         const int nb = min(C, B - b0);
         float c[C], s[C];
@@ -545,12 +888,42 @@ __global__ void __launch_bounds__(kBpsThreads)
             }
             Slot<C> d;
             chunk_dists<KIND>(z.x, z.y, ca, sa, g, pts, pts_g, d.v);
-            tab[bps_pad(u, sh)] = d;
+            if constexpr (BF)
+                tabs[bps_pad(u, sh)] = bf_round(d.v);   // the distances rounded to bf16
+            else
+                tab[bps_pad(u, sh)] = d;
         }
-        __syncthreads();
-        bps_run_sums(tab, sh, p0, run, N2, b0, nb, bs, bi);
+        if constexpr (BF) {
+            // the tails of the reference tiles the CTA's windows cross, a warp each, from the
+            // row's samples with the fill's arithmetic
+            for (int i = threadIdx.x >> 5;; i += kBpsThreads / 32) {
+                const long long b = b_lo + (long long)i * T;
+                if (b >= j0 + tile + N) break;
+                BfSlot t[4];
+#pragma unroll
+                for (int q = 0; q < 4; ++q) {
+                    const float4 z = sample_at(b - kBfLookback + 4 * (threadIdx.x & 31) + q);
+                    float ca[C], sa[C];
+#pragma unroll
+                    for (int k = 0; k < C; ++k) {
+                        ca[k] = __fsub_rn(__fmul_rn(z.z, c[k]), __fmul_rn(z.w, s[k]));
+                        sa[k] = __fadd_rn(__fmul_rn(z.w, c[k]), __fmul_rn(z.z, s[k]));
+                    }
+                    Slot<C> d;
+                    chunk_dists<KIND>(z.x, z.y, ca, sa, g, pts, pts_g, d.v);
+                    t[q] = bf_round(d.v);
+                }
+                bf_tail(t, tails + (long long)i * N2, N2);
+            }
+            const int top_table = bf_levels(tabs, ts, W, sh, col0, T, N2);
+            bf_run_sums(tabs, ts, top_table, tails, st, j0 + p0 + N, sh, p0, run, N2, T, b0, nb,
+                        bs, bi);
+        } else {
+            __syncthreads();
+            bps_run_sums(tab, sh, p0, run, N2, b0, nb, bs, bi);
+        }
     }
-    const int* idx = bps_tile_indices(tab, sh, p0, run, j0, L, N, bi);
+    const int* idx = bps_tile_indices(BF ? (void*)tabs : (void*)tab, sh, p0, run, j0, L, N, bi);
     for (int p = threadIdx.x; p < tile; p += kBpsThreads) {
         const long long j = j0 + p;
         if (j < L)
@@ -897,15 +1270,17 @@ __global__ void __launch_bounds__(kUnwrapThreads)
     }
 }
 
-// One of a kernel template's three instances, by the launch's grid kind.
-#define QTT_BY_KIND(fn, kind) \
-    ((kind) == kRect ? fn<kRect> : (kind) == kCross ? fn<kCross> : fn<kGen>)
+// B3's instance by grid kind and window type
+#define QTT_BPS(kind, BF)                                                          \
+    ((kind) == kRect    ? bps_kernel<kRect, BF>                                    \
+     : (kind) == kCross ? bps_kernel<kCross, BF>                                   \
+                        : bps_kernel<kGen, BF>)
 
-// B8's instance by grid kind and offsets per slot
-#define QTT_FINE(kind, C)                                                          \
-    ((kind) == kRect    ? bps_fine_kernel<kRect, C>                                \
-     : (kind) == kCross ? bps_fine_kernel<kCross, C>                               \
-                        : bps_fine_kernel<kGen, C>)
+// B8's instance by grid kind, offsets per slot and window type
+#define QTT_FINE(kind, C, BF)                                                      \
+    ((kind) == kRect    ? bps_fine_kernel<kRect, C, BF>                            \
+     : (kind) == kCross ? bps_fine_kernel<kCross, C, BF>                           \
+                        : bps_fine_kernel<kGen, C, BF>)
 
 int set_smem(const void* fn, size_t bytes) {
     if (bytes <= 48 * 1024) return 0;
@@ -938,13 +1313,47 @@ int qtt_bps_idx(const float* er, const float* ei, int nmodes, long long L, const
         return (int)cudaErrorInvalidValue;
     if (nmodes == 0 || L == 0) return 0;
     const BpsPlan p = bps_plan(nmodes, L, N, npts);
-    const auto fn = QTT_BY_KIND(bps_kernel, kind);
+    const auto fn = QTT_BPS(kind, false);
     const int rc = set_smem((const void*)fn, (size_t)p.smem);
     if (rc) return rc;
     const GridArgs g = {kind, 1.f, g0, g1, g2, g3, npts};
     const dim3 grid((unsigned)(p.ctas / nmodes), (unsigned)nmodes);
     fn<<<grid, kBpsThreads, (size_t)p.smem, (cudaStream_t)stream>>>(er, ei, L, cos_t, sin_t, A, N,
-                                                                    g, pts, (int)p.run, out);
+                                                                    g, pts, (int)p.run, 0, out);
+    return (int)cudaGetLastError();
+}
+
+// B3 and B8's launch plan with bf16 windows at reference tile T (bf_plan) into plan[5]:
+// run, tile, angles per pass, shared-memory bytes, CTAs. fine: B8's (samples as float4).
+void qtt_bps_bf16_plan(int fine, int nmodes, long long L, int N, int npts, int T,
+                       long long* plan) {
+    const BpsPlan p = bf_plan(nmodes, L, N, npts, T, fine != 0);
+    plan[0] = p.run;
+    plan[1] = p.tile;
+    plan[2] = p.chunk;
+    plan[3] = p.smem;
+    plan[4] = p.ctas;
+}
+
+// qtt_bps_idx with the window sums in bf16, in the order of the reference's tiles of T
+// samples (bf_takes says which N and T).
+int qtt_bps_idx_bf16(const float* er, const float* ei, int nmodes, long long L,
+                     const float* cos_t, const float* sin_t, int A, int N, int T, int kind,
+                     float g0, float g1, float g2, float g3, const float* pts, int npts, int* out,
+                     void* stream) {
+    if (kind < kRect || kind > kGen || (kind == kGen) != (npts > 0) || (npts > 0 && !pts) ||
+        A < 1 || !bf_takes(N, T))
+        return (int)cudaErrorInvalidValue;
+    if (nmodes == 0 || L == 0) return 0;
+    const BpsPlan p = bf_plan(nmodes, L, N, npts, T, false);
+    if (p.smem > kSmemLimit) return (int)cudaErrorInvalidValue;
+    const auto fn = QTT_BPS(kind, true);
+    const int rc = set_smem((const void*)fn, (size_t)p.smem);
+    if (rc) return rc;
+    const GridArgs g = {kind, 1.f, g0, g1, g2, g3, npts};
+    const dim3 grid((unsigned)(p.ctas / nmodes), (unsigned)nmodes);
+    fn<<<grid, kBpsThreads, (size_t)p.smem, (cudaStream_t)stream>>>(er, ei, L, cos_t, sin_t, A, N,
+                                                                    g, pts, (int)p.run, T, out);
     return (int)cudaGetLastError();
 }
 
@@ -1038,13 +1447,34 @@ int qtt_bps_fine(const float* er, const float* ei, const float* ph1, int nmodes,
     if (nmodes == 0 || L == 0) return 0;
     const BpsPlan p = fine_plan(nmodes, L, N, npts);
     if (p.smem > kSmemLimit) return (int)cudaErrorInvalidValue;
-    const auto fn = p.chunk == 1 ? QTT_FINE(kind, 1) : QTT_FINE(kind, kBpsChunk);
+    const auto fn = p.chunk == 1 ? QTT_FINE(kind, 1, false) : QTT_FINE(kind, kBpsChunk, false);
     const int rc = set_smem((const void*)fn, (size_t)p.smem);
     if (rc) return rc;
     const GridArgs g = {kind, 1.f, g0, g1, g2, g3, npts};
     const dim3 grid((unsigned)(p.ctas / nmodes), (unsigned)nmodes);
     fn<<<grid, kBpsThreads, (size_t)p.smem, (cudaStream_t)stream>>>(
-        er, ei, ph1, L, cd, sd, B, N, g, pts, (int)p.run, d0f, ddf, out);
+        er, ei, ph1, L, cd, sd, B, N, g, pts, (int)p.run, 0, d0f, ddf, out);
+    return (int)cudaGetLastError();
+}
+
+// qtt_bps_fine with the window sums in bf16 at reference tile T, as qtt_bps_idx_bf16.
+int qtt_bps_fine_bf16(const float* er, const float* ei, const float* ph1, int nmodes, long long L,
+                      const float* cd, const float* sd, int B, int N, int T, int kind, float g0,
+                      float g1, float g2, float g3, const float* pts, int npts, float d0f,
+                      float ddf, float* out, void* stream) {
+    if (kind < kRect || kind > kGen || (kind == kGen) != (npts > 0) || (npts > 0 && !pts) ||
+        B < 1 || !bf_takes(N, T))
+        return (int)cudaErrorInvalidValue;
+    if (nmodes == 0 || L == 0) return 0;
+    const BpsPlan p = bf_plan(nmodes, L, N, npts, T, true);
+    if (p.smem > kSmemLimit) return (int)cudaErrorInvalidValue;
+    const auto fn = QTT_FINE(kind, kBpsChunk, true);
+    const int rc = set_smem((const void*)fn, (size_t)p.smem);
+    if (rc) return rc;
+    const GridArgs g = {kind, 1.f, g0, g1, g2, g3, npts};
+    const dim3 grid((unsigned)(p.ctas / nmodes), (unsigned)nmodes);
+    fn<<<grid, kBpsThreads, (size_t)p.smem, (cudaStream_t)stream>>>(
+        er, ei, ph1, L, cd, sd, B, N, g, pts, (int)p.run, T, d0f, ddf, out);
     return (int)cudaGetLastError();
 }
 

@@ -48,6 +48,11 @@ SIGNATURES = {
     "qtt_unwrap_tiles": (_I, [_LL]),
     "qtt_unwrap_derotate": (_I, [_P, _P, _P, _I, _LL, _F, _F, _P, _P, _P, _P]),
     "qtt_bps_fine_plan": (None, [_I, _LL, _I, _I, _P]),
+    "qtt_bps_bf16_plan": (None, [_I, _I, _LL, _I, _I, _I, _P]),
+    "qtt_bps_idx_bf16": (_I, [_P, _P, _I, _LL, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P, _I,
+                              _P, _P]),
+    "qtt_bps_fine_bf16": (_I, [_P, _P, _P, _I, _LL, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P,
+                               _I, _F, _F, _P, _P]),
     "qtt_bps_fine": (_I, [_P, _P, _P, _I, _LL, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P, _I, _F,
                           _F, _P, _P]),
     "qtt_div_check": (_I, [_P, _P, _I, _P, _P]),

@@ -7,7 +7,7 @@ blind receiver on float32 [Re rows; Im rows] planes. Every mode starts with
    with the CMA singularity guard between them (kernel B1);
 2. the strided MIMO filter over the whole capture (kernel B2);
 
-and then recovers the carrier phase in one of three ways:
+and then recovers the carrier phase in one of four ways:
 
 - ``decimated[K]``: the blind phase search on the filter's stride-K side
   output (B3), the decimated pi/2 unwrap and per-block (a, b) coefficients
@@ -18,13 +18,23 @@ and then recovers the carrier phase in one of three ways:
   and derotation (B7);
 - ``twostage``/``twostage32``: a coarse search over max(A/4, 16) (or
   max(A/2, 16)) angles with half-window 60 (B3), the fine search over 8
-  per-sample offsets with half-window bps_N (B8), then B7.
+  per-sample offsets with half-window bps_N (B8), then B7;
+- ``twostage-dec``: the coarse search over max(A/4, 16) angles with
+  half-window bps_N on the filter's stride-8 side output (B3), its phase
+  held over the 8 samples of each step, the fine search over 8 offsets at
+  full rate (B8), then B7.
 
 A ``decimated[K]`` whose K does not divide the filter's phase group falls
-back to ``single`` with the reference's warning. On CPU tensors each kernel
-runs its plain PyTorch version; on CUDA tensors the kernels run, with no
-fallback. The two trainings take the methods of kernel B1 (cma, sgncma,
-mcma, rde, sbd, mddma, dd); another method raises ``NotImplementedError``.
+back to ``single`` with the reference's warning; a ``twostage-dec`` whose
+group 8 does not divide, or on a general alphabet, takes ``twostage``, as
+the reference does. The route switches of the reference follow its
+branches (:class:`RxChain` has the table): ``pallas=False`` runs the
+reference's XLA algorithm on the port's kernels, ``fuse_derot=False`` its
+unfused derotation, ``bps_win="bf16"`` its bf16 window sums in tiles of
+``bps_tile``. On CPU tensors each kernel runs its plain PyTorch version; on
+CUDA tensors the kernels run, with no fallback. The two trainings take the
+methods of kernel B1 (cma, sgncma, mcma, rde, sbd, mddma, dd); another
+method raises ``NotImplementedError``.
 
 The constellation is M-QAM (square, or cross for an odd number of bits) or
 any host alphabet given as ``symbols=``: whatever ``ops.phase.detect_grid``
@@ -38,8 +48,9 @@ trainer always decides on the true alphabet. ``backend_info`` says which
 decision each search took.
 
 Two divergences from the reference, both toward float32: the filter sums
-in float32 (the reference chain contracts in bf16) and the BPS windows are
-summed in float32 (the reference chain defaults to ``bps_win="bf16"``).
+in float32 (the reference chain contracts in bf16), and ``bps_win``
+defaults to "f32" (the reference's default is "bf16"; every recorded time,
+gate and CPU comparison of the port is float32, and "bf16" is taken).
 """
 from __future__ import annotations
 
@@ -54,7 +65,8 @@ from qampy_tpu_torch.ops import equaliser as eqops
 from qampy_tpu_torch.ops import phase as phops
 from qampy_tpu_torch.ops.equaliser_cuda import apply_filter, check_dec, train_block
 from qampy_tpu_torch.ops.phase import grid_decision_info
-from qampy_tpu_torch.ops.phase_cuda import bps_search, bps_twostage, interp_rotate, unwrap_derotate
+from qampy_tpu_torch.ops.phase_cuda import (bps_fine, bps_search, bps_twostage, interp_rotate,
+                                            rotate, unwrap_derotate)
 from qampy_tpu_torch.theory import cal_scaling_factor_qam, cal_symbols_qam
 from qampy_tpu_torch.utils import resolve_device
 
@@ -82,14 +94,15 @@ def pallas_eligibility(grid, methods, block_size=None, bps_tile=None):
     - the methods: those B1 trains (``ops.equaliser.BLOCK_METHODS``);
     - ``block_size``: B1's block, as its launcher takes it
       (``equaliser_cuda.block_launch_shape``: a multiple of 32 up to 1024);
-    - ``bps_tile`` is taken and asks nothing: B3 tiles by its own launch
-      plan (``phase_cuda.bps_plan``), whatever the caller's tile.
+    - ``bps_tile``: the tile of the bf16 window sums, a multiple of 128 as in
+      the reference (B3 and B8 tile their float32 searches by their own
+      launch plans, ``phase_cuda.bps_plan``, whatever the caller's tile).
 
     Where the rules differ from the reference's: a general alphabet (a ring,
-    a warped grid) is eligible here and not there, a block of 32 or 64 is
-    eligible here and not there (its 128-lane rule), and ``bps_tile`` is
-    never a reason here. Unlike the reference, an ineligible chain does not
-    fall back: on the card the chain raises where a kernel refuses.
+    a warped grid) is eligible here and not there, and a block of 32 or 64 is
+    eligible here and not there (its 128-lane rule). Unlike the reference, an
+    ineligible chain does not fall back: on the card the chain raises where a
+    kernel refuses.
     """
     from qampy_tpu_torch.ops._build import KernelLimit
     from qampy_tpu_torch.ops.equaliser_cuda import block_launch_shape
@@ -112,6 +125,8 @@ def pallas_eligibility(grid, methods, block_size=None, bps_tile=None):
             block_launch_shape(like_P, S, 2, like_w, S)
         except KernelLimit as e:
             reasons.append(str(e))
+    if bps_tile is not None and bps_tile % 128 != 0:
+        reasons.append("bps_tile=%d is not a multiple of 128" % bps_tile)
     return not reasons, tuple(reasons)
 
 
@@ -158,22 +173,58 @@ class RxChain(nn.Module):
     stacked float32 planes), ``with_taps``/``planes_with_taps`` (also return
     the frozen taps) and ``tracking``/``tracking_planes`` (demodulate with
     given taps, skipping both trainings). ``mode`` is "decimated" (with
-    stride ``dec``), "single" or "twostage"; ``bps_cos``/``bps_sin`` hold
-    the angle tables of the one B3 search a call runs (the coarse grid in
-    twostage, whose fine offsets are ``fine_cos``/``fine_sin``). ``grid`` is
-    the constellation's grid spec, on which the trainer decides;
-    ``search_grid`` and ``fine_grid`` are what B3 and B8 search (``grid``,
-    or a general alphabet's fitted grid); ``gen_points`` is a general
-    alphabet's table on the chain's device, registered when a stage reads
-    it; ``backend_info`` reports the decisions as the reference does.
+    stride ``dec``), "single", "twostage" or "twostage-dec" (stride 8);
+    ``bps_cos``/``bps_sin`` hold the angle tables of the one B3 search a
+    call runs (the coarse grid in the two-stage modes, whose fine offsets
+    are ``fine_cos``/``fine_sin``). ``grid`` is the constellation's grid
+    spec, on which the trainer decides; ``search_grid`` and ``fine_grid``
+    are what B3 and B8 search (``grid``, or a general alphabet's fitted
+    grid); ``gen_points`` is a general alphabet's table on the chain's
+    device, registered when a stage reads it; ``backend_info`` reports the
+    decisions as the reference does.
+
+    The reference's route switches, branch by branch (its chain.py:198-440);
+    "kernels" is the reference's Pallas branch, ``pallas=None`` or True here
+    (on CPU tensors the plain twins run it, the reference's interpret mode):
+
+    ==============  =================================  ===================================
+    mode            pallas None/True (kernels)         pallas False (the XLA algorithm)
+    ==============  =================================  ===================================
+    decimated[K]    B2 with the stride-K side output,  warns, runs single
+                    B3 (tile min(bps_tile, 8192)), B4
+    single          B2, B3 (tile bps_tile), unwrap     B2, B3 in float32, then the
+                    and derotation                     unfused unwrap and B6
+    twostage[32]    B2, B3 (N1 = 60), B8, unwrap and   B2, then ``ops.phase.bps_twostage``
+                    derotation (both tiles bps_tile)   (N1 = 60: B3, B8 in float32, its
+                                                       unwrap, B6)
+    twostage-dec    B2 with the stride-8 side output,  as twostage
+                    B3 there (A/4 angles, bps_N, tile
+                    min(bps_tile, 8192)), the phase
+                    held 8 samples, B8 (tile
+                    bps_tile), unwrap and derotation
+    ==============  =================================  ===================================
+
+    "unwrap and derotation" is B7 with ``fuse_derot=True`` and, with
+    ``fuse_derot=False``, the reference's unfused ``_derotate``: its own
+    pi/2 unwrap (floor(d / (pi/2) + 0.5) jumps, summed in float32), then the
+    rotation by B6. ``bps_win="bf16"`` sums B3's and B8's windows in bf16 on
+    the kernels' branch, in the reference's order over tiles of the table's
+    tile (``ops.phase.bf16_window_sums``); the XLA branch sums in float32.
+    On a general alphabet the windows stay float32 unless the fitted grid
+    passes both probes (reference chain.py:136-172), and ``twostage-dec``
+    takes ``twostage``. ``bps_tile`` is a multiple of 128 above every
+    window 2N it tiles; with bf16 windows 2N is at most 128.
     """
 
     def __init__(self, M=64, Ntaps=17, os=2, methods=("mcma", "mddma"), mu=1.9e-3,
                  bps_angles=64, bps_N=14, block_size=256, TrSyms=None,
-                 bps_mode="single", symbols=None):
+                 bps_mode="single", pallas=None, bps_tile=16384, bps_win="f32",
+                 fuse_derot=True, symbols=None):
         super().__init__()
         if len(methods) != 2:
             raise ValueError("the chain trains two stages, got methods=%r" % (methods,))
+        if bps_win not in ("f32", "bf16"):
+            raise ValueError("bps_win is 'f32' or 'bf16', got %r" % (bps_win,))
         dtype = np.complex64
         if symbols is not None:
             # the blind constants come from the alphabet's own moments (reference
@@ -187,6 +238,7 @@ class RxChain(nn.Module):
             const = (cal_symbols_qam(M) / np.sqrt(cal_scaling_factor_qam(M))).astype(dtype)
             rows = [eqops._reshape_symbols(None, m, M, dtype, 2)
                     if m in eqops.BLOCK_METHODS else None for m in methods]
+        self.const = const
         self.grid = phops.detect_grid(const)
         kind = grid_decision_info(self.grid)[0]
         if kind == "none":
@@ -199,26 +251,39 @@ class RxChain(nn.Module):
         self.specs = tuple(eqops.err_spec(m, r) for m, r in zip(methods, rows))
         self.Ntaps, self.os, self.mu = int(Ntaps), int(os), float(mu)
         self.bps_N, self.block_size, self.TrSyms = int(bps_N), int(block_size), TrSyms
-        self.mode, self.dec = self._resolve_mode(bps_mode)
+        self.pallas, self.fuse_derot = True if pallas is None else bool(pallas), bool(fuse_derot)
+        self.bps_tile = int(bps_tile)
+        self.mode, self.dec = self._resolve_mode(bps_mode, kind)
+        twostage = self.mode in ("twostage", "twostage-dec")
         A = bps_angles
-        if self.mode == "twostage":
+        if twostage:
             A = max(bps_angles // (2 if bps_mode.endswith("32") else 4), 16)
+        self.A = A
         self.search_N = TWOSTAGE_N1 if self.mode == "twostage" else self.bps_N
         # a general alphabet's fitted grid, where the host probes accept it (reference
-        # chain.py:150-172): probed at the coarse angle count in twostage and at the
-        # full count in decimated, whose one search has the fine stage's role
-        coarse_fit, self.fine_grid = None, self.grid
-        if kind == "gen" and self.mode != "single" and const.size > 24:
-            coarse_fit = phops.coarse_grid_for_alphabet(const, Mtestangles=max(A, 16))
-            if coarse_fit is not None and phops.fine_grid_ok(const, coarse_fit,
-                                                             Mtestangles=max(A, 16)):
-                self.fine_grid = coarse_fit
+        # chain.py:150-172), by the mode's name: probed at the coarse angle count of a
+        # two-stage mode and at the full count in decimated, whose one search has the fine
+        # stage's role; the probes also decide the window type
+        coarse_fit, self.fine_grid, win = None, self.grid, bps_win if kind != "gen" else "f32"
+        if (kind == "gen" and bps_mode.startswith(("twostage", "decimated"))
+                and const.size > 24):
+            div = 1 if bps_mode.startswith("decimated") else 2 if bps_mode.endswith("32") else 4
+            a0 = max(bps_angles // div, 16)
+            coarse_fit = phops.coarse_grid_for_alphabet(const, Mtestangles=a0)
+            if coarse_fit is not None and phops.fine_grid_ok(const, coarse_fit, Mtestangles=a0):
+                self.fine_grid, win = coarse_fit, bps_win
+        self.bps_win = win if self.pallas else "f32"
         if self.mode == "twostage":
             self.search_grid = self.grid if coarse_fit is None else coarse_fit
         else:
             self.search_grid = self.fine_grid if self.mode == "decimated" else self.grid
+        # the tiles of the kernels' branch (reference chain.py:347, 384, 412, 436)
+        self.search_tile = (min(self.bps_tile, 8192) if self.dec is not None else self.bps_tile)
+        self._check_tiles(bps_tile)
         self.backend_info = {
-            "grid_kind": kind, "bps_mode": bps_mode, "methods": tuple(methods),
+            "pallas": self.pallas, "grid_kind": kind, "bps_mode": bps_mode,
+            "mode": self.mode, "methods": tuple(methods), "bps_win": self.bps_win,
+            "fuse_derot": self.fuse_derot,
             "gen_bps_coarse": "fitted" if coarse_fit is not None else "exact",
             "gen_bps_fine": "fitted" if self.fine_grid is not self.grid else "exact"}
         angles = np.linspace(-np.pi / 4, np.pi / 4, A, endpoint=False, dtype=np.float32)
@@ -227,43 +292,79 @@ class RxChain(nn.Module):
         self.register_buffer("w0", torch.as_tensor(eqops._init_taps(Ntaps, 2, 2, dtype)))
         self.register_buffer("bps_cos", torch.as_tensor(cos_h))
         self.register_buffer("bps_sin", torch.as_tensor(sin_h))
-        if self.mode == "twostage":
+        if twostage:
             cd, sd, self.fine_d0, self.fine_step = phops.fine_tables(A, TWOSTAGE_B,
                                                                      self.fine_grid)
             self.register_buffer("fine_cos", torch.as_tensor(cd))
             self.register_buffer("fine_sin", torch.as_tensor(sd))
         # the table of the alphabet's points, if the trainer's decision or a search reads it:
         # put on the card once, here, so that no dispatch copies from the host
-        searched = [self.search_grid] + ([self.fine_grid] if self.mode == "twostage" else [])
+        searched = [self.search_grid] + ([self.fine_grid] if twostage else [])
         reads = kind == "gen" and (any(g is self.grid for g in searched)
                                    or any(s.method in eqops.DECISION_BLOCK_METHODS
                                           for s in self.specs))
         self.register_buffer("gen_points",
                              torch.as_tensor(phops.gen_points(self.grid)) if reads else None)
 
-    def _resolve_mode(self, bps_mode):
-        """(mode, decimation stride or None) of a ``bps_mode`` name (reference chain.py:280-292)."""
+    def _resolve_mode(self, bps_mode, kind):
+        """(mode, stride of the filter's side output or None) of a ``bps_mode`` name.
+
+        The reference's dispatch (chain.py:280-292, 326-440): a decimated
+        mode needs the kernels' filter with a phase group that the stride
+        divides, and warns and runs ``single`` without it; ``twostage-dec``
+        needs the same for 8 and an analytic grid, and runs ``twostage``
+        without them.
+        """
         if bps_mode == "twostage-dec":
-            raise NotImplementedError(
-                "bps_mode='twostage-dec' is on ROADMAP's 'Not to port' list (a measured "
-                "dead end of the reference)")
+            ok = self.pallas and kind != "gen" and self._dec_refused(8) is None
+            return ("twostage-dec", 8) if ok else ("twostage", None)
         if bps_mode.startswith("twostage"):
             return "twostage", None
         if bps_mode == "single":
             return "single", None
         if not bps_mode.startswith("decimated"):
-            raise ValueError("unknown bps_mode %r: 'single', 'twostage', 'twostage32' or "
-                             "'decimated[K]'" % (bps_mode,))
+            raise ValueError("unknown bps_mode %r: 'single', 'twostage', 'twostage32', "
+                             "'twostage-dec' or 'decimated[K]'" % (bps_mode,))
         dec = int(bps_mode[len("decimated"):] or 8)
         if dec < 1:
             raise ValueError("bps_mode=%r: the decimation stride must be positive" % (bps_mode,))
+        why = ("pallas=False filters without a side output" if not self.pallas
+               else self._dec_refused(dec))
+        if why is not None:
+            warnings.warn("bps_mode=%r needs a phase group divisible by the stride (%s); "
+                          "falling back to the single-grid BPS" % (bps_mode, why), stacklevel=4)
+            return "single", None
+        return "decimated", dec
+
+    def _dec_refused(self, dec):
+        """Why the filter has no stride-``dec`` side output here (None where it has one)."""
         try:
             check_dec(self.os, self.Ntaps, 2, dec)
         except ValueError as e:
-            warnings.warn("bps_mode=%r needs a phase group divisible by the stride (%s); "
-                          "falling back to the single-grid BPS" % (bps_mode, e), stacklevel=4)
-            return "single", None
-        return "decimated", dec
+            return str(e)
+        return None
+
+    def _check_tiles(self, bps_tile):
+        """Refuse a ``bps_tile`` the kernels' branch does not tile, as the reference's asserts
+        (phase_pallas.py:245-246, 522): a multiple of 128 above each window 2N, and 2N <= 128
+        with bf16 windows."""
+        if self.bps_tile < 128 or self.bps_tile % 128:
+            raise ValueError("bps_tile=%r is not a positive multiple of 128" % (bps_tile,))
+        if not self.pallas:
+            return
+        tiles = [(self.search_tile, self.search_N)]
+        if self.mode in ("twostage", "twostage-dec"):
+            tiles.append((self.bps_tile, self.bps_N))
+        for T, N in tiles:
+            if self.bps_win == "bf16":
+                phops.check_bf16_tile(N, T)
+            elif 2 * N >= T:
+                raise ValueError("bps_tile=%d: the window 2N=%d must fit in one tile"
+                                 % (bps_tile, 2 * N))
+
+    def _bf16(self, T):
+        """The ``bf16_tile`` argument of a search at tile T: T with bf16 windows, else None."""
+        return T if self.bps_win == "bf16" else None
 
     # -- stages -------------------------------------------------------------
 
@@ -281,19 +382,23 @@ class RxChain(nn.Module):
         return w2
 
     def equalise(self, P, w):
-        """Filter the capture: (full-rate planes, stride-dec planes, or None outside decimated)."""
+        """Filter the capture: (full-rate planes, stride-dec planes or None).
+
+        The side output exists in decimated and twostage-dec."""
         if self.dec is None:
             return apply_filter(P, self.os, w), None
         return apply_filter(P, self.os, w, self.dec)
 
     def phase_search(self, x):
-        """B3's best-angle indices (nmodes, L) on planes ``x`` (the decimated ones in decimated).
+        """B3's best-angle indices (nmodes, L) on planes ``x`` (the decimated ones in decimated
+        and twostage-dec).
 
-        Over the chain's angle table with half-window ``search_N``.
+        Over the chain's angle table with half-window ``search_N``, tiled at
+        ``search_tile`` with bf16 windows.
         """
         no = x.shape[0] // 2
         return bps_search(x[:no], x[no:], self.bps_cos, self.bps_sin, self.search_grid,
-                          self.search_N, self.gen_points)
+                          self.search_N, self.gen_points, self._bf16(self.search_tile))
 
     def derotate(self, eqp, idxd):
         """Unwrap the decimated phase and derotate the full-rate planes: (outr, outi)."""
@@ -304,23 +409,51 @@ class RxChain(nn.Module):
         outr, outi = interp_rotate(er, ei, a, b, self.dec, sign=1)
         return outr[:, :Lout], outi[:, :Lout]
 
-    def carrier_phase(self, eqp):
-        """The per-sample phase (nmodes, L) of the single and twostage modes, before the unwrap.
+    def carrier_phase(self, eqp, decp=None):
+        """The per-sample phase (nmodes, L) of the single and two-stage modes, before the unwrap.
 
         single: lo + step idx of B3's indices (reference chain.py:441);
-        twostage: B3 on the coarse grid, then B8 (chain.py:412-418).
+        twostage: B3 on the coarse grid, then B8 (chain.py:412-418);
+        twostage-dec: B3 on the side output ``decp``, its phase held over the
+        stride, then B8 (chain.py:377-395).
         """
         if self.mode == "single":
             return self.lo_a + self.step_a * self.phase_search(eqp).to(torch.float32)
         no = eqp.shape[0] // 2
-        return bps_twostage(eqp[:no], eqp[no:], self.bps_cos, self.bps_sin, self.search_N,
-                            self.fine_cos, self.fine_sin, self.fine_grid, self.bps_N,
-                            self.fine_d0, self.fine_step, self.search_grid, self.gen_points)
+        fine = self._bf16(self.bps_tile)
+        if self.mode == "twostage":
+            return bps_twostage(eqp[:no], eqp[no:], self.bps_cos, self.bps_sin, self.search_N,
+                                self.fine_cos, self.fine_sin, self.fine_grid, self.bps_N,
+                                self.fine_d0, self.fine_step, self.search_grid, self.gen_points,
+                                fine)
+        ph1d = self.lo_a + self.step_a * self.phase_search(decp).to(torch.float32)
+        ph1 = ph1d[:, :, None].expand(-1, -1, self.dec).reshape(no, -1)[:, :eqp.shape[-1]]
+        return bps_fine(eqp[:no], eqp[no:], ph1.contiguous(), self.fine_cos, self.fine_sin,
+                        self.fine_grid, self.bps_N, self.fine_d0, self.fine_step,
+                        self.gen_points, fine)
 
     def unwrap_derotate(self, eqp, ph):
-        """pi/2-unwrap the per-sample phase, derotate the full-rate planes (B7): (outr, outi)."""
+        """pi/2-unwrap the per-sample phase, derotate the full-rate planes: (outr, outi).
+
+        B7 on the kernels' branch with ``fuse_derot``; else the reference's
+        unfused ``_derotate`` (:meth:`unwrap_unfused`, then B6).
+        """
         no = eqp.shape[0] // 2
-        return unwrap_derotate(eqp[:no], eqp[no:], ph)
+        if self.pallas and self.fuse_derot:
+            return unwrap_derotate(eqp[:no], eqp[no:], ph)
+        return rotate(eqp[:no], eqp[no:], self.unwrap_unfused(ph), 1)
+
+    @staticmethod
+    def unwrap_unfused(ph):
+        """The reference's unfused pi/2 unwrap (chain.py:204-215): u = ph + offs.
+
+        offs is the float32 prefix sum of a_i = -(pi/2) floor(d_i / (pi/2) +
+        0.5), d_i = ph_i - ph_{i-1}, a_0 = 0, each op rounded on its own
+        (scanned in blocks, ``ops.phase.row_cumsum``).
+        """
+        d = ph[:, 1:] - ph[:, :-1]
+        a = -_HALF_PI * torch.floor(d / _HALF_PI + 0.5)
+        return ph + phops.row_cumsum(F.pad(a, (1, 0)))
 
     def _fwd(self, P, w=None):
         if P.is_complex() or P.dim() != 2 or P.shape[0] % 2:
@@ -331,7 +464,13 @@ class RxChain(nn.Module):
         eqp, decp = self.equalise(P, w2)
         if self.mode == "decimated":
             return self.derotate(eqp, self.phase_search(decp)), w2
-        return self.unwrap_derotate(eqp, self.carrier_phase(eqp)), w2
+        if self.mode == "twostage" and not self.pallas:
+            # the reference's XLA two-stage path (chain.py:419-427): ops.phase.bps_twostage
+            no = eqp.shape[0] // 2
+            out, _ = phops.bps_twostage(torch.complex(eqp[:no], eqp[no:]), self.A, self.const,
+                                        self.bps_N, B=TWOSTAGE_B, N1=TWOSTAGE_N1)
+            return (out.real.contiguous(), out.imag.contiguous()), w2
+        return self.unwrap_derotate(eqp, self.carrier_phase(eqp, decp)), w2
 
     # -- entries --------------------------------------------------------------
 
@@ -369,16 +508,21 @@ class RxChain(nn.Module):
 
 def make_rx_chain(M=64, Ntaps=17, os=2, methods=("mcma", "mddma"), mu=1.9e-3,
                   bps_angles=64, bps_N=14, block_size=256, TrSyms=None,
-                  bps_mode="single", symbols=None, device=None):
+                  bps_mode="single", pallas=None, bps_tile=16384, bps_win="f32",
+                  fuse_derot=True, symbols=None, device=None):
     """Build the blind RX chain on ``device`` (see :class:`RxChain`).
 
     ``device=None`` is the card, and raises on a machine without one; pass
     ``device="cpu"`` for the CPU.
 
-    Parameters follow the reference's ``make_rx_chain``; its backend
-    switches (``pallas``, ``bps_tile``, ``bps_win``, ``fuse_derot``) have
-    no counterpart here.
+    Parameters follow the reference's ``make_rx_chain``, its route switches
+    ``pallas``, ``bps_tile``, ``bps_win`` and ``fuse_derot`` included (the
+    table of :class:`RxChain`). Two defaults differ: ``pallas=None`` takes
+    the kernels' branch on every device (the reference's takes it off the
+    CPU), and ``bps_win`` is "f32" (the reference's is "bf16").
     """
     return RxChain(M=M, Ntaps=Ntaps, os=os, methods=methods, mu=mu,
                    bps_angles=bps_angles, bps_N=bps_N, block_size=block_size,
-                   TrSyms=TrSyms, bps_mode=bps_mode, symbols=symbols).to(resolve_device(device))
+                   TrSyms=TrSyms, bps_mode=bps_mode, pallas=pallas, bps_tile=bps_tile,
+                   bps_win=bps_win, fuse_derot=fuse_derot,
+                   symbols=symbols).to(resolve_device(device))

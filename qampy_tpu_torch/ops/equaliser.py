@@ -857,11 +857,35 @@ def apply_filter_frames_planes(P, os, wx, offs, frame_len, pilots=None):
     return torch.stack([outr, outi])
 
 
-def apply_filter_to_signal(E, os, wx):
+#: the matmul precisions that the filter's float32 sums compute (JAX's names and aliases)
+FILTER_PRECISIONS = ("HIGHEST", "FLOAT32")
+
+
+def check_filter_precision(precision):
+    """Refuse a filter ``precision`` below float32 (``None`` and HIGHEST are taken).
+
+    The reference's ``precision`` picks the MXU's passes (its default HIGH,
+    ~2^-22 relative); the port's filter sums every product in float32 with
+    TF32 off, which is the reference's HIGHEST, so a string or an enum whose
+    name is "highest" (or its alias "float32") is the one precision there is.
+    """
+    if precision is None:
+        return
+    name = str(getattr(precision, "name", precision)).upper()
+    if name not in FILTER_PRECISIONS:
+        raise ValueError("precision=%r: the port's filter sums in float32 with TF32 off (the "
+                         "reference's HIGHEST); lower precisions are not computed"
+                         % (precision,))
+
+
+def apply_filter_to_signal(E, os, wx, precision=None):
     """Apply equaliser taps and downsample by os (reference pythran_equalisation.py:37-76).
 
-    E: (nmodes, L) complex; returns (nout, Lout) complex64.
+    E: (nmodes, L) complex; returns (nout, Lout) complex64. ``precision``:
+    None or "highest" (:func:`check_filter_precision`); the sums are float32
+    either way.
     """
+    check_filter_precision(precision)
     out = apply_filter_planes(planes(E), os, wx)
     nout = out.shape[0] // 2
     return torch.complex(out[:nout], out[nout:])

@@ -372,13 +372,114 @@ def _select_angle_index(x, N2):
     return idx
 
 
-def bps_idx_planes(er, ei, cos_t, sin_t, grid, N):
+#: the previous tile's columns whose suffix sums complete a tile's first bf16 windows
+BF16_LOOKBACK = 128
+
+
+def check_bf16_tile(N, T):
+    """Refuse a half-window N and tile T that the reference's bf16 windows do not take.
+
+    ``_windowed_sums`` (phase_pallas.py:39-80) completes a tile's first 2N
+    windows from one lane tile of the previous tile's columns, so 2N <= 128;
+    the window fits a tile (2N < T), and T is a whole number of 128-lane tiles.
+    """
+    N, T = int(N), int(T)
+    if N < 1 or 2 * N > BF16_LOOKBACK:
+        raise ValueError("bf16 windows take half-windows 1 <= N <= %d, got N=%d"
+                         % (BF16_LOOKBACK // 2, N))
+    if T % 128 or 2 * N >= T:
+        raise ValueError("bf16 windows take a tile T that is a multiple of 128 above 2N, got "
+                         "T=%d for N=%d" % (T, N))
+
+
+def _shift_cols(x, k):
+    """x[..., c, :] <- x[..., c - k, :] along the tile axis (-2), zero in the first k columns."""
+    return torch.nn.functional.pad(x[..., :x.shape[-2] - k, :], (0, 0, k, 0))
+
+
+def bf16_window_sums(dist, N2, T):
+    """The reference's bf16 window sums (``_windowed_sums``, phase_pallas.py:39-80).
+
+    dist: (..., L, A) float32 distances. The row is cut into tiles of T
+    columns. Each distance is rounded to bf16; the power-of-two running
+    sums S_2w[c] = S_w[c] + S_w[c - w] (0 before the tile) are built by
+    doubling, each add rounded to bf16; the window ending at column c is
+    S_w1[c] + S_w2[c - w1] + ... over the binary components w1 > w2 > ... of
+    N2, largest first (a term before the tile is 0); the first N2 columns
+    then add the previous tile's tail C[127] - C[128 - N2 + c], C the
+    doubling prefix sums of its last 128 distances (none for the first
+    tile). Returns the (..., L, A) bfloat16 sums of the windows ending at
+    each column; the reference reads them from column N2 on.
+    """
+    return _bf16_windows(dist, N2, T)[0]
+
+
+def _bf16_windows(dist, N2, T):
+    """:func:`bf16_window_sums` and, per column, C[127] of the tail it adds (0 where none)."""
+    lead, (L, A) = dist.shape[:-2], dist.shape[-2:]
+    pad = (-L) % T
+    d = torch.nn.functional.pad(dist, (0, 0, 0, pad)).to(torch.bfloat16)
+    d = d.reshape(*lead, (L + pad) // T, T, A)
+    bits = [1 << b for b in range(N2.bit_length()) if N2 >> b & 1]
+    sums, s, w = {1: d}, d, 1
+    while w < bits[-1]:
+        s = s + _shift_cols(s, w)
+        w *= 2
+        sums[w] = s
+    win, off = None, 0
+    for w in reversed(bits):
+        term = sums[w] if off == 0 else _shift_cols(sums[w], off)
+        win = term if win is None else win + term
+        off += w
+    c, sh = d[..., T - BF16_LOOKBACK:, :], 1
+    while sh < BF16_LOOKBACK:
+        c = c + _shift_cols(c, sh)
+        sh *= 2
+    tail = c[..., BF16_LOOKBACK - 1:, :] - c[..., BF16_LOOKBACK - N2:, :]   # (..., nt, N2, A)
+    tail = torch.nn.functional.pad(tail[..., :-1, :, :], (0, 0, 0, 0, 1, 0))   # tile t's: t - 1's
+    win = torch.cat([win[..., :N2, :] + tail, win[..., N2:, :]], dim=-2)
+    total = c[..., :-1, BF16_LOOKBACK - 1:, :]
+    total = torch.nn.functional.pad(total.expand(*total.shape[:-2], N2, A), (0, 0, 0, T - N2, 1, 0))
+    return tuple(x.reshape(*lead, L + pad, A)[..., :L, :] for x in (win, total))
+
+
+def _select_angle_index_bf16(x, N2, T):
+    """:func:`_select_angle_index` over :func:`bf16_window_sums` at tile T (phase_pallas.py:337-343).
+
+    The argmin over the angles compares the bf16 sums as float32, the first
+    index winning ties; position i - N2//2 takes the window ending at i, for
+    i in [N2, L); the rest are 0.
+    """
+    L = x.shape[-2]
+    idx = torch.zeros(x.shape[:-1], dtype=torch.int32, device=x.device)
+    if L <= N2:
+        return idx
+    raw = torch.argmin(bf16_window_sums(x, N2, T)[..., N2:, :].float(), dim=-1)
+    idx[..., N2 - N2 // 2: L - N2 // 2] = raw.to(torch.int32)
+    return idx
+
+
+def select_angle_index(x, N, bf16_tile=None):
+    """The best-angle index of each 2N window of distances x (..., L, A): int32 (..., L).
+
+    ``bf16_tile=None`` sums each window in float32 (:func:`_select_angle_index`);
+    an int T sums the windows in bf16 in the reference's order over tiles of
+    T (:func:`_select_angle_index_bf16`, after :func:`check_bf16_tile`).
+    """
+    if bf16_tile is None:
+        return _select_angle_index(x, 2 * N)
+    check_bf16_tile(N, bf16_tile)
+    return _select_angle_index_bf16(x, 2 * N, int(bf16_tile))
+
+
+def bps_idx_planes(er, ei, cos_t, sin_t, grid, N, bf16_tile=None):
     """Plain BPS index search on float32 planes: int32 (..., L).
 
     Positions [N, L-N) hold the best angle index of the 2N window around
     them, the rest are 0 (same edge semantics as ops.phase.bps_idx).
+    ``bf16_tile``: the window sums' type, see :func:`select_angle_index`.
     """
-    return _select_angle_index(bps_distances(er, ei, cos_t, sin_t, grid), 2 * N)
+    return select_angle_index(bps_distances(er, ei, cos_t, sin_t, grid), N, bf16_tile)
 
 
 def fine_tables(Mtestangles, B, grid):
@@ -426,6 +527,32 @@ def _window_near_ties(dist, N, rel):
     scale = d.abs().sum(-1).gather(-1, best2.indices[..., :1])[..., 0]
     mask = torch.zeros(dist.shape[:-1], dtype=torch.bool, device=dist.device)
     mask[..., N: dist.shape[-2] - N] = best2.values[..., 1] - best2.values[..., 0] <= rel * scale
+    return mask
+
+
+def bf16_near_ties(dist, N, T, ulps=1):
+    """Positions [N, L-N) whose bf16 window decision another bf16 summation may flip.
+
+    dist: (..., L, A) float32 distances. A position is excused where the two
+    best of its :func:`bf16_window_sums` lie within ``ulps`` units in the last
+    place of bf16 at the larger of the best sum and, in a tile's first 2N
+    columns, the previous tile's prefix total C[127] that its tail is taken
+    from (the tail C[127] - C[i] carries that total's rounding): a summation
+    that keeps more precision anywhere (XLA on the CPU may), or a distance
+    an ulp off in float32, moves a bf16 sum by about that much, and an exact
+    tie goes to the first angle. Returns a bool mask of dist.shape[:-1].
+    """
+    check_bf16_tile(N, T)
+    N2 = 2 * N
+    L = dist.shape[-2]
+    mask = torch.zeros(dist.shape[:-1], dtype=torch.bool, device=dist.device)
+    if L <= N2:
+        return mask
+    win, total = (x[..., N2:, :].float() for x in _bf16_windows(dist, N2, int(T)))
+    best2 = torch.topk(win, 2, dim=-1, largest=False).values
+    scale = torch.maximum(best2[..., 0].abs(), total.abs().amax(dim=-1))
+    ulp = torch.exp2(torch.floor(torch.log2(scale)) - 7)
+    mask[..., N: L - N] = best2[..., 1] - best2[..., 0] <= ulps * ulp
     return mask
 
 

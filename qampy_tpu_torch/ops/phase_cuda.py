@@ -103,13 +103,60 @@ def bps_plan(nmodes, L, N, npts=0):
     return BpsPlan(run, tile, BPS_CHUNK, smem, nmodes * -(-L // tile))
 
 
-def bps_search_cuda(er, ei, cos_t, sin_t, grid, N, points=None):
+#: csrc/phase.cu: positions of a run at most with bf16 windows, in B3 and in B8. B3's runs of 4
+#: took 5-17 % less time than runs of 8 at the chain's shapes on the H100, runs of 16 up to 12 %
+#: more; B8's runs of 4 spill registers, and take as long as runs of 8
+BF16_MAX_RUN, BF16_FINE_MAX_RUN = 4, 8
+
+
+def _bf16_tables(N):
+    """The bf16 level tables of a CTA: two that take turns, one per further component of 2N."""
+    return 1 + bin(2 * N).count("1")
+
+
+def bf16_plan(nmodes, L, N, T, npts=0, fine=False):
+    """The :class:`BpsPlan` of B3 (or B8, ``fine``) with bf16 windows at reference tile T.
+
+    Mirrored by ``qtt_bps_bf16_plan``. Runs from ``BF16_MAX_RUN``
+    (``BF16_FINE_MAX_RUN`` in B8) down by B3's rule, then halved while the
+    CTA would exceed 227 KB: a general
+    alphabet's points as float4, the tile's T + 2N - 1 samples (float2 in
+    B3, float4 [x, y, cos ph1, sin ph1] in B8), 1 + popcount(2N) padded tables
+    of 8-byte slots (4 angles as two bf16 pairs: the distances, the levels
+    S_2w taking turns in two, one for each component of 2N below the largest)
+    and the tails of the reference tiles that the CTA's windows cross, 2N
+    slots each.
+    """
+    run = _bps_run(nmodes, L, BF16_FINE_MAX_RUN if fine else BF16_MAX_RUN)
+
+    def smem(run):
+        tile = BPS_THREADS * run
+        W = tile + 2 * N - 1
+        bounds = (tile + 2 * N - 2) // T + 1
+        return (16 * npts + (16 if fine else 8) * W + 8 * _bf16_tables(N) * _bps_slots(W, run)
+                + 8 * 2 * N * bounds)
+    while smem(run) > _SMEM_LIMIT and run > 1:
+        run //= 2
+    tile = BPS_THREADS * run
+    return BpsPlan(run, tile, BPS_CHUNK, smem(run), nmodes * -(-L // tile))
+
+
+def _check_bf16_plan(plan, what, lib, fine, nmodes, L, N, npts, T):
+    if plan.smem > _SMEM_LIMIT:
+        raise KernelLimit("%s with bf16 windows needs %d bytes of shared memory for N=%d, a CTA "
+                          "has %d" % (what, plan.smem, N, _SMEM_LIMIT))
+    _check_plan("bf16_plan", plan, lib.qtt_bps_bf16_plan, int(fine), nmodes, L, N, npts, T)
+
+
+def bps_search_cuda(er, ei, cos_t, sin_t, grid, N, points=None, bf16_tile=None):
     """Launch kernel B3; same contract as :func:`bps_search_plain`.
 
     er/ei: (nmodes, L) float32 planes; cos_t/sin_t: (A,) float32 tables
     from ``ops.phase.bps_tables``; ``grid`` a grid spec of any kind;
     ``points`` a general alphabet's table on the card
-    (``ops.phase.points_tensor``; copied from the host if not given).
+    (``ops.phase.points_tensor``; copied from the host if not given);
+    ``bf16_tile``: None sums the windows in float32, an int T in bf16 in the
+    reference's order over tiles of T (``ops.phase.bf16_window_sums``).
     Returns int32 (nmodes, L).
     """
     _build.require_cuda("bps_search_cuda", er, ei, cos_t, sin_t, dtype=torch.float32)
@@ -121,6 +168,19 @@ def bps_search_cuda(er, ei, cos_t, sin_t, grid, N, points=None):
         raise ValueError("bps_search_cuda takes a half-window N >= 0, got %r" % (N,))
     gargs, table = _grid_args(grid, er.device, points, "bps_search_cuda")
     A, (nmodes, L) = cos_t.shape[0], er.shape
+    if bf16_tile is not None:
+        phops.check_bf16_tile(N, bf16_tile)
+        T = int(bf16_tile)
+        plan = bf16_plan(nmodes, L, int(N), T, gargs[-1])
+        lib = _build.library()
+        _check_bf16_plan(plan, "B3", lib, False, nmodes, L, int(N), gargs[-1], T)
+        out = torch.empty((nmodes, L), dtype=torch.int32, device=er.device)
+        rc = lib.qtt_bps_idx_bf16(er.data_ptr(), ei.data_ptr(), nmodes, L, cos_t.data_ptr(),
+                                  sin_t.data_ptr(), A, int(N), T, *gargs, out.data_ptr(),
+                                  _build.stream_of(er))
+        _build.check(rc, "bps_search_cuda")
+        bps_search_cuda.launches += 1
+        return out
     plan = bps_plan(nmodes, L, int(N), gargs[-1])
     if plan.smem > _SMEM_LIMIT:
         raise KernelLimit("B3 needs %d bytes of shared memory for N=%d, a CTA has %d"
@@ -139,14 +199,15 @@ def bps_search_cuda(er, ei, cos_t, sin_t, grid, N, points=None):
 bps_search_cuda.launches = 0
 
 
-def bps_search(er, ei, cos_t, sin_t, grid, N, points=None):
+def bps_search(er, ei, cos_t, sin_t, grid, N, points=None, bf16_tile=None):
     """BPS angle-index search: the plain version on CPU tensors, kernel B3 on CUDA.
 
-    ``points``: see :func:`bps_search_cuda`; the plain version reads the host table.
+    ``points``, ``bf16_tile``: see :func:`bps_search_cuda`; the plain version reads the host
+    table.
     """
     if er.device.type == "cpu":
-        return bps_search_plain(er, ei, cos_t, sin_t, grid, N)
-    return bps_search_cuda(er, ei, cos_t, sin_t, grid, N, points)
+        return bps_search_plain(er, ei, cos_t, sin_t, grid, N, bf16_tile)
+    return bps_search_cuda(er, ei, cos_t, sin_t, grid, N, points, bf16_tile)
 
 
 # ---------------------------------------------------------------------------
@@ -511,16 +572,18 @@ def _check_fine(er, ei, ph1, cd, sd):
         raise ValueError("bps_fine takes two (B,) offset tables")
 
 
-def bps_fine_plain(er, ei, ph1, cd, sd, grid, N, d0f, ddf):
+def bps_fine_plain(er, ei, ph1, cd, sd, grid, N, d0f, ddf, bf16_tile=None):
     """Plain fine BPS stage: the per-sample phase (ph1 + d0f) + ddf * idx.
 
     er/ei/ph1: (nmodes, L) float32; cd/sd, d0f, ddf from
     ``ops.phase.fine_tables``. idx is the argmin over the B offsets of the
     2N-window sums of :func:`ops.phase.bps_fine_distances` at [N, L-N) and
     0 elsewhere, where the phase is ph1 + d0f (phase_pallas.py:587-593).
+    ``bf16_tile``: the window sums' type (``ops.phase.select_angle_index``).
     """
     _check_fine(er, ei, ph1, cd, sd)
-    idx = phops._select_angle_index(phops.bps_fine_distances(er, ei, ph1, cd, sd, grid), 2 * N)
+    idx = phops.select_angle_index(phops.bps_fine_distances(er, ei, ph1, cd, sd, grid), N,
+                                   bf16_tile)
     return (ph1 + d0f) + ddf * idx.to(torch.float32)
 
 
@@ -562,7 +625,7 @@ def fine_plan(nmodes, L, N, npts=0):
     return BpsPlan(run, tile, chunk, smem, nmodes * -(-L // tile))
 
 
-def bps_fine_cuda(er, ei, ph1, cd, sd, grid, N, d0f, ddf, points=None):
+def bps_fine_cuda(er, ei, ph1, cd, sd, grid, N, d0f, ddf, points=None, bf16_tile=None):
     """Launch kernel B8; same contract as :func:`bps_fine_plain` (``points``: as for B3)."""
     _build.require_cuda("bps_fine_cuda", er, ei, ph1, cd, sd, dtype=torch.float32)
     _check_fine(er, ei, ph1, cd, sd)
@@ -570,6 +633,19 @@ def bps_fine_cuda(er, ei, ph1, cd, sd, grid, N, d0f, ddf, points=None):
         raise ValueError("bps_fine_cuda takes B >= 1 offsets and a half-window N >= 0")
     gargs, table = _grid_args(grid, er.device, points, "bps_fine_cuda")
     B, (nmodes, L) = cd.shape[0], er.shape
+    if bf16_tile is not None:
+        phops.check_bf16_tile(N, bf16_tile)
+        T = int(bf16_tile)
+        plan = bf16_plan(nmodes, L, int(N), T, gargs[-1], fine=True)
+        lib = _build.library()
+        _check_bf16_plan(plan, "B8", lib, True, nmodes, L, int(N), gargs[-1], T)
+        out = torch.empty_like(ph1)
+        rc = lib.qtt_bps_fine_bf16(er.data_ptr(), ei.data_ptr(), ph1.data_ptr(), nmodes, L,
+                                   cd.data_ptr(), sd.data_ptr(), B, int(N), T, *gargs,
+                                   float(d0f), float(ddf), out.data_ptr(), _build.stream_of(er))
+        _build.check(rc, "bps_fine_cuda")
+        bps_fine_cuda.launches += 1
+        return out
     plan = fine_plan(nmodes, L, int(N), gargs[-1])
     if plan.smem > _SMEM_LIMIT:
         raise KernelLimit("B8 needs %d bytes of shared memory for N=%d, a CTA has %d"
@@ -588,15 +664,15 @@ def bps_fine_cuda(er, ei, ph1, cd, sd, grid, N, d0f, ddf, points=None):
 bps_fine_cuda.launches = 0
 
 
-def bps_fine(er, ei, ph1, cd, sd, grid, N, d0f, ddf, points=None):
+def bps_fine(er, ei, ph1, cd, sd, grid, N, d0f, ddf, points=None, bf16_tile=None):
     """Fine BPS stage: the plain version on CPU tensors, kernel B8 on CUDA."""
     if er.device.type == "cpu":
-        return bps_fine_plain(er, ei, ph1, cd, sd, grid, N, d0f, ddf)
-    return bps_fine_cuda(er, ei, ph1, cd, sd, grid, N, d0f, ddf, points)
+        return bps_fine_plain(er, ei, ph1, cd, sd, grid, N, d0f, ddf, bf16_tile)
+    return bps_fine_cuda(er, ei, ph1, cd, sd, grid, N, d0f, ddf, points, bf16_tile)
 
 
 def bps_twostage(er, ei, cos1, sin1, N1, cd, sd, grid, N, d0f, ddf, grid_coarse=None,
-                 points=None):
+                 points=None, bf16_tile=None):
     """Two-stage BPS phase (``bps_phase_twostage_pallas``, phase_pallas.py:483-526).
 
     B3 on the coarse tables cos1/sin1 (A1 angles over [-pi/4, pi/4)) with
@@ -604,10 +680,11 @@ def bps_twostage(er, ei, cos1, sin1, N1, cd, sd, grid, N, d0f, ddf, grid_coarse=
     ph1 with half-window N. ``grid_coarse`` gives the coarse stage a grid of
     its own (a general alphabet's fitted grid; cos1/sin1 carry that grid's
     scale); ``points`` is a general alphabet's table for whichever stage
-    searches it. Returns the per-sample phase, before the unwrap.
+    searches it; ``bf16_tile`` the window sums' type of both stages. Returns
+    the per-sample phase, before the unwrap.
     """
     step1 = np.pi / 2 / cos1.shape[0]
     idx1 = bps_search(er, ei, cos1, sin1, grid if grid_coarse is None else grid_coarse, N1,
-                      points)
+                      points, bf16_tile)
     ph1 = -np.pi / 4 + step1 * idx1.to(torch.float32)
-    return bps_fine(er, ei, ph1, cd, sd, grid, N, d0f, ddf, points)
+    return bps_fine(er, ei, ph1, cd, sd, grid, N, d0f, ddf, points, bf16_tile)

@@ -39,11 +39,32 @@ fallback.
 
 The reference's ``pallas`` switch picks between two frame filters that
 compute one function (its Pallas filter contracts in bf16, its XLA filter
-in float32); the port's filter sums in float32 either way, so the port
-takes ``pallas`` and ignores it. The cold-start prefix also runs spread
-over the ranks of a mesh (:meth:`PilotRxChain.prefix_sharded`, used by
-``parallel.sharded.make_sharded_pilot_rx``). Frame modes other than the
-batched one and frame packing are not to be ported and raise ``ValueError``.
+in float32); the port's filter sums in float32 either way, so ``pallas``
+(None is True here, on every device) only decides, with the blocked pilot
+layout, the reference's "fast" path, which ``frames_mode="auto"`` and
+``"span_planes"`` ask for. The frame schedules
+(:meth:`PilotRxChain.demod`, reference pilot_chain.py:826-960):
+
+- ``"scan"`` (the default) and ``"vmap"``: the batched frame body above;
+- ``"span"``: the filter hoisted out of the frames. Output mode i's window
+  over the whole contiguous span starts at its shift plus the first frame's
+  base, clamped into the capture as a whole as the reference's span slice
+  is, and the frames cut from it are the frame windows of the same batched
+  body (one launch of each kernel); so the payload equals the scan's
+  wherever no window is clamped. More than two contiguous frames, else
+  ``ValueError``;
+- ``"span_planes"`` and ``"auto"``: ``"span"`` where the fast path and a
+  span hold, the batched body otherwise;
+- ``frames_pack=k > 1``: the reference packs k frames into each launch of
+  its frame kernels where it can (fast, serving form, ``"scan"``, k divides
+  the frames); the batched body already launches each kernel once over all
+  the frames, which serves any k, and the value is the same. The serving
+  form has no ``info["phase"]``, as the reference's packs have none.
+
+``frames_unroll`` is the reference's scan unroll knob: taken, and the value
+does not change with it. The cold-start prefix also runs spread over the
+ranks of a mesh (:meth:`PilotRxChain.prefix_sharded`, used by
+``parallel.sharded.make_sharded_pilot_rx``).
 """
 from __future__ import annotations
 
@@ -65,6 +86,8 @@ from qampy_tpu_torch.utils import resolve_device
 __all__ = ["PilotRxChain", "make_pilot_rx_chain", "unwrap", "derotate_planes", "phase_slopes"]
 
 FOE_FFT = 2 ** 16
+#: the reference's frame schedules (pilot_chain.py:826-960)
+FRAMES_MODES = ("scan", "vmap", "span", "span_planes", "auto")
 
 
 def derotate_planes(P, foe, os):
@@ -116,19 +139,26 @@ class PilotRxChain(nn.Module):
                  M_pilot=4, sync_Ntaps=17, sync_mu=1e-3, sync_Niter=10, Ntaps=45,
                  mu=(1e-3, 1e-3), Niter=30, methods=("cma", "cma"), foe_comp=False, cpe_avg=3,
                  cpe_pilot_rat=1, frames=(0,), block_size=128, pallas=None, frames_mode="scan",
-                 return_phase=True, eq_trainer="lms", frames_pack=1):
+                 frames_unroll=1, return_phase=True, eq_trainer="lms", frames_pack=1):
         super().__init__()
         if eq_trainer not in ("lms", "ls"):
             raise ValueError("eq_trainer must be 'lms' or 'ls', got %r" % (eq_trainer,))
         if eq_trainer == "ls" and foe_comp:
             raise ValueError("eq_trainer='ls' supports foe_comp=False chains (the pilot FOE "
                              "comes from the LMS trainer's warm taps)")
-        if frames_mode != "scan":
-            raise ValueError("frames_mode=%r is not ported (ROADMAP: not to port); the port "
-                             "batches the frames of the default 'scan'" % (frames_mode,))
-        if int(frames_pack) != 1:
-            raise ValueError("frames_pack=%r is not ported (ROADMAP: not to port)"
-                             % (frames_pack,))
+        if frames_mode not in FRAMES_MODES:
+            raise ValueError("frames_mode must be one of %s, got %r" % (FRAMES_MODES, frames_mode))
+        frames = tuple(int(f) for f in frames)
+        span_ok = len(frames) > 2 and frames == tuple(range(frames[0], frames[0] + len(frames)))
+        if frames_mode == "span" and not span_ok:
+            # the reference's message (pilot_chain.py:833-837)
+            raise ValueError("frames_mode='span' needs >2 contiguous frames, got %r; use "
+                             "frames_mode='scan' for arbitrary frame sets" % (frames,))
+        if int(frames_pack) < 1 or int(frames_unroll) < 1:
+            raise ValueError("frames_pack and frames_unroll are positive, got %r and %r"
+                             % (frames_pack, frames_unroll))
+        self.frames_mode = frames_mode
+        self.pallas = True if pallas is None else bool(pallas)
         methods = tuple(str(m).lower() for m in methods)
         if len(methods) != 2:
             raise ValueError("methods takes two methods, got %r" % (methods,))
@@ -214,6 +244,12 @@ class PilotRxChain(nn.Module):
         self.npts = ph_idx.shape[0] - (cpe_avg - 1)
         self.nbt = F // dx
         self.fr_len = F * os + Ntaps - 1
+        # the frame windows (reference pilot_chain.py:654, 826-960): one clamped span for "span",
+        # and for "auto"/"span_planes" where the fast path and a span hold; else a window a frame
+        self.schedule = ("span" if frames_mode == "span" or (
+            frames_mode in ("auto", "span_planes") and self.pallas and self.blocked and span_ok)
+            else "frames")
+        self.span = len(frames) * F * os + Ntaps - 1
 
         seq_f = np.fft.fft(pilot_seq, self.nfft, axis=-1).astype(dtype)
         self.register_buffer("starts", torch.as_tensor(starts, dtype=torch.int64))
@@ -427,7 +463,13 @@ class PilotRxChain(nn.Module):
         ``frame_base`` (samples; a Python int or a 0-d integer tensor) moves
         every window before the clamp into the capture, as the reference's
         ``_frame_base`` moves its dynamic slices (pilot_chain.py:829-830).
+        Each window is clamped on its own; on the "span" schedule the span
+        of all the frames is clamped as a whole and cut into frames
+        (reference :838-850).
         """
+        if self.schedule == "span":
+            st = (eqsh + (self.bases[0] + frame_base)).clamp(0, P.shape[-1] - self.span)
+            return st[:, None] + (self.bases - self.bases[0])[None, :]
         return (eqsh[:, None] + (self.bases[None, :] + frame_base)).clamp(
             0, P.shape[-1] - self.fr_len)
 
@@ -578,8 +620,17 @@ class PilotRxChain(nn.Module):
         windows as in :meth:`planes`: a long capture is served by one full
         call and tracking calls at ``d * len(frames) * frame_len * os``.
         ``info["sync_corr"]`` is +inf to mark that sync did not run. Returns
-        ((dr, di), info).
+        ((dr, di), info). Like the reference's, this planes entry takes the
+        ``"scan"`` and ``"vmap"`` schedules only, and raises ``ValueError`` on
+        the others (:meth:`tracking` takes them all).
         """
+        if self.frames_mode not in ("scan", "vmap"):
+            # the reference asserts it (pilot_chain.py:1043-1045)
+            raise ValueError("tracking_planes supports frames_mode 'scan'/'vmap', got %r"
+                             % (self.frames_mode,))
+        return self._tracking(pr, pi, wxy, shift, mode_order, foe, _frame_base)
+
+    def _tracking(self, pr, pi, wxy, shift, mode_order, foe, _frame_base):
         if foe is not None and not self.foe_comp:
             raise ValueError("foe= supplied but the chain was built with foe_comp=False "
                              "(it would not be applied)")
@@ -587,7 +638,7 @@ class PilotRxChain(nn.Module):
             warnings.warn("chain built with foe_comp=True but the tracking entry got no foe=: "
                           "the frozen taps were trained on FOE-compensated segments while "
                           "this capture is demodulated uncompensated; pass the previous "
-                          "dispatch's info['foe_pil']", stacklevel=2)
+                          "dispatch's info['foe_pil']", stacklevel=3)
         P = self._planes(pr, pi)
         dev = P.device
         shift = torch.as_tensor(shift, device=dev).to(torch.int64)
@@ -606,9 +657,10 @@ class PilotRxChain(nn.Module):
         return data, self._info(shift, inf, zero, foe_t, wxy, mo, trace)
 
     def tracking(self, E, wxy, shift, mode_order=None, foe=None, _frame_base=0):
-        """Complex twin of :meth:`tracking_planes`: (complex payload, info)."""
-        (dr, di), info = self.tracking_planes(E.real, E.imag, wxy, shift, mode_order, foe,
-                                              _frame_base)
+        """Complex twin of :meth:`tracking_planes`: (complex payload, info), in every
+        ``frames_mode`` (as the reference's complex entry)."""
+        (dr, di), info = self._tracking(E.real, E.imag, wxy, shift, mode_order, foe,
+                                        _frame_base)
         return torch.complex(dr, di), info
 
     def check_prefix_sharded(self, mesh):
@@ -671,8 +723,8 @@ def make_pilot_rx_chain(pilot_seq, ph_pilots, frame_len, pilot_ins_rat, os=2, M=
                         M_pilot=4, sync_Ntaps=17, sync_mu=1e-3, sync_Niter=10, Ntaps=45,
                         mu=(1e-3, 1e-3), Niter=30, methods=("cma", "cma"), foe_comp=False,
                         cpe_avg=3, cpe_pilot_rat=1, frames=(0,), block_size=128, pallas=None,
-                        frames_mode="scan", return_phase=True, eq_trainer="lms", frames_pack=1,
-                        device=None):
+                        frames_mode="scan", frames_unroll=1, return_phase=True,
+                        eq_trainer="lms", frames_pack=1, device=None):
     """Build the pilot chain on ``device`` (see :class:`PilotRxChain`).
 
     ``device=None`` is the card, and raises on a machine without one; pass
@@ -685,10 +737,11 @@ def make_pilot_rx_chain(pilot_seq, ph_pilots, frame_len, pilot_ins_rat, os=2, M=
     at ``mu[0]``, the third ``methods[1]`` at ``mu[1]``, each ``Niter``
     passes over the pilot segment in blocks of ``block_size``); the LS
     trainer ignores them. ``M`` is taken for the reference's signature:
-    the trainers work on the pilot alphabet (``M_pilot``). ``pallas`` is
-    taken and ignored too: the reference's two frame filters compute one
-    function, which the port's filter sums in float32; the XLA unroll knob
-    ``frames_unroll`` has no counterpart here. On the card the launch
+    the trainers work on the pilot alphabet (``M_pilot``). ``pallas``,
+    ``frames_mode``, ``frames_unroll`` and ``frames_pack``: the frame
+    schedules of the module docstring (the reference's two frame filters
+    compute one function, which the port's filter sums in float32, and the
+    scan's unroll does not change the value). On the card the launch
     limits of the kernels the chain runs are checked here and raise
     ``KernelLimit``: B1's for each LMS stage of a method it computes
     (``equaliser_cuda.check_block_launch``), the frame filter's plan
@@ -700,8 +753,9 @@ def make_pilot_rx_chain(pilot_seq, ph_pilots, frame_len, pilot_ins_rat, os=2, M=
                          sync_Niter=sync_Niter, Ntaps=Ntaps, mu=mu, Niter=Niter, methods=methods,
                          foe_comp=foe_comp, cpe_avg=cpe_avg, cpe_pilot_rat=cpe_pilot_rat,
                          frames=frames, block_size=block_size, pallas=pallas,
-                         frames_mode=frames_mode, return_phase=return_phase,
-                         eq_trainer=eq_trainer, frames_pack=frames_pack)
+                         frames_mode=frames_mode, frames_unroll=frames_unroll,
+                         return_phase=return_phase, eq_trainer=eq_trainer,
+                         frames_pack=frames_pack)
     if dev.type == "cuda":
         # the kernels' limits, here rather than at a launch
         n = chain.nmodes

@@ -13,7 +13,7 @@ import torch
 
 from qampy_tpu_torch.core.special import _t, erfc, q_function  # noqa: F401 (theory.q_function)
 from qampy_tpu_torch.helpers import dB2lin, normalise_and_center
-from qampy_tpu_torch.utils import bin2gray
+from qampy_tpu_torch.utils import bin2gray, resolve_device
 
 
 def ser_vs_es_over_n0_qam(snr, M):
@@ -140,26 +140,29 @@ def hybrid_qam_ber_vs_esn0(snr, pr, fr, M1, M2):
         + fr * bps2 * ber_vs_es_over_n0_qam(pr * snr / ((1 - fr) + fr * pr), M2))
 
 
-def cal_gmi(M, snr, N=10 ** 3, seed=0, device="cpu"):
+def cal_gmi(M, snr, N=10 ** 3, seed=0, device=None):
     """Monte-Carlo soft-decision GMI of Gray-coded square M-QAM at ``snr`` dB (theory.py:151-165).
 
     The noise comes from a ``torch.Generator`` seeded with ``seed`` on
     ``device``: other draws than the reference's ``jax.random``, so the two
-    agree in distribution, not in value.
+    agree in distribution, not in value. ``device=None`` is the card, as for
+    every entry point (``utils.resolve_device``); pass ``device="cpu"`` for the CPU.
     """
     from qampy_tpu_torch.core.metrics import cal_gmi_mc
     from qampy_tpu_torch.signals import SignalQAMGrayCoded
-    s = SignalQAMGrayCoded(M, 1000, nmodes=1, device=device)
+    s = SignalQAMGrayCoded(M, 1000, nmodes=1, device=resolve_device(device))
     snr_lin = 10 ** (np.atleast_1d(snr) / 10)
     return np.array([float(cal_gmi_mc(s.coded_symbols, float(sl), N, s.bitmap_mtx, seed=seed))
                      for sl in snr_lin])
 
 
-def sim_mi_mc(symbols, snr, N, seed=0, device="cpu"):
+def sim_mi_mc(symbols, snr, N, seed=0, device=None):
     """Monte-Carlo AWGN mutual information of an alphabet (theory.py:168-177).
 
-    The noise is numpy's ``default_rng(seed)``, as in the reference.
+    The noise is numpy's ``default_rng(seed)``, as in the reference; the
+    information is computed on ``device``, None the card (``utils.resolve_device``).
     """
+    device = resolve_device(device)
     from qampy_tpu_torch.core.metrics import cal_mi_mc
     symbols = np.asarray(symbols)
     symbols = symbols / np.sqrt(np.mean(abs(symbols) ** 2))

@@ -1522,3 +1522,77 @@ def test_example_on_the_card():
     mod = _common.load("phase_recovery")
     res = mod.main()                       # no device named: the card
     assert not _common.gate_failures(mod.GATES, res)
+
+
+# -- bf16 window sums (B3, B8) and the pilot schedules --------------------------
+
+BF16_TILES = [2048, 384]
+
+
+def _bf16_const(key):
+    """64-QAM for "sq", else the grid tests' alphabet."""
+    if key == "sq":
+        return (cal_symbols_qam(64) / np.sqrt(cal_scaling_factor_qam(64))).astype(np.complex64)
+    return _alphabet(key)[0]
+
+
+@pytest.mark.parametrize("T", BF16_TILES)
+@pytest.mark.parametrize("A, N", [(64, 14), (16, 60), (13, 5)])
+@pytest.mark.parametrize("key", ["sq"] + GRID_KEYS)
+def test_b3_bf16_windows_equal_the_twin(dev, key, A, N, T):
+    """B3 with bf16 windows at tile T: bit for bit the twin's order (ops.phase.bf16_window_sums)
+    on every grid kind, on rows that are not a multiple of a tile."""
+    const = _bf16_const(key)
+    grid = tph.detect_grid(const)
+    er, ei = _alphabet_planes(dev, const, 7 + A + N, L=2 ** 16 + 77)
+    ang = np.linspace(-np.pi / 4, np.pi / 4, A, endpoint=False, dtype=np.float32)
+    cos_t, sin_t = (torch.as_tensor(t, device=dev) for t in tph.bps_tables(ang, grid))
+    got = bps_search_cuda(er, ei, cos_t, sin_t, grid, N, bf16_tile=T)
+    assert torch.equal(got, bps_search_plain(er, ei, cos_t, sin_t, grid, N, T))
+    assert len(torch.unique(got)) > 1
+
+
+@pytest.mark.parametrize("T", BF16_TILES)
+@pytest.mark.parametrize("key", ["sq"] + GRID_KEYS)
+def test_b8_bf16_windows_equal_the_twin(dev, key, T):
+    const = _bf16_const(key)
+    grid = tph.detect_grid(const)
+    er, ei = _alphabet_planes(dev, const, 31, L=2 ** 16 + 77)
+    ang = np.linspace(-np.pi / 4, np.pi / 4, 16, endpoint=False, dtype=np.float32)
+    cos1, sin1 = (torch.as_tensor(t, device=dev) for t in tph.bps_tables(ang, grid))
+    ph1 = -np.pi / 4 + np.pi / 32 * bps_search_cuda(er, ei, cos1, sin1, grid, 60, bf16_tile=T).float()
+    cd, sd, d0f, ddf = tph.fine_tables(16, 8, grid)
+    cd, sd = torch.as_tensor(cd, device=dev), torch.as_tensor(sd, device=dev)
+    got = bps_fine_cuda(er, ei, ph1, cd, sd, grid, 14, d0f, ddf, bf16_tile=T)
+    assert torch.equal(got, bps_fine_plain(er, ei, ph1, cd, sd, grid, 14, d0f, ddf, T))
+
+
+def test_bf16_plan_matches_the_library(dev):
+    import ctypes
+    from qampy_tpu_torch.ops import _build
+    from qampy_tpu_torch.ops.phase_cuda import bf16_plan
+    for fine in (False, True):
+        for args in ((2, 2 ** 20, 14, 16384, 0), (2, 2 ** 16, 60, 8192, 0), (1, 5000, 64, 256, 32)):
+            built = (ctypes.c_longlong * 5)()
+            nmodes, L, N, T, npts = args
+            _build.library().qtt_bps_bf16_plan(int(fine), nmodes, L, N, npts, T,
+                                               ctypes.addressof(built))
+            assert tuple(built) == bf16_plan(nmodes, L, N, T, npts, fine)
+
+
+def test_pilot_span_equals_scan_on_the_card(dev):
+    """frames_mode="span" (the batched frame body on windows cut from one clamped span: B2
+    frames, B5 and B4 once each) against the scan on the card, within the reference's 1e-4."""
+    tx = make_pilot_tx(6, frame_len=2 ** 14, seq_len=512, device=dev)
+    kw = dict(os=2, nmodes=2, Ntaps=17, cpe_avg=3, frames=(0, 1, 2), block_size=256,
+              return_phase=False, eq_trainer="ls", device=dev)
+    scan = make_pilot_rx_chain(tx.pilot_seq, tx.ph_pilots, 2 ** 14, 32, **kw)
+    span = make_pilot_rx_chain(tx.pilot_seq, tx.ph_pilots, 2 ** 14, 32, frames_mode="span", **kw)
+    (dr, di), info = scan.planes(tx.planes[:2], tx.planes[2:])
+    for fn in (apply_filter_cuda, apply_filter_frames_cuda, cpe_coeffs_cuda, interp_rotate_cuda):
+        fn.launches = 0
+    (sr, si), sinfo = span.planes(tx.planes[:2], tx.planes[2:])
+    assert [fn.launches for fn in (apply_filter_cuda, apply_filter_frames_cuda, cpe_coeffs_cuda,
+                                   interp_rotate_cuda)] == [0, 1, 1, 1]
+    assert max(float((sr - dr).abs().max()), float((si - di).abs().max())) <= 1e-4
+    assert ber_gate(sr, si, tx, sinfo["sync_corr"])["ok"]

@@ -295,17 +295,20 @@ class TestPortBoundaries:
             calls[which]()
 
     @pytest.mark.parametrize("kwargs, item", [
-        (dict(bps_mode="twostage-dec"), "Not to port"),
+        (dict(bps_mode="twostage-dec"), "twostage-dec"),
         (dict(methods=("cma", "mrde")), "takes"), (dict(methods=("mcma", "cme")), "takes"),
         (dict(M=32), "x"), (dict(M=128), "x"), (dict(symbols=np.ones(16)), "gen"),
         (dict(symbols=np.exp(2j * np.pi * np.arange(300) / 300)), "at most 256"),
         (dict(symbols=np.ones(1)), "at least two points")])
     def test_unported_configurations_raise(self, kwargs, item):
-        """What the port does not run raises; the constellations of the reference build."""
+        """What the port does not run raises; the constellations and modes of the reference build."""
         if item in ("x", "gen"):
             assert make_rx_chain(**kwargs, device="cpu").backend_info["grid_kind"] == item
             return
-        err = NotImplementedError if item in ("Not to port", "takes") else ValueError
+        if item == "twostage-dec":
+            assert make_rx_chain(**kwargs, device="cpu").mode == item
+            return
+        err = NotImplementedError if item == "takes" else ValueError
         with pytest.raises(err, match=item):
             make_rx_chain(**kwargs, device="cpu")
 

@@ -192,9 +192,13 @@ def test_frames_of_more_than_4096_cpe_pilots():
         assert np.all(np.mean(d != tx_idx, axis=-1) < SER_MAX)
 
 
-@pytest.mark.parametrize("kwargs", [dict(frames_mode="span"), dict(frames_mode="vmap"),
-                                    dict(frames_pack=2), dict(eq_trainer="newton")])
+@pytest.mark.parametrize("kwargs", [dict(frames_mode="span", frames=(0, 2, 4)),
+                                    dict(frames_mode="scanned"), dict(frames_pack=0),
+                                    dict(eq_trainer="newton")])
 def test_not_to_port_options_are_refused(capture, kwargs):
+    """What neither package computes is refused: a span of frames that are not contiguous
+    (the reference's ValueError), a frame schedule or pack it does not define, an unknown
+    trainer. (The schedules themselves are ported: tests/test_torch_pilot_schedules.py.)"""
     with pytest.raises(ValueError):
         make_pilot_rx_chain(capture["seq"], capture["ph"], FRAME, INS, **dict(CPU, **kwargs))
 

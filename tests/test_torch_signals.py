@@ -324,6 +324,25 @@ def test_card_is_the_default_device(monkeypatch):
     assert seen == [None]
 
 
+@pytest.mark.parametrize("entry", ["cal_gmi", "sim_mi_mc"])
+def test_theory_entries_default_to_the_card(monkeypatch, entry):
+    """``theory.cal_gmi`` and ``theory.sim_mi_mc`` take ``device=None`` to the card, as every
+    entry point does: resolved by ``resolve_device`` (here redirected to the CPU to see it
+    asked), and without a card the call raises."""
+    from qampy_tpu_torch import theory as ttheory
+    call = {"cal_gmi": lambda: ttheory.cal_gmi(16, 10.0, N=200, seed=1),
+            "sim_mi_mc": lambda: ttheory.sim_mi_mc(np.array([1, -1, 1j, -1j]), 10.0, 200)}[entry]
+    seen = []
+    monkeypatch.setattr(ttheory, "resolve_device",
+                        lambda d: seen.append(d) or torch.device("cpu"))
+    call()
+    assert seen[:1] == [None]
+    monkeypatch.undo()
+    if not torch.cuda.is_available():
+        with pytest.raises((RuntimeError, AssertionError)):
+            call()
+
+
 def test_theory_anchor_on_the_port():
     """The verify skill's anchors on the port's own signal: SER within 5 % of theory at 12 dB and
     the SNR estimate within 0.3 dB (noise made by the port's impairments, CPU generator)."""

@@ -7,10 +7,15 @@ from a package ``__init__``, must be an attribute of its counterpart in
 exception lists below with its reason. A name a module imports only for
 its own use is not its surface; those the port lacks are listed too.
 Then the surface the reference documents: ``ops.make_rx_chain``, the
-``bps_af``/``bps_pyx`` aliases, ``erfc`` and ``pallas_eligibility``.
+``bps_af``/``bps_pyx`` aliases, ``erfc`` and ``pallas_eligibility``. Then
+the parameters: each parameter name of each public function and method
+(``__init__`` included, properties not) that a reference module defines
+must be a parameter of its counterpart, unless it stands on
+``PARAM_EXCEPTIONS`` with its reason (private ``_name`` parameters aside).
 """
 import ast
 import importlib
+import inspect
 import pathlib
 
 import numpy as np
@@ -130,8 +135,8 @@ def _grids():
 
 # (grid, methods, block_size, bps_tile): (port ok, reference ok). Rows where they differ are
 # the CUDA rules that are not Pallas's lane rules: a general alphabet (the CUDA kernels search
-# up to 256 points), blocks that are a multiple of 32 but not of 128, and bps_tile, which
-# B3's own launch plan ignores.
+# up to 256 points) and blocks that are a multiple of 32 but not of 128. bps_tile tiles the
+# bf16 window sums, a multiple of 128 in both.
 CASES = {
     "square grid": (("square64", ("mcma", "mddma"), 256, 16384), (True, True)),
     "cross grid, rde": (("cross32", ("mcma", "rde"), 128, 2048), (True, True)),
@@ -139,7 +144,7 @@ CASES = {
     "odd block size": (("square64", ("cma",), 100, None), (False, False)),
     "ring alphabet": (("ring8", ("mcma", "sbd"), 256, None), (True, False)),
     "block of 64": (("square64", ("cma",), 64, None), (True, False)),
-    "unaligned bps_tile": (("square64", ("cma",), None, 1000), (True, False)),
+    "unaligned bps_tile": (("square64", ("cma",), None, 1000), (False, False)),
     "block past 1024": (("square64", ("cma",), 2048, None), (False, True)),
 }
 
@@ -157,3 +162,115 @@ def test_pallas_eligibility(case):
     jgrid = {"square64": jphase.detect_grid(jsyms(64)), "cross32": jphase.detect_grid(jsyms(32)),
              "ring8": jphase.detect_grid(ring)}[grid]
     assert jax_eligibility(jgrid, methods, block, tile)[0] == ok_ref
+
+
+# (module, function or Class.method, parameter): why the port's counterpart does not take it.
+# Only idiom differences: JAX's random keys and runtime, against torch's generators and
+# torch.distributed.
+_KEY = "a jax.random key: the port draws from a torch.Generator (``generator=``)"
+PARAM_EXCEPTIONS = {
+    ("qampy_tpu.core.impairments", "phase_noise", "key"): _KEY,
+    ("qampy_tpu.core.impairments", "apply_phase_noise", "key"): _KEY,
+    ("qampy_tpu.core.impairments", "add_awgn", "key"): _KEY,
+    ("qampy_tpu.core.impairments", "change_snr", "key"): _KEY,
+    ("qampy_tpu.core.impairments", "simulate_transmission", "key"): _KEY,
+    ("qampy_tpu.core.impairments", "apply_enob_as_awgn", "key"): _KEY,
+    ("qampy_tpu.core.pilotbased_transmitter", "sim_tx", "key"): _KEY,
+    ("qampy_tpu.impairments", "add_awgn", "key"): _KEY,
+    ("qampy_tpu.impairments", "apply_phase_noise", "key"): _KEY,
+    ("qampy_tpu.impairments", "change_snr", "key"): _KEY,
+    ("qampy_tpu.impairments", "simulate_transmission", "key"): _KEY,
+    ("qampy_tpu.ops.equaliser", "equalise_signal", "**kwargs"):
+        "the reference takes **kwargs and reads none (it hands them only to itself); the "
+        "port refuses an unknown keyword",
+    ("qampy_tpu.ops.equaliser", "dual_mode_equalisation", "**kwargs"): "the same",
+    ("qampy_tpu.parallel.mesh", "init_distributed", "local_device_count"):
+        "JAX's multi-controller runtime (devices per process): a torch.distributed rank "
+        "drives one device",
+    ("qampy_tpu.parallel.mesh", "init_distributed", "platform"):
+        "JAX's backend name: the port takes ``backend`` (gloo, nccl) and ``device``",
+    ("qampy_tpu.parallel.mesh", "init_distributed", "cpu_collectives"): "the same",
+    ("qampy_tpu.parallel.mesh", "make_mesh", "n_devices"):
+        "a mesh over JAX devices: the port's mesh is a torch.distributed group (``group``)",
+    ("qampy_tpu.parallel.mesh", "make_mesh", "devices"): "the same",
+    ("qampy_tpu.parallel.sharded", "shard_signal", "spec"):
+        "a jax.sharding PartitionSpec: a rank holds its contiguous time slice",
+}
+
+
+def _is_property(fn):
+    return any(isinstance(d, (ast.Name, ast.Attribute)) and
+               (getattr(d, "id", None) == "property" or getattr(d, "attr", None) == "setter")
+               for d in fn.decorator_list)
+
+
+def _reference_callables(path):
+    """(qualified name, ast function) of a module's public functions and its public
+    classes' public methods and __init__ (properties left out)."""
+    for n in ast.parse(path.read_text()).body:
+        if isinstance(n, ast.FunctionDef) and not n.name.startswith("_"):
+            yield n.name, n
+        elif isinstance(n, ast.ClassDef) and not n.name.startswith("_"):
+            for m in n.body:
+                if (isinstance(m, ast.FunctionDef) and not _is_property(m)
+                        and (not m.name.startswith("_") or m.name == "__init__")):
+                    yield n.name + "." + m.name, m
+
+
+def _params(fn):
+    a = fn.args
+    names = [x.arg for x in a.posonlyargs + a.args + a.kwonlyargs]
+    names += ["*" + a.vararg.arg] if a.vararg else []
+    names += ["**" + a.kwarg.arg] if a.kwarg else []
+    return [n for n in names if n not in ("self", "cls") and not n.startswith("_")]
+
+
+def _lacks(obj, name):
+    """Whether callable ``obj`` takes no parameter ``name`` (``*args``/``**kw`` by kind)."""
+    ps = inspect.signature(obj).parameters.values()
+    if name.startswith("**"):
+        return not any(p.kind == p.VAR_KEYWORD for p in ps)
+    if name.startswith("*"):
+        return not any(p.kind == p.VAR_POSITIONAL for p in ps)
+    return name not in {p.name for p in ps} and not any(p.kind == p.VAR_KEYWORD for p in ps)
+
+
+def _missing_params(mod, path):
+    port = importlib.import_module(mod.replace("qampy_tpu", "qampy_tpu_torch", 1))
+    missing = []
+    for qual, fn in _reference_callables(path):
+        obj = port
+        for part in qual.split("."):
+            obj = getattr(obj, part)
+        missing += [(mod, qual, p) for p in _params(fn) if _lacks(obj, p)]
+    return missing
+
+
+SIG_MODULES = [(m, p) for m, p in MODULES if m not in MODULE_EXCEPTIONS]
+
+
+@pytest.mark.parametrize("mod, path", SIG_MODULES, ids=[m for m, _ in SIG_MODULES])
+def test_every_parameter_has_a_counterpart(mod, path):
+    unlisted = [m for m in _missing_params(mod, path) if m not in PARAM_EXCEPTIONS]
+    assert not unlisted, "parameters the port does not take: %s" % unlisted
+
+
+def test_parameter_exceptions_are_needed():
+    """Each listed parameter is still missing from its counterpart (else it comes off the
+    list), and each has its reason."""
+    paths = dict(MODULES)
+    missing = {m for mod in {k[0] for k in PARAM_EXCEPTIONS}
+               for m in _missing_params(mod, paths[mod])}
+    assert set(PARAM_EXCEPTIONS) <= missing
+    assert all(PARAM_EXCEPTIONS.values())
+
+
+def test_the_modes_ported_last_are_no_exception():
+    """The reference's selectable modes are parameters of the port, not exceptions."""
+    listed = {(q, p) for _, q, p in PARAM_EXCEPTIONS}
+    for qual, p in (("make_rx_chain", "bps_win"), ("make_rx_chain", "pallas"),
+                    ("make_rx_chain", "bps_tile"), ("make_rx_chain", "fuse_derot"),
+                    ("make_pilot_rx_chain", "frames_unroll"),
+                    ("make_pilot_rx_chain", "frames_pack"),
+                    ("apply_filter_to_signal", "precision")):
+        assert (qual, p) not in listed
