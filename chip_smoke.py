@@ -55,7 +55,9 @@ result line):
    filter: the reference's warning, then single with the unfused unwrap and
    B6, <= 1e-4); B3 and B8 with bf16 windows bit-equal to their bf16 twins at
    each path's shape, beside the float32 kernel's time and a bound in which
-   the window adds count at the packed-bf16 rate;
+   the window adds count at the packed-bf16 rate; then a sweep of both at
+   N = 1, 3, 4, 7, 8, 12, 14, 32, 60, 63, 64 (the reference tiles in turn):
+   bit-equal or the run fails;
 9. pilot kernels: ``workload.make_pilot_tx(244)`` built on the card; B2's
    frame entry (every one of the 240 frames; with its pilot side output the
    main output bit-equal to the entry's without it, and the side output
@@ -450,6 +452,10 @@ MODE_PATHS = (
     ("blind pallas off", dict(CFG, pallas=False), 1e-4, {"B1": 2, "B2": 1, "B3": 1, "B6": 1}),
 )
 BF16_WIDEN = 1.5         # per sample and angle: round to bf16 (packed: 0.5), widen to compare (1)
+# phase 8b's sweep of B3 and B8 with bf16 windows: every residue-class and ring case of the walk
+# (top level 2 to 128, the components of 2N above and below 8), the reference tiles in turn
+BF16_SWEEP_N = (1, 3, 4, 7, 8, 12, 14, 32, 60, 63, 64)
+BF16_SWEEP_T = (256, 384, 2048, 8192, 16384)
 PACK = 2                 # phase 12c: frames a pack
 TOL_SPAN = 1e-4          # span against scan, the reference's bound (test_pilot_chain.py:126-129)
 PATHS = ("blind", "blind twostage", "blind single") + tuple(p for p, _, _, _ in MODE_PATHS) + (
@@ -1305,7 +1311,36 @@ def mode_paths(P, ref, const, card, rec, blind_out):
         else:
             recs["B6", path] = b6_record(er, ei, chain.unwrap_unfused(ph), path)
     print_times(recs, card)
+    bf16_sweep(const, card)
     return recs, launches_all
+
+
+def bf16_sweep(const, card):
+    """Phase 8b's sweep: B3 (13 angles) and B8 (8 offsets around B3's bf16 coarse phase of 16
+    angles, N=60) with bf16 windows at every half-window of ``BF16_SWEEP_N`` (each residue-class
+    and ring case of the walk), the reference tiles in turn, on 2 x (2^17 + 77) samples of
+    ``const``: bit for bit their twins, or the run fails."""
+    dev = torch.device("cuda", 0)
+    grid = phops.detect_grid(const)
+    er, ei = synth_planes(const, 2 ** 17 + 77, dev, 11)
+    cos1, sin1 = (torch.as_tensor(t, device=dev) for t in phops.bps_tables(
+        np.linspace(-np.pi / 4, np.pi / 4, 16, endpoint=False, dtype=np.float32), grid))
+    cos_t, sin_t = (torch.as_tensor(t, device=dev) for t in phops.bps_tables(
+        np.linspace(-np.pi / 4, np.pi / 4, 13, endpoint=False, dtype=np.float32), grid))
+    cd, sd, d0f, ddf = phops.fine_tables(16, 8, grid)
+    cd, sd = torch.as_tensor(cd, device=dev), torch.as_tensor(sd, device=dev)
+    for i, N in enumerate(BF16_SWEEP_N):
+        T = BF16_SWEEP_T[i % len(BF16_SWEEP_T)]
+        same3 = bool(torch.equal(bps_search_cuda(er, ei, cos_t, sin_t, grid, N, None, T),
+                                 bps_search_plain(er, ei, cos_t, sin_t, grid, N, T)))
+        ph1 = (-np.pi / 4 + np.pi / 32 * bps_search_cuda(er, ei, cos1, sin1, grid, TWOSTAGE_N1,
+                                                          None, T).float()).contiguous()
+        fargs = (er, ei, ph1, cd, sd, grid, N, d0f, ddf)
+        same8 = bool(torch.equal(bps_fine_cuda(*fargs, None, T), bps_fine_plain(*fargs, T)))
+        print("bf16 sweep N=%d T=%d (2 x %d samples): B3 (13 angles) bit-equal to its twin: %s; "
+              "B8 (8 offsets) bit-equal: %s [%s]" % (N, T, er.shape[1], same3, same8, card))
+        require(same3 and same8, "B3 or B8 with bf16 windows differs from its twin at N=%d, T=%d"
+                % (N, T))
 
 
 # ---------------------------------------------------------------------------

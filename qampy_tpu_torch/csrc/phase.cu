@@ -35,6 +35,15 @@
 //     whose runs start R slots apart fall on distinct banks. Tiles overlap
 //     by 2N-1 samples and no state crosses CTAs; the indices leave through
 //     shared memory in coalesced stores.
+//     qtt_bps_idx_bf16 sums the windows in bf16 in the order of the reference's
+//     win_dtype=bf16 at reference tile T, bit for bit (section "bf16 windows"
+//     below): per chunk a fill rounds the distances into a table, each thread
+//     builds S_2..S_8 in registers over run + 1 consecutive slots, then walks
+//     one residue class mod 8 over its run of windows (positions 8 apart), the
+//     doubling levels above 8 and the components of 2N of at least 8 in
+//     registers; two barriers a chunk, runs of at most kBfMaxRun = 8 (bf_plan).
+//     Instances by window type: float32, bf16 with 2N < 64, bf16 with 2N >= 64
+//     (the walk's longer register rings kept out of the shorter windows' code).
 //
 // B4  qtt_interp_rotate: ph = a[i/dx] + b[i/dx]*(i%dx), out = E exp(sign j ph).
 //     Replaces qampy_tpu/ops/phase_pallas.py interp_rotate_planes_pallas
@@ -133,7 +142,8 @@
 //     fit (half-windows of thousands of samples), it takes slots of one offset
 //     and reads the samples, their angle and the points where they lie, so
 //     that shared memory holds 4 bytes per staged sample, no more than the
-//     first design's table at B = 1.
+//     first design's table at B = 1. qtt_bps_fine_bf16: B3's bf16 windows
+//     (bf_chunk) after B8's fill, runs of at most kBfFineMaxRun = 8.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -151,9 +161,13 @@ constexpr int kBpsFullWindow = 4; // B3, B8: windows of at most this many sample
 constexpr int kFineMaxRun = 8;    // B8: positions of a run, at most
 constexpr int kFineMaxRunGen = 8; // B8: the same on a general alphabet
 constexpr int kFineMaxRunNarrow = 4;   // B8: the same with slots of one offset
-constexpr int kBfMaxRun = 4;      // B3 with bf16 windows: positions of a run, at most
-constexpr int kBfFineMaxRun = 8;  // B8 with bf16 windows: the same (runs of 4 spill registers)
+constexpr int kBfMaxRun = 8;      // B3 with bf16 windows: windows of a thread, at most
+constexpr int kBfFineMaxRun = 8;  // B8 with bf16 windows: the same (B8's)
+constexpr int kBfClass = 8;       // bf16 windows: the residue classes a tile is walked in
 constexpr int kBfLookback = 128;  // bf16 windows: the previous tile's columns a tail reads
+// B3's and B8's window type (template BF): float32, or bf16 with a top level of at most 32
+// (2N < 64: the walks' levels above 8 take few registers) or of 64 or 128
+constexpr int kF32 = 0, kBfShort = 1, kBfLong = 2;
 constexpr long long kSmemLimit = 227 * 1024;   // shared memory a CTA can have
 constexpr int kRotThreads = 256;
 constexpr long long kStaticSmem = 48 * 1024;   // shared memory a CTA has without opting in
@@ -271,6 +285,7 @@ __device__ __forceinline__ BfSlot bf_zero() {
     return z;
 }
 
+// (A BfSlot is chosen by if, never by ?:, which selects an aggregate through local memory.)
 __device__ __forceinline__ BfSlot bf_add(BfSlot a, const BfSlot& b) {
     a.v[0] = __hadd2(a.v[0], b.v[0]);
     a.v[1] = __hadd2(a.v[1], b.v[1]);
@@ -339,19 +354,25 @@ BpsPlan fine_plan(int nmodes, long long L, int N, int npts) {
     return p;
 }
 
-// The launch of B3 or B8 with bf16 windows at reference tile T (ops/phase_cuda.py
-// bf16_plan is the same rule): runs from kBfMaxRun (B8: kBfFineMaxRun) down by B3's rule, then halved while
-// the CTA would not fit kSmemLimit: the gen table as float4, the staged samples (float2 in
-// B3, float4 in B8), 1 + popcount(2N) padded tables of bf16 slots (bf_levels), and the
-// tails of the reference tiles that the CTA's windows cross, 2N slots each.
-long long bf_tables(int N) { return 1 + __builtin_popcount(2 * N); }
+// The launch of B3 or B8 with bf16 windows at reference tile T (ops/phase_cuda.py bf16_plan is
+// the same rule): runs from kBfMaxRun (B8: kBfFineMaxRun) down by B3's rule, then halved while
+// the CTA would not fit kSmemLimit: the gen table as float4, the staged samples (float2 in B3,
+// float4 in B8), the chunk's distances, S_g and each component of 2N below g (W slots of 8
+// bytes each), and per reference-tile boundary that the CTA's windows cross the tail's 128
+// distances and its 2N slots (bf_tile).
+
+// The tables the walks read: S_g, and one per component of 2N below g = min(8, top)
+long long bf_tables(int N) {
+    const int N2 = 2 * N, top = 1 << (31 - __builtin_clz(N2)), g = top < kBfClass ? top : kBfClass;
+    return 1 + __builtin_popcount(N2 & (g - 1));
+}
 
 long long bf_bounds(long long tile, int N, int T) { return (tile + 2LL * N - 2) / T + 1; }
 
 long long bf_smem(long long run, int N, int npts, int T, bool fine) {
     const long long tile = kBpsThreads * run, W = tile + 2LL * N - 1;
-    return 16LL * npts + (fine ? 16 : 8) * W + 8 * bf_tables(N) * bps_slots(W, run) +
-           8 * 2LL * N * bf_bounds(tile, N, T);
+    return 16LL * npts + (fine ? 16 : 8) * W + 8 * W + 8 * bf_tables(N) * W +
+           8 * (kBfLookback + 2LL * N) * bf_bounds(tile, N, T);
 }
 
 BpsPlan bf_plan(int nmodes, long long L, int N, int npts, int T, bool fine) {
@@ -511,114 +532,31 @@ __device__ __forceinline__ const int* bps_tile_indices(void* table, int sh, int 
 // columns then add the previous tile's tail, tail[c] = C[127] - C[128 - 2N + c], C the
 // doubling prefix sums of that tile's last 128 distances (0 for the first tile). A slot
 // holds a sample's 4 values as two packed pairs: every add is one __hadd2 for two angles.
+//
+// The design: with top the largest power of two in 2N and g = min(8, top), every term that a
+// level above g or a component of at least g reads, S_w[c - o] with w and o multiples of g,
+// lies in the residue class of c mod g. Per chunk: the fill rounds the distances into a table
+// (and one distance a thread of each tail's 128 samples); after a barrier each thread builds
+// S_2, S_4, S_8 in registers over run + 1 consecutive slots and the 7 before them (bf_build:
+// the CTA's W slots in one pass, every thread busy) and stores S_g and the components of 2N
+// below g, while a warp per crossed reference-tile boundary forms its tail by shuffles; after
+// a second barrier each thread walks one residue class over its run of windows (bf_walk): the
+// levels above g and the components of at least g come from registers, S_g and the rest from
+// the tables. A reference tile starts at a multiple of 128 columns, so it starts step 0 of
+// every class: the zero-fill before a tile is a level's predicate on the step, m >= w / 8.
 
 __device__ __forceinline__ BfSlot bf_shfl_up(BfSlot a, int d) {
-    unsigned x = *reinterpret_cast<unsigned*>(&a.v[0]), y = *reinterpret_cast<unsigned*>(&a.v[1]);
-    x = __shfl_up_sync(0xffffffffu, x, d);
-    y = __shfl_up_sync(0xffffffffu, y, d);
     BfSlot b;
-    b.v[0] = *reinterpret_cast<__nv_bfloat162*>(&x);
-    b.v[1] = *reinterpret_cast<__nv_bfloat162*>(&y);
+    b.v[0] = __shfl_up_sync(0xffffffffu, a.v[0], d, 32);
+    b.v[1] = __shfl_up_sync(0xffffffffu, a.v[1], d, 32);
     return b;
 }
 
 __device__ __forceinline__ BfSlot bf_shfl(BfSlot a, int lane) {
-    unsigned x = *reinterpret_cast<unsigned*>(&a.v[0]), y = *reinterpret_cast<unsigned*>(&a.v[1]);
-    x = __shfl_sync(0xffffffffu, x, lane);
-    y = __shfl_sync(0xffffffffu, y, lane);
     BfSlot b;
-    b.v[0] = *reinterpret_cast<__nv_bfloat162*>(&x);
-    b.v[1] = *reinterpret_cast<__nv_bfloat162*>(&y);
+    b.v[0] = __shfl_sync(0xffffffffu, a.v[0], lane, 32);
+    b.v[1] = __shfl_sync(0xffffffffu, a.v[1], lane, 32);
     return b;
-}
-
-// The table of level w (its S_w) among the 1 + popcount(2N) tables of stride ts slots:
-// tables 0 and 1 take turns for the levels no window reads; a component of 2N below the
-// top one has table 2 + (components below it); the top one stays where it was built.
-__device__ __forceinline__ int bf_table_of(int w, int N2, int top, int top_table) {
-    return w == top ? top_table : 2 + __popc(N2 & (w - 1));
-}
-
-constexpr int kBfGroup = 8;   // slots a thread builds in registers, the levels up to it
-
-// One level S_2w = S_w + S_w[-w] over a thread's group in registers: v[i] is slot g0 + i - 7,
-// colg the column of slot g0 in its tile; from the top down, so v[i - w] is still level w.
-template <int w>
-__device__ __forceinline__ void bf_group_level(BfSlot (&v)[2 * kBfGroup - 1], int g0, int colg,
-                                               int T) {
-#pragma unroll
-    for (int i = 2 * kBfGroup - 2; i >= w; --i) {
-        int c = colg + i - (kBfGroup - 1);
-        c = c < 0 ? c + T : c >= T ? c - T : c;
-        if (g0 + i - (kBfGroup - 1) - w >= 0 && c >= w) v[i] = bf_add(v[i], v[i - w]);
-    }
-}
-
-// The group's level w2 (slots g0 .. g0+7 of the table ``dst``) where a window or a later level
-// reads it: the top, the last level built in registers, a component of N2.
-__device__ __forceinline__ void bf_group_store(BfSlot* tabs, int ts, int sh, int W, int g0,
-                                               const BfSlot (&v)[2 * kBfGroup - 1], int w2,
-                                               int top, int wr, int N2) {
-    if (w2 != top && w2 != wr && !(N2 & w2)) return;
-    const int dst = w2 == top || !(N2 & w2) ? 1 : 2 + __popc(N2 & (w2 - 1));
-#pragma unroll
-    for (int i = 0; i < kBfGroup; ++i)
-        if (g0 + i < W) tabs[dst * ts + bps_pad(g0 + i, sh)] = v[i + kBfGroup - 1];
-}
-
-// The chunk's levels S_2 .. S_top (top = the largest power of two in N2) from the
-// distances in table 0, all threads; col0 is the column in its reference tile (of T >=
-// kBpsThreads) of staged slot 0. Levels up to 8 are built in registers, a thread taking 8
-// consecutive slots and the 7 before them (no barrier between them); the rest by passes over
-// the tables, a barrier each. Returns the table of S_top. Begins and ends with a barrier.
-__device__ __forceinline__ int bf_levels(BfSlot* tabs, int ts, int W, int sh, int col0, int T,
-                                         int N2) {
-    const int top = 1 << (31 - __clz(N2));
-    const int wr = top < kBfGroup ? top : kBfGroup;   // the last level built in registers
-    __syncthreads();   // the distances are written
-    for (int g0 = kBfGroup * threadIdx.x; g0 < W; g0 += kBfGroup * kBpsThreads) {
-        BfSlot v[2 * kBfGroup - 1];   // slot g0 + i - 7 at v[i]
-#pragma unroll
-        for (int i = 0; i < 2 * kBfGroup - 1; ++i) {
-            const int u = g0 + i - (kBfGroup - 1);
-            v[i] = u >= 0 && u < W ? tabs[bps_pad(u, sh)] : bf_zero();
-        }
-        const int colg = (col0 + g0) % T;
-        bf_group_level<1>(v, g0, colg, T);
-        bf_group_store(tabs, ts, sh, W, g0, v, 2, top, wr, N2);
-        if (wr >= 4) {
-            bf_group_level<2>(v, g0, colg, T);
-            bf_group_store(tabs, ts, sh, W, g0, v, 4, top, wr, N2);
-        }
-        if (wr >= 8) {
-            bf_group_level<4>(v, g0, colg, T);
-            bf_group_store(tabs, ts, sh, W, g0, v, 8, top, wr, N2);
-        }
-    }
-    if (wr == top) {
-        __syncthreads();
-        return 1;
-    }
-    int src = N2 & wr ? 2 + __popc(N2 & (wr - 1)) : 1;
-    int col_t = (col0 + (int)threadIdx.x) % T;
-    for (int w = wr; w < top; w *= 2) {
-        const int w2 = 2 * w;
-        const int dst = w2 != top && (N2 & w2) ? 2 + __popc(N2 & (w2 - 1)) : src == 0 ? 1 : 0;
-        __syncthreads();   // level w is written, and table 0 (the distances) read
-        const BfSlot* a = tabs + src * ts;
-        BfSlot* b = tabs + dst * ts;
-        int col = col_t;
-        for (int u = threadIdx.x; u < W; u += kBpsThreads) {
-            BfSlot x = a[bps_pad(u, sh)];
-            if (u >= w && col >= w) x = bf_add(x, a[bps_pad(u - w, sh)]);
-            b[bps_pad(u, sh)] = x;
-            col += kBpsThreads;
-            if (col >= T) col -= T;
-        }
-        src = dst;
-    }
-    __syncthreads();
-    return src;
 }
 
 // A tail of the reference tile that begins at b, from the distances c[q] (bf16) of samples
@@ -672,79 +610,252 @@ __device__ __forceinline__ long long bf_first_bound(long long e0, int N2, int T)
     return b < T ? T : b;
 }
 
-// Where the thread's run starts in the reference tiling: the column c0 of its first window
-// end e0 = j0 + p0 + N, and the row of the tails that a tile starting at e0 - c0 reads.
-struct BfRunStart {
-    int c0;
-    long long tail0;
+// A CTA's bf16 tables after its staged samples (bf_smem): the chunk's distances (W slots),
+// S_g and each component of 2N below g (W slots each), the tails' distances (128 a boundary) and
+// the tails (N2 a boundary), for the nb reference-tile boundaries from b_lo whose first N2
+// columns hold some of the CTA's window ends.
+struct BfTile {
+    BfSlot *d, *sg, *c4, *c2, *tdist, *tails;   // c4, c2: S_g's table where 2N lacks them
+    int W, N2, T, J, col0, nb;
+    bool has_c4, has_c2;
+    long long b_lo;
 };
 
-__device__ __forceinline__ BfRunStart bf_run_start(long long e0, long long b_lo, int T) {
-    const int c0 = (int)(e0 % T);
-    const long long b = e0 - c0;   // below b_lo, the next tile's row is 0
-    return {c0, b >= b_lo ? (b - b_lo) / T : -1};
+__device__ __forceinline__ BfTile bf_tile(void* at, int N, int T, int run, long long j0) {
+    BfTile t;
+    const int N2 = 2 * N, tile = kBpsThreads * run, top = 1 << (31 - __clz(N2));
+    const int g = top < kBfClass ? top : kBfClass;
+    t.W = tile + N2 - 1;
+    t.N2 = N2;
+    t.T = T;
+    t.J = 31 - __clz(top / g);
+    t.d = reinterpret_cast<BfSlot*>(at);
+    t.sg = t.d + t.W;
+    BfSlot* next = t.sg + t.W;
+    t.has_c4 = g == 8 && (N2 & 4);
+    t.c4 = t.has_c4 ? next : t.sg;
+    if (t.has_c4) next += t.W;
+    t.has_c2 = g >= 4 && (N2 & 2);
+    t.c2 = t.has_c2 ? next : t.sg;
+    if (t.has_c2) next += t.W;
+    t.b_lo = bf_first_bound(j0 + N, N2, T);
+    const long long hi = j0 + tile + N;   // past the CTA's last window end
+    t.nb = t.b_lo < hi ? (int)((hi - t.b_lo + T - 1) / T) : 0;
+    t.tdist = next;
+    t.tails = next + kBfLookback * t.nb;
+    const long long s0 = j0 - N + 1;      // the sample of staged slot 0
+    t.col0 = (int)((s0 % T + T) % T);
+    return t;
 }
 
-// The bf16 windows of the thread's run (tile positions p0 .. p0+run-1, window ends
-// e = e0 + r at staged slot p0 + r + N2 - 1) at the chunk's angles a0 + k, k < na, into the
-// run's best sums and indices (float32 compare, strict <: the first minimum wins).
-template <int R>
-__device__ __forceinline__ void bf_run_sums(const BfSlot* tabs, int ts, int top_table,
-                                            const BfSlot* tails, BfRunStart st, long long e0,
-                                            int sh, int p0, int run, int N2, int T, int a0,
-                                            int na, float (&bs)[R], int (&bi)[R]) {
-    const int top = 1 << (31 - __clz(N2));
-    const BfSlot* t_top = tabs + top_table * ts;
+// The sample of tail distance v (< 128 nb): b_lo + (v / 128) T - 128 + v % 128
+__device__ __forceinline__ long long bf_tail_sample(const BfTile& t, int v) {
+    return t.b_lo + (long long)(v / kBfLookback) * t.T - kBfLookback + v % kBfLookback;
+}
+
+// A thread's walk: tile positions p0 + 8 k (k < run) of residue class p0 % 8, p0 = 8 run q + i
+// for thread i + 8 q; window k ends at staged slot ue0 + 8 k, row sample e0 + 8 k, column
+// c0 + 8 k of the reference tile whose tails are row tr0 (that tile's) or tr0 + 1 (the next).
+struct BfWalk {
+    int p0, ue0, c0;
+    long long e0, tr0;
+};
+
+__device__ __forceinline__ BfWalk bf_walk_start(const BfTile& t, long long j0, int run, int N) {
+    BfWalk w;
+    w.p0 = kBfClass * run * (threadIdx.x / kBfClass) + threadIdx.x % kBfClass;
+    w.ue0 = w.p0 + t.N2 - 1;
+    w.e0 = j0 + w.p0 + N;
+    w.c0 = (int)(w.e0 % t.T);
+    const long long b = w.e0 - w.c0;   // below b_lo, the next tile's row is 0
+    w.tr0 = b >= t.b_lo ? (b - t.b_lo) / t.T : -1;
+    return w;
+}
+
+// S_2, S_4, S_8 (up to g) of the thread's G consecutive slots u0 = G threadIdx.x .. u0 + G - 1,
+// streamed over those and the 7 slots before them: at step i (slot u0 - 7 + i, its column c)
+// S_2 = d + d[-1], S_4 = S_2 + S_2[-2], S_8 = S_4 + S_4[-4], each term 0 where c is below its
+// shift; S_g and the components of 2N below g go to their tables from step 7 on. The 7 values
+// a later step reads pass down scalars (renamed away once unrolled; an array indexed by a
+// value chosen at run time would go to local memory). G = run + 1 covers the W = 128 run +
+// 2N - 1 slots.
+template <int G>
+__device__ __forceinline__ void bf_build(const BfTile& t) {
+    int u0 = G * threadIdx.x;
+    asm volatile("" : "+r"(u0));   // recomputed in every chunk (bf_chunk)
+    const int W = t.W, T = t.T;
+    const int top = 1 << (31 - __clz(t.N2)), g = top < kBfClass ? top : kBfClass;
+    int c = (t.col0 + u0 - (kBfClass - 1)) % T;   // the column of slot u0 - 7
+    if (c < 0) c += T;
+    BfSlot d1 = bf_zero(), s2_1 = d1, s2_2 = d1, s4_1 = d1, s4_2 = d1, s4_3 = d1, s4_4 = d1;
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-        if (r == run) break;
-        const int ue = p0 + r + N2 - 1;
-        int c = st.c0 + r;
-        long long tr = st.tail0;
-        if (c >= T) {   // the run crosses into the next tile (a run is shorter than a tile)
-            c -= T;
-            ++tr;
+    for (int i = 0; i < G + kBfClass - 1; ++i) {
+        const int u = u0 + i - (kBfClass - 1);
+        BfSlot d = bf_zero();
+        if (u >= 0 && u < W) d = t.d[u];
+        BfSlot s2 = d, s4, s8;
+        if (c >= 1) s2 = bf_add(s2, d1);
+        s4 = s2;
+        if (c >= 2) s4 = bf_add(s4, s2_2);
+        if (i >= kBfClass - 1 && u < W) {
+            s8 = s4;
+            if (c >= 4) s8 = bf_add(s8, s4_4);
+            if (g == 2)
+                t.sg[u] = s2;
+            else if (g == 4)
+                t.sg[u] = s4;
+            else
+                t.sg[u] = s8;
+            if (t.has_c4) t.c4[u] = s4;
+            if (t.has_c2) t.c2[u] = s2;
         }
-        BfSlot acc = t_top[bps_pad(ue, sh)];
-        int off = top;
-        for (int w = top >> 1; w >= 2; w >>= 1) {
-            if (!(N2 & w)) continue;
-            if (c >= off)
-                acc = bf_add(acc, tabs[bf_table_of(w, N2, top, top_table) * ts +
-                                       bps_pad(ue - off, sh)]);
-            off += w;
+        d1 = d;
+        s2_2 = s2_1;
+        s2_1 = s2;
+        s4_4 = s4_3;
+        s4_3 = s4_2;
+        s4_2 = s4_1;
+        s4_1 = s4;
+        c = c + 1 == T ? 0 : c + 1;
+    }
+}
+
+// Walk steps before a thread's first window at J = log2(top / g): the history its levels above
+// g (L_j[k] = L_{j-1}[k] + L_{j-1}[k - 2^(j-1)], L_0 = S_g) and components of at least g read.
+__host__ __device__ constexpr int bf_warmup(int J) {
+    return J == 0 ? 0 : J == 1 ? 1 : J == 2 ? 5 : J == 3 ? 13 : 15;
+}
+
+// The bf16 windows of the thread's run (BfWalk) at the chunk's angles a0 + k, k < na, into
+// the run's best sums and indices (float32 compare, strict <: the first minimum wins). Step s
+// of the walk is window k = s - H (H = bf_warmup(J) steps of history first); lv[j][s] is level
+// 8 2^j at step s, in registers: every index is static once the loop is unrolled, O16 too (the
+// steps back to component 16 at J = 3, 12 where 2N has 32, else 8), since an index chosen at
+// run time would put lv in local memory.
+template <int J, int O16, int R>
+__device__ __forceinline__ void bf_walk(const BfTile& t, const BfWalk& w, int run, int a0,
+                                        int na, float (&bs)[R], int (&bi)[R]) {
+    constexpr int H = bf_warmup(J);
+    const int N2 = t.N2, T = t.T;
+    BfSlot lv[J + 1][H + R];
+#pragma unroll
+    for (int s = 0; s < H + R; ++s) {
+        const int k = s - H;
+        if (k >= run) break;
+        const int u = w.ue0 + kBfClass * k;
+        int c = w.c0 + kBfClass * k;
+        c = c < 0 ? c + T : c >= T ? c - T : c;
+        const int m = c / kBfClass;   // the step of the class in its reference tile
+        lv[0][s] = t.sg[u > 0 ? u : 0];
+#pragma unroll
+        for (int j = 1; j <= J; ++j) {
+            const int h = 1 << (j - 1);
+            lv[j][s] = lv[j - 1][s];
+            if (s >= h && m >= h) lv[j][s] = bf_add(lv[j][s], lv[j - 1][s >= h ? s - h : 0]);
         }
-        if (c < N2 && e0 + r >= T) acc = bf_add(acc, tails[tr * N2 + c]);
+        if (s < H) continue;   // warm-up
+        BfSlot acc = lv[J][s];
+        // the components of 2N below top, largest first; offsets in steps of 8 columns
+        if constexpr (J == 3) {
+            if ((N2 & 32) && m >= 8) acc = bf_add(acc, lv[2][s >= 8 ? s - 8 : 0]);
+            if ((N2 & 16) && m >= O16) acc = bf_add(acc, lv[1][s >= O16 ? s - O16 : 0]);
+        } else if constexpr (J == 2) {
+            if ((N2 & 16) && m >= 4) acc = bf_add(acc, lv[1][s >= 4 ? s - 4 : 0]);
+        }
+        if (J >= 1 && (N2 & 8) && c >= (N2 & ~15))
+            acc = bf_add(acc, t.sg[u - (N2 & ~15)]);
+        if (t.has_c4 && c >= (N2 & ~7)) acc = bf_add(acc, t.c4[u - (N2 & ~7)]);
+        if (t.has_c2 && c >= (N2 & ~3)) acc = bf_add(acc, t.c2[u - (N2 & ~3)]);
+        if (c < N2 && w.e0 + kBfClass * k >= T)
+            acc = bf_add(acc, t.tails[(w.tr0 + (w.c0 + kBfClass * k >= T)) * N2 + c]);
         const float v[kBpsChunk] = {__low2float(acc.v[0]), __high2float(acc.v[0]),
                                     __low2float(acc.v[1]), __high2float(acc.v[1])};
 #pragma unroll
-        for (int k = 0; k < kBpsChunk; ++k) {
-            if (k < na && v[k] < bs[r]) {
-                bs[r] = v[k];
-                bi[r] = a0 + k;
+        for (int a = 0; a < kBpsChunk; ++a) {
+            if (a < na && v[a] < bs[k]) {
+                bs[k] = v[a];
+                bi[k] = a0 + a;
             }
         }
     }
 }
 
-template <int KIND, bool BF>
-__global__ void __launch_bounds__(kBpsThreads)
-    bps_kernel(const float* __restrict__ er, const float* __restrict__ ei, long long L,
+// One chunk's window sums after its fill (the distances in t.d, the tails' in t.tdist), all
+// threads: a barrier, the build and the tails, a barrier, the walk. The next chunk's fill
+// writes only t.d and t.tdist, which no walk reads, so it needs no barrier before it.
+template <int BF, int R>
+__device__ __forceinline__ void bf_chunk(const BfTile& t, const BfWalk& w, int run, int a0,
+                                         int na, float (&bs)[R], int (&bi)[R]) {
+    __syncthreads();   // the distances are written, and every walk of the previous chunk done
+    // the walk's and the build's index arithmetic is the same in every chunk: recomputed per
+    // chunk from bases the compiler cannot see through, or hoisting it would hold a register
+    // per address for the whole kernel
+    BfTile tc = t;
+    BfWalk wc = w;
+    asm volatile("" : "+r"(tc.col0), "+r"(wc.ue0), "+r"(wc.c0), "+l"(wc.e0), "+l"(wc.tr0));
+    switch (run) {
+        case 1: bf_build<2>(tc); break;
+        case 2: bf_build<3>(tc); break;
+        case 4: bf_build<5>(tc); break;
+        case 8: bf_build<9>(tc); break;
+        case 16: if constexpr (R >= 16) bf_build<17>(tc); break;
+    }
+    for (int i = threadIdx.x >> 5; i < t.nb; i += kBpsThreads / 32) {
+        BfSlot c[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) c[q] = t.tdist[i * kBfLookback + 4 * (threadIdx.x & 31) + q];
+        bf_tail(c, t.tails + i * t.N2, t.N2);
+    }
+    __syncthreads();   // S_g, the components and the tails are written
+    if constexpr (BF == kBfShort) {
+        switch (t.J) {
+            case 0: bf_walk<0, 0>(tc, wc, run, a0, na, bs, bi); break;
+            case 1: bf_walk<1, 0>(tc, wc, run, a0, na, bs, bi); break;
+            default: bf_walk<2, 0>(tc, wc, run, a0, na, bs, bi); break;
+        }
+    } else if (t.J == 4) {
+        bf_walk<4, 0>(tc, wc, run, a0, na, bs, bi);
+    } else if (t.N2 & 32) {
+        bf_walk<3, 12>(tc, wc, run, a0, na, bs, bi);
+    } else {
+        bf_walk<3, 8>(tc, wc, run, a0, na, bs, bi);
+    }
+}
+
+// The tile's indices (the run's best, 0 outside [N, L-N)) into shared memory over the
+// distance table, which no walk reads; a barrier, then every thread may read them.
+template <int R>
+__device__ __forceinline__ const int* bf_tile_indices(const BfTile& t, const BfWalk& w, int run,
+                                                      long long j0, long long L, int N,
+                                                      const int (&bi)[R]) {
+    int* idx = reinterpret_cast<int*>(t.d);
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+        if (k == run) break;
+        const int p = w.p0 + kBfClass * k;
+        const long long j = j0 + p;
+        idx[p] = j >= N && j < L - N ? bi[k] : 0;
+    }
+    __syncthreads();
+    return idx;
+}
+
+template <int KIND, int BF>
+__device__ __forceinline__ void
+    bps_search(const float* __restrict__ er, const float* __restrict__ ei, long long L,
                const float* __restrict__ cos_t, const float* __restrict__ sin_t, int A, int N,
-               GridArgs g, const float* __restrict__ pts_g, int run, int T,
+               const GridArgs& g, const float* __restrict__ pts_g, int run, int T,
                int* __restrict__ out) {
     extern __shared__ float4 bps_sm[];
     const int N2 = 2 * N, tile = kBpsThreads * run, W = tile + N2 - 1;
     const int sh = run > 1 ? __ffs(run) - 1 : 31;
-    const int ts = bps_pad(W - 1, sh) + 1;                   // slots of a table
+    const int ts = bps_pad(W - 1, sh) + 1;                   // slots of the float32 table
     float4* pts = bps_sm;                                     // (npts,), kGen only
     // float32 windows: the slot table, then the samples; bf16 windows (T > 0): the samples,
-    // bf_tables(N) tables of bf16 slots, then the tails (bf_plan)
+    // then the bf16 tables (bf_tile)
     BpsSlot* tab = reinterpret_cast<BpsSlot*>(pts + g.npts);  // (ts,)
-    float2* xs = BF ? reinterpret_cast<float2*>(pts + g.npts)
+    float2* xs = BF != kF32 ? reinterpret_cast<float2*>(pts + g.npts)
                     : reinterpret_cast<float2*>(tab + ts);    // (W,) samples
-    BfSlot* tabs = reinterpret_cast<BfSlot*>(xs + W);         // BF: (1 + popc(N2), ts)
-    BfSlot* tails = tabs + (1 + __popc(N2)) * ts;             // BF: (bounds, N2)
     const long long row = (long long)blockIdx.y * L;
     const long long j0 = (long long)blockIdx.x * tile;
     const long long s0 = j0 - N + 1;  // staged sample u is sample s0 + u of the row
@@ -755,7 +866,7 @@ __global__ void __launch_bounds__(kBpsThreads)
         const bool in = s >= 0 && s < L;
         xs[u] = make_float2(in ? er[row + s] : 0.f, in ? ei[row + s] : 0.f);
     }
-    constexpr int R = BF ? kBfMaxRun : KIND == kGen ? kBpsMaxRunGen : kBpsMaxRun;
+    constexpr int R = BF != kF32 ? kBfMaxRun : KIND == kGen ? kBpsMaxRunGen : kBpsMaxRun;
     float bs[R];   // the run's best sums and indices in registers
     int bi[R];
 #pragma unroll
@@ -763,49 +874,45 @@ __global__ void __launch_bounds__(kBpsThreads)
         bs[r] = INFINITY;
         bi[r] = 0;
     }
-    const int p0 = threadIdx.x * run;
-    // bf16 windows: the first tile start whose tail the CTA reads, the column of staged
-    // slot 0, and where the thread's run starts in the tiling
-    const long long b_lo = BF ? bf_first_bound(j0 + N, N2, T) : 0;
-    const int col0 = BF ? (int)((s0 % T + T) % T) : 0;
-    const BfRunStart st = BF ? bf_run_start(j0 + p0 + N, b_lo, T) : BfRunStart{0, 0};
-    for (int a0 = 0; a0 < A; a0 += kBpsChunk) {
-        const int na = min(kBpsChunk, A - a0);
-        __syncthreads();  // the samples are staged, the previous chunk's sums are done
-        if constexpr (BF) {
-            bps_fill<KIND>(xs, W, sh, cos_t + a0, sin_t + a0, na, g, pts, tabs);
-            // the tails of the reference tiles the CTA's windows cross, a warp each, from the
-            // row's samples with the fill's arithmetic
+    if constexpr (BF != kF32) {
+        const BfTile bt = bf_tile(xs + W, N, T, run, j0);
+        const BfWalk w = bf_walk_start(bt, j0, run, N);
+        __syncthreads();  // the samples are staged
+        for (int a0 = 0; a0 < A; a0 += kBpsChunk) {
+            const int na = min(kBpsChunk, A - a0);
+            bps_fill<KIND>(xs, W, 31, cos_t + a0, sin_t + a0, na, g, pts, bt.d);
+            // one distance a thread of each tail's samples, with the fill's arithmetic
             float c[kBpsChunk], s[kBpsChunk];
 #pragma unroll
             for (int k = 0; k < kBpsChunk; ++k) {
                 c[k] = k < na ? cos_t[a0 + k] : 0.f;
                 s[k] = k < na ? sin_t[a0 + k] : 0.f;
             }
-            for (int i = threadIdx.x >> 5;; i += kBpsThreads / 32) {
-                const long long b = b_lo + (long long)i * T;
-                if (b >= j0 + tile + N) break;
-                BfSlot t[4];
-#pragma unroll
-                for (int q = 0; q < 4; ++q) {
-                    const long long x = b - kBfLookback + 4 * (threadIdx.x & 31) + q;
-                    BpsSlot d;
-                    chunk_dists<KIND>(x < L ? er[row + x] : 0.f, x < L ? ei[row + x] : 0.f, c, s,
-                                      g, pts, nullptr, d.v);
-                    t[q] = bf_round(d.v);
-                }
-                bf_tail(t, tails + (long long)i * N2, N2);
+            for (int v = threadIdx.x; v < kBfLookback * bt.nb; v += kBpsThreads) {
+                const long long x = bf_tail_sample(bt, v);
+                BpsSlot d;
+                chunk_dists<KIND>(x < L ? er[row + x] : 0.f, x < L ? ei[row + x] : 0.f, c, s, g,
+                                  pts, nullptr, d.v);
+                bt.tdist[v] = bf_round(d.v);
             }
-            const int top_table = bf_levels(tabs, ts, W, sh, col0, T, N2);
-            bf_run_sums(tabs, ts, top_table, tails, st, j0 + p0 + N, sh, p0, run, N2, T, a0, na,
-                        bs, bi);
-        } else {
-            bps_fill<KIND>(xs, W, sh, cos_t + a0, sin_t + a0, na, g, pts, tab);
-            __syncthreads();
-            bps_run_sums(tab, sh, p0, run, N2, a0, na, bs, bi);
+            bf_chunk<BF>(bt, w, run, a0, na, bs, bi);
         }
+        const int* idx = bf_tile_indices(bt, w, run, j0, L, N, bi);
+        for (int p = threadIdx.x; p < tile; p += kBpsThreads) {
+            const long long j = j0 + p;
+            if (j < L) out[row + j] = idx[p];
+        }
+        return;
     }
-    const int* idx = bps_tile_indices(BF ? (void*)tabs : (void*)tab, sh, p0, run, j0, L, N, bi);
+    const int p0 = threadIdx.x * run;
+    for (int a0 = 0; a0 < A; a0 += kBpsChunk) {
+        const int na = min(kBpsChunk, A - a0);
+        __syncthreads();  // the samples are staged, the previous chunk's sums are done
+        bps_fill<KIND>(xs, W, sh, cos_t + a0, sin_t + a0, na, g, pts, tab);
+        __syncthreads();
+        bps_run_sums(tab, sh, p0, run, N2, a0, na, bs, bi);
+    }
+    const int* idx = bps_tile_indices(tab, sh, p0, run, j0, L, N, bi);
     for (int p = threadIdx.x; p < tile; p += kBpsThreads) {
         const long long j = j0 + p;
         if (j < L) out[row + j] = idx[bps_pad(p, sh)];
@@ -815,25 +922,24 @@ __global__ void __launch_bounds__(kBpsThreads)
 // B8: B3's search with a per-sample angle. C: offsets per slot, kBpsChunk
 // with the samples (float4 [x, y, cos ph1, sin ph1]) and a general
 // alphabet's points staged, or 1 with nothing staged (fine_plan). BF: bf16
-// windows at reference tile T (C = kBpsChunk; B3's bf16 layout, samples as float4).
-template <int KIND, int C, bool BF>
-__global__ void __launch_bounds__(kBpsThreads)
-    bps_fine_kernel(const float* __restrict__ er, const float* __restrict__ ei,
+// windows at reference tile T (C = kBpsChunk; B3's bf16 tables after the float4 samples).
+template <int KIND, int C, int BF>
+__device__ __forceinline__ void
+    bps_fine_search(const float* __restrict__ er, const float* __restrict__ ei,
                     const float* __restrict__ ph1, long long L, const float* __restrict__ cd,
-                    const float* __restrict__ sd, int B, int N, GridArgs g,
+                    const float* __restrict__ sd, int B, int N, const GridArgs& g,
                     const float* __restrict__ pts_g, int run, int T, float d0f, float ddf,
                     float* __restrict__ out) {
     constexpr bool kStaged = C > 1;
-    static_assert(!BF || C == kBpsChunk, "bf16 windows take slots of kBpsChunk offsets");
+    static_assert(BF == kF32 || C == kBpsChunk, "bf16 windows take slots of kBpsChunk offsets");
     extern __shared__ float4 bps_sm[];
     const int N2 = 2 * N, tile = kBpsThreads * run, W = tile + N2 - 1;
     const int sh = run > 1 ? __ffs(run) - 1 : 31;
-    const int ts = bps_pad(W - 1, sh) + 1;                   // slots of a table
+    const int ts = bps_pad(W - 1, sh) + 1;                   // slots of the float32 table
     float4* pts = bps_sm;                                     // (npts,), kGen and staged only
     Slot<C>* tab = reinterpret_cast<Slot<C>*>(kStaged ? pts + g.npts : bps_sm);
-    float4* xs = BF ? pts + g.npts : reinterpret_cast<float4*>(tab + ts);   // (W,), staged only
-    BfSlot* tabs = reinterpret_cast<BfSlot*>(xs + W);         // BF: (1 + popc(N2), ts)
-    BfSlot* tails = tabs + (1 + __popc(N2)) * ts;             // BF: (bounds, N2)
+    float4* xs = BF != kF32 ? pts + g.npts
+                            : reinterpret_cast<float4*>(tab + ts);   // (W,), staged only
     const long long row = (long long)blockIdx.y * L;
     const long long j0 = (long long)blockIdx.x * tile;
     const long long s0 = j0 - N + 1;  // staged sample u is sample s0 + u of the row
@@ -851,7 +957,19 @@ __global__ void __launch_bounds__(kBpsThreads)
 #pragma unroll 4
         for (int u = threadIdx.x; u < W; u += kBpsThreads) xs[u] = sample(u);
     }
-    constexpr int R = BF ? kBfFineMaxRun
+    // bf16 windows: the distances of sample z at the chunk's offsets (c, s), as the fill below
+    auto fine_dists = [&](const float4& z, const float (&c)[C], const float (&s)[C],
+                          float (&d)[C]) {
+        float ca[C], sa[C];
+#pragma unroll
+        for (int k = 0; k < C; ++k) {
+            ca[k] = __fsub_rn(__fmul_rn(z.z, c[k]), __fmul_rn(z.w, s[k]));
+            sa[k] = __fadd_rn(__fmul_rn(z.w, c[k]), __fmul_rn(z.z, s[k]));
+        }
+        chunk_dists<KIND>(z.x, z.y, ca, sa, g, pts, pts_g, d);
+    };
+    constexpr int kUnroll = KIND == kGen || !kStaged ? 1 : 2;
+    constexpr int R = BF != kF32 ? kBfFineMaxRun
                          : !kStaged ? kFineMaxRunNarrow : KIND == kGen ? kFineMaxRunGen
                                                                         : kFineMaxRun;
     float bs[R];   // the run's best sums and indices in registers
@@ -861,11 +979,45 @@ __global__ void __launch_bounds__(kBpsThreads)
         bs[r] = INFINITY;
         bi[r] = 0;
     }
+    // the phases of the tile's positions from their indices, idx[at(p)] for position p
+    auto store = [&](const int* idx, auto at) {
+        for (int p = threadIdx.x; p < tile; p += kBpsThreads) {
+            const long long j = j0 + p;
+            if (j < L)
+                out[row + j] = __fadd_rn(__fadd_rn(ph1[row + j], d0f),
+                                         __fmul_rn(ddf, (float)idx[at(p)]));
+        }
+    };
+    if constexpr (BF != kF32) {
+        const BfTile bt = bf_tile(xs + W, N, T, run, j0);
+        const BfWalk w = bf_walk_start(bt, j0, run, N);
+        __syncthreads();  // the samples are staged
+        for (int b0 = 0; b0 < B; b0 += C) {
+            const int nb = min(C, B - b0);
+            float c[C], s[C];
+#pragma unroll
+            for (int k = 0; k < C; ++k) {
+                c[k] = k < nb ? cd[b0 + k] : 0.f;
+                s[k] = k < nb ? sd[b0 + k] : 0.f;
+            }
+#pragma unroll kUnroll
+            for (int u = threadIdx.x; u < W; u += kBpsThreads) {
+                Slot<C> d;
+                fine_dists(xs[u], c, s, d.v);
+                bt.d[u] = bf_round(d.v);   // the distances rounded to bf16
+            }
+            // one distance a thread of each tail's samples, with the fill's arithmetic
+            for (int v = threadIdx.x; v < kBfLookback * bt.nb; v += kBpsThreads) {
+                Slot<C> d;
+                fine_dists(sample_at(bf_tail_sample(bt, v)), c, s, d.v);
+                bt.tdist[v] = bf_round(d.v);
+            }
+            bf_chunk<BF>(bt, w, run, b0, nb, bs, bi);
+        }
+        store(bf_tile_indices(bt, w, run, j0, L, N, bi), [](int p) { return p; });
+        return;
+    }
     const int p0 = threadIdx.x * run;
-    // bf16 windows: as in bps_kernel
-    const long long b_lo = BF ? bf_first_bound(j0 + N, N2, T) : 0;
-    const int col0 = BF ? (int)((s0 % T + T) % T) : 0;
-    const BfRunStart st = BF ? bf_run_start(j0 + p0 + N, b_lo, T) : BfRunStart{0, 0};
     for (int b0 = 0; b0 < B; b0 += C) {
         const int nb = min(C, B - b0);
         float c[C], s[C];
@@ -875,7 +1027,6 @@ __global__ void __launch_bounds__(kBpsThreads)
             s[k] = k < nb ? sd[b0 + k] : 0.f;
         }
         __syncthreads();  // the samples are staged, the previous chunk's sums are done
-        constexpr int kUnroll = KIND == kGen || !kStaged ? 1 : 2;
 #pragma unroll kUnroll
         for (int u = threadIdx.x; u < W; u += kBpsThreads) {
             const float4 z = kStaged ? xs[u] : sample(u);
@@ -888,48 +1039,55 @@ __global__ void __launch_bounds__(kBpsThreads)
             }
             Slot<C> d;
             chunk_dists<KIND>(z.x, z.y, ca, sa, g, pts, pts_g, d.v);
-            if constexpr (BF)
-                tabs[bps_pad(u, sh)] = bf_round(d.v);   // the distances rounded to bf16
-            else
-                tab[bps_pad(u, sh)] = d;
+            tab[bps_pad(u, sh)] = d;
         }
-        if constexpr (BF) {
-            // the tails of the reference tiles the CTA's windows cross, a warp each, from the
-            // row's samples with the fill's arithmetic
-            for (int i = threadIdx.x >> 5;; i += kBpsThreads / 32) {
-                const long long b = b_lo + (long long)i * T;
-                if (b >= j0 + tile + N) break;
-                BfSlot t[4];
-#pragma unroll
-                for (int q = 0; q < 4; ++q) {
-                    const float4 z = sample_at(b - kBfLookback + 4 * (threadIdx.x & 31) + q);
-                    float ca[C], sa[C];
-#pragma unroll
-                    for (int k = 0; k < C; ++k) {
-                        ca[k] = __fsub_rn(__fmul_rn(z.z, c[k]), __fmul_rn(z.w, s[k]));
-                        sa[k] = __fadd_rn(__fmul_rn(z.w, c[k]), __fmul_rn(z.z, s[k]));
-                    }
-                    Slot<C> d;
-                    chunk_dists<KIND>(z.x, z.y, ca, sa, g, pts, pts_g, d.v);
-                    t[q] = bf_round(d.v);
-                }
-                bf_tail(t, tails + (long long)i * N2, N2);
-            }
-            const int top_table = bf_levels(tabs, ts, W, sh, col0, T, N2);
-            bf_run_sums(tabs, ts, top_table, tails, st, j0 + p0 + N, sh, p0, run, N2, T, b0, nb,
-                        bs, bi);
-        } else {
-            __syncthreads();
-            bps_run_sums(tab, sh, p0, run, N2, b0, nb, bs, bi);
-        }
+        __syncthreads();
+        bps_run_sums(tab, sh, p0, run, N2, b0, nb, bs, bi);
     }
-    const int* idx = bps_tile_indices(BF ? (void*)tabs : (void*)tab, sh, p0, run, j0, L, N, bi);
-    for (int p = threadIdx.x; p < tile; p += kBpsThreads) {
-        const long long j = j0 + p;
-        if (j < L)
-            out[row + j] = __fadd_rn(__fadd_rn(ph1[row + j], d0f),
-                                     __fmul_rn(ddf, (float)idx[bps_pad(p, sh)]));
-    }
+    store(bps_tile_indices(tab, sh, p0, run, j0, L, N, bi), [&](int p) { return bps_pad(p, sh); });
+}
+
+// B3's and B8's kernels: float32 windows, and bf16 windows by 2N (BF: kBfShort, kBfLong).
+// The bf16 ones ask for one resident CTA an SM: with the thread bound alone ptxas held some of
+// them to 96 registers and spilled (the H100 build's log).
+template <int KIND>
+__global__ void __launch_bounds__(kBpsThreads)
+    bps_kernel(const float* __restrict__ er, const float* __restrict__ ei, long long L,
+               const float* __restrict__ cos_t, const float* __restrict__ sin_t, int A, int N,
+               GridArgs g, const float* __restrict__ pts_g, int run, int T,
+               int* __restrict__ out) {
+    bps_search<KIND, kF32>(er, ei, L, cos_t, sin_t, A, N, g, pts_g, run, T, out);
+}
+
+template <int KIND, int BF>
+__global__ void __launch_bounds__(kBpsThreads, 1)
+    bps_kernel_bf16(const float* __restrict__ er, const float* __restrict__ ei, long long L,
+                    const float* __restrict__ cos_t, const float* __restrict__ sin_t, int A,
+                    int N, GridArgs g, const float* __restrict__ pts_g, int run, int T,
+                    int* __restrict__ out) {
+    bps_search<KIND, BF>(er, ei, L, cos_t, sin_t, A, N, g, pts_g, run, T, out);
+}
+
+template <int KIND, int C>
+__global__ void __launch_bounds__(kBpsThreads)
+    bps_fine_kernel(const float* __restrict__ er, const float* __restrict__ ei,
+                    const float* __restrict__ ph1, long long L, const float* __restrict__ cd,
+                    const float* __restrict__ sd, int B, int N, GridArgs g,
+                    const float* __restrict__ pts_g, int run, int T, float d0f, float ddf,
+                    float* __restrict__ out) {
+    bps_fine_search<KIND, C, kF32>(er, ei, ph1, L, cd, sd, B, N, g, pts_g, run, T, d0f, ddf,
+                                   out);
+}
+
+template <int KIND, int BF>
+__global__ void __launch_bounds__(kBpsThreads, 1)
+    bps_fine_kernel_bf16(const float* __restrict__ er, const float* __restrict__ ei,
+                         const float* __restrict__ ph1, long long L, const float* __restrict__ cd,
+                         const float* __restrict__ sd, int B, int N, GridArgs g,
+                         const float* __restrict__ pts_g, int run, int T, float d0f, float ddf,
+                         float* __restrict__ out) {
+    bps_fine_search<KIND, kBpsChunk, BF>(er, ei, ph1, L, cd, sd, B, N, g, pts_g, run, T, d0f,
+                                         ddf, out);
 }
 
 // (x + j y) exp(sign j ph), each product and sum rounded on its own
@@ -1270,17 +1428,24 @@ __global__ void __launch_bounds__(kUnwrapThreads)
     }
 }
 
-// B3's instance by grid kind and window type
-#define QTT_BPS(kind, BF)                                                          \
-    ((kind) == kRect    ? bps_kernel<kRect, BF>                                    \
-     : (kind) == kCross ? bps_kernel<kCross, BF>                                   \
-                        : bps_kernel<kGen, BF>)
+// B3's and B8's instances by grid kind (and offsets per slot, window type)
+#define QTT_BPS(kind)                                                              \
+    ((kind) == kRect ? bps_kernel<kRect> : (kind) == kCross ? bps_kernel<kCross> : bps_kernel<kGen>)
 
-// B8's instance by grid kind, offsets per slot and window type
-#define QTT_FINE(kind, C, BF)                                                      \
-    ((kind) == kRect    ? bps_fine_kernel<kRect, C, BF>                            \
-     : (kind) == kCross ? bps_fine_kernel<kCross, C, BF>                           \
-                        : bps_fine_kernel<kGen, C, BF>)
+#define QTT_BPS_BF16(kind, BF)                                                     \
+    ((kind) == kRect    ? bps_kernel_bf16<kRect, BF>                               \
+     : (kind) == kCross ? bps_kernel_bf16<kCross, BF>                              \
+                        : bps_kernel_bf16<kGen, BF>)
+
+#define QTT_FINE(kind, C)                                                          \
+    ((kind) == kRect    ? bps_fine_kernel<kRect, C>                                \
+     : (kind) == kCross ? bps_fine_kernel<kCross, C>                               \
+                        : bps_fine_kernel<kGen, C>)
+
+#define QTT_FINE_BF16(kind, BF)                                                    \
+    ((kind) == kRect    ? bps_fine_kernel_bf16<kRect, BF>                          \
+     : (kind) == kCross ? bps_fine_kernel_bf16<kCross, BF>                         \
+                        : bps_fine_kernel_bf16<kGen, BF>)
 
 int set_smem(const void* fn, size_t bytes) {
     if (bytes <= 48 * 1024) return 0;
@@ -1313,7 +1478,7 @@ int qtt_bps_idx(const float* er, const float* ei, int nmodes, long long L, const
         return (int)cudaErrorInvalidValue;
     if (nmodes == 0 || L == 0) return 0;
     const BpsPlan p = bps_plan(nmodes, L, N, npts);
-    const auto fn = QTT_BPS(kind, false);
+    const auto fn = QTT_BPS(kind);
     const int rc = set_smem((const void*)fn, (size_t)p.smem);
     if (rc) return rc;
     const GridArgs g = {kind, 1.f, g0, g1, g2, g3, npts};
@@ -1347,7 +1512,7 @@ int qtt_bps_idx_bf16(const float* er, const float* ei, int nmodes, long long L,
     if (nmodes == 0 || L == 0) return 0;
     const BpsPlan p = bf_plan(nmodes, L, N, npts, T, false);
     if (p.smem > kSmemLimit) return (int)cudaErrorInvalidValue;
-    const auto fn = QTT_BPS(kind, true);
+    const auto fn = 2 * N < 64 ? QTT_BPS_BF16(kind, kBfShort) : QTT_BPS_BF16(kind, kBfLong);
     const int rc = set_smem((const void*)fn, (size_t)p.smem);
     if (rc) return rc;
     const GridArgs g = {kind, 1.f, g0, g1, g2, g3, npts};
@@ -1447,7 +1612,7 @@ int qtt_bps_fine(const float* er, const float* ei, const float* ph1, int nmodes,
     if (nmodes == 0 || L == 0) return 0;
     const BpsPlan p = fine_plan(nmodes, L, N, npts);
     if (p.smem > kSmemLimit) return (int)cudaErrorInvalidValue;
-    const auto fn = p.chunk == 1 ? QTT_FINE(kind, 1, false) : QTT_FINE(kind, kBpsChunk, false);
+    const auto fn = p.chunk == 1 ? QTT_FINE(kind, 1) : QTT_FINE(kind, kBpsChunk);
     const int rc = set_smem((const void*)fn, (size_t)p.smem);
     if (rc) return rc;
     const GridArgs g = {kind, 1.f, g0, g1, g2, g3, npts};
@@ -1468,7 +1633,7 @@ int qtt_bps_fine_bf16(const float* er, const float* ei, const float* ph1, int nm
     if (nmodes == 0 || L == 0) return 0;
     const BpsPlan p = bf_plan(nmodes, L, N, npts, T, true);
     if (p.smem > kSmemLimit) return (int)cudaErrorInvalidValue;
-    const auto fn = QTT_FINE(kind, kBpsChunk, true);
+    const auto fn = 2 * N < 64 ? QTT_FINE_BF16(kind, kBfShort) : QTT_FINE_BF16(kind, kBfLong);
     const int rc = set_smem((const void*)fn, (size_t)p.smem);
     if (rc) return rc;
     const GridArgs g = {kind, 1.f, g0, g1, g2, g3, npts};

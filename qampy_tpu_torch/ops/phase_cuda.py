@@ -103,15 +103,17 @@ def bps_plan(nmodes, L, N, npts=0):
     return BpsPlan(run, tile, BPS_CHUNK, smem, nmodes * -(-L // tile))
 
 
-#: csrc/phase.cu: positions of a run at most with bf16 windows, in B3 and in B8. B3's runs of 4
-#: took 5-17 % less time than runs of 8 at the chain's shapes on the H100, runs of 16 up to 12 %
-#: more; B8's runs of 4 spill registers, and take as long as runs of 8
-BF16_MAX_RUN, BF16_FINE_MAX_RUN = 4, 8
+#: csrc/phase.cu: windows of a thread at most with bf16 windows, in B3 and in B8 (runs of 16 hold
+#: more registers and took 9 % longer at twostage's coarse shape on the H100), and the residue
+#: classes a tile is walked in
+BF16_MAX_RUN, BF16_FINE_MAX_RUN, BF16_CLASS = 8, 8, 8
 
 
 def _bf16_tables(N):
-    """The bf16 level tables of a CTA: two that take turns, one per further component of 2N."""
-    return 1 + bin(2 * N).count("1")
+    """The bf16 tables the walks read: S_g, one per component of 2N below g = min(8, top)."""
+    N2 = 2 * N
+    g = min(1 << (N2.bit_length() - 1), BF16_CLASS)
+    return 1 + bin(N2 & (g - 1)).count("1")
 
 
 def bf16_plan(nmodes, L, N, T, npts=0, fine=False):
@@ -119,13 +121,12 @@ def bf16_plan(nmodes, L, N, T, npts=0, fine=False):
 
     Mirrored by ``qtt_bps_bf16_plan``. Runs from ``BF16_MAX_RUN``
     (``BF16_FINE_MAX_RUN`` in B8) down by B3's rule, then halved while the
-    CTA would exceed 227 KB: a general
-    alphabet's points as float4, the tile's T + 2N - 1 samples (float2 in
-    B3, float4 [x, y, cos ph1, sin ph1] in B8), 1 + popcount(2N) padded tables
-    of 8-byte slots (4 angles as two bf16 pairs: the distances, the levels
-    S_2w taking turns in two, one for each component of 2N below the largest)
-    and the tails of the reference tiles that the CTA's windows cross, 2N
-    slots each.
+    CTA would exceed 227 KB: a general alphabet's points as float4, the
+    CTA's W = 128 run + 2N - 1 samples (float2 in B3, float4 [x, y, cos ph1,
+    sin ph1] in B8), the chunk's W distances as 8-byte slots (4 angles as two
+    bf16 pairs), S_g and each component of 2N below g in tables of W slots
+    (the residue-class walks read them), and per reference-tile boundary that
+    the CTA's windows cross the tail's 128 distances and its 2N slots.
     """
     run = _bps_run(nmodes, L, BF16_FINE_MAX_RUN if fine else BF16_MAX_RUN)
 
@@ -133,8 +134,8 @@ def bf16_plan(nmodes, L, N, T, npts=0, fine=False):
         tile = BPS_THREADS * run
         W = tile + 2 * N - 1
         bounds = (tile + 2 * N - 2) // T + 1
-        return (16 * npts + (16 if fine else 8) * W + 8 * _bf16_tables(N) * _bps_slots(W, run)
-                + 8 * 2 * N * bounds)
+        return (16 * npts + (16 if fine else 8) * W + 8 * W
+                + 8 * _bf16_tables(N) * W + 8 * (128 + 2 * N) * bounds)
     while smem(run) > _SMEM_LIMIT and run > 1:
         run //= 2
     tile = BPS_THREADS * run

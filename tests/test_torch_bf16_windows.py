@@ -296,20 +296,30 @@ def test_bf16_tile_limits(N, T):
 
 @pytest.mark.parametrize("fine", [False, True])
 def test_bf16_launch_plan(fine):
-    """``phase_cuda.bf16_plan`` (mirrored by ``qtt_bps_bf16_plan``): runs of at most 4 in B3 and
-    8 in B8, halved for short rows by B3's rule; shared memory is the points, the staged samples,
-    1 + popcount(2N) padded tables of 8-byte slots and the tails of the tiles a CTA's windows
-    cross."""
+    """``phase_cuda.bf16_plan`` (mirrored by ``qtt_bps_bf16_plan``): runs of at most 8 in B3 and B8,
+    halved for short rows by B3's rule; shared memory is the
+    points, the staged samples, the chunk's distances, S_g and each component of 2N below g (W
+    slots each), and per crossed reference-tile boundary the tail's 128 distances and its 2N
+    slots."""
     from qampy_tpu_torch.ops import phase_cuda as tpc
-    run = 8 if fine else 4
-    p = tpc.bf16_plan(2, 2 ** 20, 60, 16384, fine=fine)
+    run = 8
     tile = 128 * run
-    W = tile + 119
-    slots = W + (W - 1) // run
+    sample = 16 if fine else 8
+
+    def smem(N, T, tables):
+        W = tile + 2 * N - 1
+        return sample * W + 8 * W + 8 * tables * W + 8 * (128 + 2 * N) * ((W - 1) // T + 1)
+    p = tpc.bf16_plan(2, 2 ** 20, 60, 16384, fine=fine)
     assert (p.run, p.tile, p.chunk, p.ctas) == (run, tile, 4, 2 * 2 ** 20 // tile)
-    assert p.smem == (16 if fine else 8) * W + 8 * 5 * slots + 8 * 120 * ((tile + 118) // 16384 + 1)
+    assert p.smem == smem(60, 16384, 1)       # 120 = 64 + 32 + 16 + 8: S_8 alone
+    assert tpc.bf16_plan(2, 2 ** 20, 14, 16384, fine=fine).smem == smem(14, 16384, 2)  # and S_4
+    assert tpc.bf16_plan(2, 2 ** 20, 3, 256, fine=fine).smem == smem(3, 256, 2)    # S_4, S_2
+    assert tpc.bf16_plan(2, 2 ** 20, 63, 256, fine=fine).smem == smem(63, 256, 3)  # S_8, S_4, S_2
+    # short rows: B3's rule keeps 256 CTAs
+    assert tpc.bf16_plan(2, 2 ** 17, 14, 8192, fine=fine).run == 8
     assert tpc.bf16_plan(2, 2 ** 16, 12, 8192, fine=fine).run == 4
     assert tpc.bf16_plan(2, 2 ** 13, 12, 8192, fine=fine).run == 1   # 128 CTAs of 128 positions
-    gen = tpc.bf16_plan(2, 2 ** 20, 14, 256, npts=256)
-    assert gen.smem - tpc.bf16_plan(2, 2 ** 20, 14, 256).smem == 16 * 256
-    assert all(tpc.bf16_plan(2, 2 ** 20, N, 256).smem <= 227 * 1024 for N in range(1, 65))
+    gen = tpc.bf16_plan(2, 2 ** 20, 14, 256, npts=256, fine=fine)
+    assert gen.smem - tpc.bf16_plan(2, 2 ** 20, 14, 256, fine=fine).smem == 16 * 256
+    assert all(tpc.bf16_plan(2, 2 ** 20, N, T, npts=256, fine=fine).smem <= 227 * 1024
+               for N in range(1, 65) for T in (256, 384, 16384))

@@ -1527,24 +1527,40 @@ def test_example_on_the_card():
 # -- bf16 window sums (B3, B8) and the pilot schedules --------------------------
 
 BF16_TILES = [2048, 384]
+BF16_KEYS = ["sq"] + GRID_KEYS + ["w64 fitted"]
+# every residue-class and ring case of the walk (J = log2(top / 8) from 0 to 4, the components
+# of 2N above and below 8) at every reference tile that takes it, on rows that are not a
+# multiple of a CTA tile or of T, the alphabets in turn; and rows shorter than one CTA tile
+BF16_SWEEP = [(BF16_KEYS[i % len(BF16_KEYS)], N, T, 2 ** 16 + 77)
+              for i, (N, T) in enumerate((N, T) for N in (1, 3, 4, 7, 8, 12, 14, 32, 60, 63, 64)
+                                         for T in (256, 384, 2048, 8192, 16384) if 2 * N < T)]
+BF16_SHORT = [("sq", 14, 256, 100), ("x32", 60, 384, 300), ("w64 fitted", 7, 256, 129)]
 
 
 def _bf16_const(key):
-    """64-QAM for "sq", else the grid tests' alphabet."""
+    """64-QAM for "sq", else the grid tests' alphabet (the warped one for "w64 fitted")."""
     if key == "sq":
         return (cal_symbols_qam(64) / np.sqrt(cal_scaling_factor_qam(64))).astype(np.complex64)
-    return _alphabet(key)[0]
+    return _alphabet(key.split()[0])[0]
 
 
-@pytest.mark.parametrize("T", BF16_TILES)
-@pytest.mark.parametrize("A, N", [(64, 14), (16, 60), (13, 5)])
-@pytest.mark.parametrize("key", ["sq"] + GRID_KEYS)
-def test_b3_bf16_windows_equal_the_twin(dev, key, A, N, T):
+def _bf16_grid(key, const):
+    """The grid B3 and B8 search: the alphabet's, or the warped alphabet's fitted uniform grid."""
+    return tph.coarse_grid_for_alphabet(const) if key.endswith("fitted") else tph.detect_grid(const)
+
+
+@pytest.mark.parametrize(
+    "key, A, N, T, L",
+    [(key, A, N, T, 2 ** 16 + 77) for key in BF16_KEYS for A, N in [(64, 14), (16, 60), (13, 5)]
+     for T in BF16_TILES]
+    + [(key, 13 if i % 2 else 16, N, T, L)
+       for i, (key, N, T, L) in enumerate(BF16_SWEEP + BF16_SHORT)])
+def test_b3_bf16_windows_equal_the_twin(dev, key, A, N, T, L):
     """B3 with bf16 windows at tile T: bit for bit the twin's order (ops.phase.bf16_window_sums)
     on every grid kind, on rows that are not a multiple of a tile."""
     const = _bf16_const(key)
-    grid = tph.detect_grid(const)
-    er, ei = _alphabet_planes(dev, const, 7 + A + N, L=2 ** 16 + 77)
+    grid = _bf16_grid(key, const)
+    er, ei = _alphabet_planes(dev, const, 7 + A + N, L=L)
     ang = np.linspace(-np.pi / 4, np.pi / 4, A, endpoint=False, dtype=np.float32)
     cos_t, sin_t = (torch.as_tensor(t, device=dev) for t in tph.bps_tables(ang, grid))
     got = bps_search_cuda(er, ei, cos_t, sin_t, grid, N, bf16_tile=T)
@@ -1552,19 +1568,22 @@ def test_b3_bf16_windows_equal_the_twin(dev, key, A, N, T):
     assert len(torch.unique(got)) > 1
 
 
-@pytest.mark.parametrize("T", BF16_TILES)
-@pytest.mark.parametrize("key", ["sq"] + GRID_KEYS)
-def test_b8_bf16_windows_equal_the_twin(dev, key, T):
+@pytest.mark.parametrize(
+    "key, N, T, L",
+    [(key, 14, T, 2 ** 16 + 77) for key in BF16_KEYS for T in BF16_TILES]
+    + BF16_SWEEP + BF16_SHORT)
+def test_b8_bf16_windows_equal_the_twin(dev, key, N, T, L):
+    """B8 with bf16 windows at tile T around a bf16 coarse phase: bit for bit its twin."""
     const = _bf16_const(key)
-    grid = tph.detect_grid(const)
-    er, ei = _alphabet_planes(dev, const, 31, L=2 ** 16 + 77)
+    grid = _bf16_grid(key, const)
+    er, ei = _alphabet_planes(dev, const, 31 + N, L=L)
     ang = np.linspace(-np.pi / 4, np.pi / 4, 16, endpoint=False, dtype=np.float32)
     cos1, sin1 = (torch.as_tensor(t, device=dev) for t in tph.bps_tables(ang, grid))
     ph1 = -np.pi / 4 + np.pi / 32 * bps_search_cuda(er, ei, cos1, sin1, grid, 60, bf16_tile=T).float()
     cd, sd, d0f, ddf = tph.fine_tables(16, 8, grid)
     cd, sd = torch.as_tensor(cd, device=dev), torch.as_tensor(sd, device=dev)
-    got = bps_fine_cuda(er, ei, ph1, cd, sd, grid, 14, d0f, ddf, bf16_tile=T)
-    assert torch.equal(got, bps_fine_plain(er, ei, ph1, cd, sd, grid, 14, d0f, ddf, T))
+    got = bps_fine_cuda(er, ei, ph1, cd, sd, grid, N, d0f, ddf, bf16_tile=T)
+    assert torch.equal(got, bps_fine_plain(er, ei, ph1, cd, sd, grid, N, d0f, ddf, T))
 
 
 def test_bf16_plan_matches_the_library(dev):
