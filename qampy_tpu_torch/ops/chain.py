@@ -51,6 +51,12 @@ Two divergences from the reference, both toward float32: the filter sums
 in float32 (the reference chain contracts in bf16), and ``bps_win``
 defaults to "f32" (the reference's default is "bf16"; every recorded time,
 gate and CPU comparison of the port is float32, and "bf16" is taken).
+
+While a ``torch.profiler`` records, each entry call is one host span
+``qtt.rx.<entry>`` holding its stages' spans in order (``qtt.rx.train``,
+``qtt.rx.filter``, ``qtt.rx.search``, ``qtt.rx.glue`` in decimated,
+``qtt.rx.derotate``) and, inside them, the kernel launchers' ``qtt.B<k>``
+(``profiling.span``).
 """
 from __future__ import annotations
 
@@ -67,6 +73,7 @@ from qampy_tpu_torch.ops.equaliser_cuda import apply_filter, check_dec, train_bl
 from qampy_tpu_torch.ops.phase import grid_decision_info
 from qampy_tpu_torch.ops.phase_cuda import (bps_fine, bps_search, bps_twostage, interp_rotate,
                                             rotate, unwrap_derotate)
+from qampy_tpu_torch.profiling import span, spanned
 from qampy_tpu_torch.theory import cal_scaling_factor_qam, cal_symbols_qam
 from qampy_tpu_torch.utils import resolve_device
 
@@ -404,10 +411,12 @@ class RxChain(nn.Module):
         """Unwrap the decimated phase and derotate the full-rate planes: (outr, outi)."""
         no = eqp.shape[0] // 2
         Lout = eqp.shape[-1]
-        er, ei, a, b = decimated_derotation_inputs(eqp[:no], eqp[no:], idxd, self.lo_a,
-                                                   self.step_a, self.dec)
-        outr, outi = interp_rotate(er, ei, a, b, self.dec, sign=1)
-        return outr[:, :Lout], outi[:, :Lout]
+        with span("qtt.rx.glue"):
+            er, ei, a, b = decimated_derotation_inputs(eqp[:no], eqp[no:], idxd, self.lo_a,
+                                                       self.step_a, self.dec)
+        with span("qtt.rx.derotate"):
+            outr, outi = interp_rotate(er, ei, a, b, self.dec, sign=1)
+            return outr[:, :Lout], outi[:, :Lout]
 
     def carrier_phase(self, eqp, decp=None):
         """The per-sample phase (nmodes, L) of the single and two-stage modes, before the unwrap.
@@ -460,17 +469,29 @@ class RxChain(nn.Module):
             raise ValueError("expected stacked float32 [Re rows; Im rows] planes, got %s %s"
                              % (P.dtype, tuple(P.shape)))
         P = P.to(torch.float32).contiguous()
-        w2 = self.train_taps(P) if w is None else w
-        eqp, decp = self.equalise(P, w2)
+        w2 = w
+        if w is None:
+            with span("qtt.rx.train"):
+                w2 = self.train_taps(P)
+        with span("qtt.rx.filter"):
+            eqp, decp = self.equalise(P, w2)
         if self.mode == "decimated":
-            return self.derotate(eqp, self.phase_search(decp)), w2
+            with span("qtt.rx.search"):
+                idxd = self.phase_search(decp)
+            return self.derotate(eqp, idxd), w2
         if self.mode == "twostage" and not self.pallas:
-            # the reference's XLA two-stage path (chain.py:419-427): ops.phase.bps_twostage
+            # the reference's XLA two-stage path (chain.py:419-427): ops.phase.bps_twostage,
+            # whose one call also derotates
             no = eqp.shape[0] // 2
-            out, _ = phops.bps_twostage(torch.complex(eqp[:no], eqp[no:]), self.A, self.const,
-                                        self.bps_N, B=TWOSTAGE_B, N1=TWOSTAGE_N1)
+            with span("qtt.rx.search"):
+                out, _ = phops.bps_twostage(torch.complex(eqp[:no], eqp[no:]), self.A,
+                                            self.const, self.bps_N, B=TWOSTAGE_B,
+                                            N1=TWOSTAGE_N1)
             return (out.real.contiguous(), out.imag.contiguous()), w2
-        return self.unwrap_derotate(eqp, self.carrier_phase(eqp, decp)), w2
+        with span("qtt.rx.search"):
+            ph = self.carrier_phase(eqp, decp)
+        with span("qtt.rx.derotate"):
+            return self.unwrap_derotate(eqp, ph), w2
 
     # -- entries --------------------------------------------------------------
 
@@ -478,29 +499,35 @@ class RxChain(nn.Module):
     def _stack(P, Pi):
         return P if Pi is None else torch.cat([P, Pi], dim=0)
 
+    @spanned("qtt.rx.forward")
     def forward(self, E):
         """Complex (nmodes, L) capture at ``os`` samples/symbol in, recovered symbols out."""
         (outr, outi), _ = self._fwd(eqops.planes(E))
         return torch.complex(outr, outi)
 
+    @spanned("qtt.rx.planes")
     def planes(self, P, Pi=None):
         """Planes entry: (2*nmodes, L) float32 [Re; Im] (or a (pr, pi) pair) -> (outr, outi)."""
         return self._fwd(self._stack(P, Pi))[0]
 
+    @spanned("qtt.rx.with_taps")
     def with_taps(self, E):
         """``forward`` that also returns the frozen (nmodes, nmodes, Ntaps) taps."""
         (outr, outi), w = self._fwd(eqops.planes(E))
         return torch.complex(outr, outi), w
 
+    @spanned("qtt.rx.planes_with_taps")
     def planes_with_taps(self, P, Pi=None):
         """``planes`` that also returns the frozen taps."""
         return self._fwd(self._stack(P, Pi))
 
+    @spanned("qtt.rx.tracking")
     def tracking(self, E, wxy):
         """Warm-start entry: demodulate with given taps, skipping both trainings."""
         (outr, outi), _ = self._fwd(eqops.planes(E), wxy)
         return torch.complex(outr, outi)
 
+    @spanned("qtt.rx.tracking_planes")
     def tracking_planes(self, P, wxy, Pi=None):
         """Planes twin of :meth:`tracking`."""
         return self._fwd(self._stack(P, Pi), wxy)[0]

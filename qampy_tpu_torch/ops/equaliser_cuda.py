@@ -4,7 +4,9 @@ Each kernel has three functions here: ``*_cuda`` launches the CUDA kernel
 of ``csrc/equaliser.cu`` (and raises on anything but contiguous CUDA
 tensors), ``*_plain`` is its plain PyTorch version, and the bare name
 dispatches on the device of the input: the plain version for a CPU tensor,
-the kernel for a CUDA tensor. ``*_cuda.launches`` counts kernel launches.
+the kernel for a CUDA tensor. ``*_cuda.launches`` counts kernel launches;
+each ``*_cuda`` runs inside the host span ``qtt.B<k>`` of its kernel
+(``profiling.spanned``), recorded while a ``torch.profiler`` records.
 
 B1 replaces ``qampy_tpu/ops/equaliser_pallas.py:train_equaliser_block_pallas``,
 B9 ``train_equaliser_pallas`` and B2 ``apply_filter_pallas_planes``, in two
@@ -32,6 +34,7 @@ from qampy_tpu_torch.ops.equaliser import (BLOCK_METHODS, DECISION_BLOCK_METHODS
                                            train_seq_planes)
 from qampy_tpu_torch.ops.equaliser import apply_filter_frames_planes as apply_filter_frames_plain
 from qampy_tpu_torch.ops.equaliser import train_block_planes as train_block_plain
+from qampy_tpu_torch.profiling import spanned
 
 # csrc/equaliser.cu: Method
 _METHOD_CODE = {"mcma": 0, "mddma": 1, "cma": 2, "sgncma": 2, "rde": 3, "sbd": 4, "dd": 5}
@@ -195,6 +198,7 @@ def _decision_args(spec, device, points):
             0 if table is None else table.shape[0], table)
 
 
+@spanned("qtt.B1")
 def train_block_cuda(P, TrSyms, Niter, os, mu, wx, spec, adaptive=False, block_size=32,
                      points=None):
     """Launch kernel B1; same contract as :func:`train_block_plain`.
@@ -317,6 +321,7 @@ def seq_launch_shape(P, TrSyms, os, wx):
     return K
 
 
+@spanned("qtt.B9")
 def train_seq_cuda(P, TrSyms, Niter, os, mu, wx, symbols, method, adaptive=False):
     """Launch kernel B9; same contract as :func:`train_seq_plain`.
 
@@ -525,6 +530,7 @@ def _checked_plan(lib, what, nmodes, nout, ntaps, os, Lout, nframes=0):
     return plan
 
 
+@spanned("qtt.B2")
 def apply_filter_cuda(P, os, wx, dec=None):
     """Launch kernel B2; same contract as :func:`apply_filter_plain`."""
     _build.require_cuda("apply_filter_cuda", P, dtype=torch.float32)
@@ -581,6 +587,7 @@ def apply_filter(P, os, wx, dec=None):
 # B2, frame entry: the filter over many frame windows in one launch
 # ---------------------------------------------------------------------------
 
+@spanned("qtt.B2")
 def apply_filter_frames_cuda(P, os, wx, offs, frame_len, pilots=None):
     """Launch the frame entry of kernel B2; same contract as :func:`apply_filter_frames_plain`.
 

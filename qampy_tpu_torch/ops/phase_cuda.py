@@ -3,7 +3,8 @@
 As in ``ops/equaliser_cuda.py``: ``*_cuda`` launches the CUDA kernel of
 ``csrc/phase.cu`` (and raises on anything but contiguous CUDA tensors),
 ``*_plain`` is its plain PyTorch version, and the bare name dispatches on
-the device of the input. ``*_cuda.launches`` counts kernel launches.
+the device of the input. ``*_cuda.launches`` counts kernel launches; each
+``*_cuda`` runs inside the host span ``qtt.B<k>`` of its kernel.
 
 B3 and B8 take every kind of constellation the reference's do (square,
 rectangular, cross, a general alphabet of up to 256 points).
@@ -27,6 +28,7 @@ from qampy_tpu_torch.ops import _build
 from qampy_tpu_torch.ops import phase as phops
 from qampy_tpu_torch.ops._build import KernelLimit
 from qampy_tpu_torch.ops.phase import bps_idx_planes as bps_search_plain
+from qampy_tpu_torch.profiling import spanned
 
 _SMEM_LIMIT = 227 * 1024
 
@@ -149,6 +151,7 @@ def _check_bf16_plan(plan, what, lib, fine, nmodes, L, N, npts, T):
     _check_plan("bf16_plan", plan, lib.qtt_bps_bf16_plan, int(fine), nmodes, L, N, npts, T)
 
 
+@spanned("qtt.B3")
 def bps_search_cuda(er, ei, cos_t, sin_t, grid, N, points=None, bf16_tile=None):
     """Launch kernel B3; same contract as :func:`bps_search_plain`.
 
@@ -244,6 +247,7 @@ def interp_rotate_plain(er, ei, a, b, dx, sign=-1):
     return _rotate_planes(er, ei, torch.cos(ph), torch.sin(ph), sign)
 
 
+@spanned("qtt.B4")
 def interp_rotate_cuda(er, ei, a, b, dx, sign=-1):
     """Launch kernel B4; same contract as :func:`interp_rotate_plain`."""
     _build.require_cuda("interp_rotate_cuda", er, ei, a, b, dtype=torch.float32)
@@ -394,6 +398,7 @@ def check_cpe_plan(rows, npil, cpe_avg, npts=None):
     return plan
 
 
+@spanned("qtt.B5")
 def cpe_coeffs_cuda(symr, symi, pil_r, pil_i, off, stride, n_head, npts, dx, cpe_avg, nbt):
     """Launch kernel B5; same contract as :func:`cpe_coeffs_plain`, any number of pilots."""
     _build.require_cuda("cpe_coeffs_cuda", symr, symi, pil_r, pil_i, dtype=torch.float32)
@@ -440,6 +445,7 @@ def rotate_plain(er, ei, ph, sign=-1):
     return _rotate_planes(er, ei, torch.cos(ph), torch.sin(ph), sign)
 
 
+@spanned("qtt.B6")
 def rotate_cuda(er, ei, ph, sign=-1):
     """Launch kernel B6; same contract as :func:`rotate_plain`."""
     _build.require_cuda("rotate_cuda", er, ei, ph, dtype=torch.float32)
@@ -528,6 +534,7 @@ def unwrap_scratch(rows, L, device):
     return torch.zeros(unwrap_plan(rows, L).scratch, dtype=torch.int64, device=device)
 
 
+@spanned("qtt.B7")
 def unwrap_derotate_cuda(er, ei, ph):
     """Launch kernel B7; same contract as :func:`unwrap_derotate_plain`.
 
@@ -626,6 +633,7 @@ def fine_plan(nmodes, L, N, npts=0):
     return BpsPlan(run, tile, chunk, smem, nmodes * -(-L // tile))
 
 
+@spanned("qtt.B8")
 def bps_fine_cuda(er, ei, ph1, cd, sd, grid, N, d0f, ddf, points=None, bf16_tile=None):
     """Launch kernel B8; same contract as :func:`bps_fine_plain` (``points``: as for B3)."""
     _build.require_cuda("bps_fine_cuda", er, ei, ph1, cd, sd, dtype=torch.float32)

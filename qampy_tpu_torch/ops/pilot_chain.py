@@ -65,6 +65,13 @@ layout, the reference's "fast" path, which ``frames_mode="auto"`` and
 does not change with it. The cold-start prefix also runs spread over the
 ranks of a mesh (:meth:`PilotRxChain.prefix_sharded`, used by
 ``parallel.sharded.make_sharded_pilot_rx``).
+
+While a ``torch.profiler`` records, each entry call is one host span
+``qtt.pilot.<entry>`` holding its stages' spans in order
+(``qtt.pilot.input``: the capture's planes; ``qtt.pilot.prefix`` in the
+full entries; ``qtt.pilot.frames``: the frame windows and B2's frame entry;
+``qtt.pilot.cpe``; ``qtt.pilot.derotate``; ``qtt.pilot.payload``) and,
+inside them, the kernel launchers' ``qtt.B<k>`` (``profiling.span``).
 """
 from __future__ import annotations
 
@@ -80,6 +87,7 @@ from qampy_tpu_torch.ops.equaliser_cuda import (apply_filter_frames, check_block
 from qampy_tpu_torch.ops.phase import TWO_PI, time_axis, unwrap
 from qampy_tpu_torch.ops.phase_cuda import (check_cpe_plan, cpe_coeffs, interp_rotate,
                                             moving_average, rotate)
+from qampy_tpu_torch.profiling import span, spanned
 from qampy_tpu_torch.signals import cal_pilot_idx
 from qampy_tpu_torch.utils import resolve_device
 
@@ -519,23 +527,31 @@ class PilotRxChain(nn.Module):
         plain phase trace (:meth:`cpe_trace`) and kernel B6.
         """
         F = self.frame_len
-        offs = self.frame_offsets(P, eqsh, frame_base)
-        if self.kernel_interp:
-            out, side = apply_filter_frames(P, self.os, taps, offs, F,
-                                            (self.seq_len, self.ins_rat, self.nblk))
-            rows = out.shape[1] * out.shape[2]
-            pr, pi = side.reshape(2, rows, self.nblk).unbind(0)
-            a, b = cpe_coeffs(pr, pi, self.pil_r, self.pil_i, 0, 1, self.n_head, self.npts,
-                              self.cpe_dx, self.cpe_avg, self.nbt)
-            outr, outi = interp_rotate(out[0].reshape(rows, F), out[1].reshape(rows, F), a, b,
-                                       self.cpe_dx, sign=-1)
-            return self.payload(outr, outi), None
-        out = apply_filter_frames(P, self.os, taps, offs, F)
+        with span("qtt.pilot.frames"):
+            offs = self.frame_offsets(P, eqsh, frame_base)
+            if self.kernel_interp:
+                out, side = apply_filter_frames(P, self.os, taps, offs, F,
+                                                (self.seq_len, self.ins_rat, self.nblk))
+            else:
+                out = apply_filter_frames(P, self.os, taps, offs, F)
         rows = out.shape[1] * out.shape[2]
-        trace = self.cpe_trace(out[0], out[1])
-        outr, outi = rotate(out[0].reshape(rows, F), out[1].reshape(rows, F),
-                            trace.reshape(rows, F), sign=-1)
-        return self.payload(outr, outi), trace
+        if self.kernel_interp:
+            with span("qtt.pilot.cpe"):
+                pr, pi = side.reshape(2, rows, self.nblk).unbind(0)
+                a, b = cpe_coeffs(pr, pi, self.pil_r, self.pil_i, 0, 1, self.n_head, self.npts,
+                                  self.cpe_dx, self.cpe_avg, self.nbt)
+            with span("qtt.pilot.derotate"):
+                outr, outi = interp_rotate(out[0].reshape(rows, F), out[1].reshape(rows, F),
+                                           a, b, self.cpe_dx, sign=-1)
+            trace = None
+        else:
+            with span("qtt.pilot.cpe"):
+                trace = self.cpe_trace(out[0], out[1])
+            with span("qtt.pilot.derotate"):
+                outr, outi = rotate(out[0].reshape(rows, F), out[1].reshape(rows, F),
+                                    trace.reshape(rows, F), sign=-1)
+        with span("qtt.pilot.payload"):
+            return self.payload(outr, outi), trace
 
     # -- entries ----------------------------------------------------------------
 
@@ -548,7 +564,8 @@ class PilotRxChain(nn.Module):
                              % (pr.shape[0], self.nmodes))
         if pr.shape[-1] < (self.frame_len + 2 * self.seq_len) * self.os:
             raise ValueError("Signal must be at least as long as frame")
-        return torch.cat([pr, pi]).to(torch.float32).contiguous()
+        with span("qtt.pilot.input"):
+            return torch.cat([pr, pi]).to(torch.float32).contiguous()
 
     def _info(self, shift, sync_corr, foe_coarse, foe_pil, taps, mode_order, trace):
         info = {"shift": shift, "sync_corr": sync_corr, "foe": foe_coarse + foe_pil,
@@ -574,7 +591,8 @@ class PilotRxChain(nn.Module):
         return taps, shift, mode_order, sync_corr, foe_coarse, foe_pil
 
     def _fwd(self, P, frame_base=0):
-        taps, shift, mode_order, sync_corr, foe_coarse, foe_pil = self.prefix(P)
+        with span("qtt.pilot.prefix"):
+            taps, shift, mode_order, sync_corr, foe_coarse, foe_pil = self.prefix(P)
         eqsh = self._eq_shift(shift)
         if self.foe_comp:
             P = derotate_planes(P, foe_pil, self.os)
@@ -583,6 +601,7 @@ class PilotRxChain(nn.Module):
                                  frame_base)
         return data, self._info(shift, sync_corr, foe_coarse, foe_pil, taps, mode_order, trace)
 
+    @spanned("qtt.pilot.planes")
     def planes(self, pr, pi, _frame_base=0):
         """Full chain on float32 planes pr/pi (n, L): ((dr, di), info).
 
@@ -597,11 +616,13 @@ class PilotRxChain(nn.Module):
         """
         return self._fwd(self._planes(pr, pi), _frame_base)
 
+    @spanned("qtt.pilot.forward")
     def forward(self, E, _frame_base=0):
         """Full chain on a complex (n, L) capture: (complex payload, info)."""
         (dr, di), info = self._fwd(self._planes(E.real, E.imag), _frame_base)
         return torch.complex(dr, di), info
 
+    @spanned("qtt.pilot.tracking_planes")
     def tracking_planes(self, pr, pi, wxy, shift, mode_order=None, foe=None, _frame_base=0):
         """Warm-start entry (reference :1021-1074): demodulate with an earlier dispatch's state.
 
@@ -656,6 +677,7 @@ class PilotRxChain(nn.Module):
         inf = torch.full((), np.inf, dtype=torch.float32, device=dev)
         return data, self._info(shift, inf, zero, foe_t, wxy, mo, trace)
 
+    @spanned("qtt.pilot.tracking")
     def tracking(self, E, wxy, shift, mode_order=None, foe=None, _frame_base=0):
         """Complex twin of :meth:`tracking_planes`: (complex payload, info), in every
         ``frames_mode`` (as the reference's complex entry)."""

@@ -5,6 +5,12 @@ per method, soft LLR, ``apply_filter``, ``select_angles``; QAMpy's
 test/test_benchmarks.py) on the port, reported in Msym/s, plus a
 ``torch.profiler`` trace for the card's timeline.
 
+The receivers' entries, stages and kernel launchers open host spans
+(:func:`span`, :func:`spanned`) named ``qtt.<chain>.<entry or stage>`` and
+``qtt.B1`` to ``qtt.B9``. They are recorded only while a ``torch.profiler``
+records, on its clock, beside the card's activity; otherwise each costs one
+check of the profiler's state. ``SPANS`` lists them.
+
 On a CUDA device the three groups that the reference computes in a kernel
 run the port's kernels: ``bps`` kernel B3 (``phase_cuda.bps_search``),
 ``train_<method>`` kernel B1 (``equaliser_cuda.train_block``) and
@@ -15,6 +21,7 @@ every group on the CPU, are plain PyTorch.
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 import tempfile
 import time
@@ -33,6 +40,50 @@ BPS_ANGLES = 64
 BPS_N = 14
 LLR_SNR = 100.0
 
+#: the port's host spans: the blind chain's entries, then its stages in the order a call
+#: opens them; the pilot chain's the same; the kernel launchers of ``ops/equaliser_cuda.py``
+#: and ``ops/phase_cuda.py`` (B2's whole-capture and frame entries both ``qtt.B2``)
+SPANS = ("qtt.rx.forward", "qtt.rx.planes", "qtt.rx.with_taps", "qtt.rx.planes_with_taps",
+         "qtt.rx.tracking", "qtt.rx.tracking_planes",
+         "qtt.rx.train", "qtt.rx.filter", "qtt.rx.search", "qtt.rx.glue", "qtt.rx.derotate",
+         "qtt.pilot.planes", "qtt.pilot.forward", "qtt.pilot.tracking_planes",
+         "qtt.pilot.tracking",
+         "qtt.pilot.input", "qtt.pilot.prefix", "qtt.pilot.frames", "qtt.pilot.cpe",
+         "qtt.pilot.derotate", "qtt.pilot.payload",
+         *("qtt.B%d" % k for k in range(1, 10)))
+
+_profiling = torch.autograd._profiler_enabled
+#: a record of one host range, cheaper to enter than ``torch.profiler.record_function``;
+#: the same event on the host, without its mirror on the card's timeline
+_record = torch._C._profiler._RecordFunctionFast
+_OFF = contextlib.nullcontext()
+
+
+def span(name):
+    """A context manager that records the host range ``name`` while a profiler records.
+
+    With no ``torch.profiler`` recording it is a shared no-op, after one
+    check of the profiler's state; while one records (``trace``, or any
+    ``torch.profiler.profile``) it is a host event of the profiler's own,
+    on the clock of the card's activity, so that every stretch of that
+    timeline can be put down to the span that was open. Nothing else turns
+    spans on or off.
+    """
+    return _record(name) if _profiling() else _OFF
+
+
+def spanned(name):
+    """Decorator: each call of the function runs inside :func:`span` ``(name)``."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def run(*args, **kwargs):
+            if not _profiling():
+                return fn(*args, **kwargs)
+            with _record(name):
+                return fn(*args, **kwargs)
+        return run
+    return wrap
+
 
 @contextlib.contextmanager
 def trace(logdir=None):
@@ -41,6 +92,8 @@ def trace(logdir=None):
     The card's activity is traced where there is a card. Yields ``logdir``
     (by default ``qampy_tpu_torch_trace`` in the temporary directory); the
     trace is ``trace.json`` there, for ``chrome://tracing`` or Perfetto.
+    The receivers' spans (``SPANS``: entries, stages, kernel launchers) show
+    in it as host events around the operations they hold.
     """
     logdir = logdir or os.path.join(tempfile.gettempdir(), "qampy_tpu_torch_trace")
     os.makedirs(logdir, exist_ok=True)

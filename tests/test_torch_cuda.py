@@ -1615,3 +1615,38 @@ def test_pilot_span_equals_scan_on_the_card(dev):
                                    interp_rotate_cuda)] == [0, 1, 1, 1]
     assert max(float((sr - dr).abs().max()), float((si - di).abs().max())) <= 1e-4
     assert ber_gate(sr, si, tx, sinfo["sync_corr"])["ok"]
+
+
+def test_chain_spans_on_the_card(dev, capture):
+    """The decimated16 chain's host spans under a profiler that traces the card: the
+    launchers' spans B1/B2/B3/B4 = 2/1/1/1 inside the one entry span, none of them among the
+    card's operations, one device operation for each launching CUDA call inside the entry,
+    no host sync there, and the outputs bit-equal to an untraced call's."""
+    from qampy_tpu_torch.profiling import SPANS
+    P = capture[3]
+    chain = make_rx_chain(**CFG, device=dev)
+    want = chain.planes_with_taps(P)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        got = chain.planes_with_taps(P)
+        torch.cuda.synchronize()
+    on_card = torch.autograd.DeviceType.CUDA
+    host = [e for e in prof.events() if e.device_type != on_card]
+    ops = [e.name for e in prof.events()
+           if e.device_type == on_card and not getattr(e, "is_user_annotation", False)]
+    spans = [e.name for e in host if e.name.startswith("qtt.")]
+    assert set(spans) <= set(SPANS)
+    assert [spans.count(n) for n in ("qtt.rx.planes_with_taps", "qtt.B1", "qtt.B2", "qtt.B3",
+                                     "qtt.B4")] == [1, 2, 1, 1, 1]
+    assert not any(n.startswith("qtt.") for n in ops)
+    entry = next(e.time_range for e in host if e.name == "qtt.rx.planes_with_taps")
+    calls = [e.name for e in host if entry.start <= e.time_range.start < entry.end]
+    launches = [n for n in calls if n.startswith(("cudaLaunchKernel", "cuLaunchKernel"))
+                or n in ("cudaMemcpyAsync", "cudaMemcpy2DAsync", "cudaMemsetAsync")]
+    assert len(launches) == len(ops) > 0
+    assert not set(calls) & {"cudaStreamSynchronize", "cudaDeviceSynchronize",
+                             "cudaEventSynchronize", "cudaMemcpy"}
+    (wr, wi), ww = want
+    (gr, gi), gw = got
+    assert torch.equal(gr, wr) and torch.equal(gi, wi) and torch.equal(gw, ww)
