@@ -23,7 +23,7 @@ result line):
    shapes: two launches bit-equal, its launch plan printed beside its time);
 4. blind main path: ``workload.make_tx(2**20)`` through ``RxChain.planes``
    with the bench configuration; SER gate <= 1e-5, launch counts B1=2, B2=1,
-   B3=1, B4=1 for that one call, and agreement with the plain chain on the
+   B3=1, B10=1, B4=1 for that one call, and agreement with the plain chain on the
    CPU on a small capture;
 5. blind tracking: ``tracking_planes`` with the chain's own taps equals the
    full output exactly;
@@ -268,7 +268,9 @@ from qampy_tpu_torch.ops.phase_cuda import (bps_fine, bps_fine_cuda, bps_fine_pl
                                             interp_rotate, interp_rotate_cuda,
                                             interp_rotate_plain, quarter_unwrap, rotate_cuda,
                                             rotate_plain, unwrap_derotate_cuda,
-                                            unwrap_derotate_plain, unwrap_plan)
+                                            unwrap_derotate_plain, unwrap_plan,
+                                            slopes_plan, unwrap_slopes_cuda,
+                                            unwrap_slopes_plain)
 from qampy_tpu_torch import equalisation, helpers, phaserec, prbs, profiling, theory
 from qampy_tpu_torch import impairments as port_imp
 from qampy_tpu_torch.core import impairments as core_impairments
@@ -401,6 +403,7 @@ OPS_GEN_POINT = 5
 OPS_ROTATE = 8           # sin, cos and the rotation
 OPS_INTERP = 2           # a + b j
 OPS_UNWRAP = 6           # difference, quarter-turn count, prefix sum
+OPS_SLOPES = 11          # B10 a decimated sample: phase 2, count 4, prefix 1, unwrap 2, slope 2
 OPS_CPE_PILOT = 20       # conjugate product, atan2, unwrap, average, coefficients
 # the paths in the order they run; each is counted on its own (see counted())
 # phase 18, BASELINE config 3 at the blind cells' size (examples/phase_recovery.py,
@@ -442,13 +445,13 @@ BASE_BLOCK = 128                 # the block size of "auto" on the card, which t
 # phase 8b: (path, chain arguments, SER gate, launches): the reference's last selectable modes
 MODE_PATHS = (
     ("blind decimated16 bf16", dict(CFG, bps_win="bf16"), SER_LIMIT,
-     {"B1": 2, "B2": 1, "B3": 1, "B4": 1}),
+     {"B1": 2, "B2": 1, "B3": 1, "B10": 1, "B4": 1}),
     ("blind twostage bf16", dict(SAMPLE_CFG, bps_mode="twostage", bps_win="bf16"), 1e-5,
      {"B1": 2, "B2": 1, "B3": 1, "B8": 1, "B7": 1}),
     ("blind twostage-dec", dict(SAMPLE_CFG, bps_mode="twostage-dec"), 1e-4,
      {"B1": 2, "B2": 1, "B3": 1, "B8": 1, "B7": 1}),
     ("blind fuse_derot off", dict(CFG, fuse_derot=False), SER_LIMIT,
-     {"B1": 2, "B2": 1, "B3": 1, "B4": 1}),
+     {"B1": 2, "B2": 1, "B3": 1, "B10": 1, "B4": 1}),
     ("blind pallas off", dict(CFG, pallas=False), 1e-4, {"B1": 2, "B2": 1, "B3": 1, "B6": 1}),
 )
 BF16_WIDEN = 1.5         # per sample and angle: round to bf16 (packed: 0.5), widen to compare (1)
@@ -518,11 +521,13 @@ KERNELS = {
     "B8": ("bps_fine", "qampy_tpu_torch/csrc/phase.cu", "qampy_tpu/ops/phase_pallas.py:529"),
     "B9": ("train_seq", "qampy_tpu_torch/csrc/equaliser.cu",
            "qampy_tpu/ops/equaliser_pallas.py:69"),
+    "B10": ("unwrap_slopes", "qampy_tpu_torch/csrc/phase.cu",
+            "none: the decimated glue the reference leaves to XLA (qampy_tpu/ops/chain.py)"),
 }
 COUNTERS = {"B1": train_block_cuda, "B2": apply_filter_cuda, "B3": bps_search_cuda,
             "B4": interp_rotate_cuda, "B2 frames": apply_filter_frames_cuda,
             "B5": cpe_coeffs_cuda, "B6": rotate_cuda, "B7": unwrap_derotate_cuda,
-            "B8": bps_fine_cuda, "B9": train_seq_cuda}
+            "B8": bps_fine_cuda, "B9": train_seq_cuda, "B10": unwrap_slopes_cuda}
 
 
 CARD = []                        # nvidia-smi's name and power limit, read once in main()
@@ -846,6 +851,7 @@ def check_kernels(P, chain, card, lat):
     no = dec_k.shape[0] // 2
     rec["B3"], idx_k = b3_record(dec_k[:no].contiguous(), dec_k[no:].contiguous(), chain.bps_cos,
                                  chain.bps_sin, chain.grid, chain.bps_N, None, "blind", (50, 10))
+    rec["B10"] = b10_record(idx_k, chain, "blind")
     rec["B4"] = b4_record(out_k, idx_k, chain, "blind")
     print_times({(k, "blind"): dict(v, shape="blind path") for k, v in rec.items()}, card)
     return rec
@@ -1028,6 +1034,25 @@ def b7_record(er, ei, ph, what):
                                                                  plan.ctas))
 
 
+def b10_record(idxd, chain, what):
+    """B10 against its plain version run on the card on the same indices: bit-equal."""
+    args = (idxd, chain.lo_a, chain.step_a, chain.dec)
+    a_p, b_p = unwrap_slopes_plain(*args)
+    a_k, b_k = unwrap_slopes_cuda(*args)
+    same = bool(torch.equal(a_k, a_p) and torch.equal(b_k, b_p))
+    plan = slopes_plan(*idxd.shape)
+    print("B10 unwrap_slopes (%s): %s decimated samples, stride %d, plan tile %d, %d tiles per "
+          "row, %d scratch words; bit-equal to its plain version: %s, |a| up to %.2f rad"
+          % (what, tuple(idxd.shape), chain.dec, plan.tile, plan.tiles, plan.scratch, same,
+             float(a_k.abs().max())))
+    require(same, "B10 differs from its plain version (%s)" % what)
+    return dict(**bound(nbytes(idxd, a_k, b_k), OPS_SLOPES * idxd.numel()), err=0.0,
+                ms=device_ms(lambda: unwrap_slopes_cuda(*args), 50),
+                plain_ms=device_ms(lambda: unwrap_slopes_plain(*args), 10),
+                shape="%d x %d decimated samples, stride %d, plan tile %d"
+                      % (*idxd.shape, chain.dec, plan.tile))
+
+
 def b4_record(eqp, idxd, chain, what):
     """B4 against its plain version, with the coefficients the chain builds from B3's indices."""
     no = eqp.shape[0] // 2
@@ -1089,6 +1114,8 @@ def chain_path(path, cfg, gate, P, ref, const, small_tx, card, want=None):
     print("%s launches: %s" % (path, launches))
     if want is None:
         want = {"B1": 2, "B2": 1, "B3": 1, "B4" if mode == "decimated" else "B7": 1}
+        if mode == "decimated":
+            want["B10"] = 1
         if mode in ("twostage", "twostage-dec"):
             want["B8"] = 1
     require(launches == expected(want), "the %s path did not launch each kernel as expected"
@@ -1144,7 +1171,7 @@ def chain_path(path, cfg, gate, P, ref, const, small_tx, card, want=None):
     if mode == "decimated":
         er_p, ei_p, a, b = decimated_derotation_inputs(eqp[:no], eqp[no:], idx, chain.lo_a,
                                                        chain.step_a, chain.dec)
-        stages["glue (unwrap, coeffs, pad)"] = device_ms(lambda: decimated_derotation_inputs(
+        stages["glue (B10)"] = device_ms(lambda: decimated_derotation_inputs(
             eqp[:no], eqp[no:], idx, chain.lo_a, chain.step_a, chain.dec), 20)
         stages["interp-rotate (B4)"] = device_ms(
             lambda: interp_rotate(er_p, ei_p, a, b, chain.dec, 1), 20)
@@ -1283,6 +1310,7 @@ def mode_paths(P, ref, const, card, rec, blind_out):
             recs["B3", path], idx = b3_record(xr, xi, chain.bps_cos, chain.bps_sin,
                                               chain.search_grid, chain.search_N, None, path)
         if chain.mode == "decimated":
+            recs["B10", path] = b10_record(idx, chain, path)
             recs["B4", path] = b4_record(eqp, idx, chain, path)
             continue
         ph = coarse_phase(chain, idx, eqp)
@@ -1511,6 +1539,7 @@ def grid_path_records(path, chain, P, w, const, card):
         rec["B3"], idx = b3_record(decp[:no].contiguous(), decp[no:].contiguous(), chain.bps_cos,
                                    chain.bps_sin, chain.search_grid, chain.search_N, pts, path,
                                    (50, 10))
+        rec["B10"] = b10_record(idx, chain, path)
         rec["B4"] = b4_record(eqp, idx, chain, path)
     else:
         slow = (5, 1) if phops.grid_decision_info(chain.search_grid)[0] == "gen" else (20, 5)
@@ -4183,7 +4212,7 @@ def main():
     # phase 4: the main path, counted
     (outr, outi), launches = counted(lambda: chain.planes(P))
     print("main path launches: %s" % launches)
-    require(launches == expected({"B1": 2, "B2": 1, "B3": 1, "B4": 1}),
+    require(launches == expected({"B1": 2, "B2": 1, "B3": 1, "B10": 1, "B4": 1}),
             "the main path did not launch each kernel as expected")
     Lout = (P.shape[-1] - CFG["Ntaps"]) // CFG["os"] + 1
     require(tuple(outr.shape) == (2, Lout) and tuple(outi.shape) == (2, Lout),
@@ -4237,7 +4266,7 @@ def main():
         "train (2x B1 + guard)": device_ms(lambda: chain.train_taps(P), 10),
         "filter (B2)": device_ms(lambda: chain.equalise(P, w), 20),
         "bps (B3)": device_ms(lambda: chain.phase_search(decp), 20),
-        "glue (unwrap, coeffs, pad)": device_ms(lambda: decimated_derotation_inputs(
+        "glue (B10)": device_ms(lambda: decimated_derotation_inputs(
             eqp[:no], eqp[no:], idxd, chain.lo_a, chain.step_a, chain.dec), 20),
         "interp-rotate (B4)": device_ms(lambda: interp_rotate(er_p, ei_p, a, b, chain.dec, 1),
                                       20),

@@ -144,6 +144,32 @@
 //     that shared memory holds 4 bytes per staged sample, no more than the
 //     first design's table at B = 1. qtt_bps_fine_bf16: B3's bf16 windows
 //     (bf_chunk) after B8's fill, runs of at most kBfFineMaxRun = 8.
+//
+// B10 qtt_unwrap_slopes: the decimated blind chain's glue between B3 and B4.
+//     From B3's best-angle indices idx on the decimated grid: the phase
+//     phd_j = lo + step idx_j, the jump counts m_j = floor(d_j (2/pi) + 0.5)
+//     of d_j = phd_j - phd_{j-1} (m_0 = 0), their inclusive prefix sum M in
+//     int32, a_j = phu_j = phd_j - (pi/2) M_j and b_j = (phu_{j+1} - phu_j) /
+//     dec, the last b of a row 0. Replaces no TPU kernel: the reference leaves
+//     this glue to XLA (qampy_tpu/ops/chain.py, the decimated branch), and as
+//     plain tensor ops it is ~20 launches around a torch.cumsum that scans a
+//     long row with a few threads (0.33 ms for 2 x 2^18 on an H100). Bound:
+//     device memory (4 bytes of index in, 8 bytes of (a, b) out per decimated
+//     sample). Design: B7's single-pass scan with decoupled look-back on the
+//     decimated row: a CTA of kSlopeThreads threads takes its tile from the
+//     row's ticket (take_ticket, ticket_tile), a thread owns kSlopeItems
+//     consecutive samples (16-byte vectors where the row allows), the phase
+//     before its first sample and after its last come from the neighbour
+//     lanes by shuffles (a warp's edge lanes read them from memory), the
+//     counts are scanned in the block and across tiles through B7's status
+//     words (tile_exclusive_prefix); those three helpers are B7's too. A
+//     tile's last slope needs the next tile's first phu: the thread adds
+//     that sample's count to its own inclusive M, so no second pass. Every
+//     product and sum is rounded on its own in the plain version's order,
+//     the division by pi/2 as PyTorch does it on the card (a product with the
+//     float32 reciprocal, which equals 2/pi rounded) and by dec as a product
+//     with 1/dec rounded; the counts are int32, so (a, b) equal the plain
+//     version run on the card bit for bit, and are the same from run to run.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -180,6 +206,9 @@ constexpr int kUnwrapItems = 4;   // B7: consecutive samples per thread, a multi
 constexpr int kUnwrapTile = kUnwrapItems * kUnwrapThreads;
 constexpr unsigned long long kUnwrapAggregate = 1ull << 32;   // B7 status flags, above the value
 constexpr unsigned long long kUnwrapInclusive = 2ull << 32;
+constexpr int kSlopeThreads = 256;
+constexpr int kSlopeItems = 8;    // B10: consecutive decimated samples per thread, a multiple of 4
+constexpr int kSlopeTile = kSlopeItems * kSlopeThreads;
 
 // Exclusive prefix sum of v over the block's threads (blockDim.x a multiple
 // of 32); *total, if given, receives the block's sum. Every thread of the
@@ -1326,6 +1355,51 @@ __device__ __forceinline__ int unwrap_look_back(const unsigned long long* status
     }
 }
 
+// B7 and B10: thread 0 takes the CTA's ticket from its row's counter (zero at launch)
+__device__ __forceinline__ void take_ticket(unsigned long long* ticket, int* shared_int) {
+    if (threadIdx.x == 0) *shared_int = (int)atomicAdd(ticket, 1ull);
+}
+
+// B7 and B10: the tile that take_ticket's ticket names. load(tile) fills the thread's
+// registers. Tickets mostly come in launch order: that tile is loaded while the ticket comes
+// back, and another only where the ticket names it. Every thread of the block calls it (it
+// syncs).
+template <class Load>
+__device__ __forceinline__ int ticket_tile(const int* shared_int, Load load) {
+    load(blockIdx.x);
+    __syncthreads();
+    const int t = *shared_int;   // this CTA's tile: its predecessors' CTAs have all started
+    if (t != (int)blockIdx.x) load(t);
+    return t;
+}
+
+// B7 and B10: the sum of the counts `own` of tile t's predecessors in its row and of the
+// threads before this one in the tile: the block's exclusive scan; warp 0 publishes the
+// tile's aggregate, looks back (unwrap_look_back) and publishes the tile's inclusive sum.
+// Every thread of the block calls it (it syncs).
+__device__ __forceinline__ int tile_exclusive_prefix(unsigned long long* status, int t, int own,
+                                                     int* warp_sum, int* shared_int) {
+    const int lane = threadIdx.x & 31;
+    int total;
+    const int in_tile = block_exclusive_scan(own, warp_sum, &total);
+    if (threadIdx.x < 32) {
+        int excl = 0;
+        if (t > 0) {
+            if (lane == 0)
+                *reinterpret_cast<volatile unsigned long long*>(status + t) =
+                    kUnwrapAggregate | (unsigned)total;
+            excl = unwrap_look_back(status, t);
+        }
+        if (lane == 0) {
+            *reinterpret_cast<volatile unsigned long long*>(status + t) =
+                kUnwrapInclusive | (unsigned)(excl + total);
+            *shared_int = excl;
+        }
+    }
+    __syncthreads();
+    return *shared_int + in_tile;
+}
+
 // B7. phase: the alignment (in floats, mod 4) of the five planes' storage where
 // they share it, -1 where they do not (then every access is scalar). scratch:
 // the rows' tickets, then their status words, (rows, ntiles), zero at launch.
@@ -1339,7 +1413,7 @@ __global__ void __launch_bounds__(kUnwrapThreads)
     const int lane = threadIdx.x & 31;
     const long long row = (long long)blockIdx.y * L;
     unsigned long long* status = scratch + gridDim.y + (long long)blockIdx.y * ntiles;
-    if (threadIdx.x == 0) shared_int = (int)atomicAdd(scratch + blockIdx.y, 1ull);
+    take_ticket(scratch + blockIdx.y, &shared_int);
 
     // the thread's samples i0 .. i0+kUnwrapItems-1 of a tile, in groups of 4 that lie on
     // 16-byte boundaries where the planes share their alignment
@@ -1370,11 +1444,7 @@ __global__ void __launch_bounds__(kUnwrapThreads)
             }
         }
     };
-    // tickets mostly come in launch order: load that tile while the ticket comes back
-    load(blockIdx.x);
-    __syncthreads();
-    const int t = shared_int;   // this CTA's tile: its predecessors' CTAs have all started
-    if (t != (int)blockIdx.x) load(t);
+    const int t = ticket_tile(&shared_int, load);
     // the phase before the first sample: the neighbour lane's last; a warp's first lane reads it
     float before = __shfl_up_sync(0xffffffffu, p[K - 1], 1);
     if (lane == 0 && i0 >= 1 && i0 <= L) before = ph[row + i0 - 1];
@@ -1384,24 +1454,7 @@ __global__ void __launch_bounds__(kUnwrapThreads)
         m[q] = quarter_jump(p[q], q ? p[q - 1] : before, i0 + q, L, inv_half_pi);
         own += m[q];
     }
-    int total;
-    const int in_tile = block_exclusive_scan(own, warp_sum, &total);
-    if (threadIdx.x < 32) {
-        int excl = 0;
-        if (t > 0) {
-            if (lane == 0)
-                *reinterpret_cast<volatile unsigned long long*>(status + t) =
-                    kUnwrapAggregate | (unsigned)total;
-            excl = unwrap_look_back(status, t);
-        }
-        if (lane == 0) {
-            *reinterpret_cast<volatile unsigned long long*>(status + t) =
-                kUnwrapInclusive | (unsigned)(excl + total);
-            shared_int = excl;
-        }
-    }
-    __syncthreads();
-    int M = shared_int + in_tile;
+    int M = tile_exclusive_prefix(status, t, own, warp_sum, &shared_int);
     float o_r[K], o_i[K];
 #pragma unroll
     for (int q = 0; q < K; ++q) {
@@ -1423,6 +1476,93 @@ __global__ void __launch_bounds__(kUnwrapThreads)
                     outr[row + i0 + q] = o_r[q];
                     outi[row + i0 + q] = o_i[q];
                 }
+            }
+        }
+    }
+}
+
+// B10: the tiles of a row of L decimated samples, kSlopeTile samples each
+long long slope_tiles(long long L) { return (L + kSlopeTile - 1) / kSlopeTile; }
+
+// B10: the decimated phase lo + step idx, each operation rounded on its own
+__device__ __forceinline__ float decimated_phase(int idx, float lo, float step) {
+    return __fadd_rn(lo, __fmul_rn(step, (float)idx));
+}
+
+// B10. vec: whether idx, a and b may be read and written as 16-byte vectors (their storage
+// 16-byte aligned, L a multiple of 4). scratch: the rows' tickets, then their status words,
+// (rows, ntiles), zero at launch.
+__global__ void __launch_bounds__(kSlopeThreads)
+    unwrap_slopes_kernel(const int* __restrict__ idx, long long L, int vec, float lo, float step,
+                         float half_pi, float inv_half_pi, float inv_dec, int ntiles,
+                         unsigned long long* __restrict__ scratch, float* __restrict__ a,
+                         float* __restrict__ b) {
+    __shared__ int warp_sum[32];
+    __shared__ int shared_int;
+    const int lane = threadIdx.x & 31;
+    const long long row = (long long)blockIdx.y * L;
+    unsigned long long* status = scratch + gridDim.y + (long long)blockIdx.y * ntiles;
+    take_ticket(scratch + blockIdx.y, &shared_int);
+
+    constexpr int K = kSlopeItems;
+    float p[K];
+    long long i0;
+    auto load = [&](int tile) {
+        i0 = (long long)tile * kSlopeTile + (long long)K * threadIdx.x;
+        if (vec && i0 + K <= L) {
+#pragma unroll
+            for (int q0 = 0; q0 < K; q0 += 4) {
+                const int4 v = *reinterpret_cast<const int4*>(idx + row + i0 + q0);
+                p[q0] = decimated_phase(v.x, lo, step);
+                p[q0 + 1] = decimated_phase(v.y, lo, step);
+                p[q0 + 2] = decimated_phase(v.z, lo, step);
+                p[q0 + 3] = decimated_phase(v.w, lo, step);
+            }
+        } else {
+#pragma unroll
+            for (int q = 0; q < K; ++q)
+                p[q] = i0 + q < L ? decimated_phase(idx[row + i0 + q], lo, step) : 0.f;
+        }
+    };
+    const int t = ticket_tile(&shared_int, load);
+    // the phases before the first sample and after the last: the neighbour lanes'; a warp's
+    // first and last lanes read them
+    float before = __shfl_up_sync(0xffffffffu, p[K - 1], 1);
+    if (lane == 0 && i0 >= 1 && i0 <= L) before = decimated_phase(idx[row + i0 - 1], lo, step);
+    float after = __shfl_down_sync(0xffffffffu, p[0], 1);
+    if (lane == 31 && i0 + K < L) after = decimated_phase(idx[row + i0 + K], lo, step);
+    int m[K], own = 0;
+#pragma unroll
+    for (int q = 0; q < K; ++q) {
+        m[q] = quarter_jump(p[q], q ? p[q - 1] : before, i0 + q, L, inv_half_pi);
+        own += m[q];
+    }
+    const int m_after = quarter_jump(after, p[K - 1], i0 + K, L, inv_half_pi);
+    int M = tile_exclusive_prefix(status, t, own, warp_sum, &shared_int);
+    float u[K + 1], s[K];
+#pragma unroll
+    for (int q = 0; q < K; ++q) {
+        M += m[q];
+        u[q] = __fsub_rn(p[q], __fmul_rn(half_pi, (float)M));
+    }
+    u[K] = __fsub_rn(after, __fmul_rn(half_pi, (float)(M + m_after)));
+#pragma unroll
+    for (int q = 0; q < K; ++q)
+        s[q] = i0 + q + 1 < L ? __fmul_rn(__fsub_rn(u[q + 1], u[q]), inv_dec) : 0.f;
+    if (vec && i0 + K <= L) {
+#pragma unroll
+        for (int q0 = 0; q0 < K; q0 += 4) {
+            *reinterpret_cast<float4*>(a + row + i0 + q0) =
+                make_float4(u[q0], u[q0 + 1], u[q0 + 2], u[q0 + 3]);
+            *reinterpret_cast<float4*>(b + row + i0 + q0) =
+                make_float4(s[q0], s[q0 + 1], s[q0 + 2], s[q0 + 3]);
+        }
+    } else {
+#pragma unroll
+        for (int q = 0; q < K; ++q) {
+            if (i0 + q < L) {
+                a[row + i0 + q] = u[q];
+                b[row + i0 + q] = s[q];
             }
         }
     }
@@ -1587,6 +1727,25 @@ int qtt_unwrap_derotate(const float* er, const float* ei, const float* ph, int r
     const dim3 grid((unsigned)ntiles, (unsigned)rows);
     unwrap_kernel<<<grid, kUnwrapThreads, 0, (cudaStream_t)stream>>>(
         er, ei, ph, L, phase, half_pi, inv_half_pi, ntiles, scratch, outr, outi);
+    return (int)cudaGetLastError();
+}
+
+// Tiles per row of B10. The wrapper sizes its scratch by its own copy of this rule
+// (slopes_plan): rows + rows * tiles 64-bit words, zeroed (the rows' tickets, then the tiles'
+// status words); the card tests hold the two equal.
+int qtt_unwrap_slopes_tiles(long long L) { return (int)slope_tiles(L); }
+
+// idx: (rows, L) int32; a/b: (rows, L) float32; scratch: as qtt_unwrap_slopes_tiles says.
+int qtt_unwrap_slopes(const int* idx, int rows, long long L, float lo, float step, float half_pi,
+                      float inv_half_pi, float inv_dec, unsigned long long* scratch, float* a,
+                      float* b, void* stream) {
+    if (rows == 0 || L == 0) return 0;
+    const int ntiles = (int)slope_tiles(L);
+    const bool vec = L % 4 == 0 && (((unsigned long long)idx | (unsigned long long)a |
+                                     (unsigned long long)b) & 15) == 0;
+    const dim3 grid((unsigned)ntiles, (unsigned)rows);
+    unwrap_slopes_kernel<<<grid, kSlopeThreads, 0, (cudaStream_t)stream>>>(
+        idx, L, vec, lo, step, half_pi, inv_half_pi, inv_dec, ntiles, scratch, a, b);
     return (int)cudaGetLastError();
 }
 

@@ -11,8 +11,8 @@ and then recovers the carrier phase in one of four ways:
 
 - ``decimated[K]``: the blind phase search on the filter's stride-K side
   output (B3), the decimated pi/2 unwrap and per-block (a, b) coefficients
-  (plain tensor ops, :func:`decimated_derotation_inputs`), and the
-  full-rate piecewise-linear derotation (B4);
+  (B10, :func:`decimated_derotation_inputs`), and the full-rate
+  piecewise-linear derotation (B4);
 - ``single`` (the reference's default): the search over all bps_angles on
   every sample (B3), its phase -pi/4 + (pi/2/A) idx, then the pi/2 unwrap
   and derotation (B7);
@@ -72,7 +72,7 @@ from qampy_tpu_torch.ops import phase as phops
 from qampy_tpu_torch.ops.equaliser_cuda import apply_filter, check_dec, train_block
 from qampy_tpu_torch.ops.phase import grid_decision_info
 from qampy_tpu_torch.ops.phase_cuda import (bps_fine, bps_search, bps_twostage, interp_rotate,
-                                            rotate, unwrap_derotate)
+                                            rotate, unwrap_derotate, unwrap_slopes)
 from qampy_tpu_torch.profiling import span, spanned
 from qampy_tpu_torch.theory import cal_scaling_factor_qam, cal_symbols_qam
 from qampy_tpu_torch.utils import resolve_device
@@ -138,22 +138,19 @@ def pallas_eligibility(grid, methods, block_size=None, bps_tile=None):
 
 
 def decimated_derotation_inputs(eqr, eqi, idxd, lo_a, step_a, dec):
-    """The tensor glue between the phase search and the derotation (chain.py:349-369).
+    """The glue between the phase search and the derotation (chain.py:349-369).
 
     idxd: (nmodes, Ld) int32 best-angle indices on the decimated grid. The
     decimated phase lo_a + step_a*idx gets a pi/2 unwrap (floor(x+0.5)
-    jump counts, cumulated); block j of dec full-rate samples then takes
-    a = phu[j], b = (phu[j+1] - phu[j])/dec, with the last slope 0. The
-    (nmodes, Lout) filter planes are zero-padded to Ld*dec samples.
-    Returns (er_pad, ei_pad, a, b).
+    jump counts, summed in int32); block j of dec full-rate samples then
+    takes a = phu[j], b = (phu[j+1] - phu[j])/dec, with the last slope 0
+    (``phase_cuda.unwrap_slopes``: kernel B10 on CUDA, its plain version on
+    the CPU). The (nmodes, Lout) filter planes, Ld = ceil(Lout/dec), go to
+    the derotation as they came: its last block may be partial.
+    Returns (eqr, eqi, a, b).
     """
-    phd = lo_a + step_a * idxd.to(torch.float32)
-    dph = phd[:, 1:] - phd[:, :-1]
-    corr = -_HALF_PI * torch.floor(dph / _HALF_PI + 0.5)
-    phu = phd + torch.cumsum(F.pad(corr, (1, 0)), dim=-1)
-    b_blk = F.pad(phu[:, 1:] - phu[:, :-1], (0, 1)) / dec
-    pad = phu.shape[-1] * dec - eqr.shape[-1]
-    return F.pad(eqr, (0, pad)), F.pad(eqi, (0, pad)), phu, b_blk
+    a, b = unwrap_slopes(idxd, lo_a, step_a, dec)
+    return eqr, eqi, a, b
 
 
 def cma_singularity_guard(w):
@@ -198,7 +195,8 @@ class RxChain(nn.Module):
     mode            pallas None/True (kernels)         pallas False (the XLA algorithm)
     ==============  =================================  ===================================
     decimated[K]    B2 with the stride-K side output,  warns, runs single
-                    B3 (tile min(bps_tile, 8192)), B4
+                    B3 (tile min(bps_tile, 8192)),
+                    B10, B4
     single          B2, B3 (tile bps_tile), unwrap     B2, B3 in float32, then the
                     and derotation                     unfused unwrap and B6
     twostage[32]    B2, B3 (N1 = 60), B8, unwrap and   B2, then ``ops.phase.bps_twostage``
@@ -410,13 +408,11 @@ class RxChain(nn.Module):
     def derotate(self, eqp, idxd):
         """Unwrap the decimated phase and derotate the full-rate planes: (outr, outi)."""
         no = eqp.shape[0] // 2
-        Lout = eqp.shape[-1]
         with span("qtt.rx.glue"):
             er, ei, a, b = decimated_derotation_inputs(eqp[:no], eqp[no:], idxd, self.lo_a,
                                                        self.step_a, self.dec)
         with span("qtt.rx.derotate"):
-            outr, outi = interp_rotate(er, ei, a, b, self.dec, sign=1)
-            return outr[:, :Lout], outi[:, :Lout]
+            return interp_rotate(er, ei, a, b, self.dec, sign=1)
 
     def carrier_phase(self, eqp, decp=None):
         """The per-sample phase (nmodes, L) of the single and two-stage modes, before the unwrap.

@@ -1,4 +1,4 @@
-"""Kernels B3-B8 of carrier recovery with their wrappers.
+"""Kernels B3-B8 and B10 of carrier recovery with their wrappers.
 
 As in ``ops/equaliser_cuda.py``: ``*_cuda`` launches the CUDA kernel of
 ``csrc/phase.cu`` (and raises on anything but contiguous CUDA tensors),
@@ -14,7 +14,10 @@ B4 (interp-rotate) ``interp_rotate_planes_pallas``, B5 (the pilot CPE's
 phase coefficients) ``cpe_coeffs_pallas``, B6 (rotation by a given
 phase) ``rotate_planes_pallas``, B7 (pi/2 unwrap and derotation)
 ``unwrap_derotate_pallas`` and B8 (the two-stage search's fine stage)
-``bps_fine_pallas``.
+``bps_fine_pallas``. B10 (the decimated chain's pi/2 unwrap and per-block
+slopes) replaces no Pallas kernel: the reference leaves that glue to XLA;
+as plain tensor ops on the card it is ~20 launches around a scan that runs
+a few threads a row.
 """
 from __future__ import annotations
 
@@ -233,17 +236,23 @@ def _rotate_planes(er, ei, c, s, sign):
 def _check_interp(er, ei, a, b, dx, sign):
     _check_sign(sign)
     if er.dim() != 2 or er.shape != ei.shape or a.shape != b.shape:
-        raise ValueError("interp_rotate takes (nmodes, L) planes and (nmodes, L//dx) coefficients")
-    if er.shape[-1] % dx or a.shape != (er.shape[0], er.shape[-1] // dx):
+        raise ValueError("interp_rotate takes (nmodes, L) planes and (nmodes, ceil(L/dx)) "
+                         "coefficients")
+    if dx < 1 or a.shape != (er.shape[0], -(-er.shape[-1] // dx)):
         raise ValueError("coefficients of shape %s do not cover planes %s in blocks of %d"
                          % (tuple(a.shape), tuple(er.shape), dx))
 
 
 def interp_rotate_plain(er, ei, a, b, dx, sign=-1):
-    """Plain derotation: ph = a[i//dx] + b[i//dx]*(i%dx), out = (er + j ei) exp(sign j ph)."""
+    """Plain derotation: ph = a[i//dx] + b[i//dx]*(i%dx), out = (er + j ei) exp(sign j ph).
+
+    The last block may be partial: planes of L samples take ceil(L/dx) coefficients.
+    """
     _check_interp(er, ei, a, b, dx, sign)
-    frac = (torch.arange(er.shape[-1], device=er.device) % dx).to(torch.float32)
-    ph = a.repeat_interleave(dx, dim=-1) + b.repeat_interleave(dx, dim=-1) * frac
+    L = er.shape[-1]
+    frac = (torch.arange(L, device=er.device) % dx).to(torch.float32)
+    ph = (a.repeat_interleave(dx, dim=-1)[:, :L]
+          + b.repeat_interleave(dx, dim=-1)[:, :L] * frac)
     return _rotate_planes(er, ei, torch.cos(ph), torch.sin(ph), sign)
 
 
@@ -697,3 +706,80 @@ def bps_twostage(er, ei, cos1, sin1, N1, cd, sd, grid, N, d0f, ddf, grid_coarse=
                       points, bf16_tile)
     ph1 = -np.pi / 4 + step1 * idx1.to(torch.float32)
     return bps_fine(er, ei, ph1, cd, sd, grid, N, d0f, ddf, points, bf16_tile)
+
+
+# ---------------------------------------------------------------------------
+# B10: the decimated chain's unwrap and per-block slopes
+# ---------------------------------------------------------------------------
+
+def _check_slopes(idxd, dec):
+    if idxd.dim() != 2:
+        raise ValueError("unwrap_slopes takes (rows, Ld) indices, got shape %s"
+                         % (tuple(idxd.shape),))
+    if int(dec) < 1:
+        raise ValueError("the decimation stride must be positive, got %r" % (dec,))
+
+
+def unwrap_slopes_plain(idxd, lo_a, step_a, dec):
+    """Plain glue of the decimated chain: (a, b), each (rows, Ld) float32.
+
+    idxd: (rows, Ld) int32 best-angle indices on the decimated grid. The
+    phase phd = lo_a + step_a idxd gets the pi/2 unwrap a = phd - (pi/2) M,
+    M the inclusive prefix sum in int32 of the jump counts floor(d / (pi/2)
+    + 0.5) of d_j = phd_j - phd_{j-1} (0 at j = 0); b_j = (a_{j+1} - a_j) /
+    dec, the last b of a row 0. The integer sum is exact in any order.
+    """
+    _check_slopes(idxd, dec)
+    phd = lo_a + step_a * idxd.to(torch.float32)
+    m = torch.floor((phd[:, 1:] - phd[:, :-1]) / HALF_PI + 0.5).to(torch.int32)
+    M = torch.cumsum(torch.nn.functional.pad(m, (1, 0)), dim=-1, dtype=torch.int32)
+    a = phd - HALF_PI * M.to(torch.float32)
+    return a, torch.nn.functional.pad(a[:, 1:] - a[:, :-1], (0, 1)) / dec
+
+
+#: csrc/phase.cu: threads of a B10 CTA, consecutive decimated samples per thread, samples of a
+#: tile
+SLOPE_THREADS, SLOPE_ITEMS = 256, 8
+SLOPE_TILE = SLOPE_ITEMS * SLOPE_THREADS
+
+
+def slopes_plan(rows, L):
+    """The :class:`UnwrapPlan` of B10 on (rows, L) indices (csrc/phase.cu ``slope_tiles``,
+    which the card tests hold equal): tiles of ``SLOPE_TILE`` samples from the row's first,
+    and B7's scratch layout."""
+    tiles = -(-L // SLOPE_TILE)
+    return UnwrapPlan(SLOPE_TILE, tiles, rows * tiles, rows + rows * tiles)
+
+
+@spanned("qtt.B10")
+def unwrap_slopes_cuda(idxd, lo_a, step_a, dec):
+    """Launch kernel B10; same contract as :func:`unwrap_slopes_plain`.
+
+    One launch: B7's single-pass scan with decoupled look-back on the
+    decimated row, over a scratch of :func:`slopes_plan` words zeroed here.
+    The division by dec is PyTorch's on the card: a product with the float32
+    reciprocal.
+    """
+    _build.require_cuda("unwrap_slopes_cuda", idxd, dtype=torch.int32)
+    _check_slopes(idxd, dec)
+    lib = _build.library()
+    rows, L = idxd.shape
+    scratch = torch.zeros(slopes_plan(rows, L).scratch, dtype=torch.int64, device=idxd.device)
+    a = torch.empty((rows, L), dtype=torch.float32, device=idxd.device)
+    b = torch.empty_like(a)
+    inv_dec = float(np.float32(1) / np.float32(dec))
+    rc = lib.qtt_unwrap_slopes(idxd.data_ptr(), rows, L, lo_a, step_a, HALF_PI, INV_HALF_PI,
+                               inv_dec, scratch.data_ptr(), a.data_ptr(), b.data_ptr(),
+                               _build.stream_of(idxd))
+    _build.check(rc, "unwrap_slopes_cuda")
+    unwrap_slopes_cuda.launches += 1
+    return a, b
+
+
+unwrap_slopes_cuda.launches = 0
+
+
+def unwrap_slopes(idxd, lo_a, step_a, dec):
+    """The decimated glue's (a, b): the plain version on CPU tensors, kernel B10 on CUDA."""
+    fn = unwrap_slopes_plain if idxd.device.type == "cpu" else unwrap_slopes_cuda
+    return fn(idxd, lo_a, step_a, dec)

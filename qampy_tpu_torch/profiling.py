@@ -7,7 +7,7 @@ test/test_benchmarks.py) on the port, reported in Msym/s, plus a
 
 The receivers' entries, stages and kernel launchers open host spans
 (:func:`span`, :func:`spanned`) named ``qtt.<chain>.<entry or stage>`` and
-``qtt.B1`` to ``qtt.B9``. They are recorded only while a ``torch.profiler``
+``qtt.B1`` to ``qtt.B10``. They are recorded only while a ``torch.profiler``
 records, on its clock, beside the card's activity; otherwise each costs one
 check of the profiler's state. ``SPANS`` lists them.
 
@@ -50,7 +50,7 @@ SPANS = ("qtt.rx.forward", "qtt.rx.planes", "qtt.rx.with_taps", "qtt.rx.planes_w
          "qtt.pilot.tracking",
          "qtt.pilot.input", "qtt.pilot.prefix", "qtt.pilot.frames", "qtt.pilot.cpe",
          "qtt.pilot.derotate", "qtt.pilot.payload",
-         *("qtt.B%d" % k for k in range(1, 10)))
+         *("qtt.B%d" % k for k in range(1, 11)))
 
 _profiling = torch.autograd._profiler_enabled
 #: a record of one host range, cheaper to enter than ``torch.profiler.record_function``;

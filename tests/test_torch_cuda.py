@@ -1,4 +1,4 @@
-"""The CUDA kernels B1-B9 against their plain PyTorch versions, on the card.
+"""The CUDA kernels B1-B10 against their plain PyTorch versions, on the card.
 
 These tests need a CUDA card and the CUDA toolkit: without a card they
 skip. The module imports no JAX, so it runs on a machine that has none:
@@ -26,7 +26,9 @@ from qampy_tpu_torch.ops.phase_cuda import (bps_fine_cuda, bps_fine_plain, bps_p
                                             cpe_coeffs_plain, interp_rotate_cuda,
                                             interp_rotate_plain, quarter_unwrap, rotate_cuda,
                                             rotate_plain, unwrap_derotate_cuda,
-                                            unwrap_derotate_plain, fine_plan, cpe_plan)
+                                            unwrap_derotate_plain, unwrap_slopes_cuda,
+                                            unwrap_slopes_plain, fine_plan, cpe_plan,
+                                            slopes_plan)
 from qampy_tpu_torch.ops.pilot_chain import make_pilot_rx_chain
 from qampy_tpu_torch.theory import cal_scaling_factor_qam, cal_symbols_qam
 from qampy_tpu_torch.workload import (GATE_TRIM, apsk_const, ber_gate, decide, make_pilot_tx,
@@ -230,14 +232,99 @@ def test_b4_interp_rotate(dev, sign):
     assert float((ik - ip).abs().max()) <= 1e-5
 
 
+def test_b4_partial_last_block(dev):
+    """Planes of Ld*16 - 9 samples with Ld coefficients: bit-equal to the twin on the card,
+    and to the kernel on the planes zero-padded to Ld*16, cut back."""
+    rng = np.random.default_rng(8)
+    Ld, dx = 2 ** 16, 16
+    L = Ld * dx - 9
+    er, ei = (torch.as_tensor(rng.standard_normal((2, L)).astype(np.float32), device=dev)
+              for _ in range(2))
+    a = torch.as_tensor((np.cumsum(rng.normal(scale=0.5, size=(2, Ld)), -1)
+                         + 40).astype(np.float32), device=dev)
+    b = torch.as_tensor(rng.normal(scale=0.01, size=(2, Ld)).astype(np.float32), device=dev)
+    rk, ik = interp_rotate_cuda(er, ei, a, b, dx, 1)
+    rp, ip = interp_rotate_plain(er, ei, a, b, dx, 1)
+    assert rk.shape == (2, L) and torch.equal(rk, rp) and torch.equal(ik, ip)
+    pad = torch.nn.functional.pad
+    rf, if_ = interp_rotate_cuda(pad(er, (0, 9)), pad(ei, (0, 9)), a, b, dx, 1)
+    assert torch.equal(rk, rf[:, :L]) and torch.equal(ik, if_[:, :L])
+    with pytest.raises(ValueError, match="cover"):
+        interp_rotate_cuda(er, ei, a[:, :-1].contiguous(), b[:, :-1].contiguous(), dx, 1)
+
+
+def _decimated_indices(dev, rows, L, seed):
+    """Indices of a random walk over the 64 angles that wraps often, with jumps of +-32 (the
+    half-turn tie) mixed in."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    steps = torch.randint(-3, 4, (rows, L), generator=g, device=dev)
+    tie = torch.rand(rows, L, generator=g, device=dev) < 0.01
+    steps = torch.where(tie, 32 * (2 * (steps > 0).to(steps.dtype) - 1), steps)
+    return (torch.cumsum(steps, -1) % 64).to(torch.int32)
+
+
+@pytest.mark.parametrize("rows, L", [(2, 2 ** 16), (2, 2 ** 18), (2, 2047), (2, 2048),
+                                     (2, 2049), (3, 5001), (2, 1), (1, 2)])
+def test_b10_unwrap_slopes(dev, rows, L):
+    """Bit-equal to the twin run on the card: the benchmark's two shapes, one tile and one
+    sample either side, rows whose length is no multiple of 4 (scalar accesses), rows of one
+    and two samples. Two launches in a row give the same (the scratch is zeroed each time)."""
+    idx = _decimated_indices(dev, rows, L, L)
+    lo, step = float(-np.pi / 4), float(np.pi / 128)
+    ap, bp = unwrap_slopes_plain(idx, lo, step, 16)
+    before = unwrap_slopes_cuda.launches
+    ak, bk = unwrap_slopes_cuda(idx, lo, step, 16)
+    assert unwrap_slopes_cuda.launches == before + 1
+    assert torch.equal(ak, ap) and torch.equal(bk, bp)
+    ak2, bk2 = unwrap_slopes_cuda(idx, lo, step, 16)
+    assert torch.equal(ak2, ak) and torch.equal(bk2, bk)
+    # the scratch the wrapper sizes: its tile rule is the kernel's
+    from qampy_tpu_torch.ops import _build
+    assert _build.library().qtt_unwrap_slopes_tiles(L) == slopes_plan(rows, L).tiles
+    # indices whose storage is not 16-byte aligned: scalar accesses
+    moved = torch.empty(rows * L + 1, dtype=torch.int32, device=dev)[1:].view(rows, L)
+    moved.copy_(idx)
+    ak2, bk2 = unwrap_slopes_cuda(moved, lo, step, 16)
+    assert torch.equal(ak2, ak) and torch.equal(bk2, bk)
+    # an odd stride: the division as PyTorch does it on the card
+    ap, bp = unwrap_slopes_plain(idx, lo, step, 3)
+    ak, bk = unwrap_slopes_cuda(idx, lo, step, 3)
+    assert torch.equal(ak, ap) and torch.equal(bk, bp)
+
+
+@pytest.mark.parametrize("nsym", [2 ** 20, 2 ** 22])
+def test_b10_counts_equal_the_torch_glue(dev, nsym):
+    """On captures of the blind cells' sizes (2^20 and 2^22 symbols a mode): B10's
+    quarter-turn counts are those of the glue's torch expressions on the card (floor(d /
+    (pi/2) + 0.5), the float32 cumsum of -(pi/2) counts), and its phase within that float
+    sum's rounding."""
+    cfg = dict(CFG, bps_N=12)
+    E, _, _ = make_tx(nsym, seed=7)
+    P = torch.as_tensor(np.concatenate([E.real, E.imag]).astype(np.float32), device=dev)
+    del E
+    chain = make_rx_chain(**cfg, device=dev)
+    _, w = chain.planes_with_taps(P)
+    eqp, decp = chain.equalise(P, w)
+    idxd = chain.phase_search(decp)
+    hp = float(np.float32(np.pi / 2))
+    phd = chain.lo_a + chain.step_a * idxd.to(torch.float32)
+    m = torch.floor((phd[:, 1:] - phd[:, :-1]) / hp + 0.5)
+    phu = phd + torch.cumsum(torch.nn.functional.pad(-hp * m, (1, 0)), dim=-1)
+    a, b = unwrap_slopes_cuda(idxd, chain.lo_a, chain.step_a, chain.dec)
+    M = torch.round((phd.double() - a.double()) / hp).to(torch.int64)
+    assert torch.equal(torch.diff(M, dim=-1), m.to(torch.int64))
+    assert float((a - phu).abs().max()) <= 1e-5 * max(1.0, float(phu.abs().max()))
+
+
 def test_chain_on_card_matches_plain_chain(dev, capture):
     E, syms, const, P = capture
-    counters = (train_block_cuda, apply_filter_cuda, bps_search_cuda, interp_rotate_cuda)
+    counters = (train_block_cuda, apply_filter_cuda, bps_search_cuda, unwrap_slopes_cuda,
+                interp_rotate_cuda)
     for fn in counters:
         fn.launches = 0
     chain = make_rx_chain(**CFG, device=dev)
     (outr, outi), w = chain.planes_with_taps(P)
-    assert [fn.launches for fn in counters] == [2, 1, 1, 1]
+    assert [fn.launches for fn in counters] == [2, 1, 1, 1, 1]
     tr, ti = chain.tracking_planes(P, w)
     assert torch.equal(tr, outr) and torch.equal(ti, outi)
     out = torch.complex(outr, outi)
@@ -300,12 +387,12 @@ def test_per_sample_chain_on_card(dev, capture, mode):
     E, syms, const, P = capture
     cfg = dict(CFG, bps_N=14, bps_mode=mode)
     counters = (train_block_cuda, apply_filter_cuda, bps_search_cuda, interp_rotate_cuda,
-                bps_fine_cuda, unwrap_derotate_cuda)
+                bps_fine_cuda, unwrap_derotate_cuda, unwrap_slopes_cuda)
     for fn in counters:
         fn.launches = 0
     chain = make_rx_chain(**cfg, device=dev)
     (outr, outi), w = chain.planes_with_taps(P)
-    assert [fn.launches for fn in counters] == [2, 1, 1, 0, int(mode == "twostage"), 1]
+    assert [fn.launches for fn in counters] == [2, 1, 1, 0, int(mode == "twostage"), 1, 0]
     tr, ti = chain.tracking_planes(P, w)
     assert torch.equal(tr, outr) and torch.equal(ti, outi)
     out = torch.complex(outr, outi)
@@ -549,11 +636,11 @@ def test_pilot_chain_launches_and_gate(dev, return_phase):
                                 Ntaps=17, cpe_avg=3, frames=(0, 1, 2), block_size=256,
                                 return_phase=return_phase, eq_trainer="ls", device=dev)
     counters = (train_block_cuda, apply_filter_cuda, bps_search_cuda, interp_rotate_cuda,
-                apply_filter_frames_cuda, cpe_coeffs_cuda, rotate_cuda)
+                apply_filter_frames_cuda, cpe_coeffs_cuda, rotate_cuda, unwrap_slopes_cuda)
     for fn in counters:
         fn.launches = 0
     (dr, di), info = chain.planes(tx.planes[:2], tx.planes[2:])
-    want = [0, 0, 0, 0, 1, 0, 1] if return_phase else [0, 0, 0, 1, 1, 1, 0]
+    want = [0, 0, 0, 0, 1, 0, 1, 0] if return_phase else [0, 0, 0, 1, 1, 1, 0, 0]
     assert [fn.launches for fn in counters] == want
     assert ber_gate(dr, di, tx, info["sync_corr"])["ok"]
     (tr, ti), _ = chain.tracking_planes(tx.planes[:2], tx.planes[2:], info["taps"],
@@ -1619,7 +1706,8 @@ def test_pilot_span_equals_scan_on_the_card(dev):
 
 def test_chain_spans_on_the_card(dev, capture):
     """The decimated16 chain's host spans under a profiler that traces the card: the
-    launchers' spans B1/B2/B3/B4 = 2/1/1/1 inside the one entry span, none of them among the
+    launchers' spans B1/B2/B3/B10/B4 = 2/1/1/1/1 inside the one entry span, B10's inside the
+    glue's, none of them among the
     card's operations, one device operation for each launching CUDA call inside the entry,
     no host sync there, and the outputs bit-equal to an untraced call's."""
     from qampy_tpu_torch.profiling import SPANS
@@ -1638,7 +1726,10 @@ def test_chain_spans_on_the_card(dev, capture):
     spans = [e.name for e in host if e.name.startswith("qtt.")]
     assert set(spans) <= set(SPANS)
     assert [spans.count(n) for n in ("qtt.rx.planes_with_taps", "qtt.B1", "qtt.B2", "qtt.B3",
-                                     "qtt.B4")] == [1, 2, 1, 1, 1]
+                                     "qtt.B10", "qtt.B4")] == [1, 2, 1, 1, 1, 1]
+    glue = next(e.time_range for e in host if e.name == "qtt.rx.glue")
+    b10 = next(e.time_range for e in host if e.name == "qtt.B10")
+    assert glue.start <= b10.start and b10.end <= glue.end
     assert not any(n.startswith("qtt.") for n in ops)
     entry = next(e.time_range for e in host if e.name == "qtt.rx.planes_with_taps")
     calls = [e.name for e in host if entry.start <= e.time_range.start < entry.end]

@@ -20,7 +20,9 @@ from qampy_tpu_torch.ops import equaliser as teq
 from qampy_tpu_torch.ops import phase as tph
 from qampy_tpu_torch.ops.chain import decimated_derotation_inputs
 from qampy_tpu_torch.ops.equaliser_cuda import apply_filter_plain, train_block_plain
-from qampy_tpu_torch.ops.phase_cuda import bps_search_plain, interp_rotate_plain
+from qampy_tpu_torch.ops import phase_cuda as tpc
+from qampy_tpu_torch.ops.phase_cuda import (bps_search_plain, interp_rotate_plain,
+                                            unwrap_slopes_plain)
 from qampy_tpu_torch.theory import cal_scaling_factor_qam, cal_symbols_qam
 
 M, NTAPS, OS, MU, S = 64, 17, 2, 1.9e-3, 256
@@ -222,6 +224,32 @@ class TestB4InterpRotate:
         with pytest.raises(ValueError):
             interp_rotate_plain(er, ei, a[:, :-1], b[:, :-1], 16, 1)
 
+    @pytest.mark.parametrize("sign", [1, -1])
+    def test_partial_last_block_equals_padded_then_sliced(self, sign):
+        """Planes of Lout = Ld*dx - 9 samples with Ld coefficients: the derotation of the
+        planes zero-padded to Ld*dx samples, cut back to Lout, bit for bit."""
+        er, ei, a, b = (torch.as_tensor(x) for x in _interp_inputs(5, L=600 * 16))
+        Lout = er.shape[-1] - 9
+        got = interp_rotate_plain(er[:, :Lout].contiguous(), ei[:, :Lout].contiguous(), a, b,
+                                  16, sign)
+        pad = torch.nn.functional.pad
+        want = interp_rotate_plain(pad(er[:, :Lout], (0, 9)), pad(ei[:, :Lout], (0, 9)), a, b,
+                                   16, sign)
+        assert got[0].shape == got[1].shape == (2, Lout)
+        assert torch.equal(got[0], want[0][:, :Lout]) and torch.equal(got[1], want[1][:, :Lout])
+
+    @pytest.mark.parametrize("cut", [1, 9, 15])
+    def test_partial_cover_refuses_a_block_short_or_over(self, cut):
+        """ceil(L/dx) coefficients and no other count: a block short, or one over, is refused."""
+        er, ei, a, b = (torch.as_tensor(x) for x in _interp_inputs(4, L=64))
+        er, ei = er[:, :64 - cut].contiguous(), ei[:, :64 - cut].contiguous()
+        interp_rotate_plain(er, ei, a, b, 16, 1)
+        with pytest.raises(ValueError, match="cover"):
+            interp_rotate_plain(er, ei, a[:, :-1], b[:, :-1], 16, 1)
+        over = torch.cat([a, a[:, -1:]], dim=-1)
+        with pytest.raises(ValueError, match="cover"):
+            interp_rotate_plain(er, ei, over, over, 16, 1)
+
 
 class TestDecimatedGlue:
     def test_against_numpy_statement(self):
@@ -239,12 +267,95 @@ class TestDecimatedGlue:
         b = np.pad(phu[:, 1:] - phu[:, :-1], ((0, 0), (0, 1))) / np.float32(dec)
         er_p, ei_p, a_t, b_t = decimated_derotation_inputs(
             torch.as_tensor(eq[:2]), torch.as_tensor(eq[2:]), torch.as_tensor(idx), lo, step, dec)
-        assert er_p.shape == ei_p.shape == (2, Ld * dec)
-        assert np.array_equal(er_p.numpy()[:, :Lout], eq[:2])
-        assert not er_p[:, Lout:].any() and not ei_p[:, Lout:].any()
+        # the planes come back as they were given, with no zero tail: B4 takes the partial
+        # last block
+        assert er_p.shape == ei_p.shape == (2, Lout)
+        assert np.array_equal(er_p.numpy(), eq[:2]) and np.array_equal(ei_p.numpy(), eq[2:])
         # cumulated sums of multiples of pi/2 in two summation orders
         assert np.abs(a_t.numpy() - phu).max() <= 1e-5 * max(1.0, np.abs(phu).max())
         assert np.abs(b_t.numpy() - b).max() <= 1e-6
         assert np.all(b_t.numpy()[:, -1] == 0)
         # the unwrap leaves no jump of pi/4 or more between decimated samples
         assert np.abs(np.diff(a_t.numpy(), axis=-1)).max() <= np.pi / 4 + 1e-6
+
+    # the twin of B10 (phase_cuda.unwrap_slopes_plain): the glue's float32 counts, scanned
+    # in int32
+
+    @staticmethod
+    def _torch_counts(idx, lo, step):
+        """The glue's jump counts floor(d / (pi/2) + 0.5), each torch operation on its own."""
+        phd = lo + step * idx.to(torch.float32)
+        hp = float(np.float32(np.pi / 2))
+        return phd, torch.floor((phd[:, 1:] - phd[:, :-1]) / hp + 0.5)
+
+    def _check_twin(self, idx, dec=16):
+        step, lo = float(np.pi / 2 / 64), float(-np.pi / 4)
+        a, b = unwrap_slopes_plain(idx, lo, step, dec)
+        phd, m = self._torch_counts(idx, lo, step)
+        assert a.dtype == b.dtype == torch.float32 and a.shape == b.shape == idx.shape
+        # M, read back from a = phd - (pi/2) M, is the exact prefix sum of those counts
+        hp = np.float32(np.pi / 2)
+        M = np.rint((phd.numpy().astype(np.float64) - a.numpy()) / hp).astype(np.int64)
+        want_M = np.concatenate([np.zeros((idx.shape[0], 1), np.int64),
+                                 np.cumsum(m.numpy().astype(np.int64), axis=-1)], axis=-1)
+        assert np.array_equal(M, want_M)
+        assert np.array_equal(a.numpy(), phd.numpy() - hp * want_M.astype(np.float32))
+        want_b = np.pad(a.numpy()[:, 1:] - a.numpy()[:, :-1], ((0, 0), (0, 1))) / np.float32(dec)
+        assert np.array_equal(b.numpy(), want_b)
+        return M
+
+    def test_twin_on_long_rows_that_wrap_hundreds_of_times(self):
+        rng = np.random.default_rng(21)
+        L = 2 ** 18
+        idx = (np.cumsum(rng.integers(-3, 4, size=(2, L)), axis=-1) % 64).astype(np.int32)
+        M = self._check_twin(torch.as_tensor(idx))
+        assert np.abs(np.diff(M, axis=-1)).sum(axis=-1).min() >= 300
+
+    @pytest.mark.parametrize("Ld", [1, 2])
+    def test_twin_on_rows_of_one_and_two(self, Ld):
+        idx = torch.tensor([[5, 60], [63, 0]], dtype=torch.int32)[:, :Ld]
+        self._check_twin(idx)
+        a, b = unwrap_slopes_plain(idx, float(-np.pi / 4), float(np.pi / 128), 16)
+        assert not bool(b[:, -1].any())
+        if Ld == 1:
+            assert torch.equal(a, -np.pi / 4 + np.pi / 128 * idx.to(torch.float32))
+
+    @pytest.mark.parametrize("jump", [32, -32])
+    def test_twin_on_jumps_of_exactly_a_half_turn(self, jump):
+        """Index jumps of +-32 put d/(pi/2) on the tie 0.5: the counts are the torch
+        expressions', however the tie rounds at each starting index."""
+        start = np.arange(64, dtype=np.int32) if jump > 0 else np.arange(32, 96) % 64
+        rows = np.stack([(start + jump * (np.arange(8) % 2)[:, None]).T.reshape(-1) % 64
+                         for _ in range(2)]).astype(np.int32)
+        rows[1] = rows[1][::-1]
+        idx = torch.as_tensor(rows)
+        self._check_twin(idx)
+        phd, m = self._torch_counts(idx, float(-np.pi / 4), float(np.pi / 128))
+        assert bool((m != 0).any())        # some of the ties count a turn
+
+    @pytest.mark.parametrize("rows, L, tiles", [(1, 1, 1), (2, 2047, 1), (2, 2048, 1),
+                                                (2, 2049, 2), (2, 2 ** 16, 32),
+                                                (2, 2 ** 18, 128)])
+    def test_b10_plan(self, rows, L, tiles):
+        """B10's tiles of 2048 decimated samples from the row's first: one ticket per row and
+        one status word per tile, B7's scratch layout."""
+        p = tpc.slopes_plan(rows, L)
+        assert p == (tpc.SLOPE_TILE, tiles, rows * tiles, rows + rows * tiles)
+        assert p.tile == tpc.SLOPE_ITEMS * tpc.SLOPE_THREADS == 2048
+        assert (p.tiles - 1) * p.tile < L <= p.tiles * p.tile
+
+    def test_b10_divides_by_pi_over_2_as_the_card_does(self):
+        """PyTorch on the card divides by a host scalar as a product with its float32
+        reciprocal; B10 takes INV_HALF_PI for it: the two constants are one float32."""
+        hp = np.float32(tpc.HALF_PI)
+        assert np.float32(1) / hp == np.float32(tpc.INV_HALF_PI)
+        assert (np.float32(1) / hp).view(np.int32) == np.float32(2 / np.pi).view(np.int32)
+
+    def test_b10_refuses_the_cpu_and_bad_shapes(self):
+        idx = torch.zeros(2, 8, dtype=torch.int32)
+        with pytest.raises(ValueError, match="CUDA"):
+            tpc.unwrap_slopes_cuda(idx, 0.0, 0.1, 16)
+        with pytest.raises(ValueError, match="rows, Ld"):
+            unwrap_slopes_plain(idx[0], 0.0, 0.1, 16)
+        with pytest.raises(ValueError, match="stride"):
+            unwrap_slopes_plain(idx, 0.0, 0.1, 0)

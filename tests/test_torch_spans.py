@@ -39,6 +39,7 @@ LAUNCHERS = {
     "qtt.B3": [phase_cuda.bps_search_cuda], "qtt.B4": [phase_cuda.interp_rotate_cuda],
     "qtt.B5": [phase_cuda.cpe_coeffs_cuda], "qtt.B6": [phase_cuda.rotate_cuda],
     "qtt.B7": [phase_cuda.unwrap_derotate_cuda], "qtt.B8": [phase_cuda.bps_fine_cuda],
+    "qtt.B10": [phase_cuda.unwrap_slopes_cuda],
 }
 
 
@@ -150,3 +151,23 @@ def test_the_chrome_trace_holds_the_stage_spans(calls, tmp_path):
         names = {e.get("name") for e in json.load(f)["traceEvents"]}
     assert {"qtt.rx.planes_with_taps", "qtt.pilot.tracking_planes"} <= names
     assert set(BLIND) <= names and set(PILOT) <= names
+
+
+@pytest.mark.gpu
+def test_b10_opens_inside_the_glue_on_the_card():
+    """On CUDA tensors the blind decimated chain's glue is one B10 launch: ``qtt.B10`` opens
+    once a call, inside ``qtt.rx.glue``, and the glue opens no other launcher's span."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda", 0)
+    E, _, _ = workload.make_tx(2 ** 13, seed=1)
+    P = torch.as_tensor(np.concatenate([E.real, E.imag]).astype(np.float32), device=dev)
+    blind = make_rx_chain(M=64, Ntaps=17, os=2, bps_angles=64, bps_N=12, block_size=256,
+                          TrSyms=2 ** 11, bps_mode="decimated16", device=dev)
+    _, w = blind.planes_with_taps(P)
+    _, spans = _profiled(lambda: blind.tracking_planes(P, w), n=2)
+    glues = [s for s in spans if s[0] == "qtt.rx.glue"]
+    assert len(glues) == 2
+    for _, lo, hi in glues:
+        inside = [s[0] for s in spans if lo <= s[1] and s[2] <= hi and s[0] != "qtt.rx.glue"]
+        assert inside == ["qtt.B10"]
