@@ -54,9 +54,12 @@ gate and CPU comparison of the port is float32, and "bf16" is taken).
 
 While a ``torch.profiler`` records, each entry call is one host span
 ``qtt.rx.<entry>`` holding its stages' spans in order (``qtt.rx.train``,
-``qtt.rx.filter``, ``qtt.rx.search``, ``qtt.rx.glue`` in decimated,
-``qtt.rx.derotate``) and, inside them, the kernel launchers' ``qtt.B<k>``
-(``profiling.span``).
+``qtt.rx.filter``, ``qtt.rx.search``, then ``qtt.rx.glue`` in decimated or
+``qtt.rx.fine`` in the two-stage modes, ``qtt.rx.derotate``) and, inside
+them, the kernel launchers' ``qtt.B<k>`` (``profiling.span``). In the
+two-stage modes ``qtt.rx.search`` holds the coarse search (B3) alone and
+``qtt.rx.fine`` the coarse phase built from its indices and the fine search
+(B8).
 """
 from __future__ import annotations
 
@@ -71,8 +74,8 @@ from qampy_tpu_torch.ops import equaliser as eqops
 from qampy_tpu_torch.ops import phase as phops
 from qampy_tpu_torch.ops.equaliser_cuda import apply_filter, check_dec, train_block
 from qampy_tpu_torch.ops.phase import grid_decision_info
-from qampy_tpu_torch.ops.phase_cuda import (bps_fine, bps_search, bps_twostage, interp_rotate,
-                                            rotate, unwrap_derotate, unwrap_slopes)
+from qampy_tpu_torch.ops.phase_cuda import (bps_fine, bps_search, interp_rotate, rotate,
+                                            unwrap_derotate, unwrap_slopes)
 from qampy_tpu_torch.profiling import span, spanned
 from qampy_tpu_torch.theory import cal_scaling_factor_qam, cal_symbols_qam
 from qampy_tpu_torch.utils import resolve_device
@@ -420,22 +423,29 @@ class RxChain(nn.Module):
         single: lo + step idx of B3's indices (reference chain.py:441);
         twostage: B3 on the coarse grid, then B8 (chain.py:412-418);
         twostage-dec: B3 on the side output ``decp``, its phase held over the
-        stride, then B8 (chain.py:377-395).
+        stride, then B8 (chain.py:377-395). The two-stage modes are
+        :meth:`phase_search`, then :meth:`fine_phase`.
         """
+        idx = self.phase_search(eqp if decp is None else decp)
         if self.mode == "single":
-            return self.lo_a + self.step_a * self.phase_search(eqp).to(torch.float32)
+            return self.lo_a + self.step_a * idx.to(torch.float32)
+        return self.fine_phase(eqp, idx)
+
+    def fine_phase(self, eqp, idx1):
+        """The two-stage modes' per-sample phase (nmodes, L) before the unwrap, from the coarse
+        search's indices ``idx1`` (:meth:`phase_search`).
+
+        The coarse phase lo + step idx1 (held over the stride in twostage-dec,
+        reference chain.py:377-395), then B8 around it over the fine offsets
+        with half-window bps_N (chain.py:412-418).
+        """
         no = eqp.shape[0] // 2
-        fine = self._bf16(self.bps_tile)
-        if self.mode == "twostage":
-            return bps_twostage(eqp[:no], eqp[no:], self.bps_cos, self.bps_sin, self.search_N,
-                                self.fine_cos, self.fine_sin, self.fine_grid, self.bps_N,
-                                self.fine_d0, self.fine_step, self.search_grid, self.gen_points,
-                                fine)
-        ph1d = self.lo_a + self.step_a * self.phase_search(decp).to(torch.float32)
-        ph1 = ph1d[:, :, None].expand(-1, -1, self.dec).reshape(no, -1)[:, :eqp.shape[-1]]
+        ph1 = self.lo_a + self.step_a * idx1.to(torch.float32)
+        if self.mode == "twostage-dec":
+            ph1 = ph1[:, :, None].expand(-1, -1, self.dec).reshape(no, -1)[:, :eqp.shape[-1]]
         return bps_fine(eqp[:no], eqp[no:], ph1.contiguous(), self.fine_cos, self.fine_sin,
                         self.fine_grid, self.bps_N, self.fine_d0, self.fine_step,
-                        self.gen_points, fine)
+                        self.gen_points, self._bf16(self.bps_tile))
 
     def unwrap_derotate(self, eqp, ph):
         """pi/2-unwrap the per-sample phase, derotate the full-rate planes: (outr, outi).
@@ -484,8 +494,14 @@ class RxChain(nn.Module):
                                             self.const, self.bps_N, B=TWOSTAGE_B,
                                             N1=TWOSTAGE_N1)
             return (out.real.contiguous(), out.imag.contiguous()), w2
-        with span("qtt.rx.search"):
-            ph = self.carrier_phase(eqp, decp)
+        if self.mode == "single":
+            with span("qtt.rx.search"):
+                ph = self.carrier_phase(eqp)
+        else:
+            with span("qtt.rx.search"):
+                idx1 = self.phase_search(eqp if decp is None else decp)
+            with span("qtt.rx.fine"):
+                ph = self.fine_phase(eqp, idx1)
         with span("qtt.rx.derotate"):
             return self.unwrap_derotate(eqp, ph), w2
 

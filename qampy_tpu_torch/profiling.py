@@ -7,9 +7,12 @@ test/test_benchmarks.py) on the port, reported in Msym/s, plus a
 
 The receivers' entries, stages and kernel launchers open host spans
 (:func:`span`, :func:`spanned`) named ``qtt.<chain>.<entry or stage>`` and
-``qtt.B1`` to ``qtt.B10``. They are recorded only while a ``torch.profiler``
-records, on its clock, beside the card's activity; otherwise each costs one
-check of the profiler's state. ``SPANS`` lists them.
+``qtt.B1`` to ``qtt.B10``; the blind chain's stages are ``qtt.rx.train``,
+``.filter``, ``.search``, ``.glue`` (decimated), ``.fine`` (the two-stage
+modes' coarse phase and fine search, B8) and ``.derotate``. They are
+recorded only while a ``torch.profiler`` records, on its clock, beside the
+card's activity; otherwise each costs one check of the profiler's state.
+``SPANS`` lists them.
 
 On a CUDA device the three groups that the reference computes in a kernel
 run the port's kernels: ``bps`` kernel B3 (``phase_cuda.bps_search``),
@@ -45,7 +48,8 @@ LLR_SNR = 100.0
 #: and ``ops/phase_cuda.py`` (B2's whole-capture and frame entries both ``qtt.B2``)
 SPANS = ("qtt.rx.forward", "qtt.rx.planes", "qtt.rx.with_taps", "qtt.rx.planes_with_taps",
          "qtt.rx.tracking", "qtt.rx.tracking_planes",
-         "qtt.rx.train", "qtt.rx.filter", "qtt.rx.search", "qtt.rx.glue", "qtt.rx.derotate",
+         "qtt.rx.train", "qtt.rx.filter", "qtt.rx.search", "qtt.rx.glue", "qtt.rx.fine",
+         "qtt.rx.derotate",
          "qtt.pilot.planes", "qtt.pilot.forward", "qtt.pilot.tracking_planes",
          "qtt.pilot.tracking",
          "qtt.pilot.input", "qtt.pilot.prefix", "qtt.pilot.frames", "qtt.pilot.cpe",

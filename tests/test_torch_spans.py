@@ -1,8 +1,9 @@
 """The port's host spans (``profiling.span``): where the receivers open them, and that they
 are recorded only while a ``torch.profiler`` records.
 
-Small chains on the CPU: the blind decimated16 chain (its full and tracking entries) and
-the pilot chain (its full and tracking entries, in the serving form and with the phase
+Small chains on the CPU: the blind decimated16 chain (its full and tracking entries), the
+two-stage chains (twostage, twostage-dec: tracking, where the fine stage's span follows the
+coarse search's) and the pilot chain (its full and tracking entries, in the serving form and with the phase
 trace). Under a profiler each entry call is one span holding its stages' spans, in order;
 with none recording the recorder is never entered, and the outputs are the same bit for
 bit either way. The kernel launchers' spans are checked on CPU tensors, which each
@@ -23,12 +24,15 @@ from qampy_tpu_torch.ops.pilot_chain import make_pilot_rx_chain
 
 FRAME = 2 ** 14
 BLIND = ("qtt.rx.train", "qtt.rx.filter", "qtt.rx.search", "qtt.rx.glue", "qtt.rx.derotate")
+TWOSTAGE = ("qtt.rx.filter", "qtt.rx.search", "qtt.rx.fine", "qtt.rx.derotate")
 PILOT = ("qtt.pilot.input", "qtt.pilot.frames", "qtt.pilot.cpe", "qtt.pilot.derotate",
          "qtt.pilot.payload")
 # entry -> (the entry's span, its stage spans in the order a call opens them)
 ENTRIES = {
     "blind planes_with_taps": ("qtt.rx.planes_with_taps", BLIND),
     "blind tracking_planes": ("qtt.rx.tracking_planes", BLIND[1:]),
+    "blind twostage tracking_planes": ("qtt.rx.tracking_planes", TWOSTAGE),
+    "blind twostage-dec tracking_planes": ("qtt.rx.tracking_planes", TWOSTAGE),
     "pilot planes": ("qtt.pilot.planes", PILOT[:1] + ("qtt.pilot.prefix",) + PILOT[1:]),
     "pilot tracking_planes": ("qtt.pilot.tracking_planes", PILOT),
     "pilot tracking_planes, phase trace": ("qtt.pilot.tracking_planes", PILOT),
@@ -57,6 +61,11 @@ def calls():
     pr, pi = tx.planes[:2], tx.planes[2:]
     out = {"blind planes_with_taps": lambda: blind.planes_with_taps(P),
            "blind tracking_planes": lambda: blind.tracking_planes(P, w)}
+    for mode in ("twostage", "twostage-dec"):
+        chain = make_rx_chain(M=64, Ntaps=17, os=2, bps_angles=64, bps_N=14, block_size=256,
+                              bps_mode=mode, device="cpu")
+        assert chain.mode == mode
+        out["blind %s tracking_planes" % mode] = lambda c=chain: c.tracking_planes(P, w)
     for rp, suffix in ((False, ""), (True, ", phase trace")):
         pilot = make_pilot_rx_chain(tx.pilot_seq, tx.ph_pilots, FRAME, 32, Ntaps=17,
                                     frames=(0, 1), eq_trainer="ls", return_phase=rp,
@@ -171,3 +180,28 @@ def test_b10_opens_inside_the_glue_on_the_card():
     for _, lo, hi in glues:
         inside = [s[0] for s in spans if lo <= s[1] and s[2] <= hi and s[0] != "qtt.rx.glue"]
         assert inside == ["qtt.B10"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["twostage", "twostage-dec"])
+def test_b3_and_b8_open_in_their_stages_on_the_card(mode):
+    """On CUDA tensors the two-stage chains' ``qtt.rx.search`` holds one B3 launch and nothing
+    else, and ``qtt.rx.fine``, which follows it, one B8 launch and nothing else."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda", 0)
+    E, _, _ = workload.make_tx(2 ** 13, seed=1)
+    P = torch.as_tensor(np.concatenate([E.real, E.imag]).astype(np.float32), device=dev)
+    chain = make_rx_chain(M=64, Ntaps=17, os=2, bps_angles=64, bps_N=14, block_size=256,
+                          TrSyms=2 ** 11, bps_mode=mode, device=dev)
+    _, w = chain.planes_with_taps(P)
+    _, spans = _profiled(lambda: chain.tracking_planes(P, w), n=2)
+    for stage, launcher in (("qtt.rx.search", "qtt.B3"), ("qtt.rx.fine", "qtt.B8")):
+        held = [s for s in spans if s[0] == stage]
+        assert len(held) == 2
+        for _, lo, hi in held:
+            assert [s[0] for s in spans if lo <= s[1] and s[2] <= hi and s[0] != stage] \
+                == [launcher]
+    search = [s for s in spans if s[0] == "qtt.rx.search"]
+    fine = [s for s in spans if s[0] == "qtt.rx.fine"]
+    assert all(a[2] <= b[1] for a, b in zip(search, fine))
